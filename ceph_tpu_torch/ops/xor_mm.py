@@ -1,0 +1,69 @@
+"""XOR-matmul: the GF(2) primitive behind every codec, in plain PyTorch.
+
+Port of ``ceph_tpu/ops/xor_mm.py``. GF(2^w) erasure-code math decomposes
+into binary matrices applied to bit vectors with XOR accumulation (see
+:mod:`ceph_tpu_torch.ops.gf`). The helpers here are the plain PyTorch
+form of that product (unpack -> 0/1 matmul -> ``& 1`` -> pack); they make
+up :func:`ceph_tpu_torch.ops.gf_kernel.matrix_encode_plain`, which the CPU
+path runs and the GPU kernel is held against.
+
+Layout (matching :mod:`ceph_tpu_torch.ops.gf_ref`): element layout, a
+chunk is a flat array of little-endian w-bit elements; bit c of element j
+of a column sits on row ``j*w + c``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def xor_matmul(bitmat: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """out[..., r, f] = XOR_c bitmat[r, c] & bits[..., c, f].
+
+    bitmat: [R, C] 0/1. bits: [..., C, F] 0/1. Returns [..., R, F] uint8.
+    The product runs as a float32 matmul of 0/1 values: every product is
+    0 or 1 and every partial sum an integer <= C <= 2^24, all exactly
+    representable in float32, so the sum and the ``& 1`` are exact in any
+    summation order. (torch.matmul has no int32 kernel on CUDA, and int8
+    matmul on the CPU returns int8.) TF32 must be off for a comparison on
+    the card: 0/1 inputs survive TF32's 10-bit mantissa too, but the
+    reference states and sets it.
+    """
+    acc = torch.matmul(bitmat.to(torch.float32), bits.to(torch.float32))
+    return (acc.to(torch.int32) & 1).to(torch.uint8)
+
+
+def unpack_element_bits(data: torch.Tensor, w: int) -> torch.Tensor:
+    """[..., k, N] uint8 -> [..., k*w, N*8//w] bits (element-bit layout)."""
+    *lead, k, n = data.shape
+    wb = w // 8
+    ne = n // wb
+    x = data.reshape(*lead, k, ne, wb)
+    shifts = torch.arange(8, dtype=torch.uint8, device=data.device)
+    bits = (x[..., None] >> shifts) & 1              # [..., k, ne, wb, 8]
+    bits = bits.movedim(-3, -1)                      # [..., k, wb, 8, ne]
+    return bits.reshape(*lead, k * w, ne)
+
+
+def pack_element_bits(bits: torch.Tensor, w: int) -> torch.Tensor:
+    """[..., m*w, ne] bits -> [..., m, ne*w//8] uint8."""
+    *lead, rows, ne = bits.shape
+    wb = w // 8
+    m = rows // w
+    x = bits.reshape(*lead, m, wb, 8, ne).to(torch.uint8)
+    shifts = torch.arange(8, dtype=torch.uint8,
+                          device=bits.device).reshape(8, 1)
+    byts = (x << shifts).sum(dim=-2, dtype=torch.uint8)  # [..., m, wb, ne]
+    byts = byts.movedim(-2, -1)                          # [..., m, ne, wb]
+    return byts.reshape(*lead, m, ne * wb)
+
+
+def matrix_encode(bitmat: torch.Tensor, data: torch.Tensor,
+                  w: int) -> torch.Tensor:
+    """Element-layout GF(2^w) encode: [..., k, N] uint8 -> [..., R/w, N].
+
+    bitmat is the [R, k*w] bitplane expansion of a generator or decode
+    matrix (gf.generator_to_bitmatrix). Runs the hand-written GPU kernel
+    on a CUDA tensor and its plain version on a CPU tensor."""
+    from .gf_kernel import matrix_encode as kernel_encode
+    return kernel_encode(bitmat, data, w)

@@ -63,6 +63,10 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "slow: stress-scale tests excluded from the tier-1 run")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card; skips where torch.cuda.is_available() "
+        "is false")
 
 
 def pytest_sessionfinish(session, exitstatus):

@@ -1,0 +1,69 @@
+"""The PyTorch port stands alone and never falls back to the CPU by itself.
+
+Every module under ceph_tpu_torch/ and chip_smoke.py is walked as an AST:
+no import of jax or of the ceph_tpu package (the port keeps its own
+copies). And the entry points that default to CUDA raise on a host
+without it instead of running on the CPU.
+"""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+from ceph_tpu_torch import registry
+from ceph_tpu_torch.osd.gpu_dispatch import GpuDispatcher
+from ceph_tpu_torch.tools import erasure_code_benchmark as bench
+
+ROOT = Path(__file__).resolve().parent.parent
+FILES = sorted((ROOT / "ceph_tpu_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+PROFILE = {"technique": "reed_sol_van", "k": "8", "m": "3", "w": "8"}
+
+
+def forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "ceph_tpu")
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    tree = ast.parse(path.read_text(), str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if node.module and forbidden(node.module):
+                bad.append(node.module)
+    assert bad == []
+
+
+def test_forbidden_names():
+    assert forbidden("jax.numpy") and forbidden("ceph_tpu.ops.gf")
+    assert not forbidden("ceph_tpu_torch.ops.gf")
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_factory_without_device_raises(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        registry.factory("torch_cuda", dict(PROFILE))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        registry.factory("torch_cuda", dict(PROFILE), device="cuda")
+    assert registry.factory("torch_cuda", dict(PROFILE),
+                            device="cpu").device == torch.device("cpu")
+
+
+def test_dispatcher_without_device_raises(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GpuDispatcher()
+
+
+def test_benchmark_without_device_fails(no_cuda, capsys):
+    assert bench.main(["-P", "k=8", "-P", "m=3"]) == 1
+    assert "CUDA" in capsys.readouterr().err
