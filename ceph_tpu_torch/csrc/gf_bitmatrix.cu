@@ -3,8 +3,8 @@
 // Replaces the TPU kernel ceph_tpu/ops/pallas_gf.py:_encode_kernel (launched
 // by matrix_encode8 through pl.pallas_call), and also covers w=16 and w=32,
 // the element layout that ceph_tpu/ops/xor_mm.py:matrix_encode computes with
-// XLA. One kernel serves the encode bitmatrix ([m*w, k*w]) and every decode
-// bitmatrix ([(k+m)*w, k*w]) of the Reed-Solomon codecs.
+// XLA. One entry point serves the encode bitmatrix ([m*w, k*w]) and every
+// decode bitmatrix ([(k+m)*w, k*w]) of the Reed-Solomon codecs.
 //
 //   out[b, i, e] = element whose bit t is
 //                  XOR_c bitmat[i*w + t, c] & bit c of v(b, e)
@@ -18,13 +18,36 @@
 // byte once. At the bench shape (B=16, k=8, m=3, N=131072, w=8) that is
 // 16 MiB read + 6 MiB written = 23.07 MB, about 6.9 us at the H100 SXM's
 // 3.35 TB/s; counted as int8 multiply-adds ([24, 64] @ [64, 2^21]) it is
-// 6.4 GOP, 3.3 us at 1979 TOP/s, so bytes bound it. This kernel does one
-// 32-bit population count per output bit per column: R per column (24 for
-// the encode, 88 for a k=8,m=3 decode), plus ceil(k*w/32) AND-XORs each.
-// At that count the popcount pipe, not memory, limits it; a bit-sliced XOR
-// schedule, TMA loads and persistent blocks are later work.
+// 6.4 GOP, 3.3 us at 1979 TOP/s, so bytes bound it. What limits both
+// designs below is integer issue, not memory.
 //
-// Design.
+// Two designs; the C entry point picks one from the geometry alone.
+//
+// Bit-sliced (gf_bitsliced_kernel), for w = 8 with k*8 <= 128 (the main
+// path's geometry) when the expanded bitmatrix fits in shared memory:
+//  * A thread takes 32 consecutive columns of one batch lane: 32 bytes of
+//    each data row, two 16-byte streaming loads a row. An 8x8 bit
+//    transpose of each 8-byte group (three delta swaps, Hacker's Delight
+//    7-3) and a 4x4 byte transpose (__byte_perm) turn a row's 32 bytes
+//    into 8 plane words: bit e of plane (j, s) is bit s of column e's byte
+//    of row j. The k*8 planes stay in registers (KMAX*8 of them; rows
+//    j >= k are zero).
+//  * Each block expands the bitmatrix once into shared memory, one word
+//    per entry, 0 or 0xffffffff (E[R][KMAX*8]), and a mask per output row
+//    with one bit per 8x8 block that has a one.
+//  * Out plane (i, t) = XOR over the flagged blocks (i, j) and s < 8 of
+//    plane (j, s) & E[i*8+t][j*8+s]: one LOP3 per bitmatrix entry per 32
+//    columns, against 32 popcounts in the other design. The E words are
+//    warp-uniform broadcast loads, 16 bytes at a time; the flag test is
+//    warp-uniform too, so skipping a zero block (most of a decode
+//    bitmatrix) costs no divergence.
+//  * The 8 out planes go back to 32 bytes through the same two transposes
+//    and two 16-byte streaming stores.
+//  * The grid is sized from the occupancy the kernel reaches; each thread
+//    issues its first loads before the block expands the bitmatrix.
+//
+// Popcount (gf_bitmatrix_kernel), for every other geometry (w = 16, 32,
+// or k*w > 128):
 //  * The bitmatrix is packed once per block into shared memory as
 //    NW = ceil(k*w/32) (rounded to a power of two) uint32 masks per row.
 //  * A thread takes VEC consecutive bytes of every one of the k rows of
@@ -33,10 +56,14 @@
 //    into the per-column vectors v.
 //  * Output bit (row r, column e) = popc(XOR_q mask[r][q] & v[e][q]) & 1,
 //    packed straight into the VEC output bytes of the element row and
-//    written with one 16-byte (or 4-byte) store.
-//  * Any N that is a multiple of w/8 is taken: the ragged edge is loaded
-//    and stored byte by byte under a bounds mask. k*w <= 512 and
-//    R * NW * 4 <= 48 KiB; the C entry point refuses anything else.
+//    written with one 16-byte (or 4-byte) store. That is one population
+//    count per output bit per column, and the popcount pipe limits it.
+//
+// Both take any N that is a multiple of w/8: the ragged edge (and any
+// pointer not 16-byte aligned) is loaded and stored byte by byte under a
+// bounds mask, bytes past N reading as zero. k*w <= 512; the popcount
+// design needs R * NW * 4 <= 48 KiB, and the entry point refuses a
+// geometry that neither design takes.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -46,6 +73,8 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kMaxBits = 512;
 constexpr size_t kMaxSmem = 48 * 1024;
+
+// ---- popcount design ------------------------------------------------------
 
 template <int W, int NW>
 struct Geometry {
@@ -161,9 +190,10 @@ gf_bitmatrix_kernel(const uint8_t* __restrict__ bitmat, int rows, int k,
 }
 
 template <int W, int NW>
-cudaError_t launch(const uint8_t* bitmat, int rows, int k,
-                   const uint8_t* data, uint8_t* out, long long batch,
-                   long long n, cudaStream_t stream) {
+cudaError_t launch_popcount(const uint8_t* bitmat, int rows, int k,
+                            const uint8_t* data, uint8_t* out,
+                            long long batch, long long n,
+                            cudaStream_t stream) {
   using G = Geometry<W, NW>;
   const long long units = batch * ((n + G::VEC - 1) / G::VEC);
   if (units == 0 || rows == 0) return cudaSuccess;
@@ -183,7 +213,292 @@ cudaError_t launch(const uint8_t* bitmat, int rows, int k,
   return cudaGetLastError();
 }
 
+int mask_words(int bits) {
+  return bits <= 32 ? 1 : bits <= 64 ? 2 : bits <= 128 ? 4 : bits <= 256 ? 8
+                                                                          : 16;
+}
+
+// ---- bit-sliced design (w = 8, k <= 16) -----------------------------------
+
+constexpr int kCols = 32;                 // columns (row bytes) per thread
+constexpr int kBitslicedMaxBits = 128;    // k*8 the design takes
+
+// 8x8 bit transpose of 8 bytes (lo = bytes 0-3, hi = bytes 4-7): bit 8r + c
+// goes to bit 8c + r. The 64-bit delta swaps of Hacker's Delight 7-3; the
+// first two stay within each half, the third trades nibbles between them.
+__device__ __forceinline__ void bit_transpose8(uint32_t& lo, uint32_t& hi) {
+  uint32_t t;
+  t = (lo ^ (lo >> 7)) & 0x00AA00AAu;
+  lo ^= t ^ (t << 7);
+  t = (hi ^ (hi >> 7)) & 0x00AA00AAu;
+  hi ^= t ^ (t << 7);
+  t = (lo ^ (lo >> 14)) & 0x0000CCCCu;
+  lo ^= t ^ (t << 14);
+  t = (hi ^ (hi >> 14)) & 0x0000CCCCu;
+  hi ^= t ^ (t << 14);
+  t = (lo ^ (hi << 4)) & 0xF0F0F0F0u;
+  lo ^= t;
+  hi ^= t >> 4;
+}
+
+// 4x4 byte transpose: byte g of o_s is byte s of w_g.
+__device__ __forceinline__ void byte_transpose4(
+    uint32_t w0, uint32_t w1, uint32_t w2, uint32_t w3, uint32_t& o0,
+    uint32_t& o1, uint32_t& o2, uint32_t& o3) {
+  const uint32_t a = __byte_perm(w0, w1, 0x5140);
+  const uint32_t b = __byte_perm(w0, w1, 0x7362);
+  const uint32_t c = __byte_perm(w2, w3, 0x5140);
+  const uint32_t d = __byte_perm(w2, w3, 0x7362);
+  o0 = __byte_perm(a, c, 0x5410);
+  o1 = __byte_perm(a, c, 0x7632);
+  o2 = __byte_perm(b, d, 0x5410);
+  o3 = __byte_perm(b, d, 0x7632);
+}
+
+// q: the 8 little-endian words of 32 column bytes, in place into 8 planes
+// (bit e of q[s] = bit s of byte e).
+__device__ __forceinline__ void to_planes(uint32_t* q) {
+  uint32_t w[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) w[i] = q[i];
+#pragma unroll
+  for (int g = 0; g < 4; ++g) bit_transpose8(w[2 * g], w[2 * g + 1]);
+  byte_transpose4(w[0], w[2], w[4], w[6], q[0], q[1], q[2], q[3]);
+  byte_transpose4(w[1], w[3], w[5], w[7], q[4], q[5], q[6], q[7]);
+}
+
+// Inverse of to_planes: both transposes are involutions.
+__device__ __forceinline__ void from_planes(uint32_t* q) {
+  uint32_t w[8];
+  byte_transpose4(q[0], q[1], q[2], q[3], w[0], w[2], w[4], w[6]);
+  byte_transpose4(q[4], q[5], q[6], q[7], w[1], w[3], w[5], w[7]);
+#pragma unroll
+  for (int g = 0; g < 4; ++g) bit_transpose8(w[2 * g], w[2 * g + 1]);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) q[i] = w[i];
+}
+
+// Loads unit u (batch lane, 32 columns) of the KMAX data rows into p as
+// 8 words a row; rows j >= k and bytes past N are zero.
+template <int KMAX>
+__device__ __forceinline__ void load_unit(const uint8_t* __restrict__ data,
+                                          int k, long long n,
+                                          long long chunks, long long u,
+                                          bool vec_ok, uint32_t* p) {
+  const long long b = u / chunks;
+  const long long off = (u - b * chunks) * kCols;
+  const bool full = vec_ok && off + kCols <= n;
+#pragma unroll
+  for (int j = 0; j < KMAX; ++j) {
+    uint32_t* q = p + 8 * j;
+#pragma unroll
+    for (int x = 0; x < 8; ++x) q[x] = 0;
+    if (j < k) {
+      const uint8_t* row = data + (b * k + j) * n + off;
+      if (full) {
+        const uint4 x0 = __ldcs(reinterpret_cast<const uint4*>(row));
+        const uint4 x1 = __ldcs(reinterpret_cast<const uint4*>(row) + 1);
+        q[0] = x0.x;
+        q[1] = x0.y;
+        q[2] = x0.z;
+        q[3] = x0.w;
+        q[4] = x1.x;
+        q[5] = x1.y;
+        q[6] = x1.z;
+        q[7] = x1.w;
+      } else {
+#pragma unroll
+        for (int x = 0; x < kCols; ++x)
+          if (off + x < n) q[x / 4] |= (uint32_t)row[x] << (8 * (x % 4));
+      }
+    }
+  }
+}
+
+template <int KMAX>
+size_t bitsliced_smem(int rows) {
+  // E [rows][KMAX*8] words, then one block mask per output row
+  return ((size_t)rows * KMAX * 8 + (size_t)(rows / 8)) * sizeof(uint32_t);
+}
+
+template <int KMAX>
+__global__ void __launch_bounds__(kThreads)
+gf_bitsliced_kernel(const uint8_t* __restrict__ bitmat, int rows, int k,
+                    const uint8_t* __restrict__ data,
+                    uint8_t* __restrict__ out, long long batch, long long n,
+                    bool vec_ok) {
+  constexpr int STRIDE = KMAX * 8;  // E words per bitmatrix row
+  extern __shared__ uint4 bs_smem[];
+  uint32_t* E = reinterpret_cast<uint32_t*>(bs_smem);
+  uint32_t* nz = E + (size_t)rows * STRIDE;
+
+  const int bits = k * 8;
+  const int out_rows = rows / 8;
+  const long long chunks = (n + kCols - 1) / kCols;
+  const long long units = batch * chunks;
+  const long long step = (long long)gridDim.x * blockDim.x;
+  long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+
+  // p: the words, then the planes, of the unit's KMAX data rows
+  uint32_t p[STRIDE];
+  if (u < units) load_unit<KMAX>(data, k, n, chunks, u, vec_ok, p);
+
+  for (int idx = threadIdx.x; idx < rows * STRIDE; idx += blockDim.x) {
+    const int r = idx / STRIDE;
+    const int c = idx - r * STRIDE;
+    E[idx] = c < bits && (bitmat[(long long)r * bits + c] & 1u)
+                 ? 0xffffffffu : 0u;
+  }
+  // one thread per block (i, j); KMAX divides 32, so a warp's vote holds
+  // whole output rows: bit j of nz[i] = block (i, j) has a one
+  const int pairs = out_rows * KMAX;
+  for (int base = 0; base < pairs; base += blockDim.x) {
+    const int idx = base + threadIdx.x;
+    const int i = idx / KMAX;
+    const int j = idx - i * KMAX;
+    uint32_t any = 0;
+    if (idx < pairs && j < k) {
+      const uint8_t* blk = bitmat + (long long)i * 8 * bits + j * 8;
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+#pragma unroll
+        for (int s = 0; s < 8; ++s) any |= blk[(long long)t * bits + s];
+    }
+    const uint32_t vote = __ballot_sync(0xffffffffu, any & 1u);
+    if (idx < pairs && j == 0)
+      nz[i] = (vote >> (threadIdx.x % 32)) & (0xffffffffu >> (32 - KMAX));
+  }
+  __syncthreads();
+
+  while (u < units) {
+    const long long b = u / chunks;
+    const long long off = (u - b * chunks) * kCols;
+    const bool full = vec_ok && off + kCols <= n;
+#pragma unroll
+    for (int j = 0; j < KMAX; ++j)
+      if (j < k) to_planes(p + 8 * j);
+
+    uint8_t* orow = out + b * out_rows * n + off;
+    for (int i = 0; i < out_rows; ++i, orow += n) {
+      const uint32_t mask = nz[i];
+      uint32_t acc[8];
+#pragma unroll
+      for (int t = 0; t < 8; ++t) acc[t] = 0;
+      const uint32_t* Ei = E + (size_t)i * 8 * STRIDE;
+#pragma unroll
+      for (int j = 0; j < KMAX; ++j) {
+        if ((mask >> j) & 1u) {
+          const uint32_t* pj = p + 8 * j;
+#pragma unroll
+          for (int t = 0; t < 8; ++t) {
+            const uint4* e = reinterpret_cast<const uint4*>(Ei + t * STRIDE + 8 * j);
+            const uint4 e0 = e[0];
+            const uint4 e1 = e[1];
+            acc[t] ^= pj[0] & e0.x;
+            acc[t] ^= pj[1] & e0.y;
+            acc[t] ^= pj[2] & e0.z;
+            acc[t] ^= pj[3] & e0.w;
+            acc[t] ^= pj[4] & e1.x;
+            acc[t] ^= pj[5] & e1.y;
+            acc[t] ^= pj[6] & e1.z;
+            acc[t] ^= pj[7] & e1.w;
+          }
+        }
+      }
+      from_planes(acc);
+      if (full) {
+        __stcs(reinterpret_cast<uint4*>(orow),
+               make_uint4(acc[0], acc[1], acc[2], acc[3]));
+        __stcs(reinterpret_cast<uint4*>(orow) + 1,
+               make_uint4(acc[4], acc[5], acc[6], acc[7]));
+      } else {
+#pragma unroll
+        for (int x = 0; x < kCols; ++x)
+          if (off + x < n) orow[x] = (uint8_t)(acc[x / 4] >> (8 * (x % 4)));
+      }
+    }
+
+    u += step;
+    if (u < units) load_unit<KMAX>(data, k, n, chunks, u, vec_ok, p);
+  }
+}
+
+template <int KMAX>
+cudaError_t launch_bitsliced(const uint8_t* bitmat, int rows, int k,
+                             const uint8_t* data, uint8_t* out,
+                             long long batch, long long n,
+                             cudaStream_t stream) {
+  const long long units = batch * ((n + kCols - 1) / kCols);
+  if (units == 0 || rows == 0) return cudaSuccess;
+  auto kernel = gf_bitsliced_kernel<KMAX>;
+  const size_t smem = bitsliced_smem<KMAX>(rows);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if (smem > kMaxSmem) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return err;
+  long long blocks = (units + kThreads - 1) / kThreads;
+  const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  if (blocks > resident) blocks = resident;
+  const bool vec_ok = n % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(data) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(bitmat, rows, k, data,
+                                                       out, batch, n, vec_ok);
+  return cudaGetLastError();
+}
+
+// ---- design choice ---------------------------------------------------------
+
+enum Design { kPopcount = 0, kBitsliced = 1 };
+
+// Validates the geometry and picks its design: bit-sliced for w = 8 with
+// k*8 <= 128 when its shared memory fits the card's per-block limit,
+// popcount otherwise. Returns 0 (design set), -1 for a geometry neither
+// design takes, or the cudaError_t of a failed device query.
+int pick_design(int rows, int k, int w, int* design) {
+  if (k < 1 || rows < 0) return -1;
+  if (w != 8 && w != 16 && w != 32) return -1;
+  const int bits = k * w;
+  if (bits > kMaxBits || rows % w != 0) return -1;
+  if (w == 8 && bits <= kBitslicedMaxBits) {
+    int dev = 0, optin = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return (int)err;
+    const size_t smem = k <= 4   ? bitsliced_smem<4>(rows)
+                        : k <= 8 ? bitsliced_smem<8>(rows)
+                                 : bitsliced_smem<16>(rows);
+    if (smem <= (size_t)optin) {
+      *design = kBitsliced;
+      return 0;
+    }
+  }
+  if ((size_t)rows * mask_words(bits) * sizeof(uint32_t) > kMaxSmem) return -1;
+  *design = kPopcount;
+  return 0;
+}
+
 }  // namespace
+
+// The design gf_bitmatrix_encode takes for this geometry on the current
+// device: 1 bit-sliced, 0 popcount, -1 a geometry it refuses, -2 a failed
+// device query.
+extern "C" int gf_bitmatrix_design(int rows, int k, int w) {
+  int design = kPopcount;
+  const int rc = pick_design(rows, k, w, &design);
+  return rc == 0 ? design : rc < 0 ? -1 : -2;
+}
 
 // bitmat [rows, k*w] 0/1 uint8, data [batch, k, n] uint8, out
 // [batch, rows/w, n] uint8, all contiguous on the current device. Returns
@@ -193,23 +508,30 @@ extern "C" int gf_bitmatrix_encode(const void* bitmat, int rows, int k, int w,
                                    const void* data, void* out,
                                    long long batch, long long n,
                                    void* stream) {
-  if (k < 1 || rows < 0 || batch < 0 || n < 0) return -1;
-  if (w != 8 && w != 16 && w != 32) return -1;
-  const int bits = k * w;
-  if (bits > kMaxBits || rows % w != 0 || n % (w / 8) != 0) return -1;
-  const int nw = bits <= 32 ? 1 : bits <= 64 ? 2 : bits <= 128 ? 4
-               : bits <= 256 ? 8 : 16;
-  if ((size_t)rows * nw * sizeof(uint32_t) > kMaxSmem) return -1;
+  if (batch < 0 || n < 0) return -1;
+  int design = kPopcount;
+  const int rc = pick_design(rows, k, w, &design);
+  if (rc != 0) return rc;
+  if (n % (w / 8) != 0) return -1;
   const auto* bm = static_cast<const uint8_t*>(bitmat);
   const auto* in = static_cast<const uint8_t*>(data);
   auto* o = static_cast<uint8_t*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSuccess;
-#define GF_CASE(W_, NW_)                                             \
-  case W_ * 100 + NW_:                                               \
-    err = launch<W_, NW_>(bm, rows, k, in, o, batch, n, s);          \
+  if (design == kBitsliced) {
+    if (k <= 4)
+      err = launch_bitsliced<4>(bm, rows, k, in, o, batch, n, s);
+    else if (k <= 8)
+      err = launch_bitsliced<8>(bm, rows, k, in, o, batch, n, s);
+    else
+      err = launch_bitsliced<16>(bm, rows, k, in, o, batch, n, s);
+    return (int)err;
+  }
+#define GF_CASE(W_, NW_)                                                  \
+  case W_ * 100 + NW_:                                                    \
+    err = launch_popcount<W_, NW_>(bm, rows, k, in, o, batch, n, s);      \
     break;
-  switch (w * 100 + nw) {
+  switch (w * 100 + mask_words(k * w)) {
     GF_CASE(8, 1) GF_CASE(8, 2) GF_CASE(8, 4) GF_CASE(8, 8) GF_CASE(8, 16)
     GF_CASE(16, 1) GF_CASE(16, 2) GF_CASE(16, 4) GF_CASE(16, 8) GF_CASE(16, 16)
     GF_CASE(32, 1) GF_CASE(32, 2) GF_CASE(32, 4) GF_CASE(32, 8) GF_CASE(32, 16)

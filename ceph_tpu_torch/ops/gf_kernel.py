@@ -6,9 +6,14 @@ of a column and writes its parity bytes, staging nothing in device memory,
 is the natural kernel, so here it carries the main path: every encode and
 every decode bitmatrix of the Reed-Solomon codecs, at w = 8, 16 and 32.
 
+The source holds two designs, and its entry point picks one from the
+geometry alone: the bit-sliced kernel for w = 8 with k*8 <= 128 (the main
+path's), the popcount kernel for every other geometry.
+
 :func:`matrix_encode` launches the kernel for a CUDA tensor and runs
 :func:`matrix_encode_plain` only for a CPU tensor; it never falls back.
-``LAUNCHES`` counts kernel launches (set it to 0 to start a count).
+``LAUNCHES`` counts kernel launches and ``LAUNCHES_BY_DESIGN`` splits them
+by design (set them to 0 to start a count).
 """
 
 from __future__ import annotations
@@ -21,27 +26,56 @@ import torch
 from . import _build
 from .xor_mm import pack_element_bits, unpack_element_bits, xor_matmul
 
-__all__ = ["matrix_encode", "matrix_encode_plain", "LAUNCHES", "MAX_BITS"]
+__all__ = ["matrix_encode", "matrix_encode_plain", "kernel_design",
+           "DESIGNS", "LAUNCHES", "LAUNCHES_BY_DESIGN", "MAX_BITS"]
 
 MAX_BITS = 512              # k*w the kernel takes
-_MAX_SMEM = 48 * 1024       # packed bitmatrix bytes the kernel takes
+_MAX_SMEM = 48 * 1024       # packed bitmatrix bytes of the popcount design
 _SOURCE = "gf_bitmatrix"
 
+DESIGNS = ("popcount", "bitsliced")  # by gf_bitmatrix_design's answer
+
 LAUNCHES = 0
+LAUNCHES_BY_DESIGN = dict.fromkeys(DESIGNS, 0)
 _count_lock = threading.Lock()
 _fn = None
+_design_fn = None
+_designs: dict = {}
 
 
 def _kernel():
-    global _fn
+    global _fn, _design_fn
     if _fn is None:
-        fn = _build.load(_SOURCE).gf_bitmatrix_encode
+        lib = _build.load(_SOURCE)
+        design = lib.gf_bitmatrix_design
+        design.argtypes = [ctypes.c_int] * 3
+        design.restype = ctypes.c_int
+        fn = lib.gf_bitmatrix_encode
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        _design_fn = design
         _fn = fn
     return _fn
+
+
+def kernel_design(rows: int, k: int, w: int, device) -> str:
+    """The design the kernel's entry point takes for a [rows, k*w]
+    bitmatrix on a CUDA device: "bitsliced" or "popcount"."""
+    index = torch.device(device).index
+    key = (rows, k, w,
+           torch.cuda.current_device() if index is None else index)
+    design = _designs.get(key)
+    if design is None:
+        _kernel()
+        with torch.cuda.device(key[3]):
+            rc = _design_fn(rows, k, w)
+        if rc < 0:
+            raise RuntimeError("gf_bitmatrix_design(%d, %d, %d) failed with "
+                               "code %d" % (rows, k, w, rc))
+        design = _designs[key] = DESIGNS[rc]
+    return design
 
 
 def _mask_words(bits: int) -> int:
@@ -108,6 +142,7 @@ def matrix_encode(bitmat: torch.Tensor, data: torch.Tensor,
     out = torch.empty((*lead, rows // w, n), dtype=torch.uint8,
                       device=data.device)
     fn = _kernel()
+    design = kernel_design(rows, k, w, data.device)
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
         rc = fn(bitmat.data_ptr(), rows, k, w, data.data_ptr(),
@@ -116,4 +151,5 @@ def matrix_encode(bitmat: torch.Tensor, data: torch.Tensor,
         raise RuntimeError("gf_bitmatrix_encode failed with code %d" % rc)
     with _count_lock:
         LAUNCHES += 1
+        LAUNCHES_BY_DESIGN[design] += 1
     return out

@@ -10,10 +10,16 @@ holds every kernel of the path against its plain PyTorch version on the
 card. Phases, each printing one JSON line:
 
   1. setup       build every ``ceph_tpu_torch/csrc/*.cu`` (one nvcc each,
-                 all at once) and report the card.
+                 all at once), report the card and, from ptxas' log, the
+                 registers and spill bytes of every kernel instantiation
+                 (a spill fails the phase).
   2. kernel      the GF bitmatrix kernel against ``matrix_encode_plain``
-                 on CUDA tensors (encode, three decode bitmatrices, w=16,
-                 w=32, a ragged N): byte equality, kernel / plain times.
+                 on CUDA tensors, on both of its designs: bit-sliced
+                 (w=8 k=8 encode and three decode bitmatrices, w=8 k=16
+                 m=4 encode and decode, a ragged N, a data pointer one
+                 byte off) and popcount (w=8 k=40, w=16, w=32): byte
+                 equality, the design each case took, kernel / plain
+                 times.
   3. main_path   ``registry.factory("torch_cuda", ...)``: encode_batch,
                  then decode_batch for all C(11,8)=165 erasure signatures
                  (reconstruction must equal the original rows; one object
@@ -21,8 +27,9 @@ card. Phases, each printing one JSON line:
   4. dispatcher  8 threads submit host batches of 1 MiB objects through
                  ``GpuDispatcher`` (encode_async and decode_async over
                  random signatures); every result is verified.
-  5. kernels     one JSON line per the port's kernel table: launches on
-                 the main path (phases 3-4), max_abs_err, ms, plain_ms,
+  5. kernels     one JSON line per the port's kernel table: the design
+                 the main path takes, launches on the main path (phases
+                 3-4, also by design), max_abs_err, ms, plain_ms,
                  bound_ms, bound_by, library_ms.
 
 Then the card's name and power limit as nvidia-smi prints them, and as
@@ -137,51 +144,85 @@ def main() -> int:
     # -- 1. setup ------------------------------------------------------
     t0 = time.perf_counter()
     built = _build.build()
+    ptxas = {name: _build.ptxas_report(name) for name in _build.sources()}
     emit("setup", build_s=time.perf_counter() - t0,
          compiled={k: round(v, 3) for k, v in built.items()},
          gpu=smi, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
-         cuda=torch.version.cuda)
+         cuda=torch.version.cuda, ptxas=ptxas)
+    for name, kernels in ptxas.items():
+        check(bool(kernels), "ptxas reported the kernels of " + name)
+        for inst, res in kernels.items():
+            check("registers" in res, "registers of %s" % inst)
+            check(res.get("spill_stores", 1) == 0 and
+                  res.get("spill_loads", 1) == 0, "no spill in %s" % inst)
 
     # -- 2. kernel against its plain version on the card ------------------
     coding = gf.rs_vandermonde_generator(K, M, W)
 
     def dec_bitmat(avail, w=W, cod=coding):
-        full = np.concatenate(
-            [gf.decode_matrix(cod, K, avail, w),
-             gf.gf_matmul(cod, gf.decode_matrix(cod, K, avail, w), w)])
-        return gf.generator_to_bitmatrix(full, w)
+        dec = gf.decode_matrix(cod, cod.shape[1], avail, w)
+        return gf.generator_to_bitmatrix(
+            np.concatenate([dec, gf.gf_matmul(cod, dec, w)]), w)
 
     def on_dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    data_sets = [on_dev(rng.integers(0, 256, (BATCH, K, N), dtype=np.uint8))
-                 for _ in range(4)]
-    cases = [("encode", W, gf.generator_to_bitmatrix(coding, W), data_sets)]
+    def rand_dev(*shape):
+        return on_dev(rng.integers(0, 256, shape, dtype=np.uint8))
+
+    def off_by_one(*shape):
+        """A contiguous view one byte into a larger buffer."""
+        count = int(np.prod(shape))
+        buf = rand_dev(count + 1)
+        return buf[1:].view(*shape)
+
+    coding16 = gf.rs_vandermonde_generator(16, 4, W)
+    coding40 = gf.rs_vandermonde_generator(40, 4, W)
+    data_sets = [rand_dev(BATCH, K, N) for _ in range(4)]
+    # (name, w, bitmatrix, inputs, the design its geometry takes)
+    cases = [("encode", W, gf.generator_to_bitmatrix(coding, W), data_sets,
+              "bitsliced")]
     for avail in [(3, 4, 5, 6, 7, 8, 9, 10), (0, 1, 2, 4, 5, 6, 9, 10),
                   (1, 2, 3, 5, 6, 7, 8, 9)]:
         cases.append(("decode" + "".join(map(str, avail)), W,
-                      dec_bitmat(avail), data_sets))
+                      dec_bitmat(avail), data_sets, "bitsliced"))
+    k16 = [rand_dev(2, 16, N)]
+    cases += [
+        ("encode_k16_m4", W, gf.generator_to_bitmatrix(coding16, W), k16,
+         "bitsliced"),
+        ("decode_k16_m4", W, dec_bitmat(tuple(range(4, 20)), cod=coding16),
+         k16, "bitsliced"),
+        ("encode_ragged", W, gf.generator_to_bitmatrix(coding, W),
+         [rand_dev(BATCH, K, N - 1001)], "bitsliced"),
+        ("encode_offset1", W, gf.generator_to_bitmatrix(coding, W),
+         [off_by_one(4, K, N)], "bitsliced"),
+        ("encode_k40_m4", W, gf.generator_to_bitmatrix(coding40, W),
+         [rand_dev(2, 40, N // 8)], "popcount"),
+        ("encode_k40_offset1", W, gf.generator_to_bitmatrix(coding40, W),
+         [off_by_one(2, 40, N // 8 - 3)], "popcount")]
     for w in (16, 32):
         cases.append(("encode_w%d" % w, w, gf.generator_to_bitmatrix(
-            gf.rs_vandermonde_generator(K, M, w), w), data_sets[:1]))
-    ragged = on_dev(rng.integers(0, 256, (BATCH, K, N - 1001),
-                                 dtype=np.uint8))
-    cases.append(("encode_ragged", W, gf.generator_to_bitmatrix(coding, W),
-                  [ragged]))
+            gf.rs_vandermonde_generator(K, M, w), w), data_sets[:1],
+            "popcount"))
 
     timings = {}
     worst = 0
-    for name, w, bm_np, inputs in cases:
+    phase2_start = dict(gf_kernel.LAUNCHES_BY_DESIGN)
+    for name, w, bm_np, inputs, expect in cases:
         bm = on_dev(bm_np)
+        k = inputs[0].shape[-2]
+        design = gf_kernel.kernel_design(bm.shape[0], k, w, dev)
+        before = gf_kernel.LAUNCHES_BY_DESIGN[expect]
         out = gf_kernel.matrix_encode(bm, inputs[0], w)
         torch.cuda.synchronize()
+        launched = gf_kernel.LAUNCHES_BY_DESIGN[expect] - before
         ref = gf_kernel.matrix_encode_plain(bm, inputs[0], w)
         err = int((out.to(torch.int16) - ref.to(torch.int16)).abs().max())
         worst = max(worst, err)
         rec = {"case": name, "w": w, "bitmat": list(bm.shape),
-               "data": list(inputs[0].shape), "equal": err == 0,
-               "max_abs_err": err}
+               "data": list(inputs[0].shape), "design": design,
+               "equal": err == 0, "max_abs_err": err}
         if name == "encode" or name.startswith("decode3"):
             rec["ms"] = time_ms(
                 lambda x: gf_kernel.matrix_encode(bm, x, w), inputs, 40)
@@ -189,13 +230,21 @@ def main() -> int:
                 lambda x: gf_kernel.matrix_encode_plain(bm, x, w),
                 inputs, 8)
             rec["bound_ms"], rec["bound_by"] = bound(bm, inputs[0], out, w)
+            rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
             timings[name] = rec
         emit("kernel", **rec)
+        check(design == expect and launched == 1,
+              "%s took the %s design" % (name, expect))
         check(err == 0, "kernel equals plain version for " + name)
-    del cases, ragged
+    phase2_launches = {d: n - phase2_start[d]
+                       for d, n in gf_kernel.LAUNCHES_BY_DESIGN.items()}
+    check(all(phase2_launches.values()), "both designs launched")
+    del cases, k16
 
     # -- 3. main path: registry -> RS codec -> bank -> kernel -------------
     gf_kernel.LAUNCHES = 0
+    for d in gf_kernel.LAUNCHES_BY_DESIGN:
+        gf_kernel.LAUNCHES_BY_DESIGN[d] = 0
     codec = registry.factory("torch_cuda", dict(PROFILE))
     check(codec.device.type == "cuda", "codec on the card by default")
     data = data_sets[0]
@@ -310,6 +359,13 @@ def main() -> int:
     check(disp.stats["dispatches"] < disp.stats["ops"], "ops coalesced")
     check(launches_disp > 0, "dispatcher launched the kernel")
     launches = gf_kernel.LAUNCHES
+    launches_by_design = dict(gf_kernel.LAUNCHES_BY_DESIGN)
+    main_design = gf_kernel.kernel_design(M * W, K, W, dev)
+    check(main_design == "bitsliced" and
+          gf_kernel.kernel_design((K + M) * W, K, W, dev) == main_design,
+          "the main path's geometry takes the bit-sliced design")
+    check(launches_by_design[main_design] == launches,
+          "every main-path launch went to the bit-sliced design")
 
     # -- 5. kernels line --------------------------------------------------
     enc = timings["encode"]
@@ -318,12 +374,17 @@ def main() -> int:
         "name": "gf_bitmatrix_encode", "route": "cuda",
         "source": "ceph_tpu_torch/csrc/gf_bitmatrix.cu",
         "replaces": "ceph_tpu/ops/pallas_gf.py:58",
-        "launches": launches, "matched": worst == 0, "max_abs_err": worst,
+        "design": main_design, "launches": launches,
+        "launches_by_design": launches_by_design,
+        "phase2_launches_by_design": phase2_launches,
+        "matched": worst == 0, "max_abs_err": worst,
         "ms": enc["ms"], "kernel_ms": enc["ms"],
         "plain_ms": enc["plain_ms"], "bound_ms": enc["bound_ms"],
         "bound_by": enc["bound_by"], "library_ms": None,
         "decode_ms": dec["ms"], "decode_plain_ms": dec["plain_ms"],
         "decode_bound_ms": dec["bound_ms"],
+        "share_of_bound": enc["share_of_bound"],
+        "decode_share_of_bound": dec["share_of_bound"],
         "shape": {"bitmat": enc["bitmat"], "data": enc["data"],
                   "decode_bitmat": dec["bitmat"]}}]
     _records.append({"kernels": kernels})

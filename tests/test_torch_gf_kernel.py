@@ -160,3 +160,28 @@ def test_wrapper_rejects(case):
     with pytest.raises((TypeError, ValueError)):
         gf_kernel.matrix_encode(bm, data, w)
 
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__a9876c8f_15_gf_bitmatrix_cu_87fc942319gf_bitsliced_kernelILi16EEEvPKhiiS2_Phxxb' for 'sm_90a'
+ptxas info    : Function properties for _ZN48_GLOBAL__N__a9876c8f_15_gf_bitmatrix_cu_87fc942319gf_bitsliced_kernelILi16EEEvPKhiiS2_Phxxb
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119gf_bitmatrix_kernelILi32ELi16EEEvPKhiiS2_Phxxb' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119gf_bitmatrix_kernelILi32ELi16EEEvPKhiiS2_Phxxb
+    24 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 400 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_reads_registers_and_spills(tmp_path, monkeypatch):
+    from ceph_tpu_torch.ops import _build
+    (tmp_path / "k.log").write_text(PTXAS_LOG)
+    monkeypatch.setattr(_build, "BUILD", tmp_path)
+    assert _build.ptxas_report("k") == {
+        "gf_bitsliced_kernel<16>": {"stack": 0, "spill_stores": 0,
+                                    "spill_loads": 0, "registers": 168},
+        "gf_bitmatrix_kernel<32,16>": {"stack": 24, "spill_stores": 8,
+                                       "spill_loads": 12, "registers": 255},
+    }

@@ -7,7 +7,9 @@ without the reference installed:
     python -m pytest tests/test_torch_gpu.py --noconftest -q
 
 The CUDA kernel has no CPU mode; each test holds it against its plain
-PyTorch version on the card (tolerance: none, bit-exact).
+PyTorch version on the card (tolerance: none, bit-exact), on both of its
+designs: bit-sliced for w=8 with k <= 16, popcount for every other
+geometry.
 """
 
 import itertools
@@ -31,18 +33,39 @@ def cuda():
     return torch.device("cuda")
 
 
-def bitmats(k, m, w):
-    coding = gf.rs_vandermonde_generator(k, m, w)
-    avail = tuple(range(m, k + m))
+def decode_bitmat(coding, k, avail, w):
     dec = gf.decode_matrix(coding, k, avail, w)
     full = np.concatenate([dec, gf.gf_matmul(coding, dec, w)], axis=0)
+    return gf.generator_to_bitmatrix(full, w)
+
+
+def bitmats(k, m, w):
+    coding = gf.rs_vandermonde_generator(k, m, w)
     return [gf.generator_to_bitmatrix(coding, w),
-            gf.generator_to_bitmatrix(full, w)]
+            decode_bitmat(coding, k, tuple(range(m, k + m)), w)]
+
+
+def expected_design(k, w):
+    return "bitsliced" if w == 8 and k * w <= 128 else "popcount"
+
+
+def held_against_plain(bm, data, w):
+    """One launch, byte-equal to the plain version, on the design the
+    geometry takes."""
+    design = expected_design(data.shape[-2], w)
+    assert gf_kernel.kernel_design(bm.shape[0], data.shape[-2], w,
+                                   data.device) == design
+    before = gf_kernel.LAUNCHES_BY_DESIGN[design]
+    out = gf_kernel.matrix_encode(bm, data, w)
+    torch.cuda.synchronize()
+    assert gf_kernel.LAUNCHES_BY_DESIGN[design] == before + 1
+    assert torch.equal(out, gf_kernel.matrix_encode_plain(bm, data, w))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("w,k,m,n", [
-    (8, 8, 3, 4096), (8, 12, 4, 1000), (8, 2, 1, 512), (8, 40, 4, 1024),
+    (8, 8, 3, 4096), (8, 12, 4, 1000), (8, 2, 1, 512), (8, 16, 4, 4096),
+    (8, 16, 4, 32 * 40 + 7), (8, 40, 4, 1024), (8, 1, 2, 7),
     (16, 8, 3, 2050), (32, 8, 3, 4100), (32, 16, 2, 2052),
 ])
 def test_kernel_matches_plain_on_card(cuda, w, k, m, n):
@@ -52,10 +75,33 @@ def test_kernel_matches_plain_on_card(cuda, w, k, m, n):
         bm = torch.from_numpy(mat).to(cuda)
         data = torch.from_numpy(rng.integers(0, 256, (3, k, n),
                                              dtype=np.uint8)).to(cuda)
-        out = gf_kernel.matrix_encode(bm, data, w)
-        torch.cuda.synchronize()
-        assert torch.equal(out, gf_kernel.matrix_encode_plain(bm, data, w))
+        held_against_plain(bm, data, w)
     assert gf_kernel.LAUNCHES == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w,k,m", [(8, 8, 3), (8, 16, 4), (8, 40, 4),
+                                   (16, 8, 3)])
+def test_data_pointer_off_by_one_on_card(cuda, w, k, m):
+    """A contiguous view one byte into a larger buffer takes the byte path
+    of either design."""
+    n = 2048
+    buf = torch.from_numpy(np.random.default_rng(k).integers(
+        0, 256, 2 * k * n + 1, dtype=np.uint8)).to(cuda)
+    data = buf[1:].view(2, k, n)
+    assert data.is_contiguous() and data.data_ptr() % 16 == 1
+    for mat in bitmats(k, m, w):
+        held_against_plain(torch.from_numpy(mat).to(cuda), data, w)
+
+
+@pytest.mark.gpu
+def test_every_decode_bitmatrix_on_card(cuda):
+    coding = gf.rs_vandermonde_generator(8, 3, 8)
+    data = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, (2, 8, 32 * 9 + 5), dtype=np.uint8)).to(cuda)
+    for avail in itertools.combinations(range(11), 8):
+        bm = torch.from_numpy(decode_bitmat(coding, 8, avail, 8)).to(cuda)
+        held_against_plain(bm, data, 8)
 
 
 @pytest.mark.gpu
