@@ -18,8 +18,12 @@
 // byte once. At the bench shape (B=16, k=8, m=3, N=131072, w=8) that is
 // 16 MiB read + 6 MiB written = 23.07 MB, about 6.9 us at the H100 SXM's
 // 3.35 TB/s; counted as int8 multiply-adds ([24, 64] @ [64, 2^21]) it is
-// 6.4 GOP, 3.3 us at 1979 TOP/s, so bytes bound it. What limits both
-// designs below is integer issue, not memory.
+// 6.4 GOP, 3.3 us at 1979 TOP/s, so bytes bound it. Neither design below
+// reaches memory's limit: on an H100 at that shape the bit-sliced kernel
+// runs at about 27% of its bound on the encode, and a single batch lane
+// (32 blocks) already takes about half the time of sixteen, so the
+// latency of one thread's 32 columns, not the card's throughput, sets
+// it (PERF.md).
 //
 // Two designs; the C entry point picks one from the geometry alone.
 //
@@ -33,14 +37,17 @@
 //    of row j. The k*8 planes stay in registers (KMAX*8 of them; rows
 //    j >= k are zero).
 //  * Each block expands the bitmatrix once into shared memory, one word
-//    per entry, 0 or 0xffffffff (E[R][KMAX*8]), and a mask per output row
-//    with one bit per 8x8 block that has a one.
-//  * Out plane (i, t) = XOR over the flagged blocks (i, j) and s < 8 of
+//    per entry, 0 or 0xffffffff (E[R][KMAX*8]), one thread per 8x8 block
+//    so that all its loads are in flight at once, and two masks per
+//    output row: a bit per block equal to the identity, and per other
+//    block that has a one.
+//  * Out plane (i, t) = XOR over the masked blocks (i, j) and s < 8 of
 //    plane (j, s) & E[i*8+t][j*8+s]: one LOP3 per bitmatrix entry per 32
-//    columns, against 32 popcounts in the other design. The E words are
-//    warp-uniform broadcast loads, 16 bytes at a time; the flag test is
-//    warp-uniform too, so skipping a zero block (most of a decode
-//    bitmatrix) costs no divergence.
+//    columns, against 32 popcounts in the other design; an identity
+//    block is 8 XORs of plane (j, t). The E words are warp-uniform
+//    broadcast loads, 16 bytes at a time; the mask tests are warp-uniform
+//    too, so skipping a zero block (most of a decode bitmatrix) costs no
+//    divergence.
 //  * The 8 out planes go back to 32 bytes through the same two transposes
 //    and two 16-byte streaming stores.
 //  * The grid is sized from the occupancy the kernel reaches; each thread
@@ -317,8 +324,9 @@ __device__ __forceinline__ void load_unit(const uint8_t* __restrict__ data,
 
 template <int KMAX>
 size_t bitsliced_smem(int rows) {
-  // E [rows][KMAX*8] words, then one block mask per output row
-  return ((size_t)rows * KMAX * 8 + (size_t)(rows / 8)) * sizeof(uint32_t);
+  // E [rows][KMAX*8] words, then two block masks per output row
+  return ((size_t)rows * KMAX * 8 + 2 * (size_t)(rows / 8)) *
+         sizeof(uint32_t);
 }
 
 template <int KMAX>
@@ -330,7 +338,8 @@ gf_bitsliced_kernel(const uint8_t* __restrict__ bitmat, int rows, int k,
   constexpr int STRIDE = KMAX * 8;  // E words per bitmatrix row
   extern __shared__ uint4 bs_smem[];
   uint32_t* E = reinterpret_cast<uint32_t*>(bs_smem);
-  uint32_t* nz = E + (size_t)rows * STRIDE;
+  uint32_t* nz = E + (size_t)rows * STRIDE;  // [rows/8] general blocks
+  uint32_t* id = nz + rows / 8;              // [rows/8] identity blocks
 
   const int bits = k * 8;
   const int out_rows = rows / 8;
@@ -343,30 +352,46 @@ gf_bitsliced_kernel(const uint8_t* __restrict__ bitmat, int rows, int k,
   uint32_t p[STRIDE];
   if (u < units) load_unit<KMAX>(data, k, n, chunks, u, vec_ok, p);
 
-  for (int idx = threadIdx.x; idx < rows * STRIDE; idx += blockDim.x) {
-    const int r = idx / STRIDE;
-    const int c = idx - r * STRIDE;
-    E[idx] = c < bits && (bitmat[(long long)r * bits + c] & 1u)
-                 ? 0xffffffffu : 0u;
-  }
-  // one thread per block (i, j); KMAX divides 32, so a warp's vote holds
-  // whole output rows: bit j of nz[i] = block (i, j) has a one
+  // One thread per 8x8 block (i, j): its 64 loads are all in flight at
+  // once, so the expansion costs one memory latency, not one per entry.
+  // Blocks j >= k are never read (their mask bits are 0). KMAX divides
+  // 32, so a warp's vote holds whole output rows. Bit j of id[i]: block
+  // (i, j) is the identity; of nz[i]: it has a one and is not the
+  // identity.
   const int pairs = out_rows * KMAX;
   for (int base = 0; base < pairs; base += blockDim.x) {
     const int idx = base + threadIdx.x;
     const int i = idx / KMAX;
     const int j = idx - i * KMAX;
-    uint32_t any = 0;
+    uint32_t any = 0, ident = 0;
     if (idx < pairs && j < k) {
       const uint8_t* blk = bitmat + (long long)i * 8 * bits + j * 8;
+      uint32_t bt[8][8];
 #pragma unroll
       for (int t = 0; t < 8; ++t)
 #pragma unroll
-        for (int s = 0; s < 8; ++s) any |= blk[(long long)t * bits + s];
+        for (int s = 0; s < 8; ++s) bt[t][s] = blk[(long long)t * bits + s] & 1u;
+      ident = 1;
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        uint4* e = reinterpret_cast<uint4*>(E + (i * 8 + t) * STRIDE + j * 8);
+        e[0] = make_uint4(0u - bt[t][0], 0u - bt[t][1], 0u - bt[t][2], 0u - bt[t][3]);
+        e[1] = make_uint4(0u - bt[t][4], 0u - bt[t][5], 0u - bt[t][6], 0u - bt[t][7]);
+#pragma unroll
+        for (int s = 0; s < 8; ++s) {
+          any |= bt[t][s];
+          ident &= bt[t][s] == (t == s ? 1u : 0u);
+        }
+      }
     }
-    const uint32_t vote = __ballot_sync(0xffffffffu, any & 1u);
-    if (idx < pairs && j == 0)
-      nz[i] = (vote >> (threadIdx.x % 32)) & (0xffffffffu >> (32 - KMAX));
+    const uint32_t vote = __ballot_sync(0xffffffffu, any);
+    const uint32_t vote_id = __ballot_sync(0xffffffffu, ident);
+    if (idx < pairs && j == 0) {
+      const uint32_t low = 0xffffffffu >> (32 - KMAX);
+      const int lane = threadIdx.x % 32;
+      nz[i] = ((vote & ~vote_id) >> lane) & low;
+      id[i] = (vote_id >> lane) & low;
+    }
   }
   __syncthreads();
 
@@ -381,14 +406,18 @@ gf_bitsliced_kernel(const uint8_t* __restrict__ bitmat, int rows, int k,
     uint8_t* orow = out + b * out_rows * n + off;
     for (int i = 0; i < out_rows; ++i, orow += n) {
       const uint32_t mask = nz[i];
+      const uint32_t imask = id[i];
       uint32_t acc[8];
 #pragma unroll
       for (int t = 0; t < 8; ++t) acc[t] = 0;
       const uint32_t* Ei = E + (size_t)i * 8 * STRIDE;
 #pragma unroll
       for (int j = 0; j < KMAX; ++j) {
-        if ((mask >> j) & 1u) {
-          const uint32_t* pj = p + 8 * j;
+        const uint32_t* pj = p + 8 * j;
+        if ((imask >> j) & 1u) {
+#pragma unroll
+          for (int t = 0; t < 8; ++t) acc[t] ^= pj[t];
+        } else if ((mask >> j) & 1u) {
 #pragma unroll
           for (int t = 0; t < 8; ++t) {
             const uint4* e = reinterpret_cast<const uint4*>(Ei + t * STRIDE + 8 * j);

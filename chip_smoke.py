@@ -44,7 +44,6 @@ from __future__ import annotations
 import itertools
 import json
 import random
-import statistics
 import subprocess
 import sys
 import threading
@@ -52,10 +51,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-
-# H100 SXM published peaks (NVIDIA data sheet), used for the bounds
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1979e12
 
 BATCH, K, M, W, N = 16, 8, 3, 8, 131072
 PROFILE = {"technique": "reed_sol_van", "k": str(K), "m": str(M), "w": str(W)}
@@ -83,41 +78,6 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound(bitmat, data, out, w: int) -> tuple[float, str]:
-    """Least time (ms) for the kernel's work: each input byte read once
-    and each output byte written once at the HBM rate, or the GF(2)
-    product counted as int8 multiply-adds at the int8 rate."""
-    nbytes = bitmat.numel() + data.numel() + out.numel()
-    columns = data.numel() * 8 // (data.shape[-2] * w)
-    ops = 2 * bitmat.shape[0] * bitmat.shape[1] * columns
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT8_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def time_ms(fn, inputs, reps: int) -> float:
-    """Median device time of fn over `reps` calls, each between two CUDA
-    events. The calls are queued behind a ~0.1 s spin kernel, so the
-    device runs them back to back and the events time the device, not
-    the host's launch rate. The inputs rotate so that an input is out of
-    the 50 MB L2 by the time it is read again, as the main path finds
-    it."""
-    import torch
-    fn(inputs[0])
-    torch.cuda.synchronize()
-    torch.cuda._sleep(200_000_000)
-    marks = []
-    for i in range(reps):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn(inputs[i % len(inputs)])
-        e.record()
-        marks.append((s, e))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in marks)
-
-
 def main() -> int:
     import numpy as np
     import torch
@@ -134,6 +94,7 @@ def main() -> int:
     from ceph_tpu_torch import registry
     from ceph_tpu_torch.ops import _build, gf, gf_kernel, gf_ref
     from ceph_tpu_torch.osd.gpu_dispatch import GpuDispatcher
+    from ceph_tpu_torch.utils.cuda_timing import gf_bound, time_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain version exact
     torch.backends.cudnn.allow_tf32 = False
@@ -229,7 +190,8 @@ def main() -> int:
             rec["plain_ms"] = time_ms(
                 lambda x: gf_kernel.matrix_encode_plain(bm, x, w),
                 inputs, 8)
-            rec["bound_ms"], rec["bound_by"] = bound(bm, inputs[0], out, w)
+            rec["bound_ms"], rec["bound_by"] = gf_bound(bm, inputs[0], out,
+                                                        w)
             rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
             timings[name] = rec
         emit("kernel", **rec)

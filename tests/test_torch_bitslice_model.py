@@ -10,9 +10,11 @@ uint32 words, so that a layout mistake shows on the CPU:
      byte transpose (``__byte_perm``) turn them into 8 plane words, bit e
      of plane (j, s) being bit s of column e's byte of row j;
   2. the bitmatrix is expanded to one word per entry, 0 or 0xFFFFFFFF
-     (``E``), with one bit per nonzero 8x8 block (``nz``);
-  3. out plane (i, t) = XOR over the nonzero blocks (i, j) and s of
-     plane (j, s) & E[i*8 + t][j*8 + s], one LOP3 each;
+     (``E``), with two masks per output row: a bit per 8x8 block equal
+     to the identity (``id``) and per other nonzero block (``nz``);
+  3. out plane (i, t) = XOR over the ``nz`` blocks (i, j) and s of
+     plane (j, s) & E[i*8 + t][j*8 + s], one LOP3 each, and over the
+     ``id`` blocks of plane (j, t);
   4. the 8 out planes go back to 32 bytes by the same two transposes in
      the reverse order.
 
@@ -106,16 +108,23 @@ def from_planes(planes):
 
 # -- step 2: the expanded bitmatrix in shared memory ----------------------
 
+def block_mask(flags: np.ndarray) -> np.ndarray:
+    """[R/8, kmax] booleans -> [R/8] uint32, bit j = flags[:, j]."""
+    shifts = np.arange(flags.shape[1], dtype=np.uint64)
+    return (flags.astype(np.uint64) << shifts).sum(axis=1).astype(U32)
+
+
 def expand(bitmat: np.ndarray, kmax: int):
-    """E [R, kmax*8] words (0 or all ones; columns >= k*8 zero) and
-    nz [R/8] masks, bit j set where block (i, j) has a one."""
+    """E [R, kmax*8] words (0 or all ones; columns >= k*8 zero) and two
+    [R/8] masks: nz, bit j set where block (i, j) has a one and is not
+    the identity; id, where it is the identity."""
     rows, bits = bitmat.shape
     e = np.zeros((rows, kmax * 8), dtype=U32)
     e[:, :bits] = np.where(bitmat & 1, ALL_ONES, U32(0))
-    blocks = e.reshape(rows // 8, 8, kmax, 8).any(axis=(1, 3))
-    nz = (blocks.astype(np.uint64) << np.arange(kmax, dtype=np.uint64)) \
-        .sum(axis=1).astype(U32)
-    return e, nz
+    blocks = (e.reshape(rows // 8, 8, kmax, 8) != 0).transpose(0, 2, 1, 3)
+    ident = (blocks == np.eye(8, dtype=bool)).all(axis=(2, 3))
+    nonzero = blocks.any(axis=(2, 3))
+    return e, block_mask(nonzero & ~ident), block_mask(ident)
 
 
 # -- the kernel, vectorised over its units (batch lane, 32 columns) ------
@@ -123,7 +132,8 @@ def expand(bitmat: np.ndarray, kmax: int):
 def bitsliced_encode(bitmat: np.ndarray, data: np.ndarray, stats=None):
     """[B, k, N] uint8 -> [B, R/8, N] uint8, as gf_bitsliced_kernel does.
 
-    stats, a dict, receives the blocks the schedule visits."""
+    stats, a dict, receives the blocks the schedule visits: dense
+    (LOP3s) and identity (plain XORs)."""
     rows, bits = bitmat.shape
     b, k, n = data.shape
     assert bits == k * 8 and k <= 16 and rows % 8 == 0
@@ -139,24 +149,26 @@ def bitsliced_encode(bitmat: np.ndarray, data: np.ndarray, stats=None):
             planes += to_planes([words[:, j, :, q] for q in range(8)])
         else:
             planes += [np.zeros((b, chunks), dtype=U32)] * 8
-    e, nz = expand(bitmat, kmax)
+    e, nz, ident = expand(bitmat, kmax)
     out = np.zeros((b, rows // 8, chunks, COLS), dtype=np.uint8)
-    visited = 0
+    dense = identity = 0
     for i in range(rows // 8):
         acc = [np.zeros((b, chunks), dtype=U32) for _ in range(8)]
-        for j in range(kmax):
-            if not (int(nz[i]) >> j) & 1:
-                continue                    # warp-uniform block skip
-            visited += 1
-            for t in range(8):
-                for s in range(8):
-                    acc[t] = acc[t] ^ (planes[j * 8 + s]
-                                       & e[i * 8 + t, j * 8 + s])
+        for j in range(kmax):           # warp-uniform tests
+            if (int(ident[i]) >> j) & 1:
+                identity += 1
+                for t in range(8):
+                    acc[t] = acc[t] ^ planes[j * 8 + t]
+            elif (int(nz[i]) >> j) & 1:
+                dense += 1
+                for t in range(8):
+                    for s in range(8):
+                        acc[t] = acc[t] ^ (planes[j * 8 + s]
+                                           & e[i * 8 + t, j * 8 + s])
         ow = np.stack(from_planes(acc), axis=-1).astype("<u4")
         out[:, i] = ow.view(np.uint8).reshape(b, chunks, COLS)
     if stats is not None:
-        stats["visited"] = visited
-        stats["blocks"] = (rows // 8) * k
+        stats.update(dense=dense, identity=identity, blocks=(rows // 8) * k)
     return out.reshape(b, rows // 8, chunks * COLS)[..., :n]
 
 
@@ -222,23 +234,26 @@ def test_planes_hold_bit_s_of_byte_e_and_round_trip():
     assert np.array_equal(back.view(np.uint8), cols)
 
 
-def test_expand_marks_nonzero_blocks():
+def test_expand_marks_nonzero_and_identity_blocks():
     bm = np.zeros((16, 24), dtype=np.uint8)
     bm[3, 9] = 1                         # block (0, 1)
     bm[15, 23] = 1                       # block (1, 2)
-    e, nz = expand(bm, kmax_of(3))
+    bm[8:16, 0:8] = np.eye(8, dtype=np.uint8)   # block (1, 0)
+    e, nz, ident = expand(bm, kmax_of(3))
     assert e.shape == (16, 32) and e[3, 9] == ALL_ONES and e.sum() == \
-        2 * int(ALL_ONES)
+        10 * int(ALL_ONES)
     assert nz.tolist() == [0b010, 0b100]
+    assert ident.tolist() == [0b000, 0b001]
 
 
 def test_decode_skips_all_but_32_of_88_blocks():
-    """Signature (3..10): 3 erased data rows are dense (8 blocks each);
-    every other output row is one identity block."""
+    """Signature (3..10): the 3 erased data rows have 8 nonzero blocks
+    each (one of them, a coefficient 1, the identity); every other output
+    row is one identity block."""
     bm = decode_bitmat(CODING_8_3, 8, (3, 4, 5, 6, 7, 8, 9, 10))
     stats = {}
     check(bm, rand_data(2, 1, 8, 512), stats)
-    assert stats == {"visited": 32, "blocks": 88}
+    assert stats == {"dense": 23, "identity": 9, "blocks": 88}
 
 
 # -- the cases, each against the JAX package -------------------------------
@@ -248,7 +263,8 @@ def test_encode_k8_m3(b, n):
     bm = jgf.generator_to_bitmatrix(CODING_8_3, 8)
     stats = {}
     check(bm, rand_data(n, b, 8, n), stats)
-    assert stats == {"visited": 24, "blocks": 24}
+    # reed_sol_van's first parity row is all ones: 8 identity blocks
+    assert stats == {"dense": 16, "identity": 8, "blocks": 24}
 
 
 @pytest.mark.parametrize("avail", SIGNATURES, ids=lambda a: "".join(
@@ -278,7 +294,7 @@ def test_random_dense_bitmatrix(k):
     bm = rng.integers(0, 2, (40, k * 8), dtype=np.uint8)
     stats = {}
     check(bm, rand_data(k, 2, k, 512), stats)
-    assert stats["visited"] == stats["blocks"]
+    assert stats["dense"] == stats["blocks"]
 
 
 @pytest.mark.parametrize("k", [5, 8, 16])
@@ -293,7 +309,7 @@ def test_bitmatrix_with_zero_blocks(k):
     got_ref = reference(bm, rand_data(k, 2, k, 512))
     assert not got_ref[0][:, 1].any()
     check(bm, rand_data(k, 2, k, 512), stats)
-    assert stats["visited"] == int(keep.sum())
+    assert stats["dense"] + stats["identity"] == int(keep.sum())
 
 
 @pytest.mark.parametrize("n", [32 * 1 + 7, 32 * 16 + 7, 32 * 40 + 7])

@@ -185,3 +185,35 @@ def test_ptxas_report_reads_registers_and_spills(tmp_path, monkeypatch):
         "gf_bitmatrix_kernel<32,16>": {"stack": 24, "spill_stores": 8,
                                        "spill_loads": 12, "registers": 255},
     }
+
+
+def test_sweep_bitmatrices_equal_the_reference():
+    from ceph_tpu_torch.tools import gf_kernel_sweep
+    mats = gf_kernel_sweep.bitmatrices()
+    coding = jgf.rs_vandermonde_generator(8, 3, 8)
+    assert np.array_equal(mats["encode"],
+                          jgf.generator_to_bitmatrix(coding, 8))
+    dec = jgf.decode_matrix(coding, 8, (3, 4, 5, 6, 7, 8, 9, 10), 8)
+    full = np.concatenate([dec, jgf.gf_matmul(coding, dec, 8)])
+    assert np.array_equal(mats["decode345678910"],
+                          jgf.generator_to_bitmatrix(full, 8))
+
+
+def test_sweep_fails_without_a_card(monkeypatch, capsys):
+    from ceph_tpu_torch.tools import gf_kernel_sweep
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert gf_kernel_sweep.main(["--batches", "1"]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("rows,out_rows,want_ms,want_by", [
+    (24, 3, 0.006886629253731343, "bytes"),        # encode [16, 8, 2^17]
+    (88, 11, 0.011936493243052047, "operations"),  # decode
+])
+def test_gf_bound_of_the_main_path(rows, out_rows, want_ms, want_by):
+    from ceph_tpu_torch.utils.cuda_timing import gf_bound
+    meta = dict(dtype=torch.uint8, device="meta")
+    ms, by = gf_bound(torch.empty(rows, 64, **meta),
+                      torch.empty(16, 8, 131072, **meta),
+                      torch.empty(16, out_rows, 131072, **meta), 8)
+    assert by == want_by and ms == pytest.approx(want_ms, rel=1e-12)
