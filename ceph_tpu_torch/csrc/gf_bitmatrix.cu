@@ -73,6 +73,10 @@
 // geometry that neither design takes.
 
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <utility>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -452,6 +456,36 @@ gf_bitsliced_kernel(const uint8_t* __restrict__ bitmat, int rows, int k,
   }
 }
 
+// Blocks of gf_bitsliced_kernel<KMAX> that an SM holds with `smem` bytes of
+// shared memory on device `dev`. The occupancy query costs the host about
+// as much as the encode kernel's run, so it is made once per key. A key
+// past 48 KiB first raises the kernel's shared-memory limit on the device,
+// which is never lowered, so that a launch with less still fits.
+template <int KMAX>
+cudaError_t resident_blocks(int dev, size_t smem, int* per_sm) {
+  static std::mutex mu;
+  static std::map<std::pair<int, size_t>, int> blocks;
+  static std::map<int, size_t> smem_limit;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto key = std::make_pair(dev, smem);
+  const auto hit = blocks.find(key);
+  if (hit != blocks.end()) {
+    *per_sm = hit->second;
+    return cudaSuccess;
+  }
+  auto kernel = gf_bitsliced_kernel<KMAX>;
+  if (smem > kMaxSmem && smem > smem_limit[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    smem_limit[dev] = smem;
+  }
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, kernel, kThreads, smem);
+  if (err == cudaSuccess) blocks[key] = *per_sm;
+  return err;
+}
+
 template <int KMAX>
 cudaError_t launch_bitsliced(const uint8_t* bitmat, int rows, int k,
                              const uint8_t* data, uint8_t* out,
@@ -466,13 +500,7 @@ cudaError_t launch_bitsliced(const uint8_t* bitmat, int rows, int k,
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  if (smem > kMaxSmem) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, smem);
+  err = resident_blocks<KMAX>(dev, smem, &per_sm);
   if (err != cudaSuccess) return err;
   long long blocks = (units + kThreads - 1) / kThreads;
   const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
