@@ -72,6 +72,7 @@
 // design needs R * NW * 4 <= 48 KiB, and the entry point refuses a
 // geometry that neither design takes.
 
+#include <atomic>
 #include <cstdint>
 #include <map>
 #include <mutex>
@@ -84,6 +85,17 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kMaxBits = 512;
 constexpr size_t kMaxSmem = 48 * 1024;
+
+enum Design { kPopcount = 0, kBitsliced = 1 };
+
+// Kernel launches of each design, counted where the kernel is launched.
+std::atomic<long long> g_launches[2];
+
+cudaError_t count_launch(Design design) {
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) g_launches[design].fetch_add(1);
+  return err;
+}
 
 // ---- popcount design ------------------------------------------------------
 
@@ -221,7 +233,7 @@ cudaError_t launch_popcount(const uint8_t* bitmat, int rows, int k,
   const size_t smem = (size_t)rows * NW * sizeof(uint32_t);
   gf_bitmatrix_kernel<W, NW><<<(unsigned)blocks, kThreads, smem, stream>>>(
       bitmat, rows, k, data, out, batch, n, vec_ok);
-  return cudaGetLastError();
+  return count_launch(kPopcount);
 }
 
 int mask_words(int bits) {
@@ -510,12 +522,10 @@ cudaError_t launch_bitsliced(const uint8_t* bitmat, int rows, int k,
                       reinterpret_cast<uintptr_t>(out) % 16 == 0;
   kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(bitmat, rows, k, data,
                                                        out, batch, n, vec_ok);
-  return cudaGetLastError();
+  return count_launch(kBitsliced);
 }
 
 // ---- design choice ---------------------------------------------------------
-
-enum Design { kPopcount = 0, kBitsliced = 1 };
 
 // Validates the geometry and picks its design: bit-sliced for w = 8 with
 // k*8 <= 128 when its shared memory fits the card's per-block limit,
@@ -555,6 +565,16 @@ extern "C" int gf_bitmatrix_design(int rows, int k, int w) {
   int design = kPopcount;
   const int rc = pick_design(rows, k, w, &design);
   return rc == 0 ? design : rc < 0 ? -1 : -2;
+}
+
+// Launches of `design` (0 popcount, 1 bit-sliced) since the last reset.
+extern "C" long long gf_bitmatrix_launches(int design) {
+  return design == kPopcount || design == kBitsliced ? g_launches[design].load()
+                                                     : -1;
+}
+
+extern "C" void gf_bitmatrix_reset_launches() {
+  for (auto& count : g_launches) count.store(0);
 }
 
 // bitmat [rows, k*w] 0/1 uint8, data [batch, k, n] uint8, out

@@ -86,34 +86,16 @@ def build(names=None) -> dict[str, float]:
     return seconds
 
 
-def _kernel_name(mangled: str) -> str:
-    """``gf_bitsliced_kernel<8>`` from a mangled name such as
-    ``_ZN12_GLOBAL__N_119gf_bitsliced_kernelILi8EEEv...``: the last of its
-    length-prefixed names, then its int template arguments."""
-    pos = 3 if mangled.startswith("_ZN") else 2
-    name = mangled
-    while True:
-        m = re.match(r"\d+", mangled[pos:])
-        if not m:
-            break
-        start = pos + m.end()
-        name = mangled[start:start + int(m.group())]
-        pos = start + int(m.group())
-    args = re.match(r"I((?:Li-?\d+E)+)E", mangled[pos:])
-    if args:
-        name += "<%s>" % ",".join(re.findall(r"Li(-?\d+)E", args.group(1)))
-    return name
-
-
 def ptxas_report(name: str) -> dict[str, dict]:
-    """{kernel instantiation: {"registers", "spill_stores", "spill_loads",
-    "stack"}} from ptxas' report in ``build/<name>.log``."""
+    """{mangled kernel name: {"registers", "spill_stores", "spill_loads",
+    "stack"}} from ptxas' report in ``build/<name>.log``, one entry per
+    kernel instantiation."""
     report: dict[str, dict] = {}
     current = None
     for line in (BUILD / (name + ".log")).read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            current = report.setdefault(_kernel_name(m.group(1)), {})
+            current = report.setdefault(m.group(1), {})
             continue
         if current is None:
             continue

@@ -12,8 +12,9 @@ path's), the popcount kernel for every other geometry.
 
 :func:`matrix_encode` launches the kernel for a CUDA tensor and runs
 :func:`matrix_encode_plain` only for a CPU tensor; it never falls back.
-``LAUNCHES`` counts kernel launches and ``LAUNCHES_BY_DESIGN`` splits them
-by design (set them to 0 to start a count).
+``LAUNCHES`` counts kernel launches; :func:`launches_by_design` reads the
+counts that the C entry point keeps per design where it launches each
+kernel, and :func:`reset_launches` sets all of them to 0.
 """
 
 from __future__ import annotations
@@ -27,55 +28,67 @@ from . import _build
 from .xor_mm import pack_element_bits, unpack_element_bits, xor_matmul
 
 __all__ = ["matrix_encode", "matrix_encode_plain", "kernel_design",
-           "DESIGNS", "LAUNCHES", "LAUNCHES_BY_DESIGN", "MAX_BITS"]
+           "launches_by_design", "reset_launches", "DESIGNS", "LAUNCHES",
+           "MAX_BITS"]
 
 MAX_BITS = 512              # k*w the kernel takes
 _MAX_SMEM = 48 * 1024       # packed bitmatrix bytes of the popcount design
 _SOURCE = "gf_bitmatrix"
 
-DESIGNS = ("popcount", "bitsliced")  # by gf_bitmatrix_design's answer
+DESIGNS = ("popcount", "bitsliced")  # by the C entry point's design number
 
 LAUNCHES = 0
-LAUNCHES_BY_DESIGN = dict.fromkeys(DESIGNS, 0)
 _count_lock = threading.Lock()
-_fn = None
-_design_fn = None
-_designs: dict = {}
+_lib = None
 
 
-def _kernel():
-    global _fn, _design_fn
-    if _fn is None:
+def _kernel() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
         lib = _build.load(_SOURCE)
-        design = lib.gf_bitmatrix_design
-        design.argtypes = [ctypes.c_int] * 3
-        design.restype = ctypes.c_int
-        fn = lib.gf_bitmatrix_encode
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _design_fn = design
-        _fn = fn
-    return _fn
+        lib.gf_bitmatrix_encode.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_void_p]
+        lib.gf_bitmatrix_encode.restype = ctypes.c_int
+        lib.gf_bitmatrix_design.argtypes = [ctypes.c_int] * 3
+        lib.gf_bitmatrix_design.restype = ctypes.c_int
+        lib.gf_bitmatrix_launches.argtypes = [ctypes.c_int]
+        lib.gf_bitmatrix_launches.restype = ctypes.c_longlong
+        lib.gf_bitmatrix_reset_launches.argtypes = []
+        lib.gf_bitmatrix_reset_launches.restype = None
+        _lib = lib
+    return _lib
 
 
 def kernel_design(rows: int, k: int, w: int, device) -> str:
     """The design the kernel's entry point takes for a [rows, k*w]
     bitmatrix on a CUDA device: "bitsliced" or "popcount"."""
-    index = torch.device(device).index
-    key = (rows, k, w,
-           torch.cuda.current_device() if index is None else index)
-    design = _designs.get(key)
-    if design is None:
-        _kernel()
-        with torch.cuda.device(key[3]):
-            rc = _design_fn(rows, k, w)
-        if rc < 0:
-            raise RuntimeError("gf_bitmatrix_design(%d, %d, %d) failed with "
-                               "code %d" % (rows, k, w, rc))
-        design = _designs[key] = DESIGNS[rc]
-    return design
+    lib = _kernel()
+    with torch.cuda.device(torch.device(device)):
+        rc = lib.gf_bitmatrix_design(rows, k, w)
+    if rc < 0:
+        raise RuntimeError("gf_bitmatrix_design(%d, %d, %d) failed with "
+                           "code %d" % (rows, k, w, rc))
+    return DESIGNS[rc]
+
+
+def launches_by_design() -> dict[str, int]:
+    """{design: kernel launches since the last reset}, as the C entry
+    point counts them where it launches each kernel."""
+    if _lib is None:            # nothing was built, so nothing launched
+        return dict.fromkeys(DESIGNS, 0)
+    return {d: int(_lib.gf_bitmatrix_launches(i))
+            for i, d in enumerate(DESIGNS)}
+
+
+def reset_launches() -> None:
+    """Sets ``LAUNCHES`` and the per-design counts to 0."""
+    global LAUNCHES
+    with _count_lock:
+        LAUNCHES = 0
+        if _lib is not None:
+            _lib.gf_bitmatrix_reset_launches()
 
 
 def _mask_words(bits: int) -> int:
@@ -141,15 +154,16 @@ def matrix_encode(bitmat: torch.Tensor, data: torch.Tensor,
     batch = data.numel() // (k * n) if k * n else 0
     out = torch.empty((*lead, rows // w, n), dtype=torch.uint8,
                       device=data.device)
-    fn = _kernel()
-    design = kernel_design(rows, k, w, data.device)
+    if out.numel() == 0:        # no work: the entry point launches nothing
+        return out
+    lib = _kernel()
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
-        rc = fn(bitmat.data_ptr(), rows, k, w, data.data_ptr(),
-                out.data_ptr(), batch, n, stream)
+        rc = lib.gf_bitmatrix_encode(bitmat.data_ptr(), rows, k, w,
+                                     data.data_ptr(), out.data_ptr(), batch,
+                                     n, stream)
     if rc != 0:
         raise RuntimeError("gf_bitmatrix_encode failed with code %d" % rc)
     with _count_lock:
         LAUNCHES += 1
-        LAUNCHES_BY_DESIGN[design] += 1
     return out

@@ -1,10 +1,10 @@
 """Device time of the GF bitmatrix kernel against the batch size.
 
-    python -m ceph_tpu_torch.tools.gf_kernel_sweep [--batches 1,2,4] [--n N]
+    python -m ceph_tpu_torch.tools.gf_kernel_sweep [--batches 1,2,4]
 
 For the Reed-Solomon k=8, m=3, w=8 encode bitmatrix ([24, 64]) and the
-decode bitmatrix of signature (3..10) ([88, 64]), at data [B, 8, N] for
-each batch size B: the kernel's median device time over 40 launches, its
+decode bitmatrix of signature (3..10) ([88, 64]), at data [B, 8, 131072]
+(the main path's objects of 1 MiB) for each batch size B: the kernel's median device time over 40 launches, its
 bound, the design the geometry takes and the threads it needs (one per
 32 columns in the bit-sliced design). The inputs rotate through 256 MiB,
 so that each launch finds its input out of L2. One JSON line per point,
@@ -25,7 +25,7 @@ import torch
 from ..ops import gf, gf_kernel
 from ..utils.cuda_timing import gf_bound, time_ms
 
-K, M, W = 8, 3, 8
+K, M, W, N = 8, 3, 8, 131072
 ROTATE_BYTES = 256 << 20
 
 
@@ -42,8 +42,6 @@ def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--batches", default="1,2,4,6,8,10,11,12,13,14,16",
                    help="comma-separated batch sizes B")
-    p.add_argument("--n", type=int, default=131072,
-                   help="bytes per data row (N)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("gf_kernel_sweep: no CUDA device", file=sys.stderr)
@@ -55,19 +53,19 @@ def main(argv: list[str] | None = None) -> int:
     for name, bm_np in bitmatrices().items():
         bm = torch.from_numpy(bm_np).to(dev)
         for b in (int(x) for x in args.batches.split(",")):
-            size = b * K * args.n
-            inputs = [pool[o:o + size].view(b, K, args.n)
+            size = b * K * N
+            inputs = [pool[o:o + size].view(b, K, N)
                       for o in range(0, ROTATE_BYTES - size + 1, size)]
             out = gf_kernel.matrix_encode(bm, inputs[0], W)
             ms = time_ms(lambda x: gf_kernel.matrix_encode(bm, x, W),
                          inputs, 40)
             bound_ms, bound_by = gf_bound(bm, inputs[0], out, W)
             print(json.dumps({
-                "bitmat": name, "shape": [b, K, args.n], "ms": ms,
+                "bitmat": name, "shape": [b, K, N], "ms": ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "share_of_bound": bound_ms / ms,
                 "design": gf_kernel.kernel_design(bm.shape[0], K, W, dev),
-                "threads": b * -(-args.n // 32)}), flush=True)
+                "threads": b * -(-N // 32)}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

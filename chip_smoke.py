@@ -17,9 +17,12 @@ card. Phases, each printing one JSON line:
                  on CUDA tensors, on both of its designs: bit-sliced
                  (w=8 k=8 encode and three decode bitmatrices, w=8 k=16
                  m=4 encode and decode, a ragged N, a data pointer one
-                 byte off) and popcount (w=8 k=40, w=16, w=32): byte
-                 equality, the design each case took, kernel / plain
-                 times.
+                 byte off, a [448, 128] bitmatrix whose expansion just
+                 fits in shared memory) and popcount (w=8 k=40, w=16,
+                 w=32, and w=8 bitmatrices of k = 4, 8, 16 whose
+                 expansion does not fit): byte equality, the design each
+                 case took and its one launch, as the entry point counts
+                 them, kernel / plain times.
   3. main_path   ``registry.factory("torch_cuda", ...)``: encode_batch,
                  then decode_batch for all C(11,8)=165 erasure signatures
                  (reconstruction must equal the original rows; one object
@@ -29,8 +32,9 @@ card. Phases, each printing one JSON line:
                  random signatures); every result is verified.
   5. kernels     one JSON line per the port's kernel table: the design
                  the main path takes, launches on the main path (phases
-                 3-4, also by design), max_abs_err, ms, plain_ms,
-                 bound_ms, bound_by, library_ms.
+                 3-4; by design as the C entry point counts them),
+                 max_abs_err, ms, plain_ms, bound_ms, bound_by,
+                 library_ms.
 
 Then the card's name and power limit as nvidia-smi prints them, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -138,6 +142,9 @@ def main() -> int:
         buf = rand_dev(count + 1)
         return buf[1:].view(*shape)
 
+    def rand_bitmat(rows, k):
+        return rng.integers(0, 2, (rows, k * W), dtype=np.uint8)
+
     coding16 = gf.rs_vandermonde_generator(16, 4, W)
     coding40 = gf.rs_vandermonde_generator(40, 4, W)
     data_sets = [rand_dev(BATCH, K, N) for _ in range(4)]
@@ -161,7 +168,17 @@ def main() -> int:
         ("encode_k40_m4", W, gf.generator_to_bitmatrix(coding40, W),
          [rand_dev(2, 40, N // 8)], "popcount"),
         ("encode_k40_offset1", W, gf.generator_to_bitmatrix(coding40, W),
-         [off_by_one(2, 40, N // 8 - 3)], "popcount")]
+         [off_by_one(2, 40, N // 8 - 3)], "popcount"),
+        # E = rows * KMAX*8 words: 224 KiB fits the card's opt-in shared
+        # memory, 256 KiB (KMAX = 16, 8, 4) sends w=8 to the popcount kernel
+        ("random_448x128", W, rand_bitmat(448, 16),
+         [rand_dev(2, 16, N // 8)], "bitsliced"),
+        ("random_512x128", W, rand_bitmat(512, 16),
+         [rand_dev(2, 16, N // 8)], "popcount"),
+        ("random_1024x64", W, rand_bitmat(1024, 8),
+         [rand_dev(2, 8, N // 8)], "popcount"),
+        ("random_2048x32", W, rand_bitmat(2048, 4),
+         [rand_dev(2, 4, N // 8)], "popcount")]
     for w in (16, 32):
         cases.append(("encode_w%d" % w, w, gf.generator_to_bitmatrix(
             gf.rs_vandermonde_generator(K, M, w), w), data_sets[:1],
@@ -169,15 +186,16 @@ def main() -> int:
 
     timings = {}
     worst = 0
-    phase2_start = dict(gf_kernel.LAUNCHES_BY_DESIGN)
+    phase2_start = gf_kernel.launches_by_design()
     for name, w, bm_np, inputs, expect in cases:
         bm = on_dev(bm_np)
         k = inputs[0].shape[-2]
         design = gf_kernel.kernel_design(bm.shape[0], k, w, dev)
-        before = gf_kernel.LAUNCHES_BY_DESIGN[expect]
+        before = gf_kernel.launches_by_design()
         out = gf_kernel.matrix_encode(bm, inputs[0], w)
         torch.cuda.synchronize()
-        launched = gf_kernel.LAUNCHES_BY_DESIGN[expect] - before
+        after = gf_kernel.launches_by_design()
+        launched = {d: after[d] - before[d] for d in after}
         ref = gf_kernel.matrix_encode_plain(bm, inputs[0], w)
         err = int((out.to(torch.int16) - ref.to(torch.int16)).abs().max())
         worst = max(worst, err)
@@ -195,18 +213,17 @@ def main() -> int:
             rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
             timings[name] = rec
         emit("kernel", **rec)
-        check(design == expect and launched == 1,
-              "%s took the %s design" % (name, expect))
+        check(design == expect and launched[expect] == 1 and
+              sum(launched.values()) == 1,
+              "%s launched the %s design once" % (name, expect))
         check(err == 0, "kernel equals plain version for " + name)
     phase2_launches = {d: n - phase2_start[d]
-                       for d, n in gf_kernel.LAUNCHES_BY_DESIGN.items()}
+                       for d, n in gf_kernel.launches_by_design().items()}
     check(all(phase2_launches.values()), "both designs launched")
     del cases, k16
 
     # -- 3. main path: registry -> RS codec -> bank -> kernel -------------
-    gf_kernel.LAUNCHES = 0
-    for d in gf_kernel.LAUNCHES_BY_DESIGN:
-        gf_kernel.LAUNCHES_BY_DESIGN[d] = 0
+    gf_kernel.reset_launches()
     codec = registry.factory("torch_cuda", dict(PROFILE))
     check(codec.device.type == "cuda", "codec on the card by default")
     data = data_sets[0]
@@ -321,12 +338,13 @@ def main() -> int:
     check(disp.stats["dispatches"] < disp.stats["ops"], "ops coalesced")
     check(launches_disp > 0, "dispatcher launched the kernel")
     launches = gf_kernel.LAUNCHES
-    launches_by_design = dict(gf_kernel.LAUNCHES_BY_DESIGN)
+    launches_by_design = gf_kernel.launches_by_design()
     main_design = gf_kernel.kernel_design(M * W, K, W, dev)
     check(main_design == "bitsliced" and
           gf_kernel.kernel_design((K + M) * W, K, W, dev) == main_design,
           "the main path's geometry takes the bit-sliced design")
-    check(launches_by_design[main_design] == launches,
+    check(launches_by_design[main_design] == launches and
+          sum(launches_by_design.values()) == launches,
           "every main-path launch went to the bit-sliced design")
 
     # -- 5. kernels line --------------------------------------------------

@@ -110,6 +110,26 @@ def test_wide_words_match_xla(w, decode):
     assert np.array_equal(port_encode(bm, data, w), xla)
 
 
+@pytest.mark.parametrize("rows,k", [(512, 16), (1024, 8), (2048, 4)])
+def test_tall_random_bitmatrix_matches_xla(rows, k):
+    """w=8 bitmatrices too tall for the bit-sliced design's shared memory,
+    which the card runs on the popcount kernel, are taken by the wrapper."""
+    rng = np.random.default_rng(rows)
+    bm = rng.integers(0, 2, (rows, k * 8), dtype=np.uint8)
+    data = rng.integers(0, 256, size=(2, k, 96), dtype=np.uint8)
+    xla = np.asarray(jxor_mm.matrix_encode(jnp.asarray(bm),
+                                           jnp.asarray(data), 8))
+    assert np.array_equal(port_encode(bm, data), xla)
+
+
+def test_launch_counts_are_zero_before_a_build(monkeypatch):
+    monkeypatch.setattr(gf_kernel, "_lib", None)
+    monkeypatch.setattr(gf_kernel, "LAUNCHES", 5)
+    gf_kernel.reset_launches()
+    assert gf_kernel.LAUNCHES == 0
+    assert gf_kernel.launches_by_design() == {"popcount": 0, "bitsliced": 0}
+
+
 def test_xor_mm_routes_to_the_wrapper():
     _, bm = make_bitmat(8, 3)
     data = np.random.default_rng(5).integers(0, 256, (2, 8, 256),
@@ -180,10 +200,13 @@ def test_ptxas_report_reads_registers_and_spills(tmp_path, monkeypatch):
     (tmp_path / "k.log").write_text(PTXAS_LOG)
     monkeypatch.setattr(_build, "BUILD", tmp_path)
     assert _build.ptxas_report("k") == {
-        "gf_bitsliced_kernel<16>": {"stack": 0, "spill_stores": 0,
-                                    "spill_loads": 0, "registers": 168},
-        "gf_bitmatrix_kernel<32,16>": {"stack": 24, "spill_stores": 8,
-                                       "spill_loads": 12, "registers": 255},
+        "_ZN48_GLOBAL__N__a9876c8f_15_gf_bitmatrix_cu_87fc942319"
+        "gf_bitsliced_kernelILi16EEEvPKhiiS2_Phxxb": {
+            "stack": 0, "spill_stores": 0, "spill_loads": 0,
+            "registers": 168},
+        "_ZN12_GLOBAL__N_119gf_bitmatrix_kernelILi32ELi16EEEvPKhiiS2_Phxxb": {
+            "stack": 24, "spill_stores": 8, "spill_loads": 12,
+            "registers": 255},
     }
 
 

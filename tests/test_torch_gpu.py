@@ -8,8 +8,8 @@ without the reference installed:
 
 The CUDA kernel has no CPU mode; each test holds it against its plain
 PyTorch version on the card (tolerance: none, bit-exact), on both of its
-designs: bit-sliced for w=8 with k <= 16, popcount for every other
-geometry.
+designs: bit-sliced for w=8 with k <= 16 when the expanded bitmatrix fits
+in shared memory, popcount for every other geometry.
 """
 
 import itertools
@@ -49,16 +49,18 @@ def expected_design(k, w):
     return "bitsliced" if w == 8 and k * w <= 128 else "popcount"
 
 
-def held_against_plain(bm, data, w):
-    """One launch, byte-equal to the plain version, on the design the
-    geometry takes."""
-    design = expected_design(data.shape[-2], w)
+def held_against_plain(bm, data, w, design=None):
+    """One launch, as the entry point counts it, byte-equal to the plain
+    version, on the design the geometry takes."""
+    design = design or expected_design(data.shape[-2], w)
     assert gf_kernel.kernel_design(bm.shape[0], data.shape[-2], w,
                                    data.device) == design
-    before = gf_kernel.LAUNCHES_BY_DESIGN[design]
+    before = gf_kernel.launches_by_design()
     out = gf_kernel.matrix_encode(bm, data, w)
     torch.cuda.synchronize()
-    assert gf_kernel.LAUNCHES_BY_DESIGN[design] == before + 1
+    after = gf_kernel.launches_by_design()
+    assert {d: after[d] - before[d] for d in after} == {
+        d: int(d == design) for d in gf_kernel.DESIGNS}
     assert torch.equal(out, gf_kernel.matrix_encode_plain(bm, data, w))
 
 
@@ -92,6 +94,24 @@ def test_data_pointer_off_by_one_on_card(cuda, w, k, m):
     assert data.is_contiguous() and data.data_ptr() % 16 == 1
     for mat in bitmats(k, m, w):
         held_against_plain(torch.from_numpy(mat).to(cuda), data, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,k,design", [
+    (448, 16, "bitsliced"),   # E of 224 KiB fits the opt-in shared memory
+    (512, 16, "popcount"),    # 256 KiB does not, at KMAX = 16, 8 and 4
+    (1024, 8, "popcount"),
+    (2048, 4, "popcount"),
+])
+def test_shared_memory_limit_picks_the_design_on_card(cuda, rows, k, design):
+    """A w=8 bitmatrix whose expansion does not fit in shared memory takes
+    the popcount kernel."""
+    rng = np.random.default_rng(rows)
+    bm = torch.from_numpy(rng.integers(0, 2, (rows, k * 8),
+                                       dtype=np.uint8)).to(cuda)
+    data = torch.from_numpy(rng.integers(0, 256, (2, k, 32 * 70 + 9),
+                                         dtype=np.uint8)).to(cuda)
+    held_against_plain(bm, data, 8, design)
 
 
 @pytest.mark.gpu
