@@ -85,6 +85,12 @@ class ErasureCode(abc.ABC):
     @abc.abstractmethod
     def get_data_chunk_count(self) -> int: ...
 
+    #: True for codecs whose decode_batch accepts ANY recoverable row
+    #: subset (locality codecs: shec, lrc) rather than exactly k rows, and
+    #: takes the rows the caller wants (``want_rows``), enabling sub-k
+    #: local-repair reads.
+    DECODE_BATCH_ANY = False
+
     def get_coding_chunk_count(self) -> int:
         return self.get_chunk_count() - self.get_data_chunk_count()
 

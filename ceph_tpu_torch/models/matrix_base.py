@@ -1,15 +1,20 @@
 """Shared machinery for generator-matrix codecs (jerasure-style techniques).
 
-Port of ``ceph_tpu/models/matrix_base.py`` (``GeneratorCodec`` and
-``MatrixErasureCode``): element-layout GF(2^w) matrix codes (reed_sol_van,
-reed_sol_r6_op; jerasure_matrix_encode semantics of the reference
-jerasure plugin, src/erasure-code/jerasure/ErasureCodeJerasure.cc). The
-packet-layout bitmatrix codecs wait for a later slice.
+Port of ``ceph_tpu/models/matrix_base.py``. Covers both encode styles
+of the reference jerasure plugin
+(src/erasure-code/jerasure/ErasureCodeJerasure.cc):
+
+  - MatrixErasureCode: element-layout GF(2^w) matrix codes
+    (reed_sol_van, reed_sol_r6_op; jerasure_matrix_encode semantics),
+    applied by the GF bitmatrix kernel (:mod:`ceph_tpu_torch.ops.gf_kernel`).
+  - BitmatrixErasureCode: packet-layout bitmatrix codes
+    (cauchy_*, liberation, blaum_roth, liber8tion;
+    jerasure_schedule_encode semantics with `packetsize`), applied by the
+    packet kernel (:mod:`ceph_tpu_torch.ops.packet_kernel`).
 
 The generator (or cached decode matrix — the analog of
 ErasureCodeIsaTableCache, src/erasure-code/isa/ErasureCodeIsaTableCache.cc)
-expands to a 0/1 bitplane matrix applied by the GF bitmatrix kernel
-(:mod:`ceph_tpu_torch.ops.gf_kernel`).
+expands to a 0/1 bitplane matrix that the layout's kernel applies.
 
 Backends: "torch" (the device path; tensors on ``device``, CUDA by
 default) and "numpy" (the exact CPU reference of ``ops.gf_ref``, needing
@@ -184,7 +189,8 @@ class GeneratorCodec(ErasureCode):
         ([165, 88, 64] uint8 for k=8, m=3, w=8) and uploaded in ONE
         transfer to the codec's device. A cache miss then costs a view
         of the bank instead of a host matrix inversion and a per-miss
-        upload. The numpy backend has no device and builds no bank."""
+        upload. The numpy backend has no device, and a pure bitmatrix code
+        no GF generator: neither builds a bank."""
         if self._bank_state is None:
             with self._bank_lock:
                 if self._bank_state is None:
@@ -193,7 +199,7 @@ class GeneratorCodec(ErasureCode):
 
     def _build_decode_bank(self) -> None:
         n = self.get_chunk_count()
-        if self.backend != "torch" or \
+        if self.backend != "torch" or self.coding is None or \
                 math.comb(n, self.k) > self.DECODE_BANK_LIMIT:
             self._bank_state = "infeasible"
             return
@@ -317,9 +323,33 @@ class GeneratorCodec(ErasureCode):
 
     # -- batched device API -------------------------------------------------
 
+    def _host_apply(self, gf_matrix: np.ndarray, bitmat: np.ndarray,
+                    data: np.ndarray) -> np.ndarray:
+        """The numpy oracle of the layout on one [k, N] stripe."""
+        raise NotImplementedError
+
+    def _device_apply(self, bitmat: torch.Tensor,
+                      data: torch.Tensor) -> torch.Tensor:
+        """The layout's kernel on [B, k, N] tensors of one device."""
+        raise NotImplementedError
+
     def _apply_matrix(self, gf_matrix: np.ndarray, bitmat: np.ndarray,
                       data, entry: dict | None = None):
-        raise NotImplementedError
+        """[B, k, N] -> [B, R/w, N]: numpy in, numpy out; a tensor in, a
+        tensor out on the same device (the counterpart of the
+        reference's jax-array passthrough)."""
+        if self.backend == "numpy":
+            data = np.asarray(data, dtype=np.uint8)
+            return np.stack([self._host_apply(gf_matrix, bitmat, data[b])
+                             for b in range(data.shape[0])])
+        if isinstance(data, torch.Tensor):
+            return self._device_apply(
+                self._as_device(bitmat, entry, data.device),
+                data.contiguous())
+        out = self._device_apply(
+            self._as_device(bitmat, entry, self.device),
+            host_tensor(data).to(self.device))
+        return out.cpu().numpy()
 
     def encode_batch(self, data):
         return self._apply_matrix(self.coding, self._bitmat, data)
@@ -346,38 +376,89 @@ class MatrixErasureCode(GeneratorCodec):
             return self.k * self.w * LARGEST_VECTOR_WORDSIZE
         return self.k * self.w * 4
 
-    def _apply_matrix(self, gf_matrix, bitmat, data, entry=None):
-        """[B, k, N] -> [B, R/w, N]: numpy in, numpy out; a tensor in, a
-        tensor out on the same device (the counterpart of the
-        reference's jax-array passthrough)."""
-        if self.backend == "numpy":
-            data = np.asarray(data, dtype=np.uint8)
-            return np.stack([
-                gf_ref.matrix_encode_ref(gf_matrix, data[b], self.w)
-                for b in range(data.shape[0])])
-        if isinstance(data, torch.Tensor):
-            return xor_mm.matrix_encode(
-                self._as_device(bitmat, entry, data.device),
-                data.contiguous(), self.w)
-        out = xor_mm.matrix_encode(
-            self._as_device(bitmat, entry, self.device),
-            host_tensor(data).to(self.device), self.w)
-        return out.cpu().numpy()
+    def _host_apply(self, gf_matrix, bitmat, data):
+        return gf_ref.matrix_encode_ref(gf_matrix, data, self.w)
+
+    def _device_apply(self, bitmat, data):
+        return xor_mm.matrix_encode(bitmat, data, self.w)
 
 
-def load_numpy_state(codec: GeneratorCodec, coding: np.ndarray,
-                     bitmat: np.ndarray) -> None:
+class BitmatrixErasureCode(GeneratorCodec):
+    """Packet-layout bitmatrix codec (Cauchy / Liberation families).
+
+    Chunk layout: S superblocks x w packets x packetsize bytes
+    (jerasure_schedule_encode semantics; packetsize default 2048,
+    ErasureCodeJerasure.h:141). Decode converts the GF-domain decode
+    matrix to a bitmatrix — valid because gf.generator_to_bitmatrix is a
+    ring homomorphism, so the bitmatrix of the inverse is the inverse of
+    the bitmatrix. Nothing of the decode bank is specific to a layout, so
+    a small signature space (liber8tion's 45) rides the bank too.
+    """
+
+    DEFAULT_PACKETSIZE = "2048"
+
+    def __init__(self, backend: str = "torch", device=None):
+        super().__init__(backend, device)
+        self.packetsize = 0
+
+    def parse(self, profile: dict, errors: list | None = None) -> None:
+        super().parse(profile, errors)
+        self.packetsize = profile_util.to_int(
+            "packetsize", profile, self.DEFAULT_PACKETSIZE, errors)
+        if self.packetsize < 1:
+            raise ErasureCodeError(
+                errno.EINVAL, "packetsize=%d must be >= 1" % self.packetsize)
+        self.per_chunk_alignment = profile_util.to_bool(
+            "jerasure-per-chunk-alignment", profile, "false")
+
+    def require_word_packetsize(self) -> None:
+        """jerasure's liberation-family constraint: packetsize must cover
+        whole machine words (shared by liberation/blaum_roth/liber8tion)."""
+        if self.packetsize % 8:
+            raise ErasureCodeError(
+                errno.EINVAL,
+                "packetsize=%d must be a multiple of 8" % self.packetsize)
+
+    def get_alignment(self) -> int:
+        # ErasureCodeJerasure.cc:273-287; per-chunk alignment must stay a
+        # multiple of the w*packetsize superblock or encode would reject
+        # its own chunk size (lcm, not roundup)
+        if self.per_chunk_alignment:
+            return math.lcm(self.w * self.packetsize,
+                            LARGEST_VECTOR_WORDSIZE)
+        if (self.w * self.packetsize * 4) % LARGEST_VECTOR_WORDSIZE:
+            return self.k * self.w * self.packetsize * LARGEST_VECTOR_WORDSIZE
+        return self.k * self.w * self.packetsize * 4
+
+    def _host_apply(self, gf_matrix, bitmat, data):
+        return gf_ref.bitmatrix_encode_ref(bitmat, data, self.w,
+                                           self.packetsize)
+
+    def _device_apply(self, bitmat, data):
+        return xor_mm.bitmatrix_encode(bitmat, data, self.w, self.packetsize)
+
+
+def load_numpy_state(codec: GeneratorCodec, coding: np.ndarray | None,
+                     bitmat: np.ndarray, packetsize: int = 0) -> None:
     """Take a reference codec's ``coding`` and ``_bitmat`` numpy arrays
-    into a port codec, so both packages hold the same generator. Raises
-    ValueError if they differ from what the port derived itself."""
-    coding = np.asarray(coding, dtype=np.int64)
-    bitmat = np.asarray(bitmat, dtype=np.uint8)
-    if coding.shape != codec.coding.shape or \
-            not np.array_equal(coding, codec.coding):
+    (``coding`` None for a pure bitmatrix code) and its ``packetsize``
+    (0 for the element layout) into a port codec, so both packages hold
+    the same generator. Raises ValueError if they differ from what the
+    port derived itself."""
+    if (coding is None) != (codec.coding is None):
         raise ValueError("coding matrix differs from the port's")
+    if coding is not None:
+        coding = np.asarray(coding, dtype=np.int64)
+        if coding.shape != codec.coding.shape or \
+                not np.array_equal(coding, codec.coding):
+            raise ValueError("coding matrix differs from the port's")
+    bitmat = np.asarray(bitmat, dtype=np.uint8)
     if bitmat.shape != codec._bitmat.shape or \
             not np.array_equal(bitmat, codec._bitmat):
         raise ValueError("bitmatrix differs from the port's")
-    codec.coding = coding.copy()
+    if packetsize != getattr(codec, "packetsize", 0):
+        raise ValueError("packetsize %d differs from the port's %d"
+                         % (packetsize, getattr(codec, "packetsize", 0)))
+    codec.coding = None if coding is None else coding.copy()
     codec._bitmat = bitmat.copy()
     codec._reset_tables()

@@ -1,7 +1,6 @@
 """Galois-field GF(2^w) arithmetic and generator-matrix construction.
 
-Port of ``ceph_tpu/ops/gf.py`` (a numpy copy; the Cauchy constructions
-wait for the slice that ports the Cauchy techniques). This is the
+Port of ``ceph_tpu/ops/gf.py`` (a numpy copy). This is the
 host-side math that prepares the (tiny) generator / decode matrices; the
 bulk per-byte work never happens here — it is compiled into binary
 "bitplane" matrices (see :func:`generator_to_bitmatrix`) and executed by
@@ -103,6 +102,10 @@ def gf_inv(a: int, w: int) -> int:
     if a == 0:
         raise ZeroDivisionError("GF inverse of 0")
     return gf_pow(a, (1 << w) - 2, w)
+
+
+def gf_div(a: int, b: int, w: int) -> int:
+    return gf_mult(a, gf_inv(b, w), w)
 
 
 # ---------------------------------------------------------------------------
@@ -269,6 +272,60 @@ def rs_r6_generator(k: int, w: int) -> np.ndarray:
     gen[0, :] = 1
     for j in range(k):
         gen[1, j] = gf_pow(2, j, w)
+    return gen
+
+
+def cauchy_original_generator(k: int, m: int, w: int) -> np.ndarray:
+    """[m, k] Cauchy matrix C[i, j] = 1 / (i XOR (m + j)).
+
+    X = {0..m-1} and Y = {m..m+k-1} are disjoint so i^(m+j) != 0; every
+    square submatrix of a Cauchy matrix is invertible (MDS). Mirrors
+    cauchy_original_coding_matrix (ErasureCodeJerasure.cc:310).
+    """
+    if k + m > (1 << w):
+        raise ValueError("k+m=%d exceeds field size 2^%d" % (k + m, w))
+    gen = np.zeros((m, k), dtype=np.int64)
+    for i in range(m):
+        for j in range(k):
+            gen[i, j] = gf_inv(i ^ (m + j), w)
+    return gen
+
+
+@functools.lru_cache(maxsize=1 << 16)
+def _bitmatrix_ones(g: int, w: int) -> int:
+    return int(gf_mult_bitmatrix(g, w).sum())
+
+
+def cauchy_good_generator(k: int, m: int, w: int) -> np.ndarray:
+    """Cauchy matrix optimized to reduce bitmatrix density (XOR count).
+
+    Row/column scaling preserves the Cauchy (MDS) property. Normalizes
+    column j by C[0,j] and then scales each subsequent row by the divisor
+    minimizing the total number of ones in its bitmatrix — the same
+    objective as cauchy_good_general_coding_matrix
+    (ErasureCodeJerasure.cc:320).
+    """
+    gen = cauchy_original_generator(k, m, w)
+    # Make first row all ones.
+    for j in range(k):
+        f = gf_inv(int(gen[0, j]), w)
+        for i in range(m):
+            gen[i, j] = gf_mult(int(gen[i, j]), f, w)
+    # Scale each later row to minimize total bitmatrix ones; candidate
+    # divisors are the row's own elements (dividing by one of them puts a 1
+    # in the row), which keeps the search cheap for w=16/32.
+    for i in range(1, m):
+        best_div, best_cost = 1, None
+        for div in sorted({int(g) for g in gen[i]}):
+            cost = 0
+            dinv = gf_inv(div, w)
+            for j in range(k):
+                cost += _bitmatrix_ones(gf_mult(int(gen[i, j]), dinv, w), w)
+            if best_cost is None or cost < best_cost:
+                best_div, best_cost = div, cost
+        dinv = gf_inv(best_div, w)
+        for j in range(k):
+            gen[i, j] = gf_mult(int(gen[i, j]), dinv, w)
     return gen
 
 

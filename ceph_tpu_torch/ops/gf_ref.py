@@ -1,19 +1,26 @@
 """Exact numpy reference implementations of the codec math (the oracle).
 
-Port of ``ceph_tpu/ops/gf_ref.py`` (a numpy copy of the element layout;
-the packet layout waits for the bitmatrix techniques' slice).
+Port of ``ceph_tpu/ops/gf_ref.py`` (a numpy copy).
 
 Everything the GPU kernels produce must be bit-identical to these functions
 (BASELINE.md correctness gate: "jax_tpu output bit-identical to the CPU
 reference implementation for the same profile"). They are deliberately
 simple and unoptimized.
 
-The layout ported here is the "matrix" (element) layout of the
-reference's jerasure plugin (src/erasure-code/jerasure/ErasureCodeJerasure.cc):
-a chunk is a flat array of w-bit little-endian elements; parity element p =
-sum_GF gen[i,j] * data element at the same position (jerasure_matrix_encode
-semantics, w in {8,16,32}). It reduces to an XOR-accumulated selection,
-i.e. a binary matmul mod 2.
+Two data layouts exist, mirroring the two encode styles of the reference's
+jerasure plugin (src/erasure-code/jerasure/ErasureCodeJerasure.cc):
+
+  - "matrix" (element) layout: a chunk is a flat array of w-bit
+    little-endian elements; parity element p = sum_GF gen[i,j] * data
+    element at the same position (jerasure_matrix_encode semantics, w in
+    {8,16,32}).
+
+  - "bitmatrix" (packet) layout: a chunk is S superblocks of w packets of
+    `packetsize` bytes; output packet r of a superblock is the XOR of the
+    input packets selected by row r of the bitmatrix
+    (jerasure_schedule_encode semantics used by Cauchy/Liberation).
+
+Both reduce to XOR-accumulated selections, i.e. binary matmul mod 2.
 """
 
 from __future__ import annotations
@@ -90,21 +97,55 @@ def _pack_element_bits(bits: np.ndarray, m: int, w: int) -> np.ndarray:
     return byts.reshape(m, ne * wb)
 
 
-def decode_ref(coding: np.ndarray, k: int, w: int, chunks: dict) -> dict:
+def bitmatrix_encode_ref(bitmatrix: np.ndarray, data: np.ndarray, w: int,
+                         packetsize: int) -> np.ndarray:
+    """Packet-layout bitmatrix encode. data: [k, N] uint8 -> [rows//w, N].
+
+    N must be a multiple of w * packetsize.
+    """
+    bitmatrix = np.asarray(bitmatrix, dtype=np.uint8)
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    rows, cols = bitmatrix.shape
+    k = data.shape[0]
+    assert cols == k * w
+    n = data.shape[1]
+    assert n % (w * packetsize) == 0
+    s = n // (w * packetsize)
+    pk = data.reshape(k, s, w, packetsize)
+    pk = np.moveaxis(pk, 0, 1).reshape(s, k * w, packetsize)
+    out = np.zeros((s, rows, packetsize), dtype=np.uint8)
+    for r in range(rows):
+        sel = np.nonzero(bitmatrix[r])[0]
+        if len(sel):
+            out[:, r, :] = np.bitwise_xor.reduce(pk[:, sel, :], axis=1)
+    m = rows // w
+    out = np.moveaxis(out.reshape(s, m, w, packetsize), 1, 0)
+    return out.reshape(m, n)
+
+
+def decode_ref(coding: np.ndarray, k: int, w: int,
+               chunks: dict, layout="matrix", packetsize: int = 0) -> dict:
     """Reconstruct all k+m chunks from any >=k available ones (oracle).
 
-    chunks maps chunk index -> [N] uint8. Returns the full dict.
+    chunks maps chunk index -> [N] uint8. Returns the full dict. layout
+    "matrix" is the element layout; any other value the packet layout of
+    `packetsize`-byte packets.
     """
     coding = np.asarray(coding, dtype=np.int64)
     m = coding.shape[0]
     avail = sorted(chunks)
-    data_avail = [i for i in avail]
-    use = data_avail[:k]
+    use = avail[:k]
     dec = gf.decode_matrix(coding, k, use, w)
     stacked = np.stack([chunks[i] for i in use])
-    data = matrix_encode_ref(dec, stacked, w)
+    if layout == "matrix":
+        data = matrix_encode_ref(dec, stacked, w)
+        parity = matrix_encode_ref(coding, data, w)
+    else:
+        data = bitmatrix_encode_ref(gf.generator_to_bitmatrix(dec, w),
+                                    stacked, w, packetsize)
+        parity = bitmatrix_encode_ref(gf.generator_to_bitmatrix(coding, w),
+                                      data, w, packetsize)
     out = {i: data[i] for i in range(k)}
-    parity = matrix_encode_ref(coding, data, w)
     for i in range(m):
         out[k + i] = parity[i]
     for i in avail:

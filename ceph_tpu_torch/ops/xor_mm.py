@@ -67,3 +67,34 @@ def matrix_encode(bitmat: torch.Tensor, data: torch.Tensor,
     on a CUDA tensor and its plain version on a CPU tensor."""
     from .gf_kernel import matrix_encode as kernel_encode
     return kernel_encode(bitmat, data, w)
+
+
+def bitmatrix_encode_plain(bitmat: torch.Tensor, data: torch.Tensor, w: int,
+                           packetsize: int) -> torch.Tensor:
+    """Packet-layout bitmatrix encode in plain PyTorch: [..., k, N] uint8
+    -> [..., R/w, N], N a multiple of w*packetsize (ref
+    ``ceph_tpu/ops/xor_mm.py:110``). Each superblock's k*w packets are
+    unpacked to bits, multiplied by the 0/1 bitmatrix and packed back."""
+    *lead, k, n = data.shape
+    m = bitmat.shape[0] // w
+    p = packetsize
+    s = n // (w * p)
+    pk = data.reshape(*lead, k, s, w, p).movedim(-4, -3)  # [..., s, k, w, p]
+    pk = pk.reshape(*lead, s, k * w, p)
+    shifts = torch.arange(8, dtype=torch.uint8, device=data.device)
+    bits = ((pk[..., None] >> shifts) & 1).reshape(*lead, s, k * w, p * 8)
+    out_bits = xor_matmul(bitmat, bits)                   # [..., s, m*w, p*8]
+    x = out_bits.reshape(*lead, s, m * w, p, 8)
+    byts = (x << shifts).sum(dim=-1, dtype=torch.uint8)   # [..., s, m*w, p]
+    byts = byts.reshape(*lead, s, m, w, p).movedim(-4, -3)
+    return byts.reshape(*lead, m, n)
+
+
+def bitmatrix_encode(bitmat: torch.Tensor, data: torch.Tensor, w: int,
+                     packetsize: int) -> torch.Tensor:
+    """Packet-layout bitmatrix encode: [..., k, N] uint8 -> [..., R/w, N]
+    (the Cauchy and Liberation techniques). Runs the hand-written GPU
+    kernel on a CUDA tensor and :func:`bitmatrix_encode_plain` on a CPU
+    tensor."""
+    from .packet_kernel import bitmatrix_encode as kernel_encode
+    return kernel_encode(bitmat, data, w, packetsize)

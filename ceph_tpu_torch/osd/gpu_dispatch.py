@@ -265,8 +265,10 @@ class GpuDispatcher:
     def _codec_key(codec):
         """Identity BY VALUE: every PG backend holds its own codec
         instance, so keying on id() would never coalesce across PGs.
-        Codecs with the same generator bitmatrix compute the same
-        function."""
+        Codecs with the same generator bitmatrix and packetsize compute
+        the same function; the packetsize is part of the key because two
+        packet-layout codecs of one bitmatrix and chunk size but another
+        packetsize compute different functions."""
         cached = getattr(codec, "_dispatch_key", None)
         if cached is not None:
             return cached
@@ -275,7 +277,8 @@ class GpuDispatcher:
             # full digest, not hash(): a 64-bit hash collision between
             # two generators of the same shape would silently coalesce
             # different codecs into one dispatch and return wrong bytes
-            key = (type(codec).__name__, getattr(codec, "w", 0), bm.shape,
+            key = (type(codec).__name__, getattr(codec, "w", 0),
+                   getattr(codec, "packetsize", 0), bm.shape,
                    hashlib.sha256(bm.tobytes()).digest())
         else:
             key = ("id", id(codec))

@@ -7,9 +7,15 @@ duplicate registration (EEXIST), version-gates loaded plugins (EXDEV),
 and constructs codecs from profiles (factory, ErasureCodePlugin.cc:92-120)
 with a profile echo check (:114-118).
 
-Built-in plugin:
-  torch_cuda   the GPU-batched backend (counterpart of ``jax_tpu``):
-               reed_sol_van (the default) and reed_sol_r6_op
+Built-in plugins (the counterparts of ``jax_tpu``, ``shec_tpu`` and
+``lrc_tpu``):
+  torch_cuda   the seven jerasure techniques: reed_sol_van (the default)
+               and reed_sol_r6_op (element layout), cauchy_orig,
+               cauchy_good, liberation, blaum_roth and liber8tion (packet
+               layout)
+  shec_cuda    SHEC, techniques multiple (the default) and single
+  lrc_cuda     LRC, its layers' inner codecs through this registry
+               (``torch_cuda`` unless a layer names another plugin)
 
 ``factory`` takes the device the codec runs on (default ``cuda``; it
 raises when CUDA is absent unless ``device="cpu"`` is passed).
@@ -59,17 +65,44 @@ class _TechniquePlugin(ErasureCodePlugin):
         return codec
 
 
-def _rs_techniques():
-    from .models import rs
+class _LrcPlugin(ErasureCodePlugin):
+    def __init__(self, backend: str):
+        self.backend = backend
+
+    def factory(self, profile, errors=None, device=None):
+        from .models.lrc import Lrc
+        codec = Lrc(backend=self.backend, device=device)
+        codec.init(profile, errors)
+        return codec
+
+
+def _jerasure_techniques():
+    from .models import cauchy, liberation, rs
     return {
         "reed_sol_van": rs.ReedSolomonVandermonde,
         "reed_sol_r6_op": rs.ReedSolomonRAID6,
+        "cauchy_orig": cauchy.CauchyOrig,
+        "cauchy_good": cauchy.CauchyGood,
+        "liberation": liberation.Liberation,
+        "blaum_roth": liberation.BlaumRoth,
+        "liber8tion": liberation.Liber8tion,
+    }
+
+
+def _shec_techniques():
+    from .models import shec
+    return {
+        "multiple": shec.ShecMultiple,
+        "single": shec.ShecSingle,
     }
 
 
 _BUILTIN_LOADERS = {
-    "torch_cuda": lambda: _TechniquePlugin(_rs_techniques(), "torch",
+    "torch_cuda": lambda: _TechniquePlugin(_jerasure_techniques(), "torch",
                                            default_technique="reed_sol_van"),
+    "shec_cuda": lambda: _TechniquePlugin(_shec_techniques(), "torch",
+                                          default_technique="multiple"),
+    "lrc_cuda": lambda: _LrcPlugin("torch"),
 }
 
 

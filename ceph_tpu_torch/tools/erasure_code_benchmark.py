@@ -16,11 +16,23 @@ Device extensions: ``--device`` names the torch device the codec runs on
 (default ``cuda``; the run fails when CUDA is absent unless ``--device cpu``
 is given). ``--batch B`` encodes B objects per kernel launch through the
 codec's batched API, with the tensors kept on the device — the shape the
-per-stripe CPU loop (src/osd/ECUtil.cc:116) cannot express. Default
---batch 1 keeps the reference protocol exactly.
+per-stripe CPU loop (src/osd/ECUtil.cc:116) cannot express; a batched
+decode goes through ``decode_batch`` on the device, with the first k
+survivors for an MDS codec and every survivor plus ``want_rows`` for a
+locality codec (SHEC, LRC). Default --batch 1 keeps the reference
+protocol exactly. A locality codec may have more parity chunks than m
+(LRC adds one local parity per group); the chunk count is the codec's.
 
-Run: ``python -m ceph_tpu_torch.tools.erasure_code_benchmark -p torch_cuda
--P k=8 -P m=3 -s 1048576 --batch 16 -i 20``.
+Run, for the Reed-Solomon main path and the BASELINE's other codecs:
+
+    python -m ceph_tpu_torch.tools.erasure_code_benchmark -p torch_cuda \
+        -P k=8 -P m=3 -s 1048576 --batch 16 -i 20
+    ... -p torch_cuda -P technique=cauchy_good -P k=10 -P m=4 \
+        -P packetsize=2048 -s 1048576 --batch 16 -i 20
+    ... -p lrc_cuda -P k=4 -P m=2 -P l=3 -w decode --erased 0 --erased 5 \
+        -s 1048576 --batch 16 -i 20
+    ... -p shec_cuda -P k=8 -P m=4 -P c=3 -w decode -e 2 \
+        -s 1048576 --batch 16 -i 20
 """
 
 from __future__ import annotations
@@ -116,7 +128,8 @@ class ErasureCodeBench:
         codec = registry.factory(self.plugin, self.profile,
                                  device=self.device)
         k, n = codec.get_data_chunk_count(), codec.get_chunk_count()
-        if k != self.k or n - k != self.m:
+        locality = codec.DECODE_BATCH_ANY and n - k > self.m
+        if k != self.k or (n - k != self.m and not locality):
             raise ErasureCodeError(
                 22,
                 "parameter k is %d/m is %d. But data chunk count is %d/"
@@ -139,9 +152,14 @@ class ErasureCodeBench:
 
     # -- encode --------------------------------------------------------
 
+    def _device_batch(self, codec) -> torch.Tensor:
+        return torch.from_numpy(np.stack(
+            [codec.encode_prepare(self._input())
+             for _ in range(self.batch)])).to(self.device)
+
     def encode(self) -> int:
         codec = self._factory()
-        want = set(range(self.k + self.m))
+        want = set(range(codec.get_chunk_count()))
         if self.batch == 1:
             raw = self._input()
             t0 = time.perf_counter()
@@ -149,9 +167,7 @@ class ErasureCodeBench:
                 codec.encode(want, raw)
             elapsed = time.perf_counter() - t0
         else:
-            data = torch.from_numpy(np.stack(
-                [codec.encode_prepare(self._input())
-                 for _ in range(self.batch)])).to(self.device)
+            data = self._device_batch(codec)
             codec.encode_batch(data)  # warmup/build outside the clock
             self._sync()
             t0 = time.perf_counter()
@@ -192,9 +208,58 @@ class ErasureCodeBench:
                 return -1
         return 0
 
+    def _erasure_patterns(self, n: int):
+        """The erased chunks of each iteration: the --erased list, every
+        combination (exhaustive) or --erasures chunks at random."""
+        if self.erased:
+            return [tuple(sorted(set(self.erased)))] * self.max_iterations
+        if self.exhaustive:
+            return list(itertools.combinations(range(n), self.erasures))
+        rng = random.Random()
+        return [tuple(sorted(rng.sample(range(n), self.erasures)))
+                for _ in range(self.max_iterations)]
+
+    def _decode_batched(self, codec) -> int:
+        """--batch B: each pattern's survivors of B device-resident
+        objects through one decode_batch, the full batch verified."""
+        k, n = codec.get_data_chunk_count(), codec.get_chunk_count()
+        data = self._device_batch(codec)
+        full = torch.cat([data, torch.as_tensor(
+            codec.encode_batch(data), device=self.device)], 1)
+        calls = []
+        for erased in self._erasure_patterns(n):
+            survivors = tuple(i for i in range(n) if i not in erased)
+            if codec.DECODE_BATCH_ANY:
+                calls.append((survivors, tuple(range(n))))
+            else:
+                calls.append((survivors[:k], None))
+        chunks = {a: full[:, list(a)].contiguous() for a, _ in calls}
+
+        def decode(avail, want_rows):
+            if want_rows is None:
+                return codec.decode_batch(avail, chunks[avail])
+            return codec.decode_batch(avail, chunks[avail],
+                                      want_rows=want_rows)
+        for avail, want_rows in dict.fromkeys(calls):
+            if not torch.equal(decode(avail, want_rows), full):
+                print("decode of survivors %s differs from the encoded "
+                      "chunks" % (avail,), file=sys.stderr)
+                return -1
+        self._sync()
+        t0 = time.perf_counter()
+        for avail, want_rows in calls:
+            decode(avail, want_rows)
+        self._sync()
+        elapsed = time.perf_counter() - t0
+        print("%.6f\t%d" % (elapsed,
+                             len(calls) * self.batch * (self.in_size // 1024)))
+        return 0
+
     def decode(self) -> int:
         codec = self._factory()
-        want = set(range(self.k + self.m))
+        if self.batch > 1:
+            return self._decode_batched(codec)
+        want = set(range(codec.get_chunk_count()))
         encoded = codec.encode(want, self._input())
 
         if self.erased:
@@ -215,7 +280,7 @@ class ErasureCodeBench:
                 chunks = dict(encoded)
                 for _ in range(self.erasures):
                     while True:
-                        erasure = rng.randrange(self.k + self.m)
+                        erasure = rng.randrange(codec.get_chunk_count())
                         if erasure in chunks:
                             break
                     del chunks[erasure]

@@ -48,3 +48,12 @@ def gf_bound(bitmat, data, out, w: int) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT8_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def packet_bound(bitmat, data, out) -> tuple[float, str]:
+    """Least time (ms) of a packet-layout bitmatrix product by the rule of
+    :func:`gf_bound`: the [R, k*w] bitmatrix applied to B*S*P*8 bit
+    columns (S superblocks of w packets of P bytes in each of the B
+    stripes). That count equals gf_bound's B*N*8/w, so both layouts are
+    judged by one yardstick."""
+    return gf_bound(bitmat, data, out, bitmat.shape[1] // data.shape[-2])

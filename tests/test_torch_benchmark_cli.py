@@ -38,6 +38,33 @@ def test_exhaustive_decode_verifies_every_pattern(capsys):
     assert REPORT.match(cap.out.strip().splitlines()[-1])
 
 
+BASELINE_CODECS = {
+    "cauchy_good": ["-p", "torch_cuda", "-P", "technique=cauchy_good",
+                    "-P", "k=10", "-P", "m=4", "-P", "packetsize=64"],
+    "lrc": ["-p", "lrc_cuda", "-P", "k=4", "-P", "m=2", "-P", "l=3"],
+    "shec": ["-p", "shec_cuda", "-P", "k=8", "-P", "m=4", "-P", "c=3"],
+}
+DECODES = {"cauchy_good": ["-e", "4"], "lrc": ["--erased", "0", "--erased",
+                                                "5"], "shec": ["-e", "2"]}
+
+
+@pytest.mark.parametrize("batch", ["1", "2"])
+@pytest.mark.parametrize("workload", ["encode", "decode"])
+@pytest.mark.parametrize("codec", sorted(BASELINE_CODECS))
+def test_baseline_codecs_encode_and_decode(capsys, codec, workload, batch):
+    """The BASELINE's other codecs through the CLI; a batched decode
+    checks every reconstruction against the encoded chunks."""
+    argv = [*BASELINE_CODECS[codec], "--device", "cpu", "-s", "65536",
+            "-i", "2", "--batch", batch, "-w", workload]
+    if workload == "decode":
+        argv += DECODES[codec]
+    rc = bench.main(argv)
+    cap = capsys.readouterr()
+    assert rc == 0, cap.err
+    match = REPORT.match(cap.out.strip().splitlines()[-1])
+    assert match and int(match.group(1)) == 2 * int(batch) * 64
+
+
 def test_random_decode_and_bad_parameters(capsys):
     rc, cap = run(capsys, "-s", "8192", "-w", "decode", "-e", "2", "-i", "4")
     assert rc == 0 and REPORT.match(cap.out.strip())

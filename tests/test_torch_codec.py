@@ -147,9 +147,10 @@ def test_more_than_m_erased_is_eio():
 
 def test_unknown_technique_and_plugin_are_enoent():
     with pytest.raises(ErasureCodeError) as e:
-        port_codec({"technique": "cauchy_good", "k": "8", "m": "3"})
+        port_codec({"technique": "reed_sol_bogus", "k": "8", "m": "3"})
     assert e.value.errno == errno.ENOENT
     assert "reed_sol_van" in str(e.value) and "reed_sol_r6_op" in str(e.value)
+    assert "cauchy_good" in str(e.value) and "liber8tion" in str(e.value)
     with pytest.raises(ErasureCodeError) as e:
         registry.factory("jerasure", dict(PROFILE), device="cpu")
     assert e.value.errno == errno.ENOENT

@@ -162,3 +162,50 @@ def test_trace_gets_queue_and_device_segments(setup):
                      ("gpu_device", "h2d"), ("gpu_device", "compute"),
                      ("gpu_device", "d2h")]
     assert log[1][2] == {"batch": 2, "coalesced": 1}
+
+
+def test_packetsize_keeps_codecs_apart():
+    """Two cauchy_good codecs of one bitmatrix and chunk size but another
+    packetsize compute different functions: they get different keys, and
+    a coalescing run that interleaves them returns the right bytes for
+    both (each equal to the JAX codec of its packetsize)."""
+    profiles = [{"technique": "cauchy_good", "k": "4", "m": "2",
+                 "packetsize": str(p)} for p in (8, 32)]
+    codecs = [registry.factory("torch_cuda", dict(p), device="cpu")
+              for p in profiles]
+    assert np.array_equal(codecs[0]._bitmat, codecs[1]._bitmat)
+    keys = {GpuDispatcher._codec_key(c) for c in codecs}
+    assert len(keys) == 2
+    data = np.random.default_rng(3).integers(0, 256, (16, 4, 1024),
+                                             dtype=np.uint8)
+    expect = [np.asarray(jregistry.factory("jax_tpu", dict(p))
+                         .encode_batch(data)) for p in profiles]
+    assert not np.array_equal(expect[0], expect[1])
+    full = [np.concatenate([data, e], axis=1) for e in expect]
+    avail = (1, 2, 4, 5)
+    disp = GpuDispatcher(device="cpu", max_delay=0.01)
+    errors = []
+
+    def submitter(tid):
+        r = random.Random(tid)
+        try:
+            for _ in range(ITERS):
+                c = r.randrange(2)
+                i = r.randrange(16 - PER_OP + 1)
+                sl = slice(i, i + PER_OP)
+                f_enc = disp.encode_async(codecs[c], data[sl])
+                f_dec = disp.decode_async(codecs[c], avail,
+                                          full[c][sl][:, list(avail)])
+                if not np.array_equal(f_enc.result(60), expect[c][sl]):
+                    errors.append("encode %d" % c)
+                if not np.array_equal(f_dec.result(60), full[c][sl]):
+                    errors.append("decode %d" % c)
+        except Exception as e:
+            errors.append(repr(e))
+
+    try:
+        run_threads(submitter)
+    finally:
+        disp.shutdown()
+    assert errors == []
+    assert disp.stats["dispatches"] < disp.stats["ops"]

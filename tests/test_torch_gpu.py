@@ -6,10 +6,13 @@ without the reference installed:
 
     python -m pytest tests/test_torch_gpu.py --noconftest -q
 
-The CUDA kernel has no CPU mode; each test holds it against its plain
-PyTorch version on the card (tolerance: none, bit-exact), on both of its
-designs: bit-sliced for w=8 with k <= 16 when the expanded bitmatrix fits
-in shared memory, popcount for every other geometry.
+The CUDA kernels have no CPU mode; each test holds one against its plain
+PyTorch version on the card (tolerance: none, bit-exact). The GF
+bitmatrix kernel on both of its designs: bit-sliced for w=8 with k <= 16
+when the expanded bitmatrix fits in shared memory, popcount for every
+other geometry. The packet kernel on both of its paths: 16-byte columns
+when the packetsize is a multiple of 16 and both pointers are aligned,
+byte columns otherwise.
 """
 
 import itertools
@@ -19,7 +22,7 @@ import pytest
 import torch
 
 from ceph_tpu_torch import registry
-from ceph_tpu_torch.ops import gf, gf_kernel, gf_ref
+from ceph_tpu_torch.ops import gf, gf_kernel, gf_ref, packet_kernel, xor_mm
 from ceph_tpu_torch.osd.gpu_dispatch import GpuDispatcher
 
 PROFILE = {"technique": "reed_sol_van", "k": "8", "m": "3", "w": "8"}
@@ -159,3 +162,99 @@ def test_dispatcher_on_card(cuda):
     finally:
         disp.shutdown()
     assert disp.stats["dispatches"] < disp.stats["ops"]
+
+
+# -- the packet-layout kernel (csrc/gf_packet.cu) ----------------------------
+
+def packet_held_against_plain(bm, data, w, packetsize):
+    """One launch, on the path the geometry and alignment take, byte-equal
+    to the plain version."""
+    path = "vector" if packetsize % 16 == 0 and data.data_ptr() % 16 == 0 \
+        else "byte"
+    before = packet_kernel.launches_by_path()
+    count = packet_kernel.LAUNCHES
+    out = packet_kernel.bitmatrix_encode(bm, data, w, packetsize)
+    torch.cuda.synchronize()
+    after = packet_kernel.launches_by_path()
+    assert {p: after[p] - before[p] for p in after} == {
+        p: int(p == path) for p in packet_kernel.PATHS}
+    assert packet_kernel.LAUNCHES == count + 1
+    assert torch.equal(out, xor_mm.bitmatrix_encode_plain(bm, data, w,
+                                                          packetsize))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 16])
+@pytest.mark.parametrize("packetsize", [3, 8, 24, 2048, 8192])
+@pytest.mark.parametrize("w", [7, 8, 16, 32])
+def test_packet_kernel_matches_plain_on_card(cuda, w, packetsize, batch):
+    rng = np.random.default_rng(w * 100 + packetsize + batch)
+    k, m = 3, 2
+    supers = 3 if batch == 1 else 2
+    bm = torch.from_numpy(rng.integers(0, 2, (m * w, k * w),
+                                       dtype=np.uint8)).to(cuda)
+    data = torch.from_numpy(rng.integers(
+        0, 256, (batch, k, supers * w * packetsize), dtype=np.uint8)).to(cuda)
+    packet_held_against_plain(bm, data, w, packetsize)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packetsize", [8, 2048])
+def test_packet_kernel_data_pointer_off_by_one_on_card(cuda, packetsize):
+    """A contiguous view one byte into a larger buffer takes the byte path."""
+    w, k, m = 8, 4, 2
+    n = 3 * w * packetsize
+    buf = torch.from_numpy(np.random.default_rng(packetsize).integers(
+        0, 256, 2 * k * n + 1, dtype=np.uint8)).to(cuda)
+    data = buf[1:].view(2, k, n)
+    assert data.is_contiguous() and data.data_ptr() % 16 == 1
+    bm = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 2, (m * w, k * w), dtype=np.uint8)).to(cuda)
+    packet_held_against_plain(bm, data, w, packetsize)
+
+
+@pytest.mark.gpu
+def test_packet_kernel_cauchy_encode_and_decode_bitmatrices_on_card(cuda):
+    coding = gf.cauchy_good_generator(10, 4, 8)
+    data = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 256, (2, 10, 4 * 8 * 2048), dtype=np.uint8)).to(cuda)
+    for mat in (gf.generator_to_bitmatrix(coding, 8),
+                decode_bitmat(coding, 10, tuple(range(4, 14)), 8)):
+        packet_held_against_plain(torch.from_numpy(mat).to(cuda), data, 8,
+                                  2048)
+
+
+@pytest.mark.gpu
+def test_packet_kernel_past_shared_memory_raises_on_card(cuda):
+    bm = torch.zeros((1792, 1024), dtype=torch.uint8, device=cuda)
+    data = torch.zeros((1, 32, 64), dtype=torch.uint8, device=cuda)
+    count = packet_kernel.LAUNCHES
+    with pytest.raises(ValueError, match="shared memory"):
+        packet_kernel.bitmatrix_encode(bm, data, 32, 2)
+    assert packet_kernel.LAUNCHES == count
+
+
+@pytest.mark.gpu
+def test_cauchy_shec_lrc_codecs_on_card(cuda):
+    rng = np.random.default_rng(9)
+    cauchy = registry.factory("torch_cuda", {
+        "technique": "cauchy_good", "k": "10", "m": "4",
+        "packetsize": "2048"})
+    shec = registry.factory("shec_cuda", {"k": "8", "m": "4", "c": "3"})
+    lrc = registry.factory("lrc_cuda", {"k": "4", "m": "2", "l": "3"})
+    for codec, erased in ((cauchy, (0, 1, 2, 3)), (shec, (2, 9)),
+                          (lrc, (0, 5))):
+        assert codec.device.type == "cuda"
+        k, n = codec.get_data_chunk_count(), codec.get_chunk_count()
+        size = codec.get_chunk_size(k * 65536)
+        data = torch.from_numpy(rng.integers(0, 256, (2, k, size),
+                                             dtype=np.uint8)).to(cuda)
+        full = torch.cat([data, codec.encode_batch(data)], 1)
+        avail = tuple(i for i in range(n) if i not in erased)
+        if not codec.DECODE_BATCH_ANY:
+            avail = avail[:k]
+        out = codec.decode_batch(avail, full[:, list(avail)].contiguous())
+        assert torch.equal(out, full), codec
+    host = full.cpu().numpy()
+    assert np.array_equal(
+        host[:1, 4:], lrc._encode_batch_layers(host[:1, :4]))

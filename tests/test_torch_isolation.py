@@ -59,6 +59,23 @@ def test_factory_without_device_raises(no_cuda):
                             device="cpu").device == torch.device("cpu")
 
 
+@pytest.mark.parametrize("plugin,profile", [
+    ("torch_cuda", {"technique": "cauchy_good", "k": "10", "m": "4",
+                    "packetsize": "2048"}),
+    ("shec_cuda", {"k": "8", "m": "4", "c": "3"}),
+    ("lrc_cuda", {"k": "4", "m": "2", "l": "3"}),
+], ids=["cauchy_good", "shec_cuda", "lrc_cuda"])
+def test_new_codecs_without_device_raise(no_cuda, plugin, profile):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        registry.factory(plugin, dict(profile))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        registry.factory(plugin, dict(profile), device="cuda")
+    codec = registry.factory(plugin, dict(profile), device="cpu")
+    assert codec.device == torch.device("cpu")
+    for layer in getattr(codec, "layers", ()):
+        assert layer.codec.device == torch.device("cpu")
+
+
 def test_dispatcher_without_device_raises(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA"):
         GpuDispatcher()
