@@ -74,17 +74,15 @@
 
 #include <atomic>
 #include <cstdint>
-#include <map>
-#include <mutex>
-#include <utility>
 
 #include <cuda_runtime.h>
+
+#include "launch_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kMaxBits = 512;
-constexpr size_t kMaxSmem = 48 * 1024;
 
 enum Design { kPopcount = 0, kBitsliced = 1 };
 
@@ -116,17 +114,7 @@ gf_bitmatrix_kernel(const uint8_t* __restrict__ bitmat, int rows, int k,
   using G = Geometry<W, NW>;
   extern __shared__ uint32_t masks[];  // [rows][NW]
 
-  const int bits = k * W;
-  for (int idx = threadIdx.x; idx < rows * NW; idx += blockDim.x) {
-    const int r = idx / NW;
-    const int q = idx - r * NW;
-    const uint8_t* src = bitmat + (long long)r * bits + q * 32;
-    uint32_t word = 0;
-#pragma unroll 8
-    for (int t = 0; t < 32; ++t)
-      if (q * 32 + t < bits) word |= (uint32_t)(src[t] & 1u) << t;
-    masks[idx] = word;
-  }
+  launch_common::pack_masks(bitmat, rows, k * W, NW, masks);
   __syncthreads();
 
   const int out_rows = rows / W;
@@ -468,36 +456,6 @@ gf_bitsliced_kernel(const uint8_t* __restrict__ bitmat, int rows, int k,
   }
 }
 
-// Blocks of gf_bitsliced_kernel<KMAX> that an SM holds with `smem` bytes of
-// shared memory on device `dev`. The occupancy query costs the host about
-// as much as the encode kernel's run, so it is made once per key. A key
-// past 48 KiB first raises the kernel's shared-memory limit on the device,
-// which is never lowered, so that a launch with less still fits.
-template <int KMAX>
-cudaError_t resident_blocks(int dev, size_t smem, int* per_sm) {
-  static std::mutex mu;
-  static std::map<std::pair<int, size_t>, int> blocks;
-  static std::map<int, size_t> smem_limit;
-  std::lock_guard<std::mutex> lock(mu);
-  const auto key = std::make_pair(dev, smem);
-  const auto hit = blocks.find(key);
-  if (hit != blocks.end()) {
-    *per_sm = hit->second;
-    return cudaSuccess;
-  }
-  auto kernel = gf_bitsliced_kernel<KMAX>;
-  if (smem > kMaxSmem && smem > smem_limit[dev]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    smem_limit[dev] = smem;
-  }
-  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, kernel, kThreads, smem);
-  if (err == cudaSuccess) blocks[key] = *per_sm;
-  return err;
-}
-
 template <int KMAX>
 cudaError_t launch_bitsliced(const uint8_t* bitmat, int rows, int k,
                              const uint8_t* data, uint8_t* out,
@@ -507,21 +465,15 @@ cudaError_t launch_bitsliced(const uint8_t* bitmat, int rows, int k,
   if (units == 0 || rows == 0) return cudaSuccess;
   auto kernel = gf_bitsliced_kernel<KMAX>;
   const size_t smem = bitsliced_smem<KMAX>(rows);
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  unsigned blocks = 0;
+  const cudaError_t err =
+      launch_common::grid_blocks(kernel, kThreads, smem, units, &blocks);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = resident_blocks<KMAX>(dev, smem, &per_sm);
-  if (err != cudaSuccess) return err;
-  long long blocks = (units + kThreads - 1) / kThreads;
-  const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  if (blocks > resident) blocks = resident;
   const bool vec_ok = n % 16 == 0 &&
                       reinterpret_cast<uintptr_t>(data) % 16 == 0 &&
                       reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(bitmat, rows, k, data,
-                                                       out, batch, n, vec_ok);
+  kernel<<<blocks, kThreads, smem, stream>>>(bitmat, rows, k, data, out, batch,
+                                             n, vec_ok);
   return count_launch(kBitsliced);
 }
 
@@ -537,21 +489,20 @@ int pick_design(int rows, int k, int w, int* design) {
   const int bits = k * w;
   if (bits > kMaxBits || rows % w != 0) return -1;
   if (w == 8 && bits <= kBitslicedMaxBits) {
-    int dev = 0, optin = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(
-          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    size_t optin = 0;
+    const cudaError_t err = launch_common::smem_optin(&optin);
     if (err != cudaSuccess) return (int)err;
     const size_t smem = k <= 4   ? bitsliced_smem<4>(rows)
                         : k <= 8 ? bitsliced_smem<8>(rows)
                                  : bitsliced_smem<16>(rows);
-    if (smem <= (size_t)optin) {
+    if (smem <= optin) {
       *design = kBitsliced;
       return 0;
     }
   }
-  if ((size_t)rows * mask_words(bits) * sizeof(uint32_t) > kMaxSmem) return -1;
+  if ((size_t)rows * mask_words(bits) * sizeof(uint32_t) >
+      launch_common::kDefaultSmem)
+    return -1;
   *design = kPopcount;
   return 0;
 }

@@ -16,15 +16,16 @@
 // Bound. The function reads each input byte once and writes each output
 // byte once. At the Cauchy k=10, m=4 encode shape ([16, 10, 131072],
 // P = 2048) that is 21.0 MB read + 8.4 MB written, 8.8 us at the H100
-// SXM's 3.35 TB/s; counted as int8 multiply-adds ([32, 80] @ [80, 2^21])
-// it is 10.7 GOP, 5.4 us at 1979 TOP/s, so bytes bound it. The kernel
+// SXM's 3.35 TB/s; the XORs it needs are one byte XOR per set bit of the
+// bitmatrix per byte of a packet row, 888 * 262144 = 0.23 G, 0.12 us even
+// at the int8 rate of 1979 TOP/s, so bytes bound it. The kernel
 // re-reads each input packet once per output row that selects it (about
 // k*w/2 rows of a dense Cauchy row block); L1 and L2 serve those re-reads.
 //
 // Design (simple; making it fast is later work):
 //  * Each block packs the bitmatrix once into shared memory as
-//    ceil(k*w/32) uint32 masks per row, as the popcount design of
-//    gf_bitmatrix.cu does, beside the byte offset j*N + u*P of every input
+//    ceil(k*w/32) uint32 masks per row, with the popcount design's code
+//    (launch_common.cuh), beside the byte offset j*N + u*P of every input
 //    packet (j, u) from the start of its superblock.
 //  * A thread takes one 16-byte column of one output packet (b, i, s, t).
 //    It walks the row's set bits with __ffs and XORs 16-byte __ldg loads
@@ -36,20 +37,18 @@
 //    kernel: one thread per byte column.
 //  * A grid-stride loop with 64-bit offsets; the grid is sized from the
 //    occupancy the kernel reaches, queried once per device, path and
-//    shared-memory size, under a mutex.
+//    shared-memory size (launch_common.cuh, shared with gf_bitmatrix.cu).
 
 #include <atomic>
 #include <cstdint>
-#include <map>
-#include <mutex>
-#include <utility>
 
 #include <cuda_runtime.h>
+
+#include "launch_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
-constexpr size_t kDefaultSmem = 48 * 1024;
 
 enum Path { kVector = 0, kByte = 1 };
 
@@ -79,17 +78,7 @@ gf_packet_kernel(const uint8_t* __restrict__ bitmat, int rows, int k, int w,
     const int j = c / w;
     offs[c] = (long long)j * n + (long long)(c - j * w) * packet;
   }
-  // All 32 byte loads of a word are in flight at once.
-  for (int idx = threadIdx.x; idx < rows * nw; idx += blockDim.x) {
-    const int r = idx / nw;
-    const int q = idx - r * nw;
-    const uint8_t* src = bitmat + (long long)r * cols + q * 32;
-    uint32_t word = 0;
-#pragma unroll
-    for (int t = 0; t < 32; ++t)
-      if (q * 32 + t < cols) word |= (uint32_t)(src[t] & 1u) << t;
-    masks[idx] = word;
-  }
+  launch_common::pack_masks(bitmat, rows, cols, nw, masks);
   __syncthreads();
 
   const long long super = (long long)w * packet;  // bytes of a superblock
@@ -143,35 +132,6 @@ gf_packet_kernel(const uint8_t* __restrict__ bitmat, int rows, int k, int w,
   }
 }
 
-// Blocks of gf_packet_kernel<VEC> that an SM holds with `smem` bytes of
-// shared memory on device `dev`, queried once per key. A key past 48 KiB
-// first raises the kernel's shared-memory limit on the device, which is
-// never lowered, so that a launch with less still fits.
-template <int VEC>
-cudaError_t resident_blocks(int dev, size_t smem, int* per_sm) {
-  static std::mutex mu;
-  static std::map<std::pair<int, size_t>, int> blocks;
-  static std::map<int, size_t> smem_limit;
-  std::lock_guard<std::mutex> lock(mu);
-  const auto key = std::make_pair(dev, smem);
-  const auto hit = blocks.find(key);
-  if (hit != blocks.end()) {
-    *per_sm = hit->second;
-    return cudaSuccess;
-  }
-  auto kernel = gf_packet_kernel<VEC>;
-  if (smem > kDefaultSmem && smem > smem_limit[dev]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    smem_limit[dev] = smem;
-  }
-  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, kernel, kThreads, smem);
-  if (err == cudaSuccess) blocks[key] = *per_sm;
-  return err;
-}
-
 template <int VEC>
 cudaError_t launch(const uint8_t* bitmat, int rows, int k, int w,
                    long long packet, const uint8_t* data, uint8_t* out,
@@ -180,18 +140,13 @@ cudaError_t launch(const uint8_t* bitmat, int rows, int k, int w,
   const long long units = batch * (n / ((long long)w * packet)) * rows *
                           (packet / VEC);
   if (units == 0) return cudaSuccess;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  auto kernel = gf_packet_kernel<VEC>;
+  unsigned blocks = 0;
+  cudaError_t err =
+      launch_common::grid_blocks(kernel, kThreads, smem, units, &blocks);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = resident_blocks<VEC>(dev, smem, &per_sm);
-  if (err != cudaSuccess) return err;
-  long long blocks = (units + kThreads - 1) / kThreads;
-  const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  if (blocks > resident) blocks = resident;
-  gf_packet_kernel<VEC><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      bitmat, rows, k, w, packet, data, out, batch, n);
+  kernel<<<blocks, kThreads, smem, stream>>>(bitmat, rows, k, w, packet, data,
+                                             out, batch, n);
   err = cudaGetLastError();
   if (err == cudaSuccess) g_launches[VEC == 16 ? kVector : kByte].fetch_add(1);
   return err;
@@ -223,13 +178,10 @@ extern "C" int gf_packet_encode(const void* bitmat, int rows, int k, int w,
       n < 0 || rows % w != 0 || n % ((long long)w * packetsize) != 0)
     return -1;
   const size_t smem = packet_smem(rows, k * w);
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  size_t optin = 0;
+  const cudaError_t err = launch_common::smem_optin(&optin);
   if (err != cudaSuccess) return (int)err;
-  if (smem > (size_t)optin) return -1;
+  if (smem > optin) return -1;
   const auto* bm = static_cast<const uint8_t*>(bitmat);
   const auto* in = static_cast<const uint8_t*>(data);
   auto* o = static_cast<uint8_t*>(out);

@@ -3,7 +3,7 @@
 Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` into
 ``build/lib<name>.so`` (a plain C interface, no PyTorch headers, so a
 build takes seconds) and loaded with :mod:`ctypes`. A library is rebuilt
-when its source is newer. :func:`build` starts one compiler per stale
+when its source, or a shared ``csrc/*.cuh`` header, is newer. :func:`build` starts one compiler per stale
 source, all at once, and waits for all of them.
 """
 
@@ -45,9 +45,13 @@ def lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """True when the library is missing or older than its source or any
+    ``csrc/*.cuh`` header the sources share."""
     lib = lib_path(name)
-    return not lib.exists() or \
-        lib.stat().st_mtime < (CSRC / (name + ".cu")).stat().st_mtime
+    if not lib.exists():
+        return True
+    inputs = [CSRC / (name + ".cu"), *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in inputs)
 
 
 def build(names=None) -> dict[str, float]:

@@ -25,10 +25,8 @@ from . import _build
 from .xor_mm import bitmatrix_encode_plain
 
 __all__ = ["bitmatrix_encode", "launches_by_path", "reset_launches",
-           "smem_bytes", "LAUNCHES", "MAX_SMEM", "PATHS"]
+           "smem_bytes", "check_smem", "LAUNCHES", "PATHS"]
 
-#: shared memory a block may opt into on an H100 (227 KiB)
-MAX_SMEM = 232448
 _SOURCE = "gf_packet"
 
 PATHS = ("vector", "byte")  # by the C entry point's path number
@@ -78,6 +76,14 @@ def smem_bytes(rows: int, cols: int) -> int:
     return cols * 8 + rows * (-(-cols // 32)) * 4
 
 
+def check_smem(rows: int, cols: int, limit: int) -> None:
+    """Raises ValueError when a [rows, cols] bitmatrix needs more than
+    `limit` bytes of shared memory per block."""
+    if smem_bytes(rows, cols) > limit:
+        raise ValueError("a [%d, %d] bitmatrix exceeds the kernel's %d bytes "
+                         "of shared memory" % (rows, cols, limit))
+
+
 def _check(bitmat: torch.Tensor, data: torch.Tensor, w: int,
            packetsize: int) -> None:
     if not 2 <= w <= 32:
@@ -99,12 +105,12 @@ def _check(bitmat: torch.Tensor, data: torch.Tensor, w: int,
     if rows % w or n % (w * packetsize):
         raise ValueError("bitmat rows %d and N %d must be multiples of w=%d "
                          "and w*packetsize=%d" % (rows, n, w, w * packetsize))
-    if smem_bytes(rows, cols) > MAX_SMEM:
-        raise ValueError("a [%d, %d] bitmatrix exceeds the kernel's %d bytes "
-                         "of shared memory" % (rows, cols, MAX_SMEM))
     if bitmat.device != data.device:
         raise ValueError("bitmat on %s, data on %s"
                          % (bitmat.device, data.device))
+    if data.device.type == "cuda":     # the card's own opt-in limit
+        check_smem(rows, cols, torch.cuda.get_device_properties(
+            data.device).shared_memory_per_block_optin)
     if not (bitmat.is_contiguous() and data.is_contiguous()):
         raise ValueError("bitmat and data must be contiguous")
 

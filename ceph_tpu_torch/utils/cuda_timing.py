@@ -37,6 +37,14 @@ def time_ms(fn, inputs, reps: int) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in marks)
 
 
+def _bound(nbytes: int, ops: int) -> tuple[float, str]:
+    """The larger of `nbytes` at the HBM rate and `ops` at the int8 rate
+    (ms), with the name of the bound."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT8_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def gf_bound(bitmat, data, out, w: int) -> tuple[float, str]:
     """Least time (ms) of a GF bitmatrix product: each input byte read once
     and each output byte written once at the HBM rate, or the GF(2)
@@ -44,16 +52,18 @@ def gf_bound(bitmat, data, out, w: int) -> tuple[float, str]:
     larger, with the name of the bound."""
     nbytes = bitmat.numel() + data.numel() + out.numel()
     columns = data.numel() * 8 // (data.shape[-2] * w)
-    ops = 2 * bitmat.shape[0] * bitmat.shape[1] * columns
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT8_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return _bound(nbytes, 2 * bitmat.shape[0] * bitmat.shape[1] * columns)
 
 
 def packet_bound(bitmat, data, out) -> tuple[float, str]:
-    """Least time (ms) of a packet-layout bitmatrix product by the rule of
-    :func:`gf_bound`: the [R, k*w] bitmatrix applied to B*S*P*8 bit
-    columns (S superblocks of w packets of P bytes in each of the B
-    stripes). That count equals gf_bound's B*N*8/w, so both layouts are
-    judged by one yardstick."""
-    return gf_bound(bitmat, data, out, bitmat.shape[1] // data.shape[-2])
+    """Least time (ms) of a packet-layout bitmatrix product: each input
+    byte read once and each output byte written once at the HBM rate, or
+    the XORs these inputs need at the int8 rate, whichever is larger, with
+    the name of the bound. The product only selects whole packets and
+    XORs them bytewise: each set bit of the [R, k*w] bitmatrix costs one
+    byte XOR per byte of a packet row, B*S*P of them, where data is
+    [B, k, S*w*P]."""
+    nbytes = bitmat.numel() + data.numel() + out.numel()
+    w = bitmat.shape[1] // data.shape[-2]
+    return _bound(nbytes, int(bitmat.sum()) *
+                  (data.numel() // (data.shape[-2] * w)))

@@ -77,12 +77,33 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         xor_mm.bitmatrix_encode(ok_bm.int(), ok_data, w, p)
     with pytest.raises(ValueError, match="2..32"):
         xor_mm.bitmatrix_encode(ok_bm, ok_data, 33, p)
-    # 1792 rows of 32 mask words each past the 227 KiB of shared memory
-    big = torch.zeros((1792, 32 * 32), dtype=torch.uint8)
-    assert packet_kernel.smem_bytes(1792, 1024) > packet_kernel.MAX_SMEM
+    # past 1752 rows of 32 mask words an H100's 227 KiB of opt-in shared
+    # memory is exceeded, the limit a CUDA tensor's check reads from its
+    # card; a CPU tensor takes the plain version, which has no such limit
+    h100_optin = 232448
+    packet_kernel.check_smem(1752, 1024, h100_optin)
     with pytest.raises(ValueError, match="shared memory"):
-        xor_mm.bitmatrix_encode(big, torch.zeros((1, 32, 32), dtype=torch.uint8),
-                                32, 1)
+        packet_kernel.check_smem(1753, 1024, h100_optin)
+    big = torch.zeros((1792, 32 * 32), dtype=torch.uint8)
+    data = torch.zeros((1, 32, 32), dtype=torch.uint8)
+    assert torch.equal(xor_mm.bitmatrix_encode(big, data, 32, 1),
+                       torch.zeros((1, 56, 32), dtype=torch.uint8))
+
+
+@pytest.mark.parametrize("rows,out_rows,want_ms", [
+    (32, 4, 0.008764981492537315),      # cauchy_good k=10, m=4 encode
+    (112, 14, 0.015027047164179104),    # its decode with chunks 0-3 erased
+])
+def test_packet_bound_is_the_bytes_at_the_cauchy_shape(rows, out_rows,
+                                                       want_ms):
+    """Even a dense bitmatrix needs far fewer byte XORs (one per set bit
+    per byte of a packet row) than the bytes take at the HBM rate."""
+    from ceph_tpu_torch.utils.cuda_timing import packet_bound
+    meta = dict(dtype=torch.uint8, device="meta")
+    ms, by = packet_bound(torch.ones((rows, 80), dtype=torch.uint8),
+                          torch.empty(16, 10, 131072, **meta),
+                          torch.empty(16, out_rows, 131072, **meta))
+    assert by == "bytes" and ms == pytest.approx(want_ms, rel=1e-12)
 
 
 # -- the five bitmatrix techniques through the registry ----------------------
