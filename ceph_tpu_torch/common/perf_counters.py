@@ -19,6 +19,7 @@ __all__ = ["PerfCounters", "PerfCountersBuilder"]
 U64 = "u64"
 U64_COUNTER = "u64_counter"
 TIME_AVG = "time_avg"
+U64_AVG = "u64_avg"
 
 
 class _Counter:
@@ -50,7 +51,8 @@ class PerfCounters:
             self._counters[name].value = value
 
     def tinc(self, name: str, seconds: float) -> None:
-        """Add a duration; averages also bump their sample count."""
+        """Add a duration or, to a u64 average, a sample; averages also
+        bump their sample count."""
         with self._lock:
             c = self._counters[name]
             c.value += seconds
@@ -62,7 +64,7 @@ class PerfCounters:
         with self._lock:
             out = {}
             for name, c in self._counters.items():
-                if c.kind == TIME_AVG:
+                if c.kind in (TIME_AVG, U64_AVG):
                     out[name] = {"avgcount": c.count, "sum": c.value}
                 else:
                     out[name] = c.value
@@ -93,6 +95,10 @@ class PerfCountersBuilder:
 
     def add_time_avg(self, name, desc=""):
         self._pc._add(name, TIME_AVG)
+        return self
+
+    def add_u64_avg(self, name, desc=""):
+        self._pc._add(name, U64_AVG)
         return self
 
     def create_perf_counters(self) -> PerfCounters:

@@ -18,7 +18,7 @@ import time
 import numpy as np
 import torch
 
-from ..device import host_tensor
+from ..device import host_tensor, pinned_copy, to_numpy
 
 __all__ = ["NULL_SPAN", "device_segments"]
 
@@ -40,10 +40,6 @@ class _NullSpan:
 NULL_SPAN = _NullSpan()
 
 
-def _to_host(out) -> np.ndarray:
-    return out.numpy() if isinstance(out, torch.Tensor) else np.asarray(out)
-
-
 def device_segments(fn, batch: np.ndarray, device: torch.device):
     """Run fn on host array `batch` as an explicit h2d -> compute -> d2h
     sequence on `device` and time each leg. Returns (host ndarray result,
@@ -60,7 +56,7 @@ def device_segments(fn, batch: np.ndarray, device: torch.device):
         t1 = time.perf_counter()
         out = fn(x)
         t2 = time.perf_counter()
-        out = _to_host(out)
+        out = to_numpy(out)
         t3 = time.perf_counter()
         return out, {"h2d": t1 - t0, "compute": t2 - t1, "d2h": t3 - t2}
     stream = torch.cuda.current_stream(device)
@@ -70,10 +66,9 @@ def device_segments(fn, batch: np.ndarray, device: torch.device):
     ev[1].record(stream)
     out = fn(dev)
     ev[2].record(stream)
-    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-    host.copy_(out, non_blocking=True)
+    host = pinned_copy(out)
     ev[3].record(stream)
     ev[3].synchronize()
-    return host.numpy(), {"h2d": ev[0].elapsed_time(ev[1]) / 1e3,
+    return to_numpy(host), {"h2d": ev[0].elapsed_time(ev[1]) / 1e3,
                           "compute": ev[1].elapsed_time(ev[2]) / 1e3,
                           "d2h": ev[2].elapsed_time(ev[3]) / 1e3}

@@ -28,6 +28,24 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def pinned_copy(out):
+    """Pinned host copies of a device result (a tensor, or a dict of
+    them), queued on the current stream: the caller synchronises before
+    reading them."""
+    if isinstance(out, dict):
+        return {k: pinned_copy(v) for k, v in out.items()}
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    host.copy_(out, non_blocking=True)
+    return host
+
+
+def to_numpy(out):
+    """numpy views of host tensors (a tensor, or a dict of them)."""
+    if isinstance(out, dict):
+        return {k: to_numpy(v) for k, v in out.items()}
+    return out.numpy() if isinstance(out, torch.Tensor) else np.asarray(out)
+
+
 def host_tensor(a) -> torch.Tensor:
     """A CPU uint8 tensor over numpy array `a` (copied only when numpy
     cannot lend its buffer: not C-contiguous, or read-only)."""

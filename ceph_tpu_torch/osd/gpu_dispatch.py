@@ -35,8 +35,11 @@ stage fails ONLY that fused batch's submitters; batches behind it keep
 flowing. pipeline_depth=1 runs the synchronous loop on the collector
 thread, with its legs timed by ``common.tracer.device_segments``.
 
-The fused write transform, HBM-tier adoption, repair, telemetry and the
-stage profiler of the reference wait for later slices.
+Whole-object writes ride the same pipeline through the fused write
+transform (``fused_write_async``): digests, compression decision and
+encode in one dispatch per object, never coalesced, with every output
+drained by one d2h. HBM-tier adoption, repair, telemetry and the stage
+profiler of the reference wait for later slices.
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ import torch
 
 from ..common.perf_counters import PerfCountersBuilder
 from ..common.tracer import NULL_SPAN, device_segments
-from ..device import host_tensor, resolve_device
+from ..device import host_tensor, pinned_copy, resolve_device, to_numpy
 from ..models.table_cache import device_entry_key
 
 __all__ = ["GpuDispatcher"]
@@ -90,14 +93,15 @@ class _Pending:
 class _Dispatch:
     """One fused kernel launch moving through the pipeline stages."""
 
-    __slots__ = ("key", "fn", "pend", "prefetch", "dev", "ready",
+    __slots__ = ("key", "fn", "pend", "prefetch", "kind", "dev", "ready",
                  "out_dev", "done", "t_take", "seg")
 
-    def __init__(self, key, fn, pend, prefetch=None):
+    def __init__(self, key, fn, pend, prefetch=None, kind="codec"):
         self.key = key
         self.fn = fn
         self.pend = pend
         self.prefetch = prefetch     # () -> None decode-table staging
+        self.kind = kind             # "codec" or "fused"
         self.dev = None              # staged device input
         self.ready = None            # event: staged input landed
         self.out_dev = None          # device output
@@ -156,17 +160,18 @@ class _CudaDevOps:
         done.synchronize()
         return out, done
 
-    def d2h(self, out, done) -> np.ndarray:
-        if not isinstance(out, torch.Tensor):
+    def d2h(self, out, done):
+        """The result in pinned host memory: a tensor, or every tensor of
+        a fused output dict, copied on the d2h stream behind one event."""
+        if not isinstance(out, (dict, torch.Tensor)):
             return np.asarray(out)
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         with torch.cuda.stream(self.d2h_stream):
             self.d2h_stream.wait_event(done)
-            host.copy_(out, non_blocking=True)
+            host = pinned_copy(out)
             copied = torch.cuda.Event()
             copied.record(self.d2h_stream)
         copied.synchronize()
-        return host.numpy()
+        return to_numpy(host)
 
 
 class _HostDevOps:
@@ -178,9 +183,8 @@ class _HostDevOps:
     def run(self, fn, x, ready):
         return fn(x), None
 
-    def d2h(self, out, done) -> np.ndarray:
-        return out.numpy() if isinstance(out, torch.Tensor) \
-            else np.asarray(out)
+    def d2h(self, out, done):
+        return to_numpy(out)
 
     def release(self, buf) -> None:
         pass
@@ -232,6 +236,22 @@ class GpuDispatcher:
                      .add_u64_counter("l_gpu_reused",
                                       "dispatches staged into a reused "
                                       "device buffer")
+                     .add_u64_counter("l_gpu_fused_dispatches",
+                                      "fused write transforms dispatched")
+                     .add_u64_counter("l_gpu_fused_bytes_in",
+                                      "raw bytes into the fused write "
+                                      "transform")
+                     .add_u64_counter("l_gpu_fused_bytes_out",
+                                      "stored+parity bytes out of the "
+                                      "fused transform")
+                     .add_u64_counter("l_gpu_fused_compressed",
+                                      "fused writes stored compressed")
+                     .add_u64_counter("l_gpu_fused_probe_rejects",
+                                      "fused writes whose entropy probe "
+                                      "rejected compression")
+                     .add_u64_avg("l_gpu_fused_ratio_milli",
+                                  "stored/raw size ratio per fused "
+                                  "write (x1000)")
                      .create_perf_counters())
         # rolling dispatch-wall EWMA (submit -> results landed): the
         # straggler wait in _take_group scales its coalesce window from
@@ -240,6 +260,11 @@ class GpuDispatcher:
         self._lat_alpha = 0.25
         self._devops = _CudaDevOps(self.device) \
             if self.device.type == "cuda" else _HostDevOps()
+        # the fused-write ledger; every fused write takes a fresh key
+        self._fused_seq = 0
+        self.fused_stats = {"dispatches": 0, "bytes_in": 0,
+                            "bytes_out": 0, "compressed": 0,
+                            "probe_rejects": 0, "ratio_milli_sum": 0}
         self._stop = False
         self._threads: list = []
         if self.pipeline_depth > 1:
@@ -340,6 +365,54 @@ class GpuDispatcher:
         return self.decode_async(codec, avail_rows, chunks,
                                  trace).result()
 
+    def fused_supported(self, codec) -> bool:
+        """Whether whole-object writes through this codec can ride the
+        fused write transform (an element-layout matrix codec)."""
+        from . import fused_transform
+        return fused_transform.fused_supported(codec)
+
+    def fused_write_async(self, codec, batch: np.ndarray,
+                          mode: str = "store",
+                          required_ratio: float = 0.875,
+                          entropy_max_bits: float = 7.0,
+                          trace=NULL_SPAN) -> _Pending:
+        """Async fused write transform over one whole-object batch: one
+        h2d, the transform's launches, one d2h of every output. The
+        codec must live on this dispatcher's device.
+
+        Fused dispatches never coalesce across submitters (the
+        compression decision and the shard crc chains are per object),
+        but consecutive fused writes overlap through the pipeline
+        stages. The future's result() is the fused host output dict
+        (fused_transform.result_from_host builds a FusedResult)."""
+        from . import fused_transform
+        batch = np.asarray(batch)
+        self.perf.inc("l_gpu_enc_bytes", int(batch.nbytes))
+
+        def fn(dev, _codec=codec, _mode=mode, _rr=required_ratio,
+               _em=entropy_max_bits):
+            return fused_transform.run_fused(
+                _codec, None, mode=_mode, required_ratio=_rr,
+                entropy_max_bits=_em, data_dev=dev)
+
+        with self.lock:
+            self._fused_seq += 1
+            seq = self._fused_seq
+        key = (self._codec_key(codec), "fused", mode, seq)
+        return self._submit_async(key, fn, batch, trace, kind="fused")
+
+    def fused_write(self, codec, batch: np.ndarray, mode: str = "store",
+                    required_ratio: float = 0.875,
+                    entropy_max_bits: float = 7.0, trace=NULL_SPAN):
+        """Blocking facade over fused_write_async -> FusedResult."""
+        from . import fused_transform
+        batch = np.asarray(batch)
+        S, k, chunk = batch.shape
+        host = self.fused_write_async(
+            codec, batch, mode=mode, required_ratio=required_ratio,
+            entropy_max_bits=entropy_max_bits, trace=trace).result()
+        return fused_transform.result_from_host(host, S, k, chunk, mode)
+
     def shutdown(self) -> None:
         with self.cv:
             self._stop = True
@@ -353,12 +426,12 @@ class GpuDispatcher:
     # -- internals -----------------------------------------------------
 
     def _submit_async(self, key, fn, batch, trace=NULL_SPAN,
-                      prefetch=None) -> _Pending:
+                      prefetch=None, kind="codec") -> _Pending:
         p = _Pending(np.asarray(batch), trace)
         with self.cv:
             q = self.queues.get(key)
             if q is None:
-                q = self.queues[key] = (fn, [], prefetch)
+                q = self.queues[key] = (fn, [], prefetch, kind)
             q[1].append(p)
             self.stats["ops"] += 1
             depth = sum(len(e[1]) for e in self.queues.values())
@@ -406,12 +479,12 @@ class GpuDispatcher:
                 if len(best[1]) >= self.max_batch or (
                         deadline is not None
                         and time.monotonic() >= deadline):
-                    fn, pend, prefetch = best
+                    fn, pend, prefetch, kind = best
                     take = pend[:self.max_batch]
                     del pend[:len(take)]
                     if not pend:
                         self.queues.pop(best_key, None)
-                    return _Dispatch(best_key, fn, take, prefetch)
+                    return _Dispatch(best_key, fn, take, prefetch, kind)
                 wait = self._coalesce_wait()
                 if deadline is None:
                     deadline = time.monotonic() + wait
@@ -456,6 +529,8 @@ class GpuDispatcher:
             d.seg = {"h2d": (t_start, t1), "compute": (t1, t2),
                      "d2h": (t2, t2 + seg["d2h"])}
             self._account(d)
+            if d.kind == "fused":
+                self._account_fused(d)
         except Exception as e:   # deliver, don't kill the loop
             for p in d.pend:
                 p.error = e
@@ -529,6 +604,8 @@ class GpuDispatcher:
                 d.seg["d2h"] = (t0, time.monotonic())
                 self._slice_results(d, out)
                 self._account(d)
+                if d.kind == "fused":
+                    self._account_fused(d)
             except Exception as e:
                 self._fail(d, e)
                 continue
@@ -572,3 +649,35 @@ class GpuDispatcher:
             dev.child_interval("h2d", h0, h1)
             dev.child_interval("compute", c0, c1)
             dev.child_interval("d2h", d0, d1)
+
+    def _account_fused(self, d: _Dispatch) -> None:
+        """Fold one fused write's outcome into the l_gpu_fused_* counters
+        and the fused_stats bag."""
+        p = d.pend[0]
+        host = p.out
+        raw = int(p.batch.nbytes)
+        compressed = bool(host.get("do_compress", False))
+        stored = int(host["comp_len"]) if compressed else raw
+        par = host["parity"]
+        m_chunk = int(par.shape[1]) * int(par.shape[2])
+        stripes = int(host["used_stripes"]) if "used_stripes" in host \
+            else int(p.batch.shape[0])
+        out_bytes = stored + stripes * m_chunk
+        probe_reject = "probe_ok" in host and not bool(host["probe_ok"])
+        ratio_milli = (stored * 1000) // raw if raw else 1000
+        self.perf.inc("l_gpu_fused_dispatches")
+        self.perf.inc("l_gpu_fused_bytes_in", raw)
+        self.perf.inc("l_gpu_fused_bytes_out", out_bytes)
+        if compressed:
+            self.perf.inc("l_gpu_fused_compressed")
+        if probe_reject:
+            self.perf.inc("l_gpu_fused_probe_rejects")
+        self.perf.tinc("l_gpu_fused_ratio_milli", ratio_milli)
+        with self.lock:
+            st = self.fused_stats
+            st["dispatches"] += 1
+            st["bytes_in"] += raw
+            st["bytes_out"] += out_bytes
+            st["compressed"] += int(compressed)
+            st["probe_rejects"] += int(probe_reject)
+            st["ratio_milli_sum"] += ratio_milli

@@ -13,6 +13,10 @@ import torch
 # H100 SXM published peaks (NVIDIA data sheet), used for the bounds
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+# an xxh32 round's dependent chain (IMAD 4 + funnel-shift rotate 4 + IMUL
+# 4 cycles of latency) at the H100 SXM's highest SM clock, 1.98 GHz
+XXH_ROUND_CYCLES = 12
+SM_CLOCK_HZ = 1.98e9
 
 
 def time_ms(fn, inputs, reps: int) -> float:
@@ -67,3 +71,29 @@ def packet_bound(bitmat, data, out) -> tuple[float, str]:
     w = bitmat.shape[1] // data.shape[-2]
     return _bound(nbytes, int(bitmat.sum()) *
                   (data.numel() // (data.shape[-2] * w)))
+
+
+def crc_bound(view, out) -> tuple[float, str]:
+    """Least time (ms) of K1: each byte of the rows read once and each crc
+    written once at the HBM rate; its table steps (one per byte) are
+    counted at the int8 rate, which never binds."""
+    return _bound(view.numel() + 4 * out.numel(), view.numel())
+
+
+def xxh32_bound(rows) -> tuple[float, str]:
+    """Least time (ms) of K2: the larger of its bytes (rows read once, a
+    word written per row) at the HBM rate and its chain: a row is L/16
+    dependent rounds of XXH_ROUND_CYCLES cycles at SM_CLOCK_HZ, and rows
+    run side by side, so the chain of one row bounds the launch
+    ("operations")."""
+    t_bytes = (rows.numel() + 4 * rows.shape[0]) / HBM_BYTES_PER_S * 1e3
+    t_chain = (rows.shape[1] // 16) * XXH_ROUND_CYCLES / SM_CLOCK_HZ * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_chain \
+        else (t_chain, "operations")
+
+
+def bitplane_bound(flat, cap2: int) -> tuple[float, str]:
+    """Least time (ms) of K3: the N input bytes read once and the stored
+    stream [cap2] written once at the HBM rate; its per-byte histogram
+    adds and bit moves at the int8 rate never bind."""
+    return _bound(flat.numel() + cap2, 8 * flat.numel())

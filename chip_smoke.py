@@ -5,9 +5,9 @@
 
 Drives the port's main path at the bench's real size — Reed-Solomon
 reed_sol_van k=8, m=3, w=8 on batches of 16 objects of 1 MiB
-([16, 8, 131072] uint8) — through the entry points a user calls, and
-holds every kernel of the path against its plain PyTorch version on the
-card. Phases, each printing one JSON line:
+([16, 8, 131072] uint8) — and the OSD's fused write of a 4 MiB object
+through the entry points a user calls, and holds every kernel of the
+paths against its plain PyTorch version on the card. Phases, each printing one JSON line:
 
   1. setup       build every ``ceph_tpu_torch/csrc/*.cu`` (one nvcc each,
                  all at once), report the card and, from ptxas' log, the
@@ -50,12 +50,34 @@ card. Phases, each printing one JSON line:
                  output equals the original bytes, one object of each
                  encode equals the numpy oracle, and no dispatch mixes
                  the two packetsizes.
-  7. kernels     one JSON line per the port's kernel table: the design
+  7. write_kernels  the write transform's kernels (csrc/write_transform.cu)
+                 against their plain versions on CUDA tensors, byte for
+                 byte: the CRC of rows (chunk crc32c and xxh32 at
+                 [128, 8, 4096] and [16, 8, 65536], ragged chunks of 1,
+                 15, 96 and 4097 bytes, a pointer one byte off, the shard
+                 streams read in place, pads of 0, one stripe and most of
+                 the compress capacity, one 8 MiB + 3 byte stream) and the
+                 bit-plane stage (low-entropy, random and all-zero bytes,
+                 an N that is not a multiple of 64); kernel / plain /
+                 bound times and, for the histogram, torch.bincount.
+  8. write_path  the slice's path on RS k=8, m=3: ec_util.encode_fused in
+                 store mode on one 4 MiB object at stripe_unit 4096
+                 ([128, 8, 4096]; shards equal ec_util.encode, shard crcs
+                 equal zlib, digests equal the host oracles and the plain
+                 versions), compress mode at [16, 8, 65536] and
+                 [128, 8, 4096] on low-entropy bytes and on random bytes,
+                 GpuDispatcher.fused_write_async from 8 threads (8
+                 objects of 4 MiB, one in four compressed), fused against
+                 separate at [16, 8, 65536] (medians of interleaved
+                 windows), device_crc32 against zlib; launches per fused
+                 write, counted from 0 just before the phase.
+  9. kernels     one JSON line per the port's kernel table: the design
                  the main path takes, launches on the main path (phases
                  3-4 for the GF bitmatrix kernel, phase 6 for the packet
-                 kernel, each counted from 0 just before its path), the
-                 GF kernel's launches on phase 6 as well, max_abs_err,
-                 ms, plain_ms, bound_ms, bound_by, library_ms.
+                 kernel, phase 8 for the write transform's kernels, each
+                 counted from 0 just before its path), the GF kernel's
+                 launches on phases 6 and 8 as well, max_abs_err, ms,
+                 plain_ms, bound_ms, bound_by, library_ms.
 
 Then the card's name and power limit as nvidia-smi prints them, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -69,10 +91,12 @@ from __future__ import annotations
 import itertools
 import json
 import random
+import statistics
 import subprocess
 import sys
 import threading
 import time
+import zlib
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -117,11 +141,16 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from ceph_tpu_torch import registry
+    from ceph_tpu_torch.device import host_tensor
     from ceph_tpu_torch.ops import _build, gf, gf_kernel, gf_ref, packet_kernel
+    from ceph_tpu_torch.ops import write_kernels as wk
     from ceph_tpu_torch.ops.xor_mm import bitmatrix_encode_plain
+    from ceph_tpu_torch.osd import ec_util
+    from ceph_tpu_torch.osd import fused_transform as ft
     from ceph_tpu_torch.osd.gpu_dispatch import GpuDispatcher
-    from ceph_tpu_torch.utils.cuda_timing import (gf_bound, packet_bound,
-                                                  time_ms)
+    from ceph_tpu_torch.utils.cuda_timing import (bitplane_bound, crc_bound,
+                                                  gf_bound, packet_bound,
+                                                  time_ms, xxh32_bound)
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain version exact
     torch.backends.cudnn.allow_tf32 = False
@@ -684,7 +713,421 @@ def main() -> int:
     check(sum(slice_packet_by_path.values()) == slice_packet_launches,
           "every packet launch counted by its path")
 
-    # -- 7. kernels line --------------------------------------------------
+    # -- 7. the write transform's kernels against their plain versions ----
+    def as_i64(t):
+        """uint32 results as int64 values, for comparison on the card."""
+        return t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+    def diff(a, b):
+        if a.numel() == 0:
+            return 0
+        return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+    consts = ft.dev_consts(dev)
+    wk_worst = dict.fromkeys(wk.LAUNCHES, 0)
+    wk_timed = {}
+
+    def write_case(kernel, name, fn, plain, inputs=None, bound=None,
+                   library=None, **info):
+        """One call held against the plain version byte for byte (uint32
+        results as values); with `inputs`, kernel and plain timed over
+        them (rotated out of L2) beside the bound."""
+        before = wk.LAUNCHES[kernel]
+        out = fn(inputs[0] if inputs else None)
+        torch.cuda.synchronize()
+        launched = wk.LAUNCHES[kernel] - before
+        ref = plain(inputs[0] if inputs else None)
+        if isinstance(out, tuple):       # K3: (stored, dec)
+            err = max(diff(out[0], ref[0]),
+                      diff(out[1][:3], ref[1][:3]), diff(out[1][4:],
+                                                         ref[1][4:]))
+            milli = int(out[1][3]), int(ref[1][3])
+            info["entropy_milli"] = milli
+            info["fields"] = dict(zip(wk.DEC_FIELDS, out[1].tolist()))
+            check(abs(milli[0] - milli[1]) <= 1,
+                  "%s entropy_milli within 1 of plain" % name)
+        else:
+            err = diff(as_i64(out), as_i64(ref))
+        wk_worst[kernel] = max(wk_worst[kernel], err)
+        rec = {"kernel": kernel, "case": name, "equal": err == 0,
+               "max_abs_err": err, **info}
+        if inputs and len(inputs) > 1:
+            rec["ms"] = time_ms(fn, inputs, 40)
+            rec["plain_ms"] = time_ms(plain, inputs, 3)
+            rec["bound_ms"], rec["bound_by"] = bound
+            rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+            rec["library_ms"] = time_ms(library, inputs, 40) \
+                if library else None
+            wk_timed[name] = rec
+        emit("write_kernels", **rec)
+        check(launched == 1, "%s launched its kernel once" % name)
+        check(err == 0, "%s equals its plain version" % name)
+        return out
+
+    WCHUNK, WSTRIPES = 4096, 128         # one 4 MiB object at stripe_unit 4096
+    BCHUNK, BSTRIPES = 65536, 16         # the bench's fused shape
+    obj_sets = [rand_dev(WSTRIPES, K, WCHUNK) for _ in range(16)]
+    bench_sets = [rand_dev(BSTRIPES, K, BCHUNK) for _ in range(8)]
+    zc, cc = consts[ft.POLY_ZLIB], consts[ft.POLY_C]
+
+    def crc_fn(poly, shape3, pad=None):
+        return (lambda x: wk.crc32_rows(x.view(*shape3), poly, pad),
+                lambda x: wk.crc32_rows_plain(x.view(*shape3), poly, pad))
+
+    for sets, (s_, c_) in ((obj_sets, (WSTRIPES, WCHUNK)),
+                           (bench_sets, (BSTRIPES, BCHUNK))):
+        shape3 = (s_ * K, 1, c_)
+        fn, plain = crc_fn(cc, shape3)
+        out = write_case("crc32_rows", "chunk_crc32c_%dx%dx%d" % (s_, K, c_),
+                         fn, plain, sets, crc_bound(sets[0].view(*shape3),
+                                                    torch.empty(s_ * K)),
+                         rows=s_ * K, length=c_)
+        fn = lambda x: wk.xxh32_rows(x.view(-1, x.shape[-1]))
+        plain = lambda x: wk.xxh32_rows_plain(x.view(-1, x.shape[-1]))
+        write_case("xxh32_rows", "chunk_xxh32_%dx%dx%d" % (s_, K, c_), fn,
+                   plain, sets, xxh32_bound(sets[0].view(-1, c_)),
+                   rows=s_ * K, length=c_)
+    # the store mode's shard streams of [128, 11, 4096], read in place
+    shard_sets = [rand_dev(WSTRIPES, K + M, WCHUNK) for _ in range(12)]
+    write_case("crc32_rows", "shard_crc32_128x11x4096",
+               lambda x: wk.crc32_rows(x.permute(1, 0, 2), zc),
+               lambda x: wk.crc32_rows_plain(x.permute(1, 0, 2), zc),
+               shard_sets, crc_bound(shard_sets[0], torch.empty(K + M)),
+               rows=K + M, length=WSTRIPES * WCHUNK)
+    del shard_sets
+    # compress-mode capacity of a 4 MiB object, un-shifted by a pad of
+    # none, one stripe and most of the capacity
+    s_cap = ft.plan_capacity(WSTRIPES * K * WCHUNK, K * WCHUNK) // (K * WCHUNK)
+    cap_rows = rand_dev(s_cap, K + M, WCHUNK)
+    for stripes in (0, 1, s_cap - 1):
+        pad = torch.tensor([stripes * WCHUNK], device=dev)
+        write_case("crc32_rows", "shard_crc32_pad_%d_stripes" % stripes,
+                   lambda _: wk.crc32_rows(cap_rows.permute(1, 0, 2), zc, pad),
+                   lambda _: wk.crc32_rows_plain(cap_rows.permute(1, 0, 2),
+                                                 zc, pad),
+                   rows=K + M, length=s_cap * WCHUNK, pad=stripes * WCHUNK)
+    host_tail = cap_rows.clone()
+    host_tail[3:] = 0
+    got = wk.crc32_rows(host_tail.permute(1, 0, 2), zc,
+                        torch.tensor([(s_cap - 3) * WCHUNK], device=dev))
+    tail = host_tail[:3].cpu().numpy()
+    check([int(c) for c in as_i64(got).tolist()] == [
+        zlib.crc32(np.ascontiguousarray(tail[:, i]).tobytes())
+        for i in range(K + M)], "un-shifted shard crcs equal zlib")
+    del cap_rows, host_tail
+    for chunk in (1, 15, 96, 4097):      # ragged chunks: the byte paths
+        batch = rand_dev(64, K, chunk)
+        write_case("crc32_rows", "chunk_crc32c_ragged_%d" % chunk,
+                   lambda _: wk.crc32_rows(batch.view(64 * K, 1, chunk), cc),
+                   lambda _: wk.crc32_rows_plain(batch.view(64 * K, 1, chunk),
+                                                 cc), rows=64 * K,
+                   length=chunk)
+        write_case("crc32_rows", "shard_crc32_ragged_%d" % chunk,
+                   lambda _: wk.crc32_rows(batch.permute(1, 0, 2), zc),
+                   lambda _: wk.crc32_rows_plain(batch.permute(1, 0, 2), zc),
+                   rows=K, length=64 * chunk)
+        write_case("xxh32_rows", "chunk_xxh32_ragged_%d" % chunk,
+                   lambda _: wk.xxh32_rows(batch.view(64 * K, chunk)),
+                   lambda _: wk.xxh32_rows_plain(batch.view(64 * K, chunk)),
+                   rows=64 * K, length=chunk)
+    odd = off_by_one(64 * K, WCHUNK)
+    write_case("xxh32_rows", "chunk_xxh32_offset1", lambda _: wk.xxh32_rows(
+        odd), lambda _: wk.xxh32_rows_plain(odd), rows=64 * K, length=WCHUNK)
+    write_case("crc32_rows", "chunk_crc32c_offset1", lambda _: wk.crc32_rows(
+        odd.view(64 * K, 1, WCHUNK), cc), lambda _: wk.crc32_rows_plain(
+        odd.view(64 * K, 1, WCHUNK), cc), rows=64 * K, length=WCHUNK)
+    # device_crc32's stream: one 8 MiB + 3 byte row
+    long_sets = [rand_dev(1, 1, (8 << 20) + 3) for _ in range(8)]
+    got = write_case("crc32_rows", "device_crc32_8MiB+3",
+                     lambda x: wk.crc32_rows(x, zc),
+                     lambda x: wk.crc32_rows_plain(x, zc), long_sets,
+                     crc_bound(long_sets[0], torch.empty(1)), rows=1,
+                     length=(8 << 20) + 3)
+    check(int(as_i64(got)[0]) == zlib.crc32(long_sets[0].cpu().numpy()
+                                            .tobytes()),
+          "8 MiB + 3 crc equals zlib")
+    del long_sets, odd
+
+    def bitplane_fn(n, sw, chunk):
+        cap2 = ft.plan_capacity(n, sw)
+        return (cap2,
+                lambda x: wk.bitplane_stage(x.view(-1), cap2, sw, chunk,
+                                            875, 7000),
+                lambda x: wk.bitplane_stage_plain(x.view(-1), cap2, sw, chunk,
+                                                  875, 7000),
+                lambda x: torch.bincount(x.view(-1), minlength=256))
+
+    low_obj = [on_dev(rng.integers(0, 4, (WSTRIPES, K, WCHUNK),
+                                   dtype=np.uint8)) for _ in range(16)]
+    low_bench = [on_dev(rng.integers(0, 4, (BSTRIPES, K, BCHUNK),
+                                     dtype=np.uint8)) for _ in range(8)]
+    for kind, sets, chunk in (("low", low_obj, WCHUNK),
+                              ("random", obj_sets, WCHUNK),
+                              ("zeros", [torch.zeros_like(obj_sets[0])],
+                               WCHUNK),
+                              ("low", low_bench, BCHUNK)):
+        n = sets[0].numel()
+        cap2, fn, plain, lib = bitplane_fn(n, K * chunk, chunk)
+        timed = kind == "low"
+        out = write_case("bitplane_stage", "bitplane_%s_%d" % (kind, n), fn,
+                         plain, sets if timed else sets[:1],
+                         bitplane_bound(sets[0], cap2) if timed else None,
+                         lib if timed else None, n=n, cap2=cap2)
+        check(bool(out[1][1]) == (kind != "random"),
+              "bitplane %s decision" % kind)
+    ragged = rand_dev(4 * K * 4097)          # N not a multiple of 64
+    cap2, fn, plain, _ = bitplane_fn(ragged.numel(), K * 4097, 4097)
+    write_case("bitplane_stage", "bitplane_ragged_%d" % ragged.numel(),
+               lambda _: fn(ragged), lambda _: plain(ragged),
+               n=ragged.numel(), cap2=cap2)
+    del ragged, bench_sets, low_bench
+    wk_by_kernel = wk.launches_by_kernel()
+    emit("write_kernels", worst=wk_worst, launches_by_kernel=wk_by_kernel)
+
+    # -- 8. the write path: ec_util, the dispatcher's fused leg ----------
+    gf_kernel.reset_launches()
+    wk.reset_launches()
+    t_write = time.perf_counter()
+    wcodec = registry.factory("torch_cuda", dict(PROFILE))
+    check(ft.fused_supported(wcodec) and wcodec.device.type == "cuda",
+          "the RS codec fuses, on the card")
+    sinfo = ec_util.StripeInfo(K, K * WCHUNK)
+    obj_bytes = WSTRIPES * K * WCHUNK
+    payload = rng.integers(0, 256, obj_bytes, dtype=np.uint8)
+    # (a) store mode, the OSD's default write
+    counts0 = (dict(wk.launches_by_kernel()), gf_kernel.LAUNCHES)
+    shards, r = ec_util.encode_fused(sinfo, wcodec, payload)
+    per_write = {k_: v - counts0[0][k_]
+                 for k_, v in wk.launches_by_kernel().items()}
+    per_write["gf_bitmatrix"] = gf_kernel.LAUNCHES - counts0[1]
+    separate = ec_util.encode(sinfo, wcodec, payload)
+    check(set(shards) == set(separate) and all(
+        np.array_equal(shards[s], separate[s]) for s in separate),
+        "fused store shards equal ec_util.encode")
+    check(r.shard_crcs == [zlib.crc32(shards[s].tobytes())
+                           for s in range(K + M)],
+          "all 11 shard crcs equal zlib")
+    batch_np = payload.reshape(WSTRIPES, K, WCHUNK)
+    samples = [(0, 0), (1, 5), (63, 2), (64, 7), (100, 4), (127, 7)]
+    check(all(int(r.chunk_crc32c[s, i]) == ft.crc32c_host(batch_np[s, i])
+              and int(r.chunk_xxh32[s, i]) == ft.xxh32_host(batch_np[s, i])
+              for s, i in samples), "sampled chunk digests equal the host "
+          "oracles")
+    batch_dev = on_dev(batch_np)
+    par_dev = on_dev(r.parity)
+    check(np.array_equal(r.chunk_crc32c, as_i64(wk.crc32_rows_plain(
+        batch_dev.view(-1, 1, WCHUNK), cc)).view(WSTRIPES, K).cpu().numpy())
+          and np.array_equal(r.chunk_xxh32, as_i64(wk.xxh32_rows_plain(
+              batch_dev.view(-1, WCHUNK))).view(WSTRIPES, K).cpu().numpy())
+          and r.shard_crcs == as_i64(torch.cat([
+              wk.crc32_rows_plain(batch_dev.permute(1, 0, 2), zc),
+              wk.crc32_rows_plain(par_dev.permute(1, 0, 2), zc)])).tolist(),
+          "every digest equals the plain version on the card")
+    reps = 20
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        ec_util.encode_fused(sinfo, wcodec, payload)
+    store_s = (time.perf_counter() - t0) / reps
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ev0.record()
+    for _ in range(reps):
+        ft.run_fused(wcodec, batch_dev)
+    ev1.record()
+    torch.cuda.synchronize()
+    store_dev_ms = ev0.elapsed_time(ev1) / reps
+    # where a write's time goes: the h2d of the payload, the device time
+    # of its launches queued behind a spin (no host in the way), the
+    # host's launch calls, and the d2h of its outputs
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        staged = host_tensor(batch_np).to(dev)
+    torch.cuda.synchronize()
+    h2d_s = (time.perf_counter() - t0) / reps
+    queued_ms = time_ms(lambda x: ft.run_fused(wcodec, x), obj_sets, 20)
+    compress_queued_ms = time_ms(
+        lambda x: ft.run_fused(wcodec, x, mode="compress"), low_obj, 20)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = ft.run_fused(wcodec, staged)
+    launch_s = (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        ft.to_host(out)
+    d2h_s = (time.perf_counter() - t0) / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):              # the host's part: the shard map
+        ec_util._shard_map(wcodec, batch_np, r.parity, None)
+    shard_map_s = (time.perf_counter() - t0) / reps
+    emit("write_path", case="store_4MiB", shape=[WSTRIPES, K, WCHUNK],
+         launches_per_write=per_write,
+         write_ms=store_s * 1e3, write_MBps=obj_bytes / store_s / 1e6,
+         device_ms=store_dev_ms,
+         device_MBps=obj_bytes / store_dev_ms / 1e3,
+         h2d_ms=h2d_s * 1e3, device_queued_ms=queued_ms,
+         host_launch_ms=launch_s * 1e3, d2h_ms=d2h_s * 1e3,
+         shard_map_ms=shard_map_s * 1e3,
+         compress_device_queued_ms=compress_queued_ms)
+    del batch_dev, par_dev, staged, out, obj_sets, low_obj
+    # (b) compress mode: the bench's shape and the 4 MiB object
+    bsinfo = ec_util.StripeInfo(K, K * BCHUNK)
+    low = rng.integers(0, 4, BSTRIPES * K * BCHUNK, dtype=np.uint8)
+    counts0 = (dict(wk.launches_by_kernel()), gf_kernel.LAUNCHES)
+    cshards, cr = ec_util.encode_fused(bsinfo, wcodec, low, mode="compress")
+    per_cwrite = {k_: v - counts0[0][k_]
+                  for k_, v in wk.launches_by_kernel().items()}
+    per_cwrite["gf_bitmatrix"] = gf_kernel.LAUNCHES - counts0[1]
+    twin, padded = ft.bitplane_compress_host(low.tobytes())
+    stored = cr.stored.reshape(-1)
+    check(cr.compressed and stored[:cr.comp_len].tobytes() == twin and
+          not stored[cr.comp_len:].any(),
+          "the container equals bitplane_compress_host")
+    check(ft.bitplane_decompress(twin, padded)[:low.size] == low.tobytes(),
+          "the container decompresses to the payload")
+    check(np.array_equal(cr.parity, wcodec.encode_batch(cr.stored)),
+          "the parity is the encode of the stored rows")
+    check(cr.shard_crcs == [zlib.crc32(cshards[s].tobytes())
+                            for s in range(K + M)],
+          "compressed shard crcs equal zlib")
+    low4 = rng.integers(0, 4, obj_bytes, dtype=np.uint8)
+    _, cr4 = ec_util.encode_fused(sinfo, wcodec, low4, mode="compress")
+    check(cr4.compressed and cr4.comp_len * 1000 <= obj_bytes * 875,
+          "a 4 MiB low-entropy object compresses")
+    _, rr = ec_util.encode_fused(sinfo, wcodec, payload, mode="compress")
+    check(not rr.probe_ok and not rr.compressed and
+          rr.used_stripes == WSTRIPES and np.array_equal(rr.stored, batch_np),
+          "random bytes: the probe rejects and the raw bytes are stored")
+    emit("write_path", case="compress", bench_shape=[BSTRIPES, K, BCHUNK],
+         launches_per_write=per_cwrite,
+         bench={"comp_len": cr.comp_len, "used_stripes": cr.used_stripes,
+                "entropy_bpb": cr.entropy_bpb},
+         obj_4MiB={"compressed": cr4.compressed, "comp_len": cr4.comp_len,
+                   "ratio": cr4.comp_len / obj_bytes},
+         random_4MiB={"probe_ok": rr.probe_ok, "entropy_bpb": rr.entropy_bpb,
+                      "used_stripes": rr.used_stripes})
+    # (c) the dispatcher: 8 threads, 8 objects of 4 MiB, one in four
+    # compressed
+    objects = [rng.integers(0, 4 if t % 4 == 0 else 256, obj_bytes,
+                            dtype=np.uint8).reshape(WSTRIPES, K, WCHUNK)
+               for t in range(threads)]
+    modes = ["compress" if t % 4 == 0 else "store" for t in range(threads)]
+    expect = [ft.finish_fused(ft.run_fused(wcodec, o, mode=md), WSTRIPES, K,
+                              WCHUNK, md) for o, md in zip(objects, modes)]
+    disp = GpuDispatcher()
+    fused_iters = 4
+    ferrors: list[str] = []
+
+    def fused_writer(tid):
+        try:
+            for _ in range(fused_iters):
+                got = ft.result_from_host(disp.fused_write_async(
+                    wcodec, objects[tid], mode=modes[tid]).result(300),
+                    WSTRIPES, K, WCHUNK, modes[tid])
+                exp = expect[tid]
+                if got.shard_crcs != exp.shard_crcs or got.compressed != \
+                        exp.compressed or not np.array_equal(
+                            got.parity, exp.parity) or not np.array_equal(
+                            got.chunk_xxh32, exp.chunk_xxh32) or (
+                        got.stored is not None and not np.array_equal(
+                            got.stored, exp.stored)):
+                    ferrors.append("fused write mismatch, thread %d" % tid)
+        except Exception as e:  # reported below; the run then fails
+            ferrors.append(repr(e))
+
+    def run_writers():
+        pool = [threading.Thread(target=fused_writer, args=(t,))
+                for t in range(threads)]
+        t0 = time.perf_counter()
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join(600)
+        return time.perf_counter() - t0, any(t.is_alive() for t in pool)
+
+    run_writers()                        # warm the pinned-memory caches
+    disp.perf.reset()
+    counts0 = (dict(wk.launches_by_kernel()), gf_kernel.LAUNCHES)
+    d0 = disp.stats["dispatches"]
+    fwall, alive = run_writers()
+    fperf = disp.perf.dump()
+    disp.shutdown()
+    nwrites = threads * fused_iters
+    launches_disp = {k_: (v - counts0[0][k_]) / nwrites
+                     for k_, v in wk.launches_by_kernel().items()}
+    launches_disp["gf_bitmatrix"] = (gf_kernel.LAUNCHES - counts0[1]) / nwrites
+    emit("write_path", case="dispatcher", threads=threads,
+         writes=nwrites, dispatches=disp.stats["dispatches"] - d0,
+         writes_per_s=nwrites / fwall,
+         MBps=nwrites * obj_bytes / fwall / 1e6, wall_s=fwall,
+         h2d_s=fperf["l_gpu_h2d"]["sum"],
+         compute_s=fperf["l_gpu_compute"]["sum"],
+         d2h_s=fperf["l_gpu_d2h"]["sum"],
+         queue_s=fperf["l_gpu_dispatch_queue"]["sum"],
+         fused={k_: v for k_, v in fperf.items()
+                if k_.startswith("l_gpu_fused")},
+         stats=disp.fused_stats, launches_per_write=launches_disp,
+         errors=ferrors[:5])
+    check(not alive and not ferrors, "fused dispatcher results verified")
+    check(disp.stats["coalesced"] == 0 and
+          fperf["l_gpu_fused_dispatches"] == nwrites,
+          "every fused write its own dispatch")
+    check(fperf["l_gpu_fused_compressed"] == nwrites // 4,
+          "one fused write in four compressed")
+    del objects, expect
+    # (d) fused against separate, the bench's comparison, interleaved
+    bbatch = low.reshape(BSTRIPES, K, BCHUNK)
+
+    def fused_once():
+        return ft.finish_fused(ft.run_fused(wcodec, bbatch, mode="compress"),
+                               BSTRIPES, K, BCHUNK, "compress")
+
+    def separate_once():
+        parity = wcodec.encode_batch(bbatch)            # h2d, encode, d2h
+        allr = np.concatenate([bbatch, parity], axis=1)
+        crcs = [zlib.crc32(np.ascontiguousarray(allr[:, i]).tobytes())
+                for i in range(K + M)]
+        body, _ = ft.bitplane_compress_host(bbatch.tobytes())
+        return crcs, len(body)
+
+    fused_once()
+    separate_once()
+    windows = {"fused": [], "separate": []}
+    for w_ in range(5):
+        order = ("fused", "separate") if w_ % 2 == 0 else ("separate",
+                                                           "fused")
+        for name in order:
+            fn = fused_once if name == "fused" else separate_once
+            t0 = time.perf_counter()
+            for _ in range(2):
+                fn()
+            windows[name].append((time.perf_counter() - t0) / 2)
+    vol = bbatch.size
+    fused_mbps = vol / statistics.median(windows["fused"]) / 1e6
+    sep_mbps = vol / statistics.median(windows["separate"]) / 1e6
+    emit("write_path", case="fused_vs_separate",
+         shape=[BSTRIPES, K, BCHUNK], fused_MBps=fused_mbps,
+         separate_MBps=sep_mbps, fused_vs_separate=fused_mbps / sep_mbps,
+         fused_s=windows["fused"], separate_s=windows["separate"])
+    # (e) deep scrub's audit hash
+    t0 = time.perf_counter()
+    crc = ft.device_crc32(payload.tobytes())
+    scrub_s = time.perf_counter() - t0
+    check(crc == zlib.crc32(payload.tobytes()), "device_crc32 equals zlib")
+    write_s = time.perf_counter() - t_write
+    write_launches = dict(wk.LAUNCHES)
+    write_by_kernel = wk.launches_by_kernel()
+    write_gf_launches = gf_kernel.LAUNCHES
+    emit("write_path", case="device_crc32", bytes=obj_bytes,
+         seconds=scrub_s, write_path_s=write_s, launches=write_launches,
+         launches_by_kernel=write_by_kernel,
+         gf_bitmatrix_launches=write_gf_launches)
+    check(all(write_launches.values()) and all(write_by_kernel.values())
+          and write_gf_launches > 0,
+          "the write path launched every kernel")
+
+    # -- 9. kernels line --------------------------------------------------
     enc = timings["encode"]
     dec = timings["decode345678910"]
     kernels = [{
@@ -703,6 +1146,7 @@ def main() -> int:
         "share_of_bound": enc["share_of_bound"],
         "decode_share_of_bound": dec["share_of_bound"],
         "slice_launches": slice_gf_launches,
+        "write_path_launches": write_gf_launches,
         "shape": {"bitmat": enc["bitmat"], "data": enc["data"],
                   "decode_bitmat": dec["bitmat"]}}, {
         "name": "gf_packet_encode", "route": "cuda",
@@ -722,6 +1166,44 @@ def main() -> int:
         "shape": {"bitmat": penc["bitmat"], "data": penc["data"],
                   "packetsize": penc["packetsize"],
                   "decode_bitmat": pdec["bitmat"]}}]
+
+    CUDA_KERNELS = {"crc32_rows": ("crc_partial", "crc_finish"),
+                    "xxh32_rows": ("xxh32",),
+                    "bitplane_stage": ("bp_count", "bp_decide",
+                                       "bp_scatter")}
+
+    def write_line(name, kernel, replaces, main, extra):
+        """A write-transform kernel's line: launches on the write path,
+        the worst error over phase 7, the times of its main-path case."""
+        rec = wk_timed[main]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "ceph_tpu_torch/csrc/write_transform.cu",
+            "replaces": replaces, "launches": write_launches[kernel],
+            "cuda_launches": {k_: write_by_kernel[k_]
+                              for k_ in CUDA_KERNELS[kernel]},
+            "matched": wk_worst[kernel] == 0,
+            "max_abs_err": wk_worst[kernel], "ms": rec["ms"],
+            "kernel_ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"],
+            "share_of_bound": rec["share_of_bound"], "case": main,
+            "other_cases": {c: {f: wk_timed[c][f] for f in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                for c in extra}})
+
+    write_line("crc32_rows", "crc32_rows",
+               "ceph_tpu/osd/fused_transform.py:354",
+               "chunk_crc32c_128x8x4096",
+               ["shard_crc32_128x11x4096", "chunk_crc32c_16x8x65536",
+                "device_crc32_8MiB+3"])
+    write_line("xxh32_rows", "xxh32_rows",
+               "ceph_tpu/osd/fused_transform.py:392",
+               "chunk_xxh32_128x8x4096", ["chunk_xxh32_16x8x65536"])
+    write_line("bitplane_stage", "bitplane_stage",
+               "ceph_tpu/osd/fused_transform.py:442",
+               "bitplane_low_%d" % obj_bytes,
+               ["bitplane_low_%d" % (BSTRIPES * K * BCHUNK)])
     _records.append({"kernels": kernels})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -12,17 +12,23 @@ bitmatrix kernel on both of its designs: bit-sliced for w=8 with k <= 16
 when the expanded bitmatrix fits in shared memory, popcount for every
 other geometry. The packet kernel on both of its paths: 16-byte columns
 when the packetsize is a multiple of 16 and both pointers are aligned,
-byte columns otherwise.
+byte columns otherwise. The write transform's kernels (CRC rows, xxh32
+rows, the bit-plane stage) on their aligned and byte paths, and one
+``ec_util.encode_fused`` on the card in each mode against the CPU path.
 """
 
 import itertools
+import zlib
 
 import numpy as np
 import pytest
 import torch
 
 from ceph_tpu_torch import registry
-from ceph_tpu_torch.ops import gf, gf_kernel, gf_ref, packet_kernel, xor_mm
+from ceph_tpu_torch.ops import (gf, gf_kernel, gf_ref, packet_kernel,
+                                write_kernels, xor_mm)
+from ceph_tpu_torch.osd import ec_util
+from ceph_tpu_torch.osd import fused_transform as ft
 from ceph_tpu_torch.osd.gpu_dispatch import GpuDispatcher
 
 PROFILE = {"technique": "reed_sol_van", "k": "8", "m": "3", "w": "8"}
@@ -258,3 +264,140 @@ def test_cauchy_shec_lrc_codecs_on_card(cuda):
     host = full.cpu().numpy()
     assert np.array_equal(
         host[:1, 4:], lrc._encode_batch_layers(host[:1, :4]))
+
+
+# -- the write transform's kernels (csrc/write_transform.cu) -----------------
+
+def u32(t):
+    """uint32 results as numpy, for comparison."""
+    return t.cpu().numpy()
+
+
+def rand_card(cuda, shape, seed, offset=0, high=256):
+    """Random bytes on the card; offset 1 gives a view one byte into a
+    larger buffer (the byte paths)."""
+    n = int(np.prod(shape))
+    buf = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, high, n + offset, dtype=np.uint8)).to(cuda)
+    return buf[offset:].view(*shape)
+
+
+def launched(fn):
+    """fn's result and the wrapper launches it made."""
+    before = dict(write_kernels.LAUNCHES)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v - before[k] for k, v in write_kernels.LAUNCHES.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,length,offset", [
+    (3, 0, 0), (3, 1, 0), (5, 15, 0), (4, 16, 0), (7, 96, 0), (3, 4097, 0),
+    (1024, 4096, 0), (2, 65536, 0), (3, 4096, 1), (1, (8 << 20) + 3, 0)])
+@pytest.mark.parametrize("poly", [ft.POLY_ZLIB, ft.POLY_C])
+def test_crc32_rows_match_plain_on_card(cuda, rows, length, offset, poly):
+    data = rand_card(cuda, (rows, 1, length), rows + length, offset)
+    consts = ft.dev_consts(cuda)[poly]
+    got, n = launched(lambda: write_kernels.crc32_rows(data, consts))
+    assert n["crc32_rows"] == 1
+    assert np.array_equal(u32(got), u32(write_kernels.crc32_rows_plain(
+        data, consts)))
+    if rows * length < 1 << 16:
+        host = data.cpu().numpy().reshape(rows, length)
+        oracle = zlib.crc32 if poly == ft.POLY_ZLIB else ft.crc32c_host
+        assert [int(c) for c in u32(got)] == [oracle(r.tobytes())
+                                              for r in host]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,pad_stripes", [
+    ((128, 11, 4096), 0), ((128, 11, 4096), 1), ((128, 11, 4096), 127),
+    ((7, 3, 96), 2), ((5, 3, 40), 4)])
+def test_shard_crcs_with_pad_match_plain_on_card(cuda, shape, pad_stripes):
+    """Shard streams read in place from [S, n, chunk] (segments at a
+    stride), un-shifted by a pad read from device memory."""
+    data = rand_card(cuda, shape, shape[2] + pad_stripes)
+    data[shape[0] - pad_stripes:] = 0
+    view = data.permute(1, 0, 2)
+    consts = ft.dev_consts(cuda)[ft.POLY_ZLIB]
+    pad = torch.tensor([pad_stripes * shape[2]], device=cuda)
+    got, n = launched(lambda: write_kernels.crc32_rows(view, consts, pad))
+    assert n["crc32_rows"] == 1
+    assert np.array_equal(u32(got), u32(write_kernels.crc32_rows_plain(
+        view, consts, pad)))
+    host = data.cpu().numpy()[:shape[0] - pad_stripes]
+    assert [int(c) for c in u32(got)] == [
+        zlib.crc32(np.ascontiguousarray(host[:, i]).tobytes())
+        for i in range(shape[1])]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,length,offset", [
+    (3, 0, 0), (3, 1, 0), (5, 15, 0), (4, 16, 0), (33, 96, 0), (3, 4097, 0),
+    (1024, 4096, 0), (128, 65536, 0), (40, 4096, 1), (2, 300, 0)])
+def test_xxh32_rows_match_plain_on_card(cuda, rows, length, offset):
+    data = rand_card(cuda, (rows, length), rows * 7 + length, offset)
+    got, n = launched(lambda: write_kernels.xxh32_rows(data))
+    assert n["xxh32_rows"] == 1
+    assert np.array_equal(u32(got), u32(write_kernels.xxh32_rows_plain(data)))
+    if rows * length < 1 << 14:
+        host = data.cpu().numpy()
+        assert [int(h) for h in u32(got)] == [ft.xxh32_host(r.tobytes())
+                                              for r in host]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,n,offset", [
+    ("low", 8 * 4 * 4096, 0), ("random", 8 * 4 * 4096, 0),
+    ("zeros", 8 * 4 * 4096, 0), ("low", 3 * 4097, 0),
+    ("low", 8 * 4 * 4096, 1), ("ones", 64 * 1000, 0),
+    ("low", 128 * 8 * 4096, 0)])
+def test_bitplane_stage_matches_plain_on_card(cuda, kind, n, offset):
+    high = {"low": 4, "random": 256, "zeros": 1, "ones": 1}[kind]
+    flat = rand_card(cuda, (n,), n + high, offset, high)
+    if kind == "ones":
+        flat = (flat + 255).contiguous()
+    sw = 8 * 4096 if n % (8 * 4096) == 0 else 3 * 4097
+    chunk = sw // (8 if sw == 8 * 4096 else 3)
+    cap2 = ft.plan_capacity(n, sw)
+    (stored, dec), count = launched(lambda: write_kernels.bitplane_stage(
+        flat, cap2, sw, chunk, 875, 7000))
+    assert count["bitplane_stage"] == 1
+    ref_stored, ref_dec = write_kernels.bitplane_stage_plain(
+        flat, cap2, sw, chunk, 875, 7000)
+    got, ref = dict(zip(write_kernels.DEC_FIELDS, dec.tolist())), dict(
+        zip(write_kernels.DEC_FIELDS, ref_dec.tolist()))
+    assert abs(got.pop("entropy_milli") - ref.pop("entropy_milli")) <= 1
+    assert got == ref
+    assert torch.equal(stored, ref_stored)
+    if got["do_compress"]:
+        twin, _ = ft.bitplane_compress_host(flat.cpu().numpy().tobytes())
+        assert stored[:len(twin)].cpu().numpy().tobytes() == twin
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,kind", [("store", 256), ("compress", 4),
+                                       ("compress", 256)])
+def test_encode_fused_on_card_matches_cpu(cuda, mode, kind):
+    prof = dict(PROFILE)
+    codec = registry.factory("torch_cuda", prof)
+    host_codec = registry.factory("torch_cuda", prof, device="cpu")
+    sinfo = ec_util.StripeInfo(8, 8 * 4096)
+    data = np.random.default_rng(kind).integers(
+        0, kind, 16 * sinfo.stripe_width, dtype=np.uint8).tobytes()
+    before = dict(write_kernels.LAUNCHES)
+    shards, r = ec_util.encode_fused(sinfo, codec, data, mode=mode)
+    host_shards, hr = ec_util.encode_fused(sinfo, host_codec, data,
+                                           mode=mode)
+    assert all(write_kernels.LAUNCHES[k] > before[k]
+               for k in ("crc32_rows", "xxh32_rows")) and (
+        mode == "store" or write_kernels.LAUNCHES["bitplane_stage"] >
+        before["bitplane_stage"])
+    assert r.compressed == hr.compressed == (mode == "compress" and
+                                             kind == 4)
+    assert r.shard_crcs == hr.shard_crcs
+    assert np.array_equal(r.chunk_crc32c, hr.chunk_crc32c)
+    assert np.array_equal(r.chunk_xxh32, hr.chunk_xxh32)
+    for s in host_shards:
+        assert np.array_equal(shards[s], host_shards[s]), s
+        assert r.shard_crcs[s] == zlib.crc32(shards[s].tobytes())

@@ -7,12 +7,14 @@ without it instead of running on the CPU.
 """
 
 import ast
+import zlib
 from pathlib import Path
 
 import pytest
 import torch
 
 from ceph_tpu_torch import registry
+from ceph_tpu_torch.osd import fused_transform
 from ceph_tpu_torch.osd.gpu_dispatch import GpuDispatcher
 from ceph_tpu_torch.tools import erasure_code_benchmark as bench
 
@@ -79,6 +81,13 @@ def test_new_codecs_without_device_raise(no_cuda, plugin, profile):
 def test_dispatcher_without_device_raises(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA"):
         GpuDispatcher()
+
+
+def test_device_crc32_without_device_raises(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fused_transform.device_crc32(b"scrub")
+    assert fused_transform.device_crc32(b"scrub", device="cpu") == \
+        zlib.crc32(b"scrub")
 
 
 def test_benchmark_without_device_fails(no_cuda, capsys):
