@@ -18,26 +18,36 @@
 // P = 2048) that is 21.0 MB read + 8.4 MB written, 8.8 us at the H100
 // SXM's 3.35 TB/s; the XORs it needs are one byte XOR per set bit of the
 // bitmatrix per byte of a packet row, 888 * 262144 = 0.23 G, 0.12 us even
-// at the int8 rate of 1979 TOP/s, so bytes bound it. The kernel
-// re-reads each input packet once per output row that selects it (about
-// k*w/2 rows of a dense Cauchy row block); L1 and L2 serve those re-reads.
+// at the int8 rate of 1979 TOP/s, so bytes bound it.
 //
-// Design (simple; making it fast is later work):
-//  * Each block packs the bitmatrix once into shared memory as
-//    ceil(k*w/32) uint32 masks per row, with the popcount design's code
-//    (launch_common.cuh), beside the byte offset j*N + u*P of every input
-//    packet (j, u) from the start of its superblock.
-//  * A thread takes one 16-byte column of one output packet (b, i, s, t).
-//    It walks the row's set bits with __ffs and XORs 16-byte __ldg loads
-//    of the selected input packets, then stores 16 bytes. The threads of a
-//    warp hold neighbouring columns of one packet whenever P >= 512, so
-//    they walk the same mask (no divergence) and their loads coalesce.
-//  * A packetsize that is not a multiple of 16, or a data or output
-//    pointer that is not 16-byte aligned, takes the byte path of the same
-//    kernel: one thread per byte column.
-//  * A grid-stride loop with 64-bit offsets; the grid is sized from the
-//    occupancy the kernel reaches, queried once per device, path and
-//    shared-memory size (launch_common.cuh, shared with gf_bitmatrix.cu).
+// Three designs, picked by the C entry point from the geometry and the
+// pointers' alignment, each counted where it is launched:
+//  * staged (packetsize a multiple of 16, both pointers 16-byte aligned,
+//    a tile of at least min(P, 256) bytes of every input packet fitting
+//    kStageBytes): a block takes one (batch, superblock, tile) at a time
+//    and copies the tile of all k*w input packets into shared memory with
+//    16-byte cp.async, so each input byte is read from device memory once
+//    per launch. A thread then owns one 16-byte column of one output
+//    packet and XORs a shared-memory word per set bit of its row (walked
+//    with __ffs), and stores 16 bytes. The tile is the largest power of
+//    two (>= 16 bytes) up to the packetsize that keeps k*w tiles within
+//    kStageBytes; the last tile of a packet may be partial. The blocks
+//    are persistent (a grid-stride loop over tiles) and each packs the
+//    bitmatrix once into uint32 row masks (launch_common.cuh) while the
+//    copies of its first tile are in flight.
+//  * vector (aligned, but past the staged design's budget): a thread
+//    takes one 16-byte column of one output packet and XORs a 16-byte
+//    __ldg load per set bit of its row straight from device memory; L1
+//    and L2 serve the re-reads (about k*w/2 per input packet of a dense
+//    Cauchy row block). Each block packs the masks and a table of byte
+//    offsets j*N + u*P of the input packets.
+//  * byte (a packetsize not a multiple of 16, or a data or output pointer
+//    not 16-byte aligned): the vector design's kernel with one thread per
+//    byte column.
+// The vector and byte kernels run a grid-stride loop with 64-bit offsets;
+// every grid is sized from the occupancy the kernel reaches, queried once
+// per device, kernel and shared-memory size (launch_common.cuh, shared
+// with gf_bitmatrix.cu).
 
 #include <atomic>
 #include <cstdint>
@@ -48,19 +58,140 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;          // vector and byte designs
+constexpr int kStagedThreads = 256;
+constexpr long long kStageBytes = 64 * 1024;  // input tiles of a block
+constexpr long long kMinTile = 256;    // bytes of a packet per tile
 
-enum Path { kVector = 0, kByte = 1 };
+enum Design { kStaged = 0, kVector = 1, kByte = 2, kNumDesign };
 
-// Kernel launches of each path, counted where the kernel is launched.
-std::atomic<long long> g_launches[2];
+// Kernel launches of each design, counted where the kernel is launched.
+std::atomic<long long> g_launches[kNumDesign];
 
 __host__ __device__ inline int mask_words(int cols) { return (cols + 31) / 32; }
 
-// Offsets (one long long per input packet of a superblock), then masks.
+// Vector and byte designs: one offset per input packet, then the masks.
 size_t packet_smem(int rows, int cols) {
   return (size_t)cols * sizeof(long long) +
          (size_t)rows * mask_words(cols) * sizeof(uint32_t);
+}
+
+// Bytes of each input packet a staged tile holds: the largest power of
+// two from 16 up to the packetsize with cols tiles within kStageBytes;
+// 0 where that is under min(packet, kMinTile), and the staged design
+// does not take the geometry.
+long long stage_tile(int cols, long long packet) {
+  const long long cap = kStageBytes / cols;
+  if (cap < 16) return 0;
+  long long tile = 16;
+  while (tile < packet && 2 * tile <= cap) tile *= 2;
+  return tile >= packet || tile >= kMinTile ? tile : 0;
+}
+
+// Staged design: the tiles, then the masks.
+size_t staged_smem(int rows, int cols, long long tile) {
+  return (size_t)cols * tile + (size_t)rows * mask_words(cols) * sizeof(uint32_t);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Copies tile `item` (batch b, superblock s, tile t of each packet) of
+// all cols input packets into stage [cols][tile]; bytes past the packet's
+// end are not copied.
+__device__ __forceinline__ void stage_copy(
+    const uint8_t* __restrict__ data, uint8_t* stage, long long item, int k,
+    int w, long long packet, long long tile, long long n, long long supers,
+    long long tiles) {
+  const int cols = k * w;
+  const int vcols = (int)(tile / 16);
+  const long long b = item / (supers * tiles);
+  const long long rem = item - b * supers * tiles;
+  const long long s = rem / tiles;
+  const long long t0 = (rem - s * tiles) * tile;
+  const uint8_t* base = data + b * k * n + s * w * packet + t0;
+  for (int idx = threadIdx.x; idx < cols * vcols; idx += blockDim.x) {
+    const int c = idx / vcols;
+    const int x = (idx - c * vcols) * 16;
+    if (t0 + x < packet) {
+      const int j = c / w;
+      cp_async16(stage + (size_t)c * tile + x,
+                 base + (long long)j * n + (long long)(c - j * w) * packet + x);
+    }
+  }
+  cp_async_commit();
+}
+
+__global__ void __launch_bounds__(kStagedThreads)
+gf_packet_staged_kernel(const uint8_t* __restrict__ bitmat, int rows, int k,
+                        int w, long long packet, long long tile,
+                        const uint8_t* __restrict__ data,
+                        uint8_t* __restrict__ out, long long batch,
+                        long long n) {
+  extern __shared__ __align__(16) uint8_t st_smem[];
+  const int cols = k * w;
+  const int nw = mask_words(cols);
+  uint8_t* stage = st_smem;                                   // [cols][tile]
+  uint32_t* masks =
+      reinterpret_cast<uint32_t*>(st_smem + (size_t)cols * tile);  // [rows][nw]
+  const long long super = (long long)w * packet;
+  const long long supers = n / super;
+  const long long tiles = (packet + tile - 1) / tile;
+  const long long items = batch * supers * tiles;
+  const int vcols = (int)(tile / 16);
+  const int out_rows = rows / w;
+
+  if (blockIdx.x < items)
+    stage_copy(data, stage, blockIdx.x, k, w, packet, tile, n, supers, tiles);
+  launch_common::pack_masks(bitmat, rows, cols, nw, masks);  // under the copy
+
+  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+    cp_async_wait_all();
+    __syncthreads();
+    const long long b = item / (supers * tiles);
+    const long long rem = item - b * supers * tiles;
+    const long long s = rem / tiles;
+    const long long t0 = (rem - s * tiles) * tile;
+    for (int idx = threadIdx.x; idx < rows * vcols; idx += blockDim.x) {
+      const int r = idx / vcols;
+      const int x = (idx - r * vcols) * 16;
+      if (t0 + x >= packet) continue;
+      const uint32_t* mr = masks + r * nw;
+      uint4 acc = make_uint4(0u, 0u, 0u, 0u);
+      for (int q = 0; q < nw; ++q) {
+        uint32_t word = mr[q];
+        while (word) {
+          const int bit = __ffs(word) - 1;
+          word &= word - 1;
+          const uint4 v = *reinterpret_cast<const uint4*>(
+              stage + (size_t)(q * 32 + bit) * tile + x);
+          acc.x ^= v.x;
+          acc.y ^= v.y;
+          acc.z ^= v.z;
+          acc.w ^= v.w;
+        }
+      }
+      const int i = r / w;
+      uint8_t* dst = out + (b * out_rows + i) * n + s * super +
+                     (long long)(r - i * w) * packet + t0 + x;
+      __stcs(reinterpret_cast<uint4*>(dst), acc);
+    }
+    __syncthreads();  // the stage is free for the next tile
+    if (item + gridDim.x < items)
+      stage_copy(data, stage, item + gridDim.x, k, w, packet, tile, n, supers,
+                 tiles);
+  }
 }
 
 template <int VEC>
@@ -152,16 +283,67 @@ cudaError_t launch(const uint8_t* bitmat, int rows, int k, int w,
   return err;
 }
 
+cudaError_t launch_staged(const uint8_t* bitmat, int rows, int k, int w,
+                          long long packet, long long tile,
+                          const uint8_t* data, uint8_t* out, long long batch,
+                          long long n, size_t smem, cudaStream_t stream) {
+  const long long items = batch * (n / ((long long)w * packet)) *
+                          ((packet + tile - 1) / tile);
+  if (items == 0) return cudaSuccess;
+  unsigned blocks = 0;
+  cudaError_t err = launch_common::grid_blocks(
+      gf_packet_staged_kernel, kStagedThreads, smem, items * kStagedThreads,
+      &blocks);
+  if (err != cudaSuccess) return err;
+  gf_packet_staged_kernel<<<blocks, kStagedThreads, smem, stream>>>(
+      bitmat, rows, k, w, packet, tile, data, out, batch, n);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) g_launches[kStaged].fetch_add(1);
+  return err;
+}
+
+bool valid(int rows, int k, int w, long long packetsize) {
+  return rows >= 0 && k >= 1 && w >= 2 && w <= 32 && packetsize >= 1 &&
+         rows % w == 0;
+}
+
+// The design of a [rows, k*w] bitmatrix at `packetsize` with 16-byte
+// aligned pointers or not, given the card's opt-in shared memory.
+Design pick(int rows, int k, int w, long long packetsize, bool aligned,
+            size_t optin, long long* tile) {
+  *tile = 0;
+  if (!aligned || packetsize % 16 != 0) return kByte;
+  const long long t = stage_tile(k * w, packetsize);
+  if (t > 0 && staged_smem(rows, k * w, t) <= optin) {
+    *tile = t;
+    return kStaged;
+  }
+  return kVector;
+}
+
 }  // namespace
 
-// Launches of `path` (0 the 16-byte path, 1 the byte path) since the last
-// reset, or -1 for another path number.
-extern "C" long long gf_packet_launches(int path) {
-  return path == kVector || path == kByte ? g_launches[path].load() : -1;
+// Launches of design `design` (0 staged, 1 vector, 2 byte) since the last
+// reset, or -1 for another number.
+extern "C" long long gf_packet_launches(int design) {
+  return design >= 0 && design < kNumDesign ? g_launches[design].load() : -1;
 }
 
 extern "C" void gf_packet_reset_launches() {
   for (auto& count : g_launches) count.store(0);
+}
+
+// The design (0 staged, 1 vector, 2 byte) that gf_packet_encode takes on
+// the current device for a [rows, k*w] bitmatrix at `packetsize`, with
+// both pointers 16-byte aligned (aligned != 0) or not; -1 for a geometry
+// it refuses, -2 a failed device query.
+extern "C" int gf_packet_design(int rows, int k, int w, long long packetsize,
+                                int aligned) {
+  if (!valid(rows, k, w, packetsize)) return -1;
+  size_t optin = 0;
+  if (launch_common::smem_optin(&optin) != cudaSuccess) return -2;
+  long long tile = 0;
+  return (int)pick(rows, k, w, packetsize, aligned != 0, optin, &tile);
 }
 
 // bitmat [rows, k*w] 0/1 uint8, data [batch, k, n] uint8, out
@@ -174,23 +356,34 @@ extern "C" int gf_packet_encode(const void* bitmat, int rows, int k, int w,
                                 long long packetsize, const void* data,
                                 void* out, long long batch, long long n,
                                 void* stream) {
-  if (rows < 0 || k < 1 || w < 2 || w > 32 || packetsize < 1 || batch < 0 ||
-      n < 0 || rows % w != 0 || n % ((long long)w * packetsize) != 0)
+  if (!valid(rows, k, w, packetsize) || batch < 0 || n < 0 ||
+      n % ((long long)w * packetsize) != 0)
     return -1;
-  const size_t smem = packet_smem(rows, k * w);
   size_t optin = 0;
   const cudaError_t err = launch_common::smem_optin(&optin);
   if (err != cudaSuccess) return (int)err;
-  if (smem > optin) return -1;
   const auto* bm = static_cast<const uint8_t*>(bitmat);
   const auto* in = static_cast<const uint8_t*>(data);
   auto* o = static_cast<uint8_t*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  const bool vec = packetsize % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(in) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(o) % 16 == 0;
-  if (vec)
-    return (int)launch<16>(bm, rows, k, w, packetsize, in, o, batch, n, smem,
-                           s);
-  return (int)launch<1>(bm, rows, k, w, packetsize, in, o, batch, n, smem, s);
+  const bool aligned = reinterpret_cast<uintptr_t>(in) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(o) % 16 == 0;
+  long long tile = 0;
+  switch (pick(rows, k, w, packetsize, aligned, optin, &tile)) {
+    case kStaged:
+      return (int)launch_staged(bm, rows, k, w, packetsize, tile, in, o,
+                                batch, n, staged_smem(rows, k * w, tile), s);
+    case kVector:
+    case kByte: {
+      const size_t smem = packet_smem(rows, k * w);
+      if (smem > optin) return -1;
+      if (aligned && packetsize % 16 == 0)
+        return (int)launch<16>(bm, rows, k, w, packetsize, in, o, batch, n,
+                               smem, s);
+      return (int)launch<1>(bm, rows, k, w, packetsize, in, o, batch, n, smem,
+                            s);
+    }
+    default:
+      return -1;
+  }
 }

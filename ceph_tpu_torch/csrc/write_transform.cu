@@ -29,16 +29,26 @@
 //  rounds, 24.8 us, however many rows run beside it.
 //
 // Design (simple; speed is later work):
-//  * K1 cuts each row into 64-byte units and front-pads the row with zero
-//    bytes to a multiple of 32 units, so that a warp never straddles two
-//    rows (leading zero bytes leave a CRC register of 0 at 0). A thread
-//    computes the raw CRC of its unit from a byte table in shared memory
-//    (16-byte loads when the geometry is 16-byte aligned), shifts it by
-//    the bytes after the unit with the "append 2^l zero bytes" matrices
-//    (crc(A|B) = shift_|B|(crc(A)) ^ crc(B)), and the warp XOR-reduces
-//    its 32 units into one partial word. A second launch XORs a row's
-//    partials, adds the init constant shift_L(0xFFFFFFFF), un-shifts the
-//    pad with the inverse matrices and applies the xor-out.
+//  * K1 is one launch. A row is cut into 64-byte units and front-padded
+//    with zero bytes to whole spans of 32 units (2048 bytes), so that a
+//    warp never straddles two rows (leading zero bytes leave a CRC
+//    register of 0 at 0). A warp takes one span, a lane one unit: the
+//    lane's raw CRC runs 16 bytes a step by slicing-by-16 (16 tables of
+//    256 words in shared memory, 16 independent lookups a step, so a
+//    unit is 4 dependent steps on the aligned path; the byte path steps a
+//    byte at a time through the first table). The init register enters
+//    where the row's first byte does (the register is XORed with
+//    0xFFFFFFFF there), so no shift_len(0xFFFFFFFF) is computed at all.
+//    The warp then combines its 32 units in a 5-level shuffle tree, level
+//    l applying the "append 2^(6+l) bytes" matrix to the left half
+//    (crc(A|B) = shift_|B|(crc(A)) ^ crc(B)). A row of one span is done
+//    there. Otherwise each warp stores its span's word and counts its
+//    arrival on the row; the last warp of the row combines the row's
+//    span words (each lane a power-of-two run of them by Horner steps of
+//    the "append 2048 bytes" matrix, then a shuffle tree), un-shifts the
+//    pad with the inverse matrices, applies the xor-out and writes the
+//    CRC. It then zeroes the counter and the span words it read, so the
+//    scratch is all zeros again for the next call on the stream.
 //  * K2 runs one thread per row, a warp per block, so that the few rows of
 //    a write spread over the SMs. Aligned rows stream through shared
 //    memory in 256-byte tiles with cp.async, several tiles in flight, so
@@ -65,8 +75,13 @@ namespace {
 constexpr int kLevels = 31;       // shift matrices for 2^0 .. 2^30 bytes
 constexpr int kRun = 64;          // bytes of one K1 unit
 constexpr int kRunLog2 = 6;
+constexpr int kSpanLog2 = 11;     // a warp's 32 units: 2048 bytes
+constexpr long long kSpan = 1ll << kSpanLog2;
+constexpr int kSlices = 16;       // slicing-by-16 tables
+constexpr int kShiftAt = 256;     // consts: table, shifts, inverses, T_1..T_15
+constexpr int kInvAt = kShiftAt + kLevels * 32;
+constexpr int kSliceAt = kInvAt + kLevels * 32;
 constexpr int kCrcThreads = 256;
-constexpr int kFinishThreads = 128;
 constexpr int kBlock = 64;        // bytes of one bit-plane block
 constexpr int kBpThreads = 256;   // 64-byte blocks per K3 tile
 constexpr int kXxhTile = 256;     // bytes of a row per K2 stage
@@ -75,8 +90,7 @@ constexpr int kXxhStages = 6;
 constexpr size_t kXxhSmem = (size_t)kXxhStages * 32 * kXxhPitch;
 
 enum Launch {
-  kCrcPartial = 0,
-  kCrcFinish,
+  kCrcRows = 0,
   kXxh,
   kBpCount,
   kBpDecide,
@@ -109,97 +123,149 @@ __device__ uint32_t shift_bytes(const uint32_t* shift, uint32_t c,
   return c;
 }
 
-__device__ __forceinline__ uint32_t warp_xor(uint32_t v) {
+// The shuffle tree of a warp: lane l holds the raw CRC of the l-th of 32
+// consecutive pieces of 2^level0 bytes; every lane returns the raw CRC
+// of their concatenation. Level i applies the "append 2^(level0 + i)
+// bytes" matrix to the left half of each pair of groups.
+__device__ __forceinline__ uint32_t warp_tree(const uint32_t* shift,
+                                              uint32_t v, int level0,
+                                              int lane) {
 #pragma unroll
-  for (int o = 16; o; o >>= 1) v ^= __shfl_xor_sync(0xffffffffu, v, o);
+  for (int l = 0; l < 5; ++l) {
+    const uint32_t o = __shfl_xor_sync(0xffffffffu, v, 1 << l);
+    const bool right = (lane >> l) & 1;
+    v = mat_apply(shift + (level0 + l) * 32, right ? o : v) ^ (right ? v : o);
+  }
   return v;
 }
 
-// ---- K1: table CRC of strided rows -----------------------------------
+// ---- K1: CRC of strided rows ------------------------------------------
+
+// One slicing-by-16 step: the register after the 16 bytes of v.
+__device__ __forceinline__ uint32_t slice16(const uint32_t* tab, uint32_t c,
+                                            uint4 v) {
+  const uint32_t x = v.x ^ c;
+  return tab[15 * 256 + (x & 0xffu)] ^ tab[14 * 256 + ((x >> 8) & 0xffu)] ^
+         tab[13 * 256 + ((x >> 16) & 0xffu)] ^ tab[12 * 256 + (x >> 24)] ^
+         tab[11 * 256 + (v.y & 0xffu)] ^ tab[10 * 256 + ((v.y >> 8) & 0xffu)] ^
+         tab[9 * 256 + ((v.y >> 16) & 0xffu)] ^ tab[8 * 256 + (v.y >> 24)] ^
+         tab[7 * 256 + (v.z & 0xffu)] ^ tab[6 * 256 + ((v.z >> 8) & 0xffu)] ^
+         tab[5 * 256 + ((v.z >> 16) & 0xffu)] ^ tab[4 * 256 + (v.z >> 24)] ^
+         tab[3 * 256 + (v.w & 0xffu)] ^ tab[2 * 256 + ((v.w >> 8) & 0xffu)] ^
+         tab[256 + ((v.w >> 16) & 0xffu)] ^ tab[v.w >> 24];
+}
+
+// The standard CRC from a row's register (init included): a row of no
+// bytes has the init register, the pad is undone, then the xor-out.
+__device__ uint32_t crc_out(uint32_t reg, long long len,
+                            const uint32_t* __restrict__ consts,
+                            const long long* __restrict__ pad) {
+  if (len == 0) reg = 0xffffffffu;
+  if (pad != nullptr)  // undo the zero tail: inverse shifts
+    reg = shift_bytes(consts + kInvAt, reg, (unsigned long long)*pad, 0);
+  return reg ^ 0xffffffffu;
+}
 
 template <int VEC>
 __global__ void __launch_bounds__(kCrcThreads)
-crc_partial_kernel(const uint8_t* __restrict__ src, long long nrows,
-                   long long row_stride, long long seg_stride,
-                   long long seglen, long long len, long long units,
-                   const uint32_t* __restrict__ consts,
-                   uint32_t* __restrict__ partial) {
-  __shared__ uint32_t table[256];
+crc_rows_kernel(const uint8_t* __restrict__ src, long long nrows,
+                long long row_stride, long long seg_stride, long long seglen,
+                long long len, long long spans,
+                const uint32_t* __restrict__ consts,
+                const long long* __restrict__ pad,
+                uint32_t* __restrict__ scratch, uint32_t* __restrict__ out) {
+  constexpr int kTab = VEC == 16 ? kSlices * 256 : 256;
+  __shared__ uint32_t tab[kTab];   // T_0, then T_1..T_15 on the aligned path
   __shared__ uint32_t shift[kLevels * 32];
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) table[i] = consts[i];
+  for (int i = threadIdx.x; i < kTab; i += blockDim.x)
+    tab[i] = consts[i < 256 ? i : kSliceAt + i - 256];
   for (int i = threadIdx.x; i < kLevels * 32; i += blockDim.x)
-    shift[i] = consts[256 + i];
+    shift[i] = consts[kShiftAt + i];
   __syncthreads();
 
-  const long long pad = units * kRun - len;  // leading zero bytes
-  const long long total = nrows * units;     // a multiple of 32
-  for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       g < total; g += (long long)gridDim.x * blockDim.x) {
-    const long long row = g / units;
-    const long long u = g - row * units;
-    const long long end = (u + 1) * kRun - pad;  // logical bytes [p, end)
-    long long p = u * kRun - pad;
-    if (p < 0) p = 0;
+  const int lane = threadIdx.x & 31;
+  const long long lead = spans * kSpan - len;  // leading zero bytes
+  const long long total = nrows * spans;
+  const long long warps = (long long)gridDim.x * (blockDim.x >> 5);
+  unsigned* count = reinterpret_cast<unsigned*>(scratch);  // [nrows]
+  uint32_t* words = scratch + nrows;                       // [nrows, spans]
+  for (long long g = (long long)blockIdx.x * (blockDim.x >> 5) +
+                     (threadIdx.x >> 5);
+       g < total; g += warps) {
+    const long long row = g / spans;
+    const long long unit = (g - row * spans) * 32 + lane;
+    long long p = unit * kRun - lead;  // logical bytes [p, end)
+    const long long end = p + kRun;
     uint32_t c = 0;
-    if (p < end) {
+    if (end > 0) {
+      if (p < 0) p = 0;
+      const bool first = p == 0;  // the row's first byte: the init register
       const uint8_t* rowp = src + row * row_stride;
       long long seg = p / seglen;
       long long off = p - seg * seglen;
-      while (p < end) {
-        const uint8_t* a = rowp + seg * seg_stride + off;
-        if constexpr (VEC == 16) {
-          const uint4 v = __ldg(reinterpret_cast<const uint4*>(a));
-          const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+      if constexpr (VEC == 16) {
+        const int nq = (int)((end - p) >> 4);
+        uint4 v[4];
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            c ^= words[q];
-#pragma unroll
-            for (int b = 0; b < 4; ++b) c = table[c & 0xffu] ^ (c >> 8);
+        for (int q = 0; q < 4; ++q) {
+          if (q < nq) {
+            v[q] = __ldg(reinterpret_cast<const uint4*>(rowp + seg * seg_stride +
+                                                        off));
+            off += 16;
+            if (off == seglen) {
+              off = 0;
+              ++seg;
+            }
           }
-        } else {
-          c = table[(c ^ __ldg(a)) & 0xffu] ^ (c >> 8);
         }
-        p += VEC;
-        off += VEC;
-        if (off == seglen) {
-          off = 0;
-          ++seg;
+        if (first) c = 0xffffffffu;
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (q < nq) c = slice16(tab, c, v[q]);
+      } else {
+        if (first) c = 0xffffffffu;
+        for (; p < end; ++p) {
+          c = tab[(c ^ __ldg(rowp + seg * seg_stride + off)) & 0xffu] ^ (c >> 8);
+          if (++off == seglen) {
+            off = 0;
+            ++seg;
+          }
         }
       }
     }
-    // the units after this one, kRun bytes each
-    c = shift_bytes(shift, c, (unsigned long long)(units - 1 - u), kRunLog2);
-    c = warp_xor(c);
-    if ((threadIdx.x & 31) == 0) partial[g >> 5] = c;
-  }
-}
-
-__global__ void __launch_bounds__(kFinishThreads)
-crc_finish_kernel(const uint32_t* __restrict__ partial, long long nrows,
-                  long long words, long long len,
-                  const uint32_t* __restrict__ consts,
-                  const long long* __restrict__ pad,
-                  uint32_t* __restrict__ out) {
-  __shared__ uint32_t warp_part[kFinishThreads / 32];
-  const uint32_t* shift = consts + 256;
-  const uint32_t* inv = consts + 256 + kLevels * 32;
-  for (long long row = blockIdx.x; row < nrows; row += gridDim.x) {
-    uint32_t x = 0;
-    for (long long i = threadIdx.x; i < words; i += blockDim.x)
-      x ^= partial[row * words + i];
-    x = warp_xor(x);
-    if ((threadIdx.x & 31) == 0) warp_part[threadIdx.x >> 5] = x;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      uint32_t reg = 0;
-      for (int w = 0; w < kFinishThreads / 32; ++w) reg ^= warp_part[w];
-      // the init register 0xFFFFFFFF carried over the row's len bytes
-      reg ^= shift_bytes(shift, 0xffffffffu, (unsigned long long)len, 0);
-      if (pad != nullptr)  // undo the zero tail: inverse shifts
-        reg = shift_bytes(inv, reg, (unsigned long long)*pad, 0);
-      out[row] = reg ^ 0xffffffffu;
+    c = warp_tree(shift, c, kRunLog2, lane);
+    if (spans == 1) {
+      if (lane == 0) out[row] = crc_out(c, len, consts, pad);
+      continue;
     }
-    __syncthreads();
+    unsigned last = 0;
+    if (lane == 0) {
+      words[g] = c;
+      __threadfence();  // the word before the arrival
+      last = atomicAdd(&count[row], 1u) == (unsigned)(spans - 1);
+    }
+    if (!__shfl_sync(0xffffffffu, last, 0)) continue;
+    __threadfence();  // every span's word is visible
+    // lane i takes `per` spans, the list front-padded with zero words
+    int per_log = 0;
+    while ((32ll << per_log) < spans) ++per_log;
+    const long long per = 1ll << per_log;
+    const long long first_span = lane * per - (32 * per - spans);
+    uint32_t acc = 0;
+    for (long long t = 0; t < per; ++t) {
+      const long long i = first_span + t;
+      uint32_t word = 0;
+      if (i >= 0) {
+        word = __ldcg(words + row * spans + i);
+        words[row * spans + i] = 0;  // scratch back to zeros
+      }
+      acc = mat_apply(shift + kSpanLog2 * 32, acc) ^ word;
+    }
+    acc = warp_tree(shift, acc, kSpanLog2 + per_log, lane);
+    if (lane == 0) {
+      out[row] = crc_out(acc, len, consts, pad);
+      count[row] = 0;
+    }
   }
 }
 
@@ -578,10 +644,16 @@ cudaError_t counted(Launch kind) {
   return err;
 }
 
+// Spans of 2048 bytes K1 cuts a row of `len` bytes into (at least one).
+long long crc_spans(long long len) {
+  const long long spans = (len + kSpan - 1) / kSpan;
+  return spans > 0 ? spans : 1;
+}
+
 }  // namespace
 
-// Launches of kernel `kind` (0 crc_partial, 1 crc_finish, 2 xxh32,
-// 3 bp_count, 4 bp_decide, 5 bp_scatter) since the last reset, or -1.
+// Launches of kernel `kind` (0 crc_rows, 1 xxh32, 2 bp_count,
+// 3 bp_decide, 4 bp_scatter) since the last reset, or -1.
 extern "C" long long wt_launches(int kind) {
   return kind >= 0 && kind < kNumLaunch ? g_launches[kind].load() : -1;
 }
@@ -590,63 +662,62 @@ extern "C" void wt_reset_launches() {
   for (auto& count : g_launches) count.store(0);
 }
 
-// Words of K1 partials per row of `len` bytes (one per 32 units).
-extern "C" long long wt_crc_words(long long len) {
-  const long long units = (len + kRun - 1) / kRun;
-  return (units + 31) / 32;
+// uint32 words of scratch K1 needs for nrows rows of `len` bytes: a
+// counter per row and a word per span of a row, none for rows of one
+// span.
+extern "C" long long wt_crc_scratch_words(long long nrows, long long len) {
+  const long long spans = crc_spans(len);
+  return spans > 1 ? nrows * (1 + spans) : 0;
 }
 
 // K1. Row r is nseg segments of seglen bytes, segment s at src + r *
 // row_stride + s * seg_stride; len = nseg * seglen < 2^30. consts: the
-// polynomial's table, shift and inverse matrices (256 + 2 * 31 * 32
-// uint32 on the device); pad: an int64 on the device or null; partial: nrows *
-// wt_crc_words(len) uint32 of scratch; out: nrows uint32. Returns 0, a
-// cudaError_t code, or -1 for arguments the kernel does not take.
+// polynomial's table, shift and inverse matrices and slicing tables
+// (256 + 2 * 31 * 32 + 15 * 256 uint32 on the device); pad: an int64 on
+// the device or null; scratch: wt_crc_scratch_words(nrows, len) uint32,
+// all zeros at entry and left all zeros (a buffer kept for the stream);
+// out: nrows uint32. One launch. Returns 0, a cudaError_t code, or -1 for
+// arguments the kernel does not take.
 extern "C" int wt_crc32_rows(const void* src, long long nrows,
                              long long row_stride, long long nseg,
                              long long seg_stride, long long seglen,
                              const void* consts, const void* pad,
-                             void* partial, void* out, void* stream) {
+                             void* scratch, void* out, void* stream) {
   const long long len = nseg * seglen;
   if (nrows < 0 || nseg < 0 || seglen < 0 || len >= (1ll << 30) ||
       (len > 0 && seglen == 0))
     return -1;
   if (nrows == 0) return 0;
+  if (seglen == 0) seglen = 1;  // no bytes: the walk never reads
   auto s = static_cast<cudaStream_t>(stream);
   const auto* cst = static_cast<const uint32_t*>(consts);
-  auto* part = static_cast<uint32_t*>(partial);
-  const long long words = wt_crc_words(len);
-  const long long units = words * 32;
-  if (units > 0) {
-    const auto* in = static_cast<const uint8_t*>(src);
-    const bool vec = len % 16 == 0 && seglen % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(in) % 16 == 0 &&
-                     row_stride % 16 == 0 && seg_stride % 16 == 0;
-    unsigned blocks = 0;
-    cudaError_t err;
-    if (vec) {
-      auto kernel = crc_partial_kernel<16>;
-      err = launch_common::grid_blocks(kernel, kCrcThreads, 0,
-                                       nrows * units, &blocks);
-      if (err != cudaSuccess) return (int)err;
-      kernel<<<blocks, kCrcThreads, 0, s>>>(in, nrows, row_stride, seg_stride,
-                                            seglen, len, units, cst, part);
-    } else {
-      auto kernel = crc_partial_kernel<1>;
-      err = launch_common::grid_blocks(kernel, kCrcThreads, 0,
-                                       nrows * units, &blocks);
-      if (err != cudaSuccess) return (int)err;
-      kernel<<<blocks, kCrcThreads, 0, s>>>(in, nrows, row_stride, seg_stride,
-                                            seglen, len, units, cst, part);
-    }
-    err = counted(kCrcPartial);
+  const auto* pd = static_cast<const long long*>(pad);
+  auto* scr = static_cast<uint32_t*>(scratch);
+  auto* o = static_cast<uint32_t*>(out);
+  const auto* in = static_cast<const uint8_t*>(src);
+  const long long spans = crc_spans(len);
+  const long long warps = nrows * spans;
+  const bool vec = len % 16 == 0 && seglen % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(in) % 16 == 0 &&
+                   row_stride % 16 == 0 && seg_stride % 16 == 0;
+  unsigned blocks = 0;
+  cudaError_t err;
+  if (vec) {
+    auto kernel = crc_rows_kernel<16>;
+    err = launch_common::grid_blocks(kernel, kCrcThreads, 0, warps * 32,
+                                     &blocks);
     if (err != cudaSuccess) return (int)err;
+    kernel<<<blocks, kCrcThreads, 0, s>>>(in, nrows, row_stride, seg_stride,
+                                          seglen, len, spans, cst, pd, scr, o);
+  } else {
+    auto kernel = crc_rows_kernel<1>;
+    err = launch_common::grid_blocks(kernel, kCrcThreads, 0, warps * 32,
+                                     &blocks);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<blocks, kCrcThreads, 0, s>>>(in, nrows, row_stride, seg_stride,
+                                          seglen, len, spans, cst, pd, scr, o);
   }
-  const unsigned fblocks = (unsigned)(nrows < 65535 ? nrows : 65535);
-  crc_finish_kernel<<<fblocks, kFinishThreads, 0, s>>>(
-      part, nrows, words, len, cst, static_cast<const long long*>(pad),
-      static_cast<uint32_t*>(out));
-  return (int)counted(kCrcFinish);
+  return (int)counted(kCrcRows);
 }
 
 // K2. rows [nrows, len] contiguous uint8 -> out [nrows] uint32.

@@ -8,10 +8,15 @@ packets ``(j, s, u)`` with ``bitmat[i*w + t, j*w + u] = 1``.
 
 :func:`bitmatrix_encode` launches the kernel for a CUDA tensor and runs
 :func:`ceph_tpu_torch.ops.xor_mm.bitmatrix_encode_plain` only for a CPU
-tensor; it never falls back. ``LAUNCHES`` counts kernel launches;
-:func:`launches_by_path` reads the counts that the C entry point keeps
-per path (16-byte or byte), and :func:`reset_launches` sets all of them
-to 0.
+tensor; it never falls back. The C entry point picks one of three designs
+(``DESIGNS``) from the geometry and the pointers' alignment:
+"staged" (each superblock's packets tiled through shared memory, every
+input byte read once), "vector" (16-byte columns loaded per set bit, for
+geometries past the staged design's budget) and "byte" (a packetsize not
+a multiple of 16 or an unaligned pointer); :func:`kernel_design` asks it
+which. ``LAUNCHES`` counts kernel launches; :func:`launches_by_design`
+reads the counts that the C entry point keeps per design, and
+:func:`reset_launches` sets all of them to 0.
 """
 
 from __future__ import annotations
@@ -24,12 +29,13 @@ import torch
 from . import _build
 from .xor_mm import bitmatrix_encode_plain
 
-__all__ = ["bitmatrix_encode", "launches_by_path", "reset_launches",
-           "smem_bytes", "check_smem", "LAUNCHES", "PATHS"]
+__all__ = ["bitmatrix_encode", "kernel_design", "launches_by_design",
+           "reset_launches", "smem_bytes", "check_smem", "LAUNCHES",
+           "DESIGNS"]
 
 _SOURCE = "gf_packet"
 
-PATHS = ("vector", "byte")  # by the C entry point's path number
+DESIGNS = ("staged", "vector", "byte")  # by the C entry point's number
 
 LAUNCHES = 0
 _count_lock = threading.Lock()
@@ -45,6 +51,10 @@ def _kernel() -> ctypes.CDLL:
             ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
         lib.gf_packet_encode.restype = ctypes.c_int
+        lib.gf_packet_design.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_int]
+        lib.gf_packet_design.restype = ctypes.c_int
         lib.gf_packet_launches.argtypes = [ctypes.c_int]
         lib.gf_packet_launches.restype = ctypes.c_longlong
         lib.gf_packet_reset_launches.argtypes = []
@@ -53,16 +63,30 @@ def _kernel() -> ctypes.CDLL:
     return _lib
 
 
-def launches_by_path() -> dict[str, int]:
-    """{path: kernel launches since the last reset}, as the C entry point
-    counts them where it launches the kernel."""
+def kernel_design(rows: int, k: int, w: int, packetsize: int,
+                  aligned: bool, device) -> str:
+    """The design the kernel's entry point takes on a CUDA device for a
+    [rows, k*w] bitmatrix at `packetsize`, with the data and output
+    pointers 16-byte aligned or not."""
+    lib = _kernel()
+    with torch.cuda.device(torch.device(device)):
+        rc = lib.gf_packet_design(rows, k, w, packetsize, int(aligned))
+    if rc < 0:
+        raise RuntimeError("gf_packet_design(%d, %d, %d, %d) failed with "
+                           "code %d" % (rows, k, w, packetsize, rc))
+    return DESIGNS[rc]
+
+
+def launches_by_design() -> dict[str, int]:
+    """{design: kernel launches since the last reset}, as the C entry point
+    counts them where it launches each kernel."""
     if _lib is None:            # nothing was built, so nothing launched
-        return dict.fromkeys(PATHS, 0)
-    return {p: int(_lib.gf_packet_launches(i)) for i, p in enumerate(PATHS)}
+        return dict.fromkeys(DESIGNS, 0)
+    return {d: int(_lib.gf_packet_launches(i)) for i, d in enumerate(DESIGNS)}
 
 
 def reset_launches() -> None:
-    """Sets ``LAUNCHES`` and the per-path counts to 0."""
+    """Sets ``LAUNCHES`` and the per-design counts to 0."""
     global LAUNCHES
     with _count_lock:
         LAUNCHES = 0
@@ -71,8 +95,10 @@ def reset_launches() -> None:
 
 
 def smem_bytes(rows: int, cols: int) -> int:
-    """Shared memory of one block: an 8-byte offset per input packet of a
-    superblock and ceil(cols/32) uint32 masks per bitmatrix row."""
+    """Shared memory of one block of the vector and byte designs, the most
+    any geometry needs (the staged design is taken only where it fits): an
+    8-byte offset per input packet of a superblock and ceil(cols/32)
+    uint32 masks per bitmatrix row."""
     return cols * 8 + rows * (-(-cols // 32)) * 4
 
 

@@ -17,12 +17,14 @@ around the encode, each with its plain PyTorch version beside it:
 A wrapper runs its plain version only for a CPU tensor; for a CUDA tensor
 it launches the kernel on the current stream or raises. ``LAUNCHES``
 counts wrapper calls that launched, per wrapper; :func:`launches_by_kernel`
-reads the counts the C entry points keep per CUDA kernel (K1 is two
-launches, K3 three), and :func:`reset_launches` sets all of them to 0.
+reads the counts the C entry points keep per CUDA kernel (K1 and K2 are
+one launch each, K3 three), and :func:`reset_launches` sets all of them
+to 0.
 
 CRC constants (``consts``): uint32 ``[CONSTS_WORDS]`` on the view's device,
 the polynomial's byte table ``[256]``, then the 31 "append 2^l zero bytes"
-matrices and their 31 inverses, each 32 column masks (built by
+matrices and their 31 inverses, each 32 column masks, then the slicing
+tables T_1..T_15 ``[15, 256]`` of K1's 16-byte steps (built by
 :func:`ceph_tpu_torch.osd.fused_transform.dev_consts`). The plain versions
 compute in int64 masked to 32 bits: torch on the CPU has no shifts on
 uint32.
@@ -44,19 +46,23 @@ __all__ = ["crc32_rows", "crc32_rows_plain", "xxh32_rows",
 
 _SOURCE = "write_transform"
 LEVELS = 31                  # shift matrices for appends of 2^0..2^30 bytes
-CONSTS_WORDS = 256 + 2 * LEVELS * 32
+CONSTS_WORDS = 256 + 2 * LEVELS * 32 + 15 * 256
 MAX_LEN = 1 << 30            # longest row K1 takes
 BLOCK = 64                   # bytes of a bit-plane block
 DEC_FIELDS = ("comp_len", "do_compress", "probe_ok", "entropy_milli",
               "used_stripes", "pad_bytes")
 
 # CUDA kernels by the C entry points' kind number
-KERNELS = ("crc_partial", "crc_finish", "xxh32", "bp_count", "bp_decide",
-           "bp_scatter")
+KERNELS = ("crc_rows", "xxh32", "bp_count", "bp_decide", "bp_scatter")
 
 LAUNCHES = {"crc32_rows": 0, "xxh32_rows": 0, "bitplane_stage": 0}
 _count_lock = threading.Lock()
 _lib = None
+# K1's scratch per (device, stream): all zeros between calls (the kernel
+# leaves it so), reused by every call on the stream, which the stream
+# orders; grown, zeroed, when a call needs more
+_crc_scratch: dict = {}
+_scratch_lock = threading.Lock()
 
 _M32 = 0xFFFFFFFF
 _XXP1, _XXP2, _XXP3 = 2654435761, 2246822519, 3266489917
@@ -70,8 +76,8 @@ def _kernel() -> ctypes.CDLL:
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.wt_crc32_rows.argtypes = [p, ll, ll, ll, ll, ll, p, p, p, p, p]
         lib.wt_crc32_rows.restype = i
-        lib.wt_crc_words.argtypes = [ll]
-        lib.wt_crc_words.restype = ll
+        lib.wt_crc_scratch_words.argtypes = [ll, ll]
+        lib.wt_crc_scratch_words.restype = ll
         lib.wt_xxh32_rows.argtypes = [p, ll, ll, p, p]
         lib.wt_xxh32_rows.restype = i
         lib.wt_bitplane_tiles.argtypes = [ll]
@@ -138,7 +144,7 @@ def _split_consts(consts: torch.Tensor):
     c = _from_u32(consts)
     table = c[:256]
     shift = c[256:256 + LEVELS * 32].view(LEVELS, 32)
-    inv = c[256 + LEVELS * 32:].view(LEVELS, 32)
+    inv = c[256 + LEVELS * 32:256 + 2 * LEVELS * 32].view(LEVELS, 32)
     return table, shift, inv
 
 
@@ -215,6 +221,20 @@ def _check_crc(view, consts, pad, out) -> None:
                              % (view.device, t.device))
 
 
+def _scratch_for(device: torch.device, stream: int,
+                 words: int) -> torch.Tensor:
+    """K1's zeroed scratch of at least `words` uint32 (as int32) for calls
+    on `stream`."""
+    key = (device.index, stream)
+    with _scratch_lock:
+        buf = _crc_scratch.get(key)
+        if buf is None or buf.numel() < words:
+            size = max(words, 1, 0 if buf is None else 2 * buf.numel())
+            buf = _crc_scratch[key] = torch.zeros(size, dtype=torch.int32,
+                                                  device=device)
+        return buf
+
+
 def crc32_rows(view: torch.Tensor, consts: torch.Tensor,
                pad: torch.Tensor | None = None,
                out: torch.Tensor | None = None) -> torch.Tensor:
@@ -234,14 +254,15 @@ def crc32_rows(view: torch.Tensor, consts: torch.Tensor,
     if rows == 0:
         return out
     lib = _kernel()
-    partial = torch.empty(max(1, rows * lib.wt_crc_words(nseg * seglen)),
-                          dtype=torch.uint32, device=view.device)
     with torch.cuda.device(view.device):
+        stream = _stream(view.device)
+        scratch = _scratch_for(view.device, stream, lib.wt_crc_scratch_words(
+            rows, nseg * seglen))
         rc = lib.wt_crc32_rows(
             view.data_ptr(), rows, view.stride(0), nseg, view.stride(1),
             seglen, consts.data_ptr(),
-            None if pad is None else pad.data_ptr(), partial.data_ptr(),
-            out.data_ptr(), _stream(view.device))
+            None if pad is None else pad.data_ptr(), scratch.data_ptr(),
+            out.data_ptr(), stream)
     _raise_rc("wt_crc32_rows", rc)
     _count("crc32_rows")
     return out

@@ -137,10 +137,23 @@ class _PolyConsts:
             lvl += 1
         return state
 
+    def slicing_tables(self) -> np.ndarray:
+        """[15, 256]: T_k[b], k = 1..15, the register of byte b followed
+        by k zero bytes (T_0 is the byte table), for K1's 16-byte steps."""
+        tables = [self.table.astype(np.uint32)]
+        for _ in range(15):
+            prev = tables[-1]
+            tables.append((prev >> np.uint32(8)) ^
+                          tables[0][prev & np.uint32(0xFF)])
+        return np.stack(tables[1:])
+
     def packed(self) -> np.ndarray:
-        """The kernel's constants: table, shift matrices, inverses."""
+        """The kernel's constants: table, shift matrices, inverses, then
+        the slicing tables T_1..T_15."""
         return np.concatenate([self.table, self.shift.reshape(-1),
-                               self.inv.reshape(-1)]).astype(np.uint32)
+                               self.inv.reshape(-1),
+                               self.slicing_tables().reshape(-1)]
+                              ).astype(np.uint32)
 
 
 _CONSTS: dict = {}

@@ -1,12 +1,21 @@
-"""Device time of the GF bitmatrix kernel against the batch size.
+"""Device time of the GF bitmatrix or packet kernel against the batch size.
 
     python -m ceph_tpu_torch.tools.gf_kernel_sweep [--batches 1,2,4]
+        [--kernel gf|packet]
 
 For the Reed-Solomon k=8, m=3, w=8 encode bitmatrix ([24, 64]) and the
 decode bitmatrix of signature (3..10) ([88, 64]), at data [B, 8, 131072]
 (the main path's objects of 1 MiB) for each batch size B: the kernel's median device time over 40 launches, its
 bound, the design the geometry takes and the threads it needs (one per
-32 columns in the bit-sliced design). The inputs rotate through 256 MiB,
+32 columns in the bit-sliced design). With ``--kernel packet``, the packet
+kernel on the cauchy_good k=10, m=4 encode bitmatrix ([32, 80]) and the
+decode bitmatrix with chunks 0-3 erased ([112, 80]) at packetsize 2048 and
+data [B, 10, 131072] (the BASELINE's Cauchy objects of 1 MiB), and an
+all-zero [32, 80] bitmatrix, which selects nothing and so times the
+design's loads and stores alone; the intercept of its time against B is
+the fixed part of a launch. First, the floor of the timing itself: one
+16-byte ``zero_`` between the same events. The inputs rotate through
+256 MiB,
 so that each launch finds its input out of L2. One JSON line per point,
 then the card's name and power limit as nvidia-smi prints them. Needs a
 CUDA card; it fails without one.
@@ -22,10 +31,11 @@ import sys
 import numpy as np
 import torch
 
-from ..ops import gf, gf_kernel
-from ..utils.cuda_timing import gf_bound, time_ms
+from ..ops import gf, gf_kernel, packet_kernel
+from ..utils.cuda_timing import gf_bound, packet_bound, time_ms
 
 K, M, W, N = 8, 3, 8, 131072
+PACKET_K, PACKET_M, PACKETSIZE = 10, 4, 2048
 ROTATE_BYTES = 256 << 20
 
 
@@ -38,10 +48,20 @@ def bitmatrices() -> dict[str, np.ndarray]:
             "decode345678910": gf.generator_to_bitmatrix(full, W)}
 
 
+def packet_bitmatrices() -> dict[str, np.ndarray]:
+    coding = gf.cauchy_good_generator(PACKET_K, PACKET_M, W)
+    avail = tuple(range(PACKET_M, PACKET_K + PACKET_M))
+    dec = gf.decode_matrix(coding, PACKET_K, avail, W)
+    full = np.concatenate([dec, gf.gf_matmul(coding, dec, W)])
+    return {"encode": gf.generator_to_bitmatrix(coding, W),
+            "decode0123": gf.generator_to_bitmatrix(full, W)}
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--batches", default="1,2,4,6,8,10,11,12,13,14,16",
                    help="comma-separated batch sizes B")
+    p.add_argument("--kernel", choices=("gf", "packet"), default="gf")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("gf_kernel_sweep: no CUDA device", file=sys.stderr)
@@ -50,22 +70,40 @@ def main(argv: list[str] | None = None) -> int:
     gen = torch.Generator(device=dev).manual_seed(20261016)
     pool = torch.randint(0, 256, (ROTATE_BYTES,), dtype=torch.uint8,
                          device=dev, generator=gen)
-    for name, bm_np in bitmatrices().items():
+    packet = args.kernel == "packet"
+    k = PACKET_K if packet else K
+    mats = packet_bitmatrices() if packet else bitmatrices()
+    if packet:
+        mats["zeros"] = np.zeros_like(mats["encode"])
+    tiny = [torch.empty(16, dtype=torch.uint8, device=dev) for _ in range(8)]
+    print(json.dumps({"case": "floor", "what": "zero_ of 16 bytes",
+                      "ms": time_ms(lambda x: x.zero_(), tiny, 40)}),
+          flush=True)
+    for name, bm_np in mats.items():
         bm = torch.from_numpy(bm_np).to(dev)
+        if packet:
+            def run(x):
+                return packet_kernel.bitmatrix_encode(bm, x, W, PACKETSIZE)
+            design = packet_kernel.kernel_design(bm.shape[0], k, W,
+                                                 PACKETSIZE, True, dev)
+        else:
+            def run(x):
+                return gf_kernel.matrix_encode(bm, x, W)
+            design = gf_kernel.kernel_design(bm.shape[0], k, W, dev)
         for b in (int(x) for x in args.batches.split(",")):
-            size = b * K * N
-            inputs = [pool[o:o + size].view(b, K, N)
+            size = b * k * N
+            inputs = [pool[o:o + size].view(b, k, N)
                       for o in range(0, ROTATE_BYTES - size + 1, size)]
-            out = gf_kernel.matrix_encode(bm, inputs[0], W)
-            ms = time_ms(lambda x: gf_kernel.matrix_encode(bm, x, W),
-                         inputs, 40)
-            bound_ms, bound_by = gf_bound(bm, inputs[0], out, W)
+            out = run(inputs[0])
+            ms = time_ms(run, inputs, 40)
+            bound_ms, bound_by = packet_bound(bm, inputs[0], out) if packet \
+                else gf_bound(bm, inputs[0], out, W)
             print(json.dumps({
-                "bitmat": name, "shape": [b, K, N], "ms": ms,
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "share_of_bound": bound_ms / ms,
-                "design": gf_kernel.kernel_design(bm.shape[0], K, W, dev),
-                "threads": b * -(-N // 32)}), flush=True)
+                "kernel": args.kernel, "bitmat": name, "shape": [b, k, N],
+                "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "share_of_bound": bound_ms / ms, "design": design,
+                "threads": None if packet else b * -(-N // 32)}),
+                flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

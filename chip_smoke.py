@@ -33,12 +33,15 @@ paths against its plain PyTorch version on the card. Phases, each printing one J
   5. packet      the packet-layout kernel against ``bitmatrix_encode_plain``
                  on CUDA tensors: w = 7, 8, 16, 32 at packetsizes 3, 8,
                  24, 2048, 8192 with B = 1 and 16, a data pointer one
-                 byte off, the Cauchy k=10, m=4 encode and a decode
-                 bitmatrix, a random [32, 80] bitmatrix, the Cauchy
+                 byte off, a geometry past the staged design's budget, a
+                 partial last tile, the Cauchy k=10, m=4 encode and a
+                 decode bitmatrix, a random [32, 80] bitmatrix, the Cauchy
                  encode at packetsize 8192, and a bitmatrix past shared
-                 memory (must raise); byte equality, the path each case
-                 took and its one launch, kernel / plain times and the
-                 selected packet bytes per second at the Cauchy shapes.
+                 memory (must raise); byte equality, the design each case
+                 took (staged, vector, byte) and its one launch, the input
+                 bytes each design reads per launch against the unique
+                 bytes, kernel / plain times and the selected packet bytes
+                 per second at the Cauchy shapes.
   6. codecs      the slice's path, the BASELINE's other codecs at 16
                  objects of 1 MiB: cauchy_good k=10, m=4 at packetsizes
                  512..8192 (encode, decode with chunks 0-3 erased, and
@@ -58,8 +61,9 @@ paths against its plain PyTorch version on the card. Phases, each printing one J
                  streams read in place, pads of 0, one stripe and most of
                  the compress capacity, one 8 MiB + 3 byte stream) and the
                  bit-plane stage (low-entropy, random and all-zero bytes,
-                 an N that is not a multiple of 64); kernel / plain /
-                 bound times and, for the histogram, torch.bincount.
+                 an N that is not a multiple of 64); CUDA launches per
+                 call; kernel / plain / bound times and, for the
+                 histogram, torch.bincount.
   8. write_path  the slice's path on RS k=8, m=3: ec_util.encode_fused in
                  store mode on one 4 MiB object at stripe_unit 4096
                  ([128, 8, 4096]; shards equal ec_util.encode, shard crcs
@@ -70,7 +74,8 @@ paths against its plain PyTorch version on the card. Phases, each printing one J
                  objects of 4 MiB, one in four compressed), fused against
                  separate at [16, 8, 65536] (medians of interleaved
                  windows), device_crc32 against zlib; launches per fused
-                 write, counted from 0 just before the phase.
+                 write (by kernel and in all), counted from 0 just before
+                 the phase.
   9. kernels     one JSON line per the port's kernel table: the design
                  the main path takes, launches on the main path (phases
                  3-4 for the GF bitmatrix kernel, phase 6 for the packet
@@ -409,21 +414,30 @@ def main() -> int:
 
     # -- 5. packet kernel against its plain version on the card ----------
     def packet_case(name, bm_np, data, w, packetsize, timed=None):
-        """One launch on the path the geometry and alignment take, byte
+        """One launch on the design the geometry and alignment take, byte
         equal to the plain version; timed on `timed` inputs if given."""
         bm = on_dev(bm_np)
-        path = "vector" if packetsize % 16 == 0 and \
-            data.data_ptr() % 16 == 0 else "byte"
-        before = packet_kernel.launches_by_path()
+        k = data.shape[-2]
+        design = packet_kernel.kernel_design(
+            bm.shape[0], k, w, packetsize, data.data_ptr() % 16 == 0, dev)
+        before = packet_kernel.launches_by_design()
         out = packet_kernel.bitmatrix_encode(bm, data, w, packetsize)
         torch.cuda.synchronize()
-        after = packet_kernel.launches_by_path()
-        launched = {p: after[p] - before[p] for p in after}
+        after = packet_kernel.launches_by_design()
+        launched = {d: after[d] - before[d] for d in after}
         ref = bitmatrix_encode_plain(bm, data, w, packetsize)
         err = int((out.to(torch.int16) - ref.to(torch.int16)).abs().max())
+        set_bits = int(bm_np.sum())
+        # input bytes read from device memory per launch, counted from
+        # the design's loads: the staged design copies each input byte
+        # once; the others load one packet row per set bit
+        read = data.numel() if design == "staged" else \
+            set_bits * data.numel() // (k * w)
         rec = {"case": name, "w": w, "packetsize": packetsize,
                "bitmat": list(bm.shape), "data": list(data.shape),
-               "path": path, "equal": err == 0, "max_abs_err": err}
+               "design": design, "equal": err == 0, "max_abs_err": err,
+               "read_bytes": read, "unique_bytes": data.numel(),
+               "read_over_unique": read / data.numel()}
         if timed:
             rec["ms"] = time_ms(lambda x: packet_kernel.bitmatrix_encode(
                 bm, x, w, packetsize), timed, 40)
@@ -431,17 +445,16 @@ def main() -> int:
                 bm, x, w, packetsize), timed, 8)
             rec["bound_ms"], rec["bound_by"] = packet_bound(bm, data, out)
             rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
-            # the kernel loads one input packet per set bit of a row
-            rec["set_bits"] = int(bm_np.sum())
-            rec["selected_TBps"] = rec["set_bits"] * data.numel() / (
-                data.shape[-2] * w) / (rec["ms"] * 1e-3) / 1e12
+            rec["set_bits"] = set_bits
+            rec["selected_TBps"] = set_bits * data.numel() / (
+                k * w) / (rec["ms"] * 1e-3) / 1e12
         emit("packet", **rec)
-        check(launched[path] == 1 and sum(launched.values()) == 1,
-              "%s launched the %s path once" % (name, path))
+        check(launched[design] == 1 and sum(launched.values()) == 1,
+              "%s launched the %s design once" % (name, design))
         check(err == 0, "packet kernel equals plain version for " + name)
         return rec
 
-    phase5_start = packet_kernel.launches_by_path()
+    phase5_start = packet_kernel.launches_by_design()
     packet_worst = 0
     prng = np.random.default_rng(4)
     for w in (7, 8, 16, 32):
@@ -458,6 +471,14 @@ def main() -> int:
         rec = packet_case("offset1_p%d" % packetsize, bm_np,
                           off_by_one(2, 4, 3 * 8 * packetsize), 8,
                           packetsize)
+        packet_worst = max(packet_worst, rec["max_abs_err"])
+    # k*w tiles of 256 bytes past the staged design's 64 KiB: the vector
+    # design; and a packetsize whose last tile is 16 bytes
+    for name, w, k, packetsize in (("vector_w32_k9_p2048", 32, 9, 2048),
+                                   ("staged_w8_k10_p2064", 8, 10, 2064)):
+        rec = packet_case(name, prng.integers(0, 2, (2 * w, k * w),
+                                              dtype=np.uint8),
+                          rand_dev(2, k, 2 * w * packetsize), w, packetsize)
         packet_worst = max(packet_worst, rec["max_abs_err"])
     cauchy_coding = gf.cauchy_good_generator(10, 4, W)
     cauchy_sets = [rand_dev(BATCH, 10, N) for _ in range(4)]
@@ -492,9 +513,9 @@ def main() -> int:
          raised=raised)
     check(raised and packet_kernel.LAUNCHES == count,
           "a bitmatrix past shared memory raises before any launch")
-    phase5_launches = {p: n - phase5_start[p] for p, n in
-                       packet_kernel.launches_by_path().items()}
-    check(all(phase5_launches.values()), "both packet paths launched")
+    phase5_launches = {d: n - phase5_start[d] for d, n in
+                       packet_kernel.launches_by_design().items()}
+    check(all(phase5_launches.values()), "every packet design launched")
 
     # -- 6. the slice's path: Cauchy, LRC, SHEC through the registry -------
     obj = 1 << 20
@@ -704,14 +725,14 @@ def main() -> int:
     slice_s = time.perf_counter() - t_slice
     slice_gf_launches = gf_kernel.LAUNCHES
     slice_packet_launches = packet_kernel.LAUNCHES
-    slice_packet_by_path = packet_kernel.launches_by_path()
+    slice_packet_by_design = packet_kernel.launches_by_design()
     emit("codecs", slice_s=slice_s, gf_bitmatrix_launches=slice_gf_launches,
          gf_packet_launches=slice_packet_launches,
-         gf_packet_launches_by_path=slice_packet_by_path)
+         gf_packet_launches_by_design=slice_packet_by_design)
     check(slice_gf_launches > 0 and slice_packet_launches > 0,
           "the slice's path launched both kernels")
-    check(sum(slice_packet_by_path.values()) == slice_packet_launches,
-          "every packet launch counted by its path")
+    check(sum(slice_packet_by_design.values()) == slice_packet_launches,
+          "every packet launch counted by its design")
 
     # -- 7. the write transform's kernels against their plain versions ----
     def as_i64(t):
@@ -724,6 +745,7 @@ def main() -> int:
         return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
     consts = ft.dev_consts(dev)
+    CUDA_PER_CALL = {"crc32_rows": 1, "xxh32_rows": 1, "bitplane_stage": 3}
     wk_worst = dict.fromkeys(wk.LAUNCHES, 0)
     wk_timed = {}
 
@@ -733,9 +755,12 @@ def main() -> int:
         results as values); with `inputs`, kernel and plain timed over
         them (rotated out of L2) beside the bound."""
         before = wk.LAUNCHES[kernel]
+        cuda_before = sum(wk.launches_by_kernel().values())
         out = fn(inputs[0] if inputs else None)
         torch.cuda.synchronize()
         launched = wk.LAUNCHES[kernel] - before
+        info["cuda_launches"] = sum(wk.launches_by_kernel().values()) - \
+            cuda_before
         ref = plain(inputs[0] if inputs else None)
         if isinstance(out, tuple):       # K3: (stored, dec)
             err = max(diff(out[0], ref[0]),
@@ -761,6 +786,8 @@ def main() -> int:
             wk_timed[name] = rec
         emit("write_kernels", **rec)
         check(launched == 1, "%s launched its kernel once" % name)
+        check(info["cuda_launches"] == CUDA_PER_CALL[kernel],
+              "%s made %d CUDA launches" % (name, CUDA_PER_CALL[kernel]))
         check(err == 0, "%s equals its plain version" % name)
         return out
 
@@ -963,6 +990,7 @@ def main() -> int:
     shard_map_s = (time.perf_counter() - t0) / reps
     emit("write_path", case="store_4MiB", shape=[WSTRIPES, K, WCHUNK],
          launches_per_write=per_write,
+         launches_per_write_total=sum(per_write.values()),
          write_ms=store_s * 1e3, write_MBps=obj_bytes / store_s / 1e6,
          device_ms=store_dev_ms,
          device_MBps=obj_bytes / store_dev_ms / 1e3,
@@ -1152,9 +1180,11 @@ def main() -> int:
         "name": "gf_packet_encode", "route": "cuda",
         "source": "ceph_tpu_torch/csrc/gf_packet.cu",
         "replaces": "ceph_tpu/ops/xor_mm.py:110",
-        "launches": slice_packet_launches,
-        "launches_by_path": slice_packet_by_path,
-        "phase5_launches_by_path": phase5_launches,
+        "design": penc["design"], "launches": slice_packet_launches,
+        "launches_by_design": slice_packet_by_design,
+        "phase5_launches_by_design": phase5_launches,
+        "read_over_unique": penc["read_over_unique"],
+        "decode_read_over_unique": pdec["read_over_unique"],
         "matched": packet_worst == 0, "max_abs_err": packet_worst,
         "ms": penc["ms"], "kernel_ms": penc["ms"],
         "plain_ms": penc["plain_ms"], "bound_ms": penc["bound_ms"],
@@ -1167,7 +1197,7 @@ def main() -> int:
                   "packetsize": penc["packetsize"],
                   "decode_bitmat": pdec["bitmat"]}}]
 
-    CUDA_KERNELS = {"crc32_rows": ("crc_partial", "crc_finish"),
+    CUDA_KERNELS = {"crc32_rows": ("crc_rows",),
                     "xxh32_rows": ("xxh32",),
                     "bitplane_stage": ("bp_count", "bp_decide",
                                        "bp_scatter")}

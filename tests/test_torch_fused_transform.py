@@ -226,8 +226,15 @@ def test_host_oracles_equal_jax_packages():
     assert ft.COMP_ALG == jft.COMP_ALG
     for poly in (ft.POLY_ZLIB, ft.POLY_C):
         mine, ref = ft._poly_consts(poly), jft._poly_consts(poly)
+        # the reference's table, shifts and inverses, then K1's slicing
+        # tables T_k[b] = (T_{k-1}[b] >> 8) ^ table[T_{k-1}[b] & 0xFF]
+        slices = [ref.table.astype(np.uint32)]
+        for _ in range(15):
+            slices.append((slices[-1] >> np.uint32(8)) ^
+                          ref.table.astype(np.uint32)[slices[-1] & 0xFF])
         assert np.array_equal(mine.packed(), np.concatenate(
-            [ref.table, ref.shift.reshape(-1), ref.inv.reshape(-1)]))
+            [ref.table, ref.shift.reshape(-1), ref.inv.reshape(-1),
+             np.stack(slices[1:]).reshape(-1)]))
 
 
 def test_device_crc32_on_cpu():

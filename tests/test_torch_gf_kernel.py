@@ -222,6 +222,19 @@ def test_sweep_bitmatrices_equal_the_reference():
                           jgf.generator_to_bitmatrix(full, 8))
 
 
+def test_packet_sweep_bitmatrices_equal_the_reference():
+    from ceph_tpu_torch.tools import gf_kernel_sweep
+    mats = gf_kernel_sweep.packet_bitmatrices()
+    coding = jgf.cauchy_good_generator(10, 4, 8)
+    assert np.array_equal(mats["encode"],
+                          jgf.generator_to_bitmatrix(coding, 8))
+    dec = jgf.decode_matrix(coding, 10, tuple(range(4, 14)), 8)
+    full = np.concatenate([dec, jgf.gf_matmul(coding, dec, 8)])
+    assert np.array_equal(mats["decode0123"],
+                          jgf.generator_to_bitmatrix(full, 8))
+    assert mats["decode0123"].shape == (112, 80)
+
+
 def test_sweep_fails_without_a_card(monkeypatch, capsys):
     from ceph_tpu_torch.tools import gf_kernel_sweep
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

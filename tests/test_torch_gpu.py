@@ -10,9 +10,9 @@ The CUDA kernels have no CPU mode; each test holds one against its plain
 PyTorch version on the card (tolerance: none, bit-exact). The GF
 bitmatrix kernel on both of its designs: bit-sliced for w=8 with k <= 16
 when the expanded bitmatrix fits in shared memory, popcount for every
-other geometry. The packet kernel on both of its paths: 16-byte columns
-when the packetsize is a multiple of 16 and both pointers are aligned,
-byte columns otherwise. The write transform's kernels (CRC rows, xxh32
+other geometry. The packet kernel on its three designs: staged through
+shared memory where k*w tiles fit, 16-byte columns loaded per set bit
+past that, byte columns for other packetsizes or unaligned pointers. The write transform's kernels (CRC rows, xxh32
 rows, the bit-plane stage) on their aligned and byte paths, and one
 ``ec_util.encode_fused`` on the card in each mode against the CPU path.
 """
@@ -172,18 +172,20 @@ def test_dispatcher_on_card(cuda):
 
 # -- the packet-layout kernel (csrc/gf_packet.cu) ----------------------------
 
-def packet_held_against_plain(bm, data, w, packetsize):
-    """One launch, on the path the geometry and alignment take, byte-equal
-    to the plain version."""
-    path = "vector" if packetsize % 16 == 0 and data.data_ptr() % 16 == 0 \
-        else "byte"
-    before = packet_kernel.launches_by_path()
+def packet_held_against_plain(bm, data, w, packetsize, design=None):
+    """One launch, on the design the geometry and alignment take (and
+    `design` if given), byte-equal to the plain version."""
+    taken = packet_kernel.kernel_design(
+        bm.shape[0], data.shape[-2], w, packetsize, data.data_ptr() % 16 == 0,
+        data.device)
+    assert design is None or taken == design
+    before = packet_kernel.launches_by_design()
     count = packet_kernel.LAUNCHES
     out = packet_kernel.bitmatrix_encode(bm, data, w, packetsize)
     torch.cuda.synchronize()
-    after = packet_kernel.launches_by_path()
-    assert {p: after[p] - before[p] for p in after} == {
-        p: int(p == path) for p in packet_kernel.PATHS}
+    after = packet_kernel.launches_by_design()
+    assert {d: after[d] - before[d] for d in after} == {
+        d: int(d == taken) for d in packet_kernel.DESIGNS}
     assert packet_kernel.LAUNCHES == count + 1
     assert torch.equal(out, xor_mm.bitmatrix_encode_plain(bm, data, w,
                                                           packetsize))
@@ -217,6 +219,31 @@ def test_packet_kernel_data_pointer_off_by_one_on_card(cuda, packetsize):
     bm = torch.from_numpy(np.random.default_rng(1).integers(
         0, 2, (m * w, k * w), dtype=np.uint8)).to(cuda)
     packet_held_against_plain(bm, data, w, packetsize)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w,k,packetsize,offset,design", [
+    (8, 10, 2048, 0, "staged"),     # Cauchy k=10: tiles of 512 bytes
+    (8, 10, 2064, 0, "staged"),     # the last tile of a packet 16 bytes
+    (7, 5, 48, 0, "staged"),        # one tile of 64 bytes holding 48
+    (16, 16, 256, 0, "staged"),     # the smallest tile the design takes
+    (32, 9, 128, 0, "staged"),      # a whole small packet per tile
+    (32, 9, 2048, 0, "vector"),     # k*w tiles of 256 bytes past 64 KiB
+    (32, 9, 2048, 1, "byte"),
+    (8, 10, 24, 0, "byte")])
+def test_packet_kernel_design_by_geometry_on_card(cuda, w, k, packetsize,
+                                                  offset, design):
+    """The entry point picks the staged design where k*w tiles of at least
+    min(P, 256) bytes fit its 64 KiB, the vector design past that, the
+    byte design for other packetsizes or unaligned data."""
+    rng = np.random.default_rng(w * k + packetsize + offset)
+    bm = torch.from_numpy(rng.integers(0, 2, (2 * w, k * w),
+                                       dtype=np.uint8)).to(cuda)
+    n = 2 * w * packetsize
+    buf = torch.from_numpy(rng.integers(0, 256, 2 * k * n + offset,
+                                        dtype=np.uint8)).to(cuda)
+    packet_held_against_plain(bm, buf[offset:].view(2, k, n), w, packetsize,
+                              design)
 
 
 @pytest.mark.gpu
@@ -307,6 +334,26 @@ def test_crc32_rows_match_plain_on_card(cuda, rows, length, offset, poly):
         oracle = zlib.crc32 if poly == ft.POLY_ZLIB else ft.crc32c_host
         assert [int(c) for c in u32(got)] == [oracle(r.tobytes())
                                               for r in host]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,length,offset", [
+    (1, 2049, 0), (3, 6244, 0), (5, 65539, 0), (2, 4 * 2048 * 32 + 16, 0),
+    (700, 4112, 0), (4, 6160, 1)])
+def test_crc32_rows_span_combine_on_card(cuda, rows, length, offset):
+    """Rows of several 2048-byte spans, the first span mostly leading
+    zeros: the last warp of a row to arrive combines its spans in the one
+    launch and leaves the scratch zeroed, so the next call on the stream
+    gets the same values."""
+    data = rand_card(cuda, (rows, 1, length), rows * length, offset)
+    consts = ft.dev_consts(cuda)[ft.POLY_C]
+    want = u32(write_kernels.crc32_rows_plain(data, consts))
+    for _ in range(2):
+        before = write_kernels.launches_by_kernel()["crc_rows"]
+        got, n = launched(lambda: write_kernels.crc32_rows(data, consts))
+        assert n["crc32_rows"] == 1
+        assert write_kernels.launches_by_kernel()["crc_rows"] == before + 1
+        assert np.array_equal(u32(got), want)
 
 
 @pytest.mark.gpu
