@@ -23,18 +23,20 @@
 // Three designs, picked by the C entry point from the geometry and the
 // pointers' alignment, each counted where it is launched:
 //  * staged (packetsize a multiple of 16, both pointers 16-byte aligned,
-//    a tile of at least min(P, 256) bytes of every input packet fitting
+//    a tile of at least min(P, 128) bytes of every input packet fitting
 //    kStageBytes): a block takes one (batch, superblock, tile) at a time
 //    and copies the tile of all k*w input packets into shared memory with
 //    16-byte cp.async, so each input byte is read from device memory once
-//    per launch. A thread then owns one 16-byte column of one output
-//    packet and XORs a shared-memory word per set bit of its row (walked
-//    with __ffs), and stores 16 bytes. The tile is the largest power of
-//    two (>= 16 bytes) up to the packetsize that keeps k*w tiles within
-//    kStageBytes; the last tile of a packet may be partial. The blocks
-//    are persistent (a grid-stride loop over tiles) and each packs the
-//    bitmatrix once into uint32 row masks (launch_common.cuh) while the
-//    copies of its first tile are in flight.
+//    per launch. Two tile buffers alternate: the next tile's copy is in
+//    flight while the block computes this one. A thread owns one 16-byte
+//    column of one output packet and XORs the shared-memory words its row
+//    selects, four independent loads a step, from a list of the row's
+//    set columns that the block builds once (from uint32 row masks,
+//    launch_common.cuh) while its first copy is in flight; then it
+//    stores 16 bytes. The tile is the largest power of two (>= 16 bytes)
+//    up to the packetsize that keeps k*w tiles within kStageBytes; the
+//    last tile of a packet may be partial. The blocks are persistent (a
+//    grid-stride loop over tiles).
 //  * vector (aligned, but past the staged design's budget): a thread
 //    takes one 16-byte column of one output packet and XORs a 16-byte
 //    __ldg load per set bit of its row straight from device memory; L1
@@ -60,8 +62,8 @@ namespace {
 
 constexpr int kThreads = 128;          // vector and byte designs
 constexpr int kStagedThreads = 256;
-constexpr long long kStageBytes = 64 * 1024;  // input tiles of a block
-constexpr long long kMinTile = 256;    // bytes of a packet per tile
+constexpr long long kStageBytes = 32 * 1024;  // one buffer of tiles
+constexpr long long kMinTile = 128;    // bytes of a packet per tile
 
 enum Design { kStaged = 0, kVector = 1, kByte = 2, kNumDesign };
 
@@ -88,9 +90,12 @@ long long stage_tile(int cols, long long packet) {
   return tile >= packet || tile >= kMinTile ? tile : 0;
 }
 
-// Staged design: the tiles, then the masks.
+// Staged design: two buffers of tiles, the masks, the lists of each
+// row's set columns (as byte offsets into a buffer) and their lengths.
 size_t staged_smem(int rows, int cols, long long tile) {
-  return (size_t)cols * tile + (size_t)rows * mask_words(cols) * sizeof(uint32_t);
+  return 2 * (size_t)cols * tile +
+         (size_t)rows * mask_words(cols) * sizeof(uint32_t) +
+         (size_t)rows * (cols + 1) * sizeof(uint16_t);
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -103,8 +108,16 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void xor4(uint4& acc, uint4 v) {
+  acc.x ^= v.x;
+  acc.y ^= v.y;
+  acc.z ^= v.z;
+  acc.w ^= v.w;
 }
 
 // Copies tile `item` (batch b, superblock s, tile t of each packet) of
@@ -142,9 +155,12 @@ gf_packet_staged_kernel(const uint8_t* __restrict__ bitmat, int rows, int k,
   extern __shared__ __align__(16) uint8_t st_smem[];
   const int cols = k * w;
   const int nw = mask_words(cols);
-  uint8_t* stage = st_smem;                                   // [cols][tile]
+  const size_t buf_bytes = (size_t)cols * tile;
+  uint8_t* bufs = st_smem;                                     // [2][cols][tile]
   uint32_t* masks =
-      reinterpret_cast<uint32_t*>(st_smem + (size_t)cols * tile);  // [rows][nw]
+      reinterpret_cast<uint32_t*>(st_smem + 2 * buf_bytes);    // [rows][nw]
+  uint16_t* lists = reinterpret_cast<uint16_t*>(masks + rows * nw);  // [rows][cols]
+  uint16_t* counts = lists + rows * cols;                      // [rows]
   const long long super = (long long)w * packet;
   const long long supers = n / super;
   const long long tiles = (packet + tile - 1) / tile;
@@ -153,12 +169,35 @@ gf_packet_staged_kernel(const uint8_t* __restrict__ bitmat, int rows, int k,
   const int out_rows = rows / w;
 
   if (blockIdx.x < items)
-    stage_copy(data, stage, blockIdx.x, k, w, packet, tile, n, supers, tiles);
-  launch_common::pack_masks(bitmat, rows, cols, nw, masks);  // under the copy
+    stage_copy(data, bufs, blockIdx.x, k, w, packet, tile, n, supers, tiles);
+  // the lists of set columns, built while the first copy is in flight
+  launch_common::pack_masks(bitmat, rows, cols, nw, masks);
+  __syncthreads();
+  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+    int cnt = 0;
+    for (int q = 0; q < nw; ++q) {
+      uint32_t word = masks[r * nw + q];
+      while (word) {
+        const int bit = __ffs(word) - 1;
+        word &= word - 1;
+        lists[r * cols + cnt++] = (uint16_t)((q * 32 + bit) * tile);
+      }
+    }
+    counts[r] = (uint16_t)cnt;
+  }
 
-  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
-    cp_async_wait_all();
+  int it = 0;
+  for (long long item = blockIdx.x; item < items; item += gridDim.x, ++it) {
+    const long long next = item + gridDim.x;
+    if (next < items) {  // the next tile into the other buffer
+      stage_copy(data, bufs + ((it + 1) & 1) * buf_bytes, next, k, w, packet,
+                 tile, n, supers, tiles);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
+    const uint8_t* stage = bufs + (it & 1) * buf_bytes;
     const long long b = item / (supers * tiles);
     const long long rem = item - b * supers * tiles;
     const long long s = rem / tiles;
@@ -167,30 +206,30 @@ gf_packet_staged_kernel(const uint8_t* __restrict__ bitmat, int rows, int k,
       const int r = idx / vcols;
       const int x = (idx - r * vcols) * 16;
       if (t0 + x >= packet) continue;
-      const uint32_t* mr = masks + r * nw;
-      uint4 acc = make_uint4(0u, 0u, 0u, 0u);
-      for (int q = 0; q < nw; ++q) {
-        uint32_t word = mr[q];
-        while (word) {
-          const int bit = __ffs(word) - 1;
-          word &= word - 1;
-          const uint4 v = *reinterpret_cast<const uint4*>(
-              stage + (size_t)(q * 32 + bit) * tile + x);
-          acc.x ^= v.x;
-          acc.y ^= v.y;
-          acc.z ^= v.z;
-          acc.w ^= v.w;
-        }
+      const uint16_t* lst = lists + r * cols;
+      const int cnt = counts[r];
+      const uint8_t* col = stage + x;
+      uint4 a0 = make_uint4(0u, 0u, 0u, 0u), a1 = a0;
+      int i = 0;
+      for (; i + 4 <= cnt; i += 4) {
+        const uint4 v0 = *reinterpret_cast<const uint4*>(col + lst[i]);
+        const uint4 v1 = *reinterpret_cast<const uint4*>(col + lst[i + 1]);
+        const uint4 v2 = *reinterpret_cast<const uint4*>(col + lst[i + 2]);
+        const uint4 v3 = *reinterpret_cast<const uint4*>(col + lst[i + 3]);
+        xor4(a0, v0);
+        xor4(a1, v1);
+        xor4(a0, v2);
+        xor4(a1, v3);
       }
-      const int i = r / w;
-      uint8_t* dst = out + (b * out_rows + i) * n + s * super +
-                     (long long)(r - i * w) * packet + t0 + x;
-      __stcs(reinterpret_cast<uint4*>(dst), acc);
+      for (; i < cnt; ++i)
+        xor4(a0, *reinterpret_cast<const uint4*>(col + lst[i]));
+      xor4(a0, a1);
+      const int i_out = r / w;
+      uint8_t* dst = out + (b * out_rows + i_out) * n + s * super +
+                     (long long)(r - i_out * w) * packet + t0 + x;
+      __stcs(reinterpret_cast<uint4*>(dst), a0);
     }
-    __syncthreads();  // the stage is free for the next tile
-    if (item + gridDim.x < items)
-      stage_copy(data, stage, item + gridDim.x, k, w, packet, tile, n, supers,
-                 tiles);
+    __syncthreads();  // this buffer is free for the copy after next
   }
 }
 

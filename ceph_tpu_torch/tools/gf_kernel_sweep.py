@@ -1,7 +1,7 @@
-"""Device time of the GF bitmatrix or packet kernel against the batch size.
+"""Device time of the GF bitmatrix, packet or CRC kernel against the batch size.
 
     python -m ceph_tpu_torch.tools.gf_kernel_sweep [--batches 1,2,4]
-        [--kernel gf|packet]
+        [--kernel gf|packet|crc]
 
 For the Reed-Solomon k=8, m=3, w=8 encode bitmatrix ([24, 64]) and the
 decode bitmatrix of signature (3..10) ([88, 64]), at data [B, 8, 131072]
@@ -13,8 +13,12 @@ decode bitmatrix with chunks 0-3 erased ([112, 80]) at packetsize 2048 and
 data [B, 10, 131072] (the BASELINE's Cauchy objects of 1 MiB), and an
 all-zero [32, 80] bitmatrix, which selects nothing and so times the
 design's loads and stores alone; the intercept of its time against B is
-the fixed part of a launch. First, the floor of the timing itself: one
-16-byte ``zero_`` between the same events. The inputs rotate through
+the fixed part of a launch. With ``--kernel crc``, K1 (``crc32_rows``) on
+the write path's rows for B stripes of 4096-byte chunks (an object of
+B * 32 KiB; 128 stripes is 4 MiB): the chunk crc32c of [B*8, 4096] and
+the crc32 of the 11 shard streams of [B, 11, 4096] read in place. First,
+the floor of the timing itself: one 16-byte ``zero_`` between the same
+events. The inputs rotate through
 256 MiB,
 so that each launch finds its input out of L2. One JSON line per point,
 then the card's name and power limit as nvidia-smi prints them. Needs a
@@ -31,8 +35,9 @@ import sys
 import numpy as np
 import torch
 
-from ..ops import gf, gf_kernel, packet_kernel
-from ..utils.cuda_timing import gf_bound, packet_bound, time_ms
+from ..ops import gf, gf_kernel, packet_kernel, write_kernels
+from ..osd import fused_transform
+from ..utils.cuda_timing import crc_bound, gf_bound, packet_bound, time_ms
 
 K, M, W, N = 8, 3, 8, 131072
 PACKET_K, PACKET_M, PACKETSIZE = 10, 4, 2048
@@ -57,11 +62,36 @@ def packet_bitmatrices() -> dict[str, np.ndarray]:
             "decode0123": gf.generator_to_bitmatrix(full, W)}
 
 
+def crc_sweep(pool: torch.Tensor, batches: list[int], dev) -> None:
+    consts = fused_transform.dev_consts(dev)
+    chunk, k, n = 4096, K, K + M
+    for b in batches:
+        cases = (("chunk_crc32c", fused_transform.POLY_C, k,
+                  lambda x: x.view(b * k, 1, chunk)),
+                 ("shard_crc32", fused_transform.POLY_ZLIB, n,
+                  lambda x: x.view(b, n, chunk).permute(1, 0, 2)))
+        for name, poly, width, view in cases:
+            size = b * width * chunk
+            inputs = [pool[o:o + size]
+                      for o in range(0, ROTATE_BYTES - size + 1, size)]
+            views = [view(x) for x in inputs]
+            ms = time_ms(lambda v: write_kernels.crc32_rows(
+                v, consts[poly]), views, 40)
+            bound_ms, bound_by = crc_bound(views[0], torch.empty(
+                views[0].shape[0]))
+            print(json.dumps({
+                "kernel": "crc", "case": name, "stripes": b,
+                "view": list(views[0].shape), "ms": ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "share_of_bound": bound_ms / ms}),
+                flush=True)
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--batches", default="1,2,4,6,8,10,11,12,13,14,16",
                    help="comma-separated batch sizes B")
-    p.add_argument("--kernel", choices=("gf", "packet"), default="gf")
+    p.add_argument("--kernel", choices=("gf", "packet", "crc"),
+                   default="gf")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("gf_kernel_sweep: no CUDA device", file=sys.stderr)
@@ -70,15 +100,19 @@ def main(argv: list[str] | None = None) -> int:
     gen = torch.Generator(device=dev).manual_seed(20261016)
     pool = torch.randint(0, 256, (ROTATE_BYTES,), dtype=torch.uint8,
                          device=dev, generator=gen)
+    tiny = [torch.empty(16, dtype=torch.uint8, device=dev) for _ in range(8)]
+    print(json.dumps({"case": "floor", "what": "zero_ of 16 bytes",
+                      "ms": time_ms(lambda x: x.zero_(), tiny, 40)}),
+          flush=True)
+    batches = [int(x) for x in args.batches.split(",")]
+    if args.kernel == "crc":
+        crc_sweep(pool, batches, dev)
+        batches = []
     packet = args.kernel == "packet"
     k = PACKET_K if packet else K
     mats = packet_bitmatrices() if packet else bitmatrices()
     if packet:
         mats["zeros"] = np.zeros_like(mats["encode"])
-    tiny = [torch.empty(16, dtype=torch.uint8, device=dev) for _ in range(8)]
-    print(json.dumps({"case": "floor", "what": "zero_ of 16 bytes",
-                      "ms": time_ms(lambda x: x.zero_(), tiny, 40)}),
-          flush=True)
     for name, bm_np in mats.items():
         bm = torch.from_numpy(bm_np).to(dev)
         if packet:
@@ -90,7 +124,7 @@ def main(argv: list[str] | None = None) -> int:
             def run(x):
                 return gf_kernel.matrix_encode(bm, x, W)
             design = gf_kernel.kernel_design(bm.shape[0], k, W, dev)
-        for b in (int(x) for x in args.batches.split(",")):
+        for b in batches:
             size = b * k * N
             inputs = [pool[o:o + size].view(b, k, N)
                       for o in range(0, ROTATE_BYTES - size + 1, size)]

@@ -223,19 +223,19 @@ def test_packet_kernel_data_pointer_off_by_one_on_card(cuda, packetsize):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("w,k,packetsize,offset,design", [
-    (8, 10, 2048, 0, "staged"),     # Cauchy k=10: tiles of 512 bytes
+    (8, 10, 2048, 0, "staged"),     # Cauchy k=10: tiles of 256 bytes
     (8, 10, 2064, 0, "staged"),     # the last tile of a packet 16 bytes
     (7, 5, 48, 0, "staged"),        # one tile of 64 bytes holding 48
-    (16, 16, 256, 0, "staged"),     # the smallest tile the design takes
-    (32, 9, 128, 0, "staged"),      # a whole small packet per tile
-    (32, 9, 2048, 0, "vector"),     # k*w tiles of 256 bytes past 64 KiB
+    (16, 16, 256, 0, "staged"),     # tiles of 128, the smallest taken
+    (32, 9, 64, 0, "staged"),       # a whole small packet per tile
+    (32, 9, 2048, 0, "vector"),     # k*w tiles of 128 bytes past 32 KiB
     (32, 9, 2048, 1, "byte"),
     (8, 10, 24, 0, "byte")])
 def test_packet_kernel_design_by_geometry_on_card(cuda, w, k, packetsize,
                                                   offset, design):
     """The entry point picks the staged design where k*w tiles of at least
-    min(P, 256) bytes fit its 64 KiB, the vector design past that, the
-    byte design for other packetsizes or unaligned data."""
+    min(P, 128) bytes fit its 32 KiB buffer, the vector design past that,
+    the byte design for other packetsizes or unaligned data."""
     rng = np.random.default_rng(w * k + packetsize + offset)
     bm = torch.from_numpy(rng.integers(0, 2, (2 * w, k * w),
                                        dtype=np.uint8)).to(cuda)

@@ -7,19 +7,23 @@ file restates that design in numpy, step by step, so that a tiling or
 indexing mistake shows on the CPU:
 
   1. the tile: the largest power of two from 16 up to the packetsize P
-     with k*w tiles within 64 KiB, taken only if it is at least
-     min(P, 256) bytes (``stage_tile``); the last tile of a packet may be
-     partial;
+     with k*w tiles within one 32 KiB buffer, taken only if it is at
+     least min(P, 128) bytes (``stage_tile``); the last tile of a packet
+     may be partial;
   2. the work items: (batch, superblock, tile) in that order, one per
-     block at a time;
+     block at a time (two buffers alternate, which changes when a copy
+     runs, not what it holds);
   3. the copy: 16-byte chunk idx of the item goes to input packet
      c = idx // (tile/16) at byte (idx % (tile/16))*16 of the tile, and
      chunks past the packet's end are not copied (the model fills the
      stage with other bytes first, so that a read of them shows);
-  4. the masks: bit t of word q of row r is bitmat[r, q*32 + t];
-  5. the product: output (r, 16-byte column x) XORs stage row q*32 + bit
-     for every set bit of row r's masks, lowest bit first, and goes to
-     output packet r of the superblock at byte t0 + x.
+  4. the lists: bit t of word q of row r's masks is bitmat[r, q*32 + t],
+     and row r's list holds the byte offset c * tile of every set column
+     c, walked from the masks lowest bit first;
+  5. the product: output (r, 16-byte column x) XORs the stage word at
+     offset x of each listed column, four at a time into two
+     accumulators, and goes to output packet r of the superblock at byte
+     t0 + x.
 
 The model is held byte for byte (tolerance: none) against
 ``ceph_tpu.ops.xor_mm.bitmatrix_encode`` on the Cauchy k=10, m=4 encode
@@ -40,8 +44,8 @@ from ceph_tpu_torch.ops import gf
 
 from .torch_util import one_torch_thread  # noqa: F401
 
-STAGE_BYTES = 64 * 1024
-MIN_TILE = 256
+STAGE_BYTES = 32 * 1024
+MIN_TILE = 128
 VEC = 16
 
 
@@ -93,6 +97,9 @@ def staged_model(bitmat: np.ndarray, data: np.ndarray, w: int,
     tiles = -(-packet // tile)
     vcols = tile // VEC
     masks = pack_masks(bitmat)
+    lists = [[(q * 32 + bit) * tile for q, word in enumerate(row)
+              for bit in set_bits(int(word))] for row in masks]
+    assert all(off < 1 << 16 for row in lists for off in row)   # uint16
     out = np.zeros((batch, rows // w, n), dtype=np.uint8)
     written = np.zeros(out.shape, dtype=np.int64)
     junk = np.random.default_rng(99)
@@ -111,9 +118,10 @@ def staged_model(bitmat: np.ndarray, data: np.ndarray, w: int,
         valid = min(tile, packet - t0)            # columns of this tile
         for r in range(rows):                     # threads (r, x), x < valid
             acc = np.zeros(valid, dtype=np.uint8)
-            for q, word in enumerate(masks[r]):
-                for bit in set_bits(int(word)):
-                    acc ^= stage[q * 32 + bit, :valid]
+            for off in lists[r]:
+                c, rest = divmod(off, tile)
+                assert rest == 0
+                acc ^= stage[c, :valid]
             i, tt = divmod(r, w)
             dst = s * w * packet + tt * packet + t0
             out[b, i, dst:dst + valid] = acc
@@ -144,14 +152,14 @@ def cauchy_bitmats():
 
 
 def test_stage_tile_and_design():
-    assert stage_tile(80, 2048) == 512          # Cauchy k=10, w=8: 40 KiB
-    assert stage_tile(80, 8192) == 512
-    assert stage_tile(80, 2064) == 512          # 5 tiles, the last 16 B
+    assert stage_tile(80, 2048) == 256          # Cauchy k=10, w=8: 20 KiB
+    assert stage_tile(80, 8192) == 256
+    assert stage_tile(80, 2064) == 256          # 9 tiles, the last 16 B
     assert stage_tile(35, 48) == 64             # one partial tile
     assert stage_tile(96, 16) == 16             # the whole packet
-    assert stage_tile(256, 2048) == 256         # the smallest tile taken
-    assert stage_tile(288, 2048) == 0           # w=32, k=9: past 64 KiB
-    assert stage_tile(288, 128) == 128          # a whole small packet fits
+    assert stage_tile(256, 2048) == 128         # the smallest tile taken
+    assert stage_tile(288, 2048) == 0           # w=32, k=9: past 32 KiB
+    assert stage_tile(288, 64) == 64            # a whole small packet fits
     assert design(288, 2048) == "vector"
     assert design(80, 24) == "byte"
     assert design(80, 2048, aligned=False) == "byte"
@@ -187,9 +195,9 @@ def test_liberation_family_model_matches_jax(one_torch_thread, profile):
 
 
 @pytest.mark.parametrize("rows,k,w,packet", [
-    (16, 10, 8, 2064),      # 5 tiles of 512 bytes, the last one 16 bytes
+    (16, 10, 8, 2064),      # 9 tiles of 256 bytes, the last one 16 bytes
     (14, 5, 7, 48),         # one tile of 64 bytes holding 48
-    (64, 16, 16, 256),      # the smallest tile the design takes
+    (64, 16, 16, 256),      # two tiles of 128, the smallest taken
     (6, 3, 2, 16),          # w=2, one 16-byte column
 ])
 def test_random_bitmatrix_partial_tiles_match_jax(one_torch_thread, rows, k,
