@@ -30,7 +30,7 @@
 //    per launch. Two tile buffers alternate: the next tile's copy is in
 //    flight while the block computes this one. A thread owns one 16-byte
 //    column of one output packet and XORs the shared-memory words its row
-//    selects, four independent loads a step, from a list of the row's
+//    selects, eight independent loads a step, from a list of the row's
 //    set columns that the block builds once (from uint32 row masks,
 //    launch_common.cuh) while its first copy is in flight; then it
 //    stores 16 bytes. The tile is the largest power of two (>= 16 bytes)
@@ -90,12 +90,17 @@ long long stage_tile(int cols, long long packet) {
   return tile >= packet || tile >= kMinTile ? tile : 0;
 }
 
-// Staged design: two buffers of tiles, the masks, the lists of each
-// row's set columns (as byte offsets into a buffer) and their lengths.
+// Entries of a row's list of set columns: cols rounded up to 8, so that
+// every row starts on 16 bytes and 8 entries load as one word.
+__host__ __device__ inline int list_stride(int cols) { return (cols + 7) / 8 * 8; }
+
+// Staged design: two buffers of tiles, the lists of each row's set
+// columns (as byte offsets into a buffer), the masks, the list lengths.
 size_t staged_smem(int rows, int cols, long long tile) {
   return 2 * (size_t)cols * tile +
+         (size_t)rows * list_stride(cols) * sizeof(uint16_t) +
          (size_t)rows * mask_words(cols) * sizeof(uint32_t) +
-         (size_t)rows * (cols + 1) * sizeof(uint16_t);
+         (size_t)rows * sizeof(uint16_t);
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -156,11 +161,13 @@ gf_packet_staged_kernel(const uint8_t* __restrict__ bitmat, int rows, int k,
   const int cols = k * w;
   const int nw = mask_words(cols);
   const size_t buf_bytes = (size_t)cols * tile;
+  const int lstride = list_stride(cols);
   uint8_t* bufs = st_smem;                                     // [2][cols][tile]
+  uint16_t* lists =
+      reinterpret_cast<uint16_t*>(st_smem + 2 * buf_bytes);    // [rows][lstride]
   uint32_t* masks =
-      reinterpret_cast<uint32_t*>(st_smem + 2 * buf_bytes);    // [rows][nw]
-  uint16_t* lists = reinterpret_cast<uint16_t*>(masks + rows * nw);  // [rows][cols]
-  uint16_t* counts = lists + rows * cols;                      // [rows]
+      reinterpret_cast<uint32_t*>(lists + rows * lstride);     // [rows][nw]
+  uint16_t* counts = reinterpret_cast<uint16_t*>(masks + rows * nw);  // [rows]
   const long long super = (long long)w * packet;
   const long long supers = n / super;
   const long long tiles = (packet + tile - 1) / tile;
@@ -180,7 +187,7 @@ gf_packet_staged_kernel(const uint8_t* __restrict__ bitmat, int rows, int k,
       while (word) {
         const int bit = __ffs(word) - 1;
         word &= word - 1;
-        lists[r * cols + cnt++] = (uint16_t)((q * 32 + bit) * tile);
+        lists[r * lstride + cnt++] = (uint16_t)((q * 32 + bit) * tile);
       }
     }
     counts[r] = (uint16_t)cnt;
@@ -206,20 +213,24 @@ gf_packet_staged_kernel(const uint8_t* __restrict__ bitmat, int rows, int k,
       const int r = idx / vcols;
       const int x = (idx - r * vcols) * 16;
       if (t0 + x >= packet) continue;
-      const uint16_t* lst = lists + r * cols;
+      const uint16_t* lst = lists + r * lstride;
       const int cnt = counts[r];
       const uint8_t* col = stage + x;
       uint4 a0 = make_uint4(0u, 0u, 0u, 0u), a1 = a0;
       int i = 0;
-      for (; i + 4 <= cnt; i += 4) {
-        const uint4 v0 = *reinterpret_cast<const uint4*>(col + lst[i]);
-        const uint4 v1 = *reinterpret_cast<const uint4*>(col + lst[i + 1]);
-        const uint4 v2 = *reinterpret_cast<const uint4*>(col + lst[i + 2]);
-        const uint4 v3 = *reinterpret_cast<const uint4*>(col + lst[i + 3]);
-        xor4(a0, v0);
-        xor4(a1, v1);
-        xor4(a0, v2);
-        xor4(a1, v3);
+      for (; i + 8 <= cnt; i += 8) {  // 8 offsets in one load
+        const uint4 o = *reinterpret_cast<const uint4*>(lst + i);
+        const uint32_t h[4] = {o.x, o.y, o.z, o.w};
+        uint4 v[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          v[e] = *reinterpret_cast<const uint4*>(
+              col + ((h[e >> 1] >> (16 * (e & 1))) & 0xffffu));
+#pragma unroll
+        for (int e = 0; e < 8; e += 2) {
+          xor4(a0, v[e]);
+          xor4(a1, v[e + 1]);
+        }
       }
       for (; i < cnt; ++i)
         xor4(a0, *reinterpret_cast<const uint4*>(col + lst[i]));

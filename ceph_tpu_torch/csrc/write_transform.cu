@@ -29,23 +29,26 @@
 //  rounds, 24.8 us, however many rows run beside it.
 //
 // Design (simple; speed is later work):
-//  * K1 is one launch. A row is cut into 64-byte units and front-padded
-//    with zero bytes to whole spans of 32 units (2048 bytes), so that a
-//    warp never straddles two rows (leading zero bytes leave a CRC
-//    register of 0 at 0). A warp takes one span, a lane one unit: the
-//    lane's raw CRC runs 16 bytes a step by slicing-by-16 (16 tables of
-//    256 words in shared memory, 16 independent lookups a step, so a
-//    unit is 4 dependent steps on the aligned path; the byte path steps a
-//    byte at a time through the first table). The init register enters
+//  * K1 is one launch. A row is cut into 64-byte units (128-byte units
+//    for an aligned row of 2049 to 4096 bytes, so that one warp takes
+//    it whole) and front-padded with zero bytes to whole spans of 32
+//    units, so that a warp never straddles two rows (leading zero bytes
+//    leave a CRC register of 0 at 0). A warp takes one span, a lane one
+//    unit: the lane's raw CRC runs 16 bytes a step by slicing-by-16 (16
+//    tables of 256 words in shared memory, 16 independent lookups a
+//    step, so a 64-byte unit is 4 dependent steps on the aligned path;
+//    the byte path steps a byte at a time through the first table). A
+//    block loads the tables and matrices 16 bytes a load, all of a
+//    thread's loads in flight at once. The init register enters
 //    where the row's first byte does (the register is XORed with
 //    0xFFFFFFFF there), so no shift_len(0xFFFFFFFF) is computed at all.
 //    The warp then combines its 32 units in a 5-level shuffle tree, level
-//    l applying the "append 2^(6+l) bytes" matrix to the left half
+//    l applying the "append 2^l units" matrix to the left half
 //    (crc(A|B) = shift_|B|(crc(A)) ^ crc(B)). A row of one span is done
 //    there. Otherwise each warp stores its span's word and counts its
 //    arrival on the row; the last warp of the row combines the row's
 //    span words (each lane a power-of-two run of them by Horner steps of
-//    the "append 2048 bytes" matrix, then a shuffle tree), un-shifts the
+//    the "append one span" matrix, then a shuffle tree), un-shifts the
 //    pad with the inverse matrices, applies the xor-out and writes the
 //    CRC. It then zeroes the counter and the span words it read, so the
 //    scratch is all zeros again for the next call on the stream.
@@ -73,10 +76,8 @@
 namespace {
 
 constexpr int kLevels = 31;       // shift matrices for 2^0 .. 2^30 bytes
-constexpr int kRun = 64;          // bytes of one K1 unit
-constexpr int kRunLog2 = 6;
-constexpr int kSpanLog2 = 11;     // a warp's 32 units: 2048 bytes
-constexpr long long kSpan = 1ll << kSpanLog2;
+constexpr int kRunLog2 = 6;       // bytes of a K1 unit: 64, or 128 where
+constexpr int kWideRunLog2 = 7;   // that makes an aligned row one span
 constexpr int kSlices = 16;       // slicing-by-16 tables
 constexpr int kShiftAt = 256;     // consts: table, shifts, inverses, T_1..T_15
 constexpr int kInvAt = kShiftAt + kLevels * 32;
@@ -104,12 +105,13 @@ std::atomic<long long> g_launches[kNumLaunch];
 constexpr uint32_t kP1 = 2654435761u, kP2 = 2246822519u, kP3 = 3266489917u;
 constexpr uint32_t kP4 = 668265263u, kP5 = 374761393u;
 
-// M . x for a 32x32 GF(2) matrix stored as 32 column masks.
+// M . x for a 32x32 GF(2) matrix stored as 32 column masks; four
+// independent sums keep the dependent chain at 8 + 2 XORs.
 __device__ __forceinline__ uint32_t mat_apply(const uint32_t* m, uint32_t x) {
-  uint32_t r = 0;
+  uint32_t r[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-  for (int j = 0; j < 32; ++j) r ^= m[j] & (0u - ((x >> j) & 1u));
-  return r;
+  for (int j = 0; j < 32; ++j) r[j & 3] ^= m[j] & (0u - ((x >> j) & 1u));
+  return (r[0] ^ r[1]) ^ (r[2] ^ r[3]);
 }
 
 // The register after appending n zero bytes (n < 2^31).
@@ -166,7 +168,7 @@ __device__ uint32_t crc_out(uint32_t reg, long long len,
   return reg ^ 0xffffffffu;
 }
 
-template <int VEC>
+template <int VEC, int RUN_LOG2>
 __global__ void __launch_bounds__(kCrcThreads)
 crc_rows_kernel(const uint8_t* __restrict__ src, long long nrows,
                 long long row_stride, long long seg_stride, long long seglen,
@@ -175,16 +177,36 @@ crc_rows_kernel(const uint8_t* __restrict__ src, long long nrows,
                 const long long* __restrict__ pad,
                 uint32_t* __restrict__ scratch, uint32_t* __restrict__ out) {
   constexpr int kTab = VEC == 16 ? kSlices * 256 : 256;
-  __shared__ uint32_t tab[kTab];   // T_0, then T_1..T_15 on the aligned path
-  __shared__ uint32_t shift[kLevels * 32];
-  for (int i = threadIdx.x; i < kTab; i += blockDim.x)
-    tab[i] = consts[i < 256 ? i : kSliceAt + i - 256];
-  for (int i = threadIdx.x; i < kLevels * 32; i += blockDim.x)
-    shift[i] = consts[kShiftAt + i];
+  __shared__ __align__(16) uint32_t tab[kTab];  // T_0, then T_1..T_15
+  __shared__ __align__(16) uint32_t shift[kLevels * 32];
+  {  // all of a thread's 16-byte loads in flight at once
+    constexpr int kTab4 = kTab / 4, kAll4 = kTab4 + kLevels * 8;
+    constexpr int kPer = (kAll4 + kCrcThreads - 1) / kCrcThreads;
+    const uint4* c4 = reinterpret_cast<const uint4*>(consts);
+    uint4 v[kPer];
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int i = threadIdx.x + j * kCrcThreads;
+      if (i < kAll4)
+        v[j] = __ldg(c4 + (i < 64      ? i
+                           : i < kTab4 ? kSliceAt / 4 + i - 64
+                                       : kShiftAt / 4 + i - kTab4));
+    }
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int i = threadIdx.x + j * kCrcThreads;
+      if (i < kTab4)
+        reinterpret_cast<uint4*>(tab)[i] = v[j];
+      else if (i < kAll4)
+        reinterpret_cast<uint4*>(shift)[i - kTab4] = v[j];
+    }
+  }
   __syncthreads();
 
+  constexpr int kRun = 1 << RUN_LOG2;       // bytes of a unit
+  constexpr int kSpanLog2 = RUN_LOG2 + 5;   // a warp's 32 units
   const int lane = threadIdx.x & 31;
-  const long long lead = spans * kSpan - len;  // leading zero bytes
+  const long long lead = (spans << kSpanLog2) - len;  // leading zero bytes
   const long long total = nrows * spans;
   const long long warps = (long long)gridDim.x * (blockDim.x >> 5);
   unsigned* count = reinterpret_cast<unsigned*>(scratch);  // [nrows]
@@ -205,9 +227,9 @@ crc_rows_kernel(const uint8_t* __restrict__ src, long long nrows,
       long long off = p - seg * seglen;
       if constexpr (VEC == 16) {
         const int nq = (int)((end - p) >> 4);
-        uint4 v[4];
+        uint4 v[kRun / 16];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
+        for (int q = 0; q < kRun / 16; ++q) {
           if (q < nq) {
             v[q] = __ldg(reinterpret_cast<const uint4*>(rowp + seg * seg_stride +
                                                         off));
@@ -220,7 +242,7 @@ crc_rows_kernel(const uint8_t* __restrict__ src, long long nrows,
         }
         if (first) c = 0xffffffffu;
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
+        for (int q = 0; q < kRun / 16; ++q)
           if (q < nq) c = slice16(tab, c, v[q]);
       } else {
         if (first) c = 0xffffffffu;
@@ -233,7 +255,7 @@ crc_rows_kernel(const uint8_t* __restrict__ src, long long nrows,
         }
       }
     }
-    c = warp_tree(shift, c, kRunLog2, lane);
+    c = warp_tree(shift, c, RUN_LOG2, lane);
     if (spans == 1) {
       if (lane == 0) out[row] = crc_out(c, len, consts, pad);
       continue;
@@ -644,9 +666,11 @@ cudaError_t counted(Launch kind) {
   return err;
 }
 
-// Spans of 2048 bytes K1 cuts a row of `len` bytes into (at least one).
-long long crc_spans(long long len) {
-  const long long spans = (len + kSpan - 1) / kSpan;
+// Spans of 32 units of 2^run_log2 bytes K1 cuts a row of `len` bytes
+// into (at least one).
+long long crc_spans(long long len, int run_log2) {
+  const long long span = 1ll << (run_log2 + 5);
+  const long long spans = (len + span - 1) / span;
   return spans > 0 ? spans : 1;
 }
 
@@ -666,16 +690,17 @@ extern "C" void wt_reset_launches() {
 // counter per row and a word per span of a row, none for rows of one
 // span.
 extern "C" long long wt_crc_scratch_words(long long nrows, long long len) {
-  const long long spans = crc_spans(len);
+  const long long spans = crc_spans(len, kRunLog2);  // the most of any path
   return spans > 1 ? nrows * (1 + spans) : 0;
 }
 
 // K1. Row r is nseg segments of seglen bytes, segment s at src + r *
 // row_stride + s * seg_stride; len = nseg * seglen < 2^30. consts: the
 // polynomial's table, shift and inverse matrices and slicing tables
-// (256 + 2 * 31 * 32 + 15 * 256 uint32 on the device); pad: an int64 on
-// the device or null; scratch: wt_crc_scratch_words(nrows, len) uint32,
-// all zeros at entry and left all zeros (a buffer kept for the stream);
+// (256 + 2 * 31 * 32 + 15 * 256 uint32 on the device, 16-byte aligned);
+// pad: an int64 on the device or null; scratch:
+// wt_crc_scratch_words(nrows, len) uint32, all zeros at entry and left
+// all zeros (a buffer kept for the stream);
 // out: nrows uint32. One launch. Returns 0, a cudaError_t code, or -1 for
 // arguments the kernel does not take.
 extern "C" int wt_crc32_rows(const void* src, long long nrows,
@@ -685,7 +710,7 @@ extern "C" int wt_crc32_rows(const void* src, long long nrows,
                              void* scratch, void* out, void* stream) {
   const long long len = nseg * seglen;
   if (nrows < 0 || nseg < 0 || seglen < 0 || len >= (1ll << 30) ||
-      (len > 0 && seglen == 0))
+      (len > 0 && seglen == 0) || reinterpret_cast<uintptr_t>(consts) % 16)
     return -1;
   if (nrows == 0) return 0;
   if (seglen == 0) seglen = 1;  // no bytes: the walk never reads
@@ -695,24 +720,34 @@ extern "C" int wt_crc32_rows(const void* src, long long nrows,
   auto* scr = static_cast<uint32_t*>(scratch);
   auto* o = static_cast<uint32_t*>(out);
   const auto* in = static_cast<const uint8_t*>(src);
-  const long long spans = crc_spans(len);
-  const long long warps = nrows * spans;
   const bool vec = len % 16 == 0 && seglen % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(in) % 16 == 0 &&
                    row_stride % 16 == 0 && seg_stride % 16 == 0;
+  // an aligned row of 2049..4096 bytes takes 128-byte units: one warp,
+  // no cross-warp combine
+  const int run_log2 = vec && len > (32ll << kRunLog2) &&
+                               len <= (32ll << kWideRunLog2)
+                           ? kWideRunLog2
+                           : kRunLog2;
+  const long long spans = crc_spans(len, run_log2);
+  const long long threads = nrows * spans * 32;
   unsigned blocks = 0;
   cudaError_t err;
-  if (vec) {
-    auto kernel = crc_rows_kernel<16>;
-    err = launch_common::grid_blocks(kernel, kCrcThreads, 0, warps * 32,
-                                     &blocks);
+  if (vec && run_log2 == kWideRunLog2) {
+    auto kernel = crc_rows_kernel<16, kWideRunLog2>;
+    err = launch_common::grid_blocks(kernel, kCrcThreads, 0, threads, &blocks);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<blocks, kCrcThreads, 0, s>>>(in, nrows, row_stride, seg_stride,
+                                          seglen, len, spans, cst, pd, scr, o);
+  } else if (vec) {
+    auto kernel = crc_rows_kernel<16, kRunLog2>;
+    err = launch_common::grid_blocks(kernel, kCrcThreads, 0, threads, &blocks);
     if (err != cudaSuccess) return (int)err;
     kernel<<<blocks, kCrcThreads, 0, s>>>(in, nrows, row_stride, seg_stride,
                                           seglen, len, spans, cst, pd, scr, o);
   } else {
-    auto kernel = crc_rows_kernel<1>;
-    err = launch_common::grid_blocks(kernel, kCrcThreads, 0, warps * 32,
-                                     &blocks);
+    auto kernel = crc_rows_kernel<1, kRunLog2>;
+    err = launch_common::grid_blocks(kernel, kCrcThreads, 0, threads, &blocks);
     if (err != cudaSuccess) return (int)err;
     kernel<<<blocks, kCrcThreads, 0, s>>>(in, nrows, row_stride, seg_stride,
                                           seglen, len, spans, cst, pd, scr, o);

@@ -204,6 +204,9 @@ def _check_crc(view, consts, pad, out) -> None:
             not consts.is_contiguous():
         raise ValueError("consts must be a contiguous uint32 [%d] tensor"
                          % CONSTS_WORDS)
+    if view.device.type == "cuda" and consts.data_ptr() % 16:
+        raise ValueError("consts must start on 16 bytes: the kernel loads "
+                         "them 16 bytes at a time")
     tensors = [consts]
     if pad is not None:
         if pad.dtype != torch.int64 or pad.numel() != 1:

@@ -11,18 +11,20 @@ a mistake in the schedule shows on the CPU:
      x (with the register XORed into its first 4 bytes) steps the
      register to XOR over byte i of T_{15-i}[x_i];
   2. the row is front-padded with zeros to whole spans of 32 units of 64
-     bytes; lane l of the warp of span s owns unit s*32 + l and starts
+     bytes (128 for an aligned row of 2049..4096 bytes, which one warp
+     then takes whole); lane l of the warp of span s owns unit s*32 + l
+     and starts
      from a register of 0, which the leading zeros leave at 0; the
      register is XORed with 0xFFFFFFFF where the row's first byte enters
      (the init constant, folded into the data: no shift_len at all);
      16-byte words on the aligned path, the byte table on the byte path;
   3. the warp combines its 32 units in a 5-level shuffle tree, level l
-     applying the "append 2^(6+l) bytes" matrix to the left half;
+     applying the "append 2^l units" matrix to the left half;
   4. a row of one span is done; otherwise each warp stores its span's
      word, and the last warp of the row to arrive (an arrival counter)
      combines the row's spans: lane i takes `per` spans (a power of two,
      the list front-padded with zero words) by Horner steps of the
-     "append 2048 bytes" matrix, then a 5-level tree at the matching
+     "append one span" matrix, then a 5-level tree at the matching
      levels;
   5. the result is un-shifted by the pad (the inverse matrices of the
      pad's set bits) and XORed with 0xFFFFFFFF; a row of 0 bytes gives
@@ -52,7 +54,7 @@ from .torch_util import one_torch_thread  # noqa: F401
 
 U32 = np.uint32
 ONES = U32(0xFFFFFFFF)
-RUN, SPAN_UNITS = 64, 32
+RUN, WIDE_RUN, SPAN_UNITS = 64, 128, 32
 SPAN = RUN * SPAN_UNITS             # bytes a warp covers
 POLYS = {"zlib": ft.POLY_ZLIB, "crc32c": ft.POLY_C}
 
@@ -87,11 +89,19 @@ def row_bytes(buf, row, p, n, row_stride, seg_stride, seglen):
     return out
 
 
+def unit_bytes(length: int, vec: bool) -> int:
+    """The kernel's unit: 128 bytes for an aligned row of 2049..4096
+    bytes (one span), else 64."""
+    return WIDE_RUN if vec and SPAN < length <= WIDE_RUN * SPAN_UNITS \
+        else RUN
+
+
 def unit_crcs(buf, rows, length, row_stride, seg_stride, seglen, tables,
-              vec):
+              vec, run):
     """[rows, spans*32] raw registers of every unit (step 2)."""
-    spans = max(1, -(-length // SPAN))
-    lead = spans * SPAN - length
+    span = run * SPAN_UNITS
+    spans = max(1, -(-length // span))
+    lead = spans * span - length
     units = spans * SPAN_UNITS
     c = np.zeros((rows, units), dtype=U32)
     step = 16 if vec else 1
@@ -99,7 +109,7 @@ def unit_crcs(buf, rows, length, row_stride, seg_stride, seglen, tables,
         data = row_bytes(buf, row, 0, length, row_stride, seg_stride, seglen)
         for u in range(units):
             reg = U32(0)
-            for p in range(u * RUN - lead, (u + 1) * RUN - lead, step):
+            for p in range(u * run - lead, (u + 1) * run - lead, step):
                 if p < 0:
                     continue            # leading zeros: a register of 0
                 if p == 0:
@@ -133,7 +143,8 @@ def warp_tree(v: np.ndarray, shift: np.ndarray, level0: int) -> np.ndarray:
     return v[..., 0]
 
 
-def combine_spans(partial: np.ndarray, shift: np.ndarray) -> np.ndarray:
+def combine_spans(partial: np.ndarray, shift: np.ndarray,
+                  span_level: int) -> np.ndarray:
     """[rows, spans] span words -> [rows] (step 4, the last warp)."""
     rows, spans = partial.shape
     per = 1
@@ -143,19 +154,21 @@ def combine_spans(partial: np.ndarray, shift: np.ndarray) -> np.ndarray:
     padded = np.concatenate([np.zeros((rows, lead), dtype=U32), partial],
                             axis=1).reshape(rows, 32, per)
     acc = np.zeros((rows, 32), dtype=U32)
-    for t in range(per):                # Horner: append 2048 bytes
-        acc = mat_apply(shift[11], acc) ^ padded[:, :, t]
-    return warp_tree(acc, shift, 11 + per.bit_length() - 1)
+    for t in range(per):                # Horner: append one span
+        acc = mat_apply(shift[span_level], acc) ^ padded[:, :, t]
+    return warp_tree(acc, shift, span_level + per.bit_length() - 1)
 
 
 def k1_model(buf, rows, length, row_stride, seg_stride, seglen, poly,
              pad=None, vec=True):
     tables, shift, inv = consts(poly)
+    run = unit_bytes(length, vec)
     units, spans = unit_crcs(buf, rows, length, row_stride, seg_stride,
-                             seglen, tables, vec)
-    span_words = warp_tree(units.reshape(rows, spans, 32), shift, 6)
-    reg = span_words[:, 0] if spans == 1 else combine_spans(span_words,
-                                                            shift)
+                             seglen, tables, vec, run)
+    level = run.bit_length() - 1        # log2 of the unit
+    span_words = warp_tree(units.reshape(rows, spans, 32), shift, level)
+    reg = span_words[:, 0] if spans == 1 else combine_spans(
+        span_words, shift, level + 5)
     if length == 0:
         reg = np.full(rows, ONES, dtype=U32)
     if pad is not None:

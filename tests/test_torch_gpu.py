@@ -359,7 +359,7 @@ def test_crc32_rows_span_combine_on_card(cuda, rows, length, offset):
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,pad_stripes", [
     ((128, 11, 4096), 0), ((128, 11, 4096), 1), ((128, 11, 4096), 127),
-    ((7, 3, 96), 2), ((5, 3, 40), 4)])
+    ((7, 3, 96), 2), ((5, 3, 40), 4), ((40, 3, 64), 5)])
 def test_shard_crcs_with_pad_match_plain_on_card(cuda, shape, pad_stripes):
     """Shard streams read in place from [S, n, chunk] (segments at a
     stride), un-shifted by a pad read from device memory."""

@@ -21,7 +21,7 @@ indexing mistake shows on the CPU:
      and row r's list holds the byte offset c * tile of every set column
      c, walked from the masks lowest bit first;
   5. the product: output (r, 16-byte column x) XORs the stage word at
-     offset x of each listed column, four at a time into two
+     offset x of each listed column, eight at a time into two
      accumulators, and goes to output packet r of the superblock at byte
      t0 + x.
 
