@@ -168,47 +168,6 @@ __device__ uint32_t crc_out(uint32_t reg, long long len,
   return reg ^ 0xffffffffu;
 }
 
-// The 16-byte words of one lane's unit on the aligned path: the unit of
-// lane `lane` in span g holds logical bytes [p, p + RUN) of its row, of
-// which those before the row's data (p < 0) are leading zeros.
-template <int RUN>
-struct UnitWords {
-  uint4 v[RUN / 16];
-  int nq;      // words of row data
-  bool first;  // the row's first byte is the first of them
-};
-
-template <int RUN>
-__device__ __forceinline__ void load_unit(
-    const uint8_t* __restrict__ src, long long g, long long spans,
-    long long lead, int lane, long long row_stride, long long seg_stride,
-    long long seglen, UnitWords<RUN>& u) {
-  const long long row = g / spans;
-  long long p = ((g - row * spans) * 32 + lane) * RUN - lead;
-  const long long end = p + RUN;
-  u.nq = 0;
-  u.first = false;
-  if (end <= 0) return;
-  if (p < 0) p = 0;
-  u.first = p == 0;
-  u.nq = (int)((end - p) >> 4);
-  const uint8_t* rowp = src + row * row_stride;
-  long long seg = p / seglen;
-  long long off = p - seg * seglen;
-#pragma unroll
-  for (int q = 0; q < RUN / 16; ++q) {
-    if (q < u.nq) {
-      u.v[q] = __ldg(reinterpret_cast<const uint4*>(rowp + seg * seg_stride +
-                                                    off));
-      off += 16;
-      if (off == seglen) {
-        off = 0;
-        ++seg;
-      }
-    }
-  }
-}
-
 template <int VEC, int RUN_LOG2>
 __global__ void __launch_bounds__(kCrcThreads)
 crc_rows_kernel(const uint8_t* __restrict__ src, long long nrows,
@@ -217,22 +176,9 @@ crc_rows_kernel(const uint8_t* __restrict__ src, long long nrows,
                 const uint32_t* __restrict__ consts,
                 const long long* __restrict__ pad,
                 uint32_t* __restrict__ scratch, uint32_t* __restrict__ out) {
-  constexpr int kRun = 1 << RUN_LOG2;       // bytes of a unit
-  constexpr int kSpanLog2 = RUN_LOG2 + 5;   // a warp's 32 units
   constexpr int kTab = VEC == 16 ? kSlices * 256 : 256;
   __shared__ __align__(16) uint32_t tab[kTab];  // T_0, then T_1..T_15
   __shared__ __align__(16) uint32_t shift[kLevels * 32];
-  const int lane = threadIdx.x & 31;
-  const long long lead = (spans << kSpanLog2) - len;  // leading zero bytes
-  const long long total = nrows * spans;
-  const long long warps = (long long)gridDim.x * (blockDim.x >> 5);
-  long long g = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  UnitWords<kRun> unit;
-  if constexpr (VEC == 16) {  // the first span's loads under the tables'
-    if (g < total)
-      load_unit(src, g, spans, lead, lane, row_stride, seg_stride, seglen,
-                unit);
-  }
   {  // all of a thread's 16-byte loads in flight at once
     constexpr int kTab4 = kTab / 4, kAll4 = kTab4 + kLevels * 8;
     constexpr int kPer = (kAll4 + kCrcThreads - 1) / kCrcThreads;
@@ -257,28 +203,49 @@ crc_rows_kernel(const uint8_t* __restrict__ src, long long nrows,
   }
   __syncthreads();
 
+  constexpr int kRun = 1 << RUN_LOG2;       // bytes of a unit
+  constexpr int kSpanLog2 = RUN_LOG2 + 5;   // a warp's 32 units
+  const int lane = threadIdx.x & 31;
+  const long long lead = (spans << kSpanLog2) - len;  // leading zero bytes
+  const long long total = nrows * spans;
+  const long long warps = (long long)gridDim.x * (blockDim.x >> 5);
   unsigned* count = reinterpret_cast<unsigned*>(scratch);  // [nrows]
   uint32_t* words = scratch + nrows;                       // [nrows, spans]
-  for (; g < total; g += warps) {
+  for (long long g = (long long)blockIdx.x * (blockDim.x >> 5) +
+                     (threadIdx.x >> 5);
+       g < total; g += warps) {
     const long long row = g / spans;
+    const long long unit = (g - row * spans) * 32 + lane;
+    long long p = unit * kRun - lead;  // logical bytes [p, end)
+    const long long end = p + kRun;
     uint32_t c = 0;
-    if constexpr (VEC == 16) {
-      if (unit.first) c = 0xffffffffu;  // the init register enters here
+    if (end > 0) {
+      if (p < 0) p = 0;
+      const bool first = p == 0;  // the row's first byte: the init register
+      const uint8_t* rowp = src + row * row_stride;
+      long long seg = p / seglen;
+      long long off = p - seg * seglen;
+      if constexpr (VEC == 16) {
+        const int nq = (int)((end - p) >> 4);
+        uint4 v[kRun / 16];
 #pragma unroll
-      for (int q = 0; q < kRun / 16; ++q)
-        if (q < unit.nq) c = slice16(tab, c, unit.v[q]);
-      if (g + warps < total)  // the next span's loads under this one's tree
-        load_unit(src, g + warps, spans, lead, lane, row_stride, seg_stride,
-                  seglen, unit);
-    } else {
-      long long p = ((g - row * spans) * 32 + lane) * kRun - lead;
-      const long long end = p + kRun;  // logical bytes [p, end)
-      if (end > 0) {
-        if (p < 0) p = 0;
-        if (p == 0) c = 0xffffffffu;  // the init register enters here
-        const uint8_t* rowp = src + row * row_stride;
-        long long seg = p / seglen;
-        long long off = p - seg * seglen;
+        for (int q = 0; q < kRun / 16; ++q) {
+          if (q < nq) {
+            v[q] = __ldg(reinterpret_cast<const uint4*>(rowp + seg * seg_stride +
+                                                        off));
+            off += 16;
+            if (off == seglen) {
+              off = 0;
+              ++seg;
+            }
+          }
+        }
+        if (first) c = 0xffffffffu;
+#pragma unroll
+        for (int q = 0; q < kRun / 16; ++q)
+          if (q < nq) c = slice16(tab, c, v[q]);
+      } else {
+        if (first) c = 0xffffffffu;
         for (; p < end; ++p) {
           c = tab[(c ^ __ldg(rowp + seg * seg_stride + off)) & 0xffu] ^ (c >> 8);
           if (++off == seglen) {
