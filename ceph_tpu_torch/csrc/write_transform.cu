@@ -274,14 +274,21 @@ crc_rows_kernel(const uint8_t* __restrict__ src, long long nrows,
     const long long per = 1ll << per_log;
     const long long first_span = lane * per - (32 * per - spans);
     uint32_t acc = 0;
-    for (long long t = 0; t < per; ++t) {
-      const long long i = first_span + t;
-      uint32_t word = 0;
-      if (i >= 0) {
-        word = __ldcg(words + row * spans + i);
-        words[row * spans + i] = 0;  // scratch back to zeros
+    for (long long t0 = 0; t0 < per; t0 += 8) {  // 8 loads in flight
+      uint32_t w8[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const long long i = first_span + t0 + j;
+        w8[j] = t0 + j < per && i >= 0 ? __ldcg(words + row * spans + i) : 0u;
       }
-      acc = mat_apply(shift + kSpanLog2 * 32, acc) ^ word;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const long long i = first_span + t0 + j;
+        if (t0 + j < per) {
+          if (i >= 0) words[row * spans + i] = 0;  // scratch back to zeros
+          acc = mat_apply(shift + kSpanLog2 * 32, acc) ^ w8[j];
+        }
+      }
     }
     acc = warp_tree(shift, acc, kSpanLog2 + per_log, lane);
     if (lane == 0) {
