@@ -45,13 +45,13 @@
 //    The warp then combines its 32 units in a 5-level shuffle tree, level
 //    l applying the "append 2^l units" matrix to the left half
 //    (crc(A|B) = shift_|B|(crc(A)) ^ crc(B)). A row of one span is done
-//    there. Otherwise each warp stores its span's word and counts its
-//    arrival on the row; the last warp of the row combines the row's
-//    span words (each lane a power-of-two run of them by Horner steps of
-//    the "append one span" matrix, then a shuffle tree), un-shifts the
-//    pad with the inverse matrices, applies the xor-out and writes the
-//    CRC. It then zeroes the counter and the span words it read, so the
-//    scratch is all zeros again for the next call on the stream.
+//    there. Otherwise each warp carries its span's word past the spans
+//    after it (the "append 2^l bytes" matrices of the set bits of that
+//    byte count), stores it and counts its arrival on the row; the last
+//    warp of the row XORs the row's span words, un-shifts the pad with
+//    the inverse matrices, applies the xor-out and writes the CRC. It
+//    then zeroes the counter and the span words it read, so the scratch
+//    is all zeros again for the next call on the stream.
 //  * K2 runs one thread per row, a warp per block, so that the few rows of
 //    a write spread over the SMs. Aligned rows stream through shared
 //    memory in 256-byte tiles with cp.async, several tiles in flight, so
@@ -123,6 +123,12 @@ __device__ uint32_t shift_bytes(const uint32_t* shift, uint32_t c,
     ++lvl;
   }
   return c;
+}
+
+__device__ __forceinline__ uint32_t warp_xor(uint32_t v) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v ^= __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
 }
 
 // The shuffle tree of a warp: lane l holds the raw CRC of the l-th of 32
@@ -260,6 +266,11 @@ crc_rows_kernel(const uint8_t* __restrict__ src, long long nrows,
       if (lane == 0) out[row] = crc_out(c, len, consts, pad);
       continue;
     }
+    // this span's word carried past the spans after it, so that the
+    // row's register is the XOR of its spans' words
+    c = shift_bytes(shift, c,
+                    (unsigned long long)(spans - 1 - (g - row * spans)),
+                    kSpanLog2);
     unsigned last = 0;
     if (lane == 0) {
       words[g] = c;
@@ -268,29 +279,23 @@ crc_rows_kernel(const uint8_t* __restrict__ src, long long nrows,
     }
     if (!__shfl_sync(0xffffffffu, last, 0)) continue;
     __threadfence();  // every span's word is visible
-    // lane i takes `per` spans, the list front-padded with zero words
-    int per_log = 0;
-    while ((32ll << per_log) < spans) ++per_log;
-    const long long per = 1ll << per_log;
-    const long long first_span = lane * per - (32 * per - spans);
     uint32_t acc = 0;
-    for (long long t0 = 0; t0 < per; t0 += 8) {  // 8 loads in flight
-      uint32_t w8[8];
+    uint32_t* row_words = words + row * spans;
+    for (long long i0 = 0; i0 < spans; i0 += 32 * 32) {  // 32 loads in flight
+      uint32_t w32[32];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const long long i = first_span + t0 + j;
-        w8[j] = t0 + j < per && i >= 0 ? __ldcg(words + row * spans + i) : 0u;
+      for (int j = 0; j < 32; ++j) {
+        const long long i = i0 + j * 32 + lane;
+        w32[j] = i < spans ? __ldcg(row_words + i) : 0u;
       }
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const long long i = first_span + t0 + j;
-        if (t0 + j < per) {
-          if (i >= 0) words[row * spans + i] = 0;  // scratch back to zeros
-          acc = mat_apply(shift + kSpanLog2 * 32, acc) ^ w8[j];
-        }
+      for (int j = 0; j < 32; ++j) {
+        const long long i = i0 + j * 32 + lane;
+        if (i < spans) row_words[i] = 0;  // scratch back to zeros
+        acc ^= w32[j];
       }
     }
-    acc = warp_tree(shift, acc, kSpanLog2 + per_log, lane);
+    acc = warp_xor(acc);
     if (lane == 0) {
       out[row] = crc_out(acc, len, consts, pad);
       count[row] = 0;

@@ -20,12 +20,10 @@ a mistake in the schedule shows on the CPU:
      16-byte words on the aligned path, the byte table on the byte path;
   3. the warp combines its 32 units in a 5-level shuffle tree, level l
      applying the "append 2^l units" matrix to the left half;
-  4. a row of one span is done; otherwise each warp stores its span's
-     word, and the last warp of the row to arrive (an arrival counter)
-     combines the row's spans: lane i takes `per` spans (a power of two,
-     the list front-padded with zero words) by Horner steps of the
-     "append one span" matrix, then a 5-level tree at the matching
-     levels;
+  4. a row of one span is done; otherwise each warp carries its span's
+     word past the spans after it (the "append 2^l bytes" matrices of the
+     set bits of that byte count) and stores it, and the last warp of the
+     row to arrive (an arrival counter) XORs the row's words;
   5. the result is un-shifted by the pad (the inverse matrices of the
      pad's set bits) and XORed with 0xFFFFFFFF; a row of 0 bytes gives
      the register 0xFFFFFFFF before the un-shift.
@@ -131,7 +129,7 @@ def unit_crcs(buf, rows, length, row_stride, seg_stride, seglen, tables,
 
 def warp_tree(v: np.ndarray, shift: np.ndarray, level0: int) -> np.ndarray:
     """[..., 32] lane words -> [...]: the shuffle tree, level l applying
-    shift[level0 + l] to the left half (steps 3 and 4)."""
+    shift[level0 + l] to the left half (step 3)."""
     lanes = np.arange(32)
     for lv in range(5):
         partner = v[..., lanes ^ (1 << lv)]
@@ -143,20 +141,25 @@ def warp_tree(v: np.ndarray, shift: np.ndarray, level0: int) -> np.ndarray:
     return v[..., 0]
 
 
+def shift_bytes(shift: np.ndarray, reg: np.ndarray, n: int,
+                level: int) -> np.ndarray:
+    """The registers after appending n * 2^level zero bytes."""
+    while n:
+        if n & 1:
+            reg = mat_apply(shift[level], reg)
+        n >>= 1
+        level += 1
+    return reg
+
+
 def combine_spans(partial: np.ndarray, shift: np.ndarray,
                   span_level: int) -> np.ndarray:
-    """[rows, spans] span words -> [rows] (step 4, the last warp)."""
+    """[rows, spans] span words -> [rows] (step 4): each word carried
+    past the spans after it, then the last warp's XOR."""
     rows, spans = partial.shape
-    per = 1
-    while per * 32 < spans:
-        per *= 2
-    lead = per * 32 - spans
-    padded = np.concatenate([np.zeros((rows, lead), dtype=U32), partial],
-                            axis=1).reshape(rows, 32, per)
-    acc = np.zeros((rows, 32), dtype=U32)
-    for t in range(per):                # Horner: append one span
-        acc = mat_apply(shift[span_level], acc) ^ padded[:, :, t]
-    return warp_tree(acc, shift, span_level + per.bit_length() - 1)
+    words = np.stack([shift_bytes(shift, partial[:, s], spans - 1 - s,
+                                  span_level) for s in range(spans)], axis=1)
+    return np.bitwise_xor.reduce(words, axis=1)
 
 
 def k1_model(buf, rows, length, row_stride, seg_stride, seglen, poly,
@@ -224,8 +227,8 @@ def test_empty_rows(one_torch_thread):
 
 
 def test_many_spans_match_zlib_and_device_crc32(one_torch_thread):
-    """A row of 65539 bytes (33 spans: two per lane, 31 zero words in
-    front) and of 4 * 2048 * 32 + 16 bytes (129 spans: 8 per lane)."""
+    """Rows of 65539 bytes (33 spans) and 4 * 2048 * 32 + 16 bytes (129
+    spans), on both paths."""
     rng = np.random.default_rng(7)
     for length in (65539, 4 * SPAN * 32 + 16):
         row = rng.integers(0, 256, (1, length), dtype=np.uint8)
