@@ -16,7 +16,9 @@ design's loads and stores alone; the intercept of its time against B is
 the fixed part of a launch. With ``--kernel crc``, K1 (``crc32_rows``) on
 the write path's rows for B stripes of 4096-byte chunks (an object of
 B * 32 KiB; 128 stripes is 4 MiB): the chunk crc32c of [B*8, 4096] and
-the crc32 of the 11 shard streams of [B, 11, 4096] read in place. First,
+the crc32 of the 11 shard streams of [B, 11, 4096] read in place, and
+one stream of B * 64 KiB + 3 bytes (the byte path; 8 MiB + 3 at 128, as
+deep scrub's ``device_crc32``). First,
 the floor of the timing itself: one 16-byte ``zero_`` between the same
 events. The inputs rotate through
 256 MiB,
@@ -66,12 +68,14 @@ def crc_sweep(pool: torch.Tensor, batches: list[int], dev) -> None:
     consts = fused_transform.dev_consts(dev)
     chunk, k, n = 4096, K, K + M
     for b in batches:
-        cases = (("chunk_crc32c", fused_transform.POLY_C, k,
+        cases = (("chunk_crc32c", fused_transform.POLY_C, k * chunk,
                   lambda x: x.view(b * k, 1, chunk)),
-                 ("shard_crc32", fused_transform.POLY_ZLIB, n,
-                  lambda x: x.view(b, n, chunk).permute(1, 0, 2)))
+                 ("shard_crc32", fused_transform.POLY_ZLIB, n * chunk,
+                  lambda x: x.view(b, n, chunk).permute(1, 0, 2)),
+                 ("stream_crc32", fused_transform.POLY_ZLIB, 16 * chunk,
+                  lambda x: x.view(1, 1, -1)))
         for name, poly, width, view in cases:
-            size = b * width * chunk
+            size = b * width + (3 if name == "stream_crc32" else 0)
             inputs = [pool[o:o + size]
                       for o in range(0, ROTATE_BYTES - size + 1, size)]
             views = [view(x) for x in inputs]
