@@ -105,21 +105,12 @@ std::atomic<long long> g_launches[kNumLaunch];
 constexpr uint32_t kP1 = 2654435761u, kP2 = 2246822519u, kP3 = 3266489917u;
 constexpr uint32_t kP4 = 668265263u, kP5 = 374761393u;
 
-// M . x for a 32x32 GF(2) matrix stored as 32 column masks, 16-byte
-// aligned: the columns load 4 at a time (a broadcast when every lane
-// applies the same matrix), and four independent sums keep the dependent
-// chain at 8 + 2 XORs.
+// M . x for a 32x32 GF(2) matrix stored as 32 column masks; four
+// independent sums keep the dependent chain at 8 + 2 XORs.
 __device__ __forceinline__ uint32_t mat_apply(const uint32_t* m, uint32_t x) {
-  const uint4* m4 = reinterpret_cast<const uint4*>(m);
   uint32_t r[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-  for (int q = 0; q < 8; ++q) {
-    const uint4 v = m4[q];
-    r[0] ^= v.x & (0u - ((x >> (4 * q)) & 1u));
-    r[1] ^= v.y & (0u - ((x >> (4 * q + 1)) & 1u));
-    r[2] ^= v.z & (0u - ((x >> (4 * q + 2)) & 1u));
-    r[3] ^= v.w & (0u - ((x >> (4 * q + 3)) & 1u));
-  }
+  for (int j = 0; j < 32; ++j) r[j & 3] ^= m[j] & (0u - ((x >> j) & 1u));
   return (r[0] ^ r[1]) ^ (r[2] ^ r[3]);
 }
 
