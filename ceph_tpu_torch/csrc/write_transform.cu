@@ -105,19 +105,12 @@ std::atomic<long long> g_launches[kNumLaunch];
 constexpr uint32_t kP1 = 2654435761u, kP2 = 2246822519u, kP3 = 3266489917u;
 constexpr uint32_t kP4 = 668265263u, kP5 = 374761393u;
 
-// All ones where bit j of x is set, else 0 (one bfe.s32).
-__device__ __forceinline__ uint32_t bit_mask(uint32_t x, int j) {
-  uint32_t mask;
-  asm("bfe.s32 %0, %1, %2, 1;" : "=r"(mask) : "r"(x), "r"(j));
-  return mask;
-}
-
 // M . x for a 32x32 GF(2) matrix stored as 32 column masks; four
 // independent sums keep the dependent chain at 8 + 2 XORs.
 __device__ __forceinline__ uint32_t mat_apply(const uint32_t* m, uint32_t x) {
   uint32_t r[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-  for (int j = 0; j < 32; ++j) r[j & 3] ^= m[j] & bit_mask(x, j);
+  for (int j = 0; j < 32; ++j) r[j & 3] ^= m[j] & (0u - ((x >> j) & 1u));
   return (r[0] ^ r[1]) ^ (r[2] ^ r[3]);
 }
 
