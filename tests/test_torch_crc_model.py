@@ -42,6 +42,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from ceph_tpu.osd import fused_transform as jft
@@ -55,6 +56,10 @@ ONES = U32(0xFFFFFFFF)
 RUN, WIDE_RUN, SPAN_UNITS = 64, 128, 32
 SPAN = RUN * SPAN_UNITS             # bytes a warp covers
 POLYS = {"zlib": ft.POLY_ZLIB, "crc32c": ft.POLY_C}
+# the reference's steps, compiled once per shape for both polynomials
+_JAX_FULL = jax.jit(jft._crc32_full)
+_JAX_RAW = jax.jit(jft._crc_raw_tree)
+_JAX_UNSHIFT = jax.jit(jft._crc_unshift)
 
 
 def consts(poly: int):
@@ -78,15 +83,6 @@ def mat_apply(cols: np.ndarray, x: np.ndarray) -> np.ndarray:
     return r
 
 
-def row_bytes(buf, row, p, n, row_stride, seg_stride, seglen):
-    """n logical bytes of a row from logical byte p, walking segments."""
-    out = np.empty(n, dtype=np.uint8)
-    for i in range(n):
-        seg, off = divmod(p + i, seglen)
-        out[i] = buf[row * row_stride + seg * seg_stride + off]
-    return out
-
-
 def unit_bytes(length: int, vec: bool) -> int:
     """The kernel's unit: 128 bytes for an aligned row of 2049..4096
     bytes (one span), else 64."""
@@ -96,35 +92,38 @@ def unit_bytes(length: int, vec: bool) -> int:
 
 def unit_crcs(buf, rows, length, row_stride, seg_stride, seglen, tables,
               vec, run):
-    """[rows, spans*32] raw registers of every unit (step 2)."""
+    """[rows, spans*32] raw registers of every unit (step 2), all units at
+    once: a unit's bytes before the row's data are skipped, the register
+    takes 0xFFFFFFFF where logical byte 0 enters, then 16-byte slicing
+    steps (aligned path) or byte-table steps (byte path)."""
     span = run * SPAN_UNITS
     spans = max(1, -(-length // span))
     lead = spans * span - length
     units = spans * SPAN_UNITS
-    c = np.zeros((rows, units), dtype=U32)
+    p = np.arange(units)[:, None] * run - lead + np.arange(run)  # [units, run]
+    seg, off = np.divmod(np.maximum(p, 0), max(seglen, 1))
+    addr = (np.arange(rows)[:, None, None] * row_stride + seg * seg_stride
+            + off)                                              # segment walk
+    data = np.zeros(addr.shape, dtype=U32)
+    data[:, p >= 0] = buf[addr[:, p >= 0]]
+    reg = np.zeros((rows, units), dtype=U32)
     step = 16 if vec else 1
-    for row in range(rows):
-        data = row_bytes(buf, row, 0, length, row_stride, seg_stride, seglen)
-        for u in range(units):
-            reg = U32(0)
-            for p in range(u * run - lead, (u + 1) * run - lead, step):
-                if p < 0:
-                    continue            # leading zeros: a register of 0
-                if p == 0:
-                    reg ^= ONES         # the init register enters here
-                if vec:
-                    words = data[p:p + 16].view("<u4").astype(U32)
-                    x = words[0] ^ reg
-                    reg = U32(0)
-                    for i in range(16):
-                        byte = (x >> U32(8 * i)) & U32(0xFF) if i < 4 else \
-                            U32(data[p + i])
-                        reg ^= tables[15 - i][int(byte)]
-                else:
-                    reg = tables[0][int((reg ^ U32(data[p])) & U32(0xFF))] \
-                        ^ (reg >> U32(8))
-            c[row, u] = reg
-    return c, spans
+    for at in range(0, run, step):
+        start = p[:, at]                        # the step's logical byte
+        reg = np.where(start == 0, reg ^ ONES, reg)
+        if vec:
+            w = data[:, :, at:at + 16]
+            x = (w[..., 0] | (w[..., 1] << U32(8)) | (w[..., 2] << U32(16))
+                 | (w[..., 3] << U32(24))) ^ reg
+            new = np.zeros_like(reg)
+            for i in range(16):
+                byte = (x >> U32(8 * i)) & U32(0xFF) if i < 4 else w[..., i]
+                new ^= tables[15 - i][byte]
+        else:
+            new = tables[0][(reg ^ data[:, :, at]) & U32(0xFF)] ^ \
+                (reg >> U32(8))
+        reg = np.where(start >= 0, new, reg)    # leading zeros: skipped
+    return reg, spans
 
 
 def warp_tree(v: np.ndarray, shift: np.ndarray, level0: int) -> np.ndarray:
@@ -190,7 +189,7 @@ def contiguous_model(rows_np: np.ndarray, poly, pad=None, vec=True):
 def jax_full(rows_np: np.ndarray, poly) -> np.ndarray:
     pc = jft._poly_consts(poly)
     init = U32(pc.shift_n(0xFFFFFFFF, rows_np.shape[1]))
-    return np.asarray(jft._crc32_full(
+    return np.asarray(_JAX_FULL(
         jnp.asarray(rows_np), jnp.asarray(pc.table), jnp.asarray(pc.shift),
         jnp.uint32(init)))
 
@@ -255,11 +254,11 @@ def test_strided_shard_streams_with_pad_match_jax(one_torch_thread, shape,
     streams = np.ascontiguousarray(data.transpose(1, 0, 2)).reshape(
         n, s_ * chunk)
     pc = jft._poly_consts(ft.POLY_ZLIB)
-    reg = np.asarray(jft._crc_raw_tree(
+    reg = np.asarray(_JAX_RAW(
         jnp.asarray(streams), jnp.asarray(pc.table),
         jnp.asarray(pc.shift))) ^ U32(pc.shift_n(0xFFFFFFFF, s_ * chunk))
-    want = np.asarray(jft._crc_unshift(jnp.asarray(reg), jnp.asarray(pc.inv),
-                                       jnp.uint32(pad))) ^ ONES
+    want = np.asarray(_JAX_UNSHIFT(
+        jnp.asarray(reg), jnp.asarray(pc.inv), jnp.uint32(pad))) ^ ONES
     assert [int(v) for v in want] == [
         zlib.crc32(np.ascontiguousarray(data[:s_ - pad_stripes, i]).tobytes())
         for i in range(n)]
