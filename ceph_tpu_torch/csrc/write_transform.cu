@@ -174,8 +174,10 @@ __device__ uint32_t crc_out(uint32_t reg, long long len,
   return reg ^ 0xffffffffu;
 }
 
+// At least 2 blocks an SM: 128 registers a thread, so that the last
+// warp's 32 loads in flight do not spill.
 template <int VEC, int RUN_LOG2>
-__global__ void __launch_bounds__(kCrcThreads)
+__global__ void __launch_bounds__(kCrcThreads, 2)
 crc_rows_kernel(const uint8_t* __restrict__ src, long long nrows,
                 long long row_stride, long long seg_stride, long long seglen,
                 long long len, long long spans,
