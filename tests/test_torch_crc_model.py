@@ -56,10 +56,21 @@ ONES = U32(0xFFFFFFFF)
 RUN, WIDE_RUN, SPAN_UNITS = 64, 128, 32
 SPAN = RUN * SPAN_UNITS             # bytes a warp covers
 POLYS = {"zlib": ft.POLY_ZLIB, "crc32c": ft.POLY_C}
-# the reference's steps, compiled once per shape for both polynomials
+# the reference's steps, each compiled once: rows go in front-padded with
+# zero bytes to one shape (a no-op for the raw CRC, the reference's own
+# padding), each with the init constant of its true length
 _JAX_FULL = jax.jit(jft._crc32_full)
 _JAX_RAW = jax.jit(jft._crc_raw_tree)
 _JAX_UNSHIFT = jax.jit(jft._crc_unshift)
+JAX_ROWS, JAX_WIDTH = 3, 8192
+
+
+def front_pad(rows_np: np.ndarray) -> np.ndarray:
+    """[r <= JAX_ROWS, L <= JAX_WIDTH] -> [JAX_ROWS, JAX_WIDTH], the rows'
+    bytes at the end of each row."""
+    out = np.zeros((JAX_ROWS, JAX_WIDTH), dtype=np.uint8)
+    out[:rows_np.shape[0], JAX_WIDTH - rows_np.shape[1]:] = rows_np
+    return out
 
 
 def consts(poly: int):
@@ -187,11 +198,12 @@ def contiguous_model(rows_np: np.ndarray, poly, pad=None, vec=True):
 
 
 def jax_full(rows_np: np.ndarray, poly) -> np.ndarray:
+    """_crc32_full of each row, its true length in the init constant."""
     pc = jft._poly_consts(poly)
     init = U32(pc.shift_n(0xFFFFFFFF, rows_np.shape[1]))
     return np.asarray(_JAX_FULL(
-        jnp.asarray(rows_np), jnp.asarray(pc.table), jnp.asarray(pc.shift),
-        jnp.uint32(init)))
+        jnp.asarray(front_pad(rows_np)), jnp.asarray(pc.table),
+        jnp.asarray(pc.shift), jnp.uint32(init)))[:rows_np.shape[0]]
 
 
 def test_consts_hold_the_slicing_tables():
@@ -255,10 +267,10 @@ def test_strided_shard_streams_with_pad_match_jax(one_torch_thread, shape,
         n, s_ * chunk)
     pc = jft._poly_consts(ft.POLY_ZLIB)
     reg = np.asarray(_JAX_RAW(
-        jnp.asarray(streams), jnp.asarray(pc.table),
+        jnp.asarray(front_pad(streams)), jnp.asarray(pc.table),
         jnp.asarray(pc.shift))) ^ U32(pc.shift_n(0xFFFFFFFF, s_ * chunk))
-    want = np.asarray(_JAX_UNSHIFT(
-        jnp.asarray(reg), jnp.asarray(pc.inv), jnp.uint32(pad))) ^ ONES
+    want = (np.asarray(_JAX_UNSHIFT(
+        jnp.asarray(reg), jnp.asarray(pc.inv), jnp.uint32(pad))) ^ ONES)[:n]
     assert [int(v) for v in want] == [
         zlib.crc32(np.ascontiguousarray(data[:s_ - pad_stripes, i]).tobytes())
         for i in range(n)]
