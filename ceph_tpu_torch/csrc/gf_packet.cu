@@ -20,8 +20,9 @@
 // bitmatrix per byte of a packet row, 888 * 262144 = 0.23 G, 0.12 us even
 // at the int8 rate of 1979 TOP/s, so bytes bound it.
 //
-// Three designs, picked by the C entry point from the geometry and the
-// pointers' alignment, each counted where it is launched:
+// Three designs, picked by the C entry point (pick()) from the geometry,
+// the bitmatrix's count of set entries where the caller gives it, and
+// the pointers' alignment, each counted where it is launched:
 //  * staged (packetsize a multiple of 16, both pointers 16-byte aligned,
 //    a tile of at least min(P, 128) bytes of every input packet fitting
 //    kStageBytes): a block takes one (batch, superblock, tile) at a time
@@ -37,7 +38,9 @@
 //    up to the packetsize that keeps k*w tiles within kStageBytes; the
 //    last tile of a packet may be partial. The blocks are persistent (a
 //    grid-stride loop over tiles).
-//  * vector (aligned, but past the staged design's budget): a thread
+//  * vector (aligned, and past the staged design's budget or where it was
+//    faster than the staged design: few selects per input packet, or a
+//    small input with k*w <= 24; see pick()): a thread
 //    takes one 16-byte column of one output packet and XORs a 16-byte
 //    __ldg load per set bit of its row straight from device memory; L1
 //    and L2 serve the re-reads (about k*w/2 per input packet of a dense
@@ -357,18 +360,79 @@ bool valid(int rows, int k, int w, long long packetsize) {
          rows % w == 0;
 }
 
-// The design of a [rows, k*w] bitmatrix at `packetsize` with 16-byte
-// aligned pointers or not, given the card's opt-in shared memory.
+// The staged design's tile for a [rows, k*w] bitmatrix at `packetsize`
+// with 16-byte aligned pointers or not, given the card's opt-in shared
+// memory; 0 where the staged design does not take the geometry.
+long long staged_tile(int rows, int k, int w, long long packetsize,
+                      bool aligned, size_t optin) {
+  if (!aligned || packetsize % 16 != 0) return 0;
+  const long long t = stage_tile(k * w, packetsize);
+  return t > 0 && staged_smem(rows, k * w, t) <= optin ? t : 0;
+}
+
+// The design of a [rows, k*w] bitmatrix with set_bits set entries (-1:
+// not known) at `packetsize`, on input_bytes of data, with 16-byte
+// aligned pointers or not. The vector design is kept where the staged
+// one was slower on an H100 (tools/gf_kernel_sweep.py --kernel packet):
+//  * at most 3 selects per input packet on average (set_bits <= 3*k*w):
+//    the vector design's re-reads are few and L2 serves them, while the
+//    staged design pays a copy through shared memory and its list
+//    prologue (the liberation and blaum_roth encodes, 2.1 and 2.7
+//    selects, 6-9% faster on the vector design; liber8tion's 3.3 and
+//    everything denser faster staged);
+//  * k*w <= 24 on an input under 2 MiB: a vector thread's chain is at
+//    most 24 loads that L2 holds, and the staged block's prologue is not
+//    paid back (random [2w, 3w] bitmatrices at w = 7 and 8, 0.5-1.3 us
+//    faster on the vector design).
 Design pick(int rows, int k, int w, long long packetsize, bool aligned,
-            size_t optin, long long* tile) {
+            size_t optin, long long set_bits, long long input_bytes,
+            long long* tile) {
   *tile = 0;
   if (!aligned || packetsize % 16 != 0) return kByte;
-  const long long t = stage_tile(k * w, packetsize);
-  if (t > 0 && staged_smem(rows, k * w, t) <= optin) {
-    *tile = t;
-    return kStaged;
+  const long long cols = (long long)k * w;
+  if ((set_bits >= 0 && set_bits <= 3 * cols) ||
+      (cols <= 24 && input_bytes < (2ll << 20)))
+    return kVector;
+  *tile = staged_tile(rows, k, w, packetsize, aligned, optin);
+  return *tile > 0 ? kStaged : kVector;
+}
+
+// The product on design `want`, or on the design pick() takes where
+// want < 0; -1 where the design does not take the geometry.
+int encode_as(int want, const void* bitmat, int rows, int k, int w,
+              long long packetsize, const void* data, void* out,
+              long long batch, long long n, long long set_bits, void* stream) {
+  if (!valid(rows, k, w, packetsize) || batch < 0 || n < 0 ||
+      n % ((long long)w * packetsize) != 0)
+    return -1;
+  size_t optin = 0;
+  const cudaError_t err = launch_common::smem_optin(&optin);
+  if (err != cudaSuccess) return (int)err;
+  const auto* bm = static_cast<const uint8_t*>(bitmat);
+  const auto* in = static_cast<const uint8_t*>(data);
+  auto* o = static_cast<uint8_t*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  const bool aligned = reinterpret_cast<uintptr_t>(in) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(o) % 16 == 0;
+  long long tile = 0;
+  const Design d =
+      want >= 0 ? (Design)want
+                : pick(rows, k, w, packetsize, aligned, optin, set_bits,
+                       batch * k * n, &tile);
+  if (d == kStaged) {
+    tile = staged_tile(rows, k, w, packetsize, aligned, optin);
+    if (tile == 0) return -1;
+    return (int)launch_staged(bm, rows, k, w, packetsize, tile, in, o, batch,
+                              n, staged_smem(rows, k * w, tile), s);
   }
-  return kVector;
+  const size_t smem = packet_smem(rows, k * w);
+  if (smem > optin) return -1;
+  if (d == kVector) {
+    if (!aligned || packetsize % 16 != 0) return -1;
+    return (int)launch<16>(bm, rows, k, w, packetsize, in, o, batch, n, smem,
+                           s);
+  }
+  return (int)launch<1>(bm, rows, k, w, packetsize, in, o, batch, n, smem, s);
 }
 
 }  // namespace
@@ -384,19 +448,23 @@ extern "C" void gf_packet_reset_launches() {
 }
 
 // The design (0 staged, 1 vector, 2 byte) that gf_packet_encode takes on
-// the current device for a [rows, k*w] bitmatrix at `packetsize`, with
+// the current device for a [rows, k*w] bitmatrix with set_bits set
+// entries (-1: not known) at `packetsize`, on input_bytes of data, with
 // both pointers 16-byte aligned (aligned != 0) or not; -1 for a geometry
 // it refuses, -2 a failed device query.
 extern "C" int gf_packet_design(int rows, int k, int w, long long packetsize,
-                                int aligned) {
+                                int aligned, long long set_bits,
+                                long long input_bytes) {
   if (!valid(rows, k, w, packetsize)) return -1;
   size_t optin = 0;
   if (launch_common::smem_optin(&optin) != cudaSuccess) return -2;
   long long tile = 0;
-  return (int)pick(rows, k, w, packetsize, aligned != 0, optin, &tile);
+  return (int)pick(rows, k, w, packetsize, aligned != 0, optin, set_bits,
+                   input_bytes, &tile);
 }
 
-// bitmat [rows, k*w] 0/1 uint8, data [batch, k, n] uint8, out
+// bitmat [rows, k*w] 0/1 uint8 with set_bits set entries (-1: not known;
+// it only steers the design), data [batch, k, n] uint8, out
 // [batch, rows/w, n] uint8, all contiguous on the current device, n a
 // multiple of w*packetsize. Returns 0, a cudaError_t code from a device
 // query or the launch, or -1 for a geometry the kernel does not take
@@ -405,35 +473,21 @@ extern "C" int gf_packet_design(int rows, int k, int w, long long packetsize,
 extern "C" int gf_packet_encode(const void* bitmat, int rows, int k, int w,
                                 long long packetsize, const void* data,
                                 void* out, long long batch, long long n,
-                                void* stream) {
-  if (!valid(rows, k, w, packetsize) || batch < 0 || n < 0 ||
-      n % ((long long)w * packetsize) != 0)
-    return -1;
-  size_t optin = 0;
-  const cudaError_t err = launch_common::smem_optin(&optin);
-  if (err != cudaSuccess) return (int)err;
-  const auto* bm = static_cast<const uint8_t*>(bitmat);
-  const auto* in = static_cast<const uint8_t*>(data);
-  auto* o = static_cast<uint8_t*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
-  const bool aligned = reinterpret_cast<uintptr_t>(in) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(o) % 16 == 0;
-  long long tile = 0;
-  switch (pick(rows, k, w, packetsize, aligned, optin, &tile)) {
-    case kStaged:
-      return (int)launch_staged(bm, rows, k, w, packetsize, tile, in, o,
-                                batch, n, staged_smem(rows, k * w, tile), s);
-    case kVector:
-    case kByte: {
-      const size_t smem = packet_smem(rows, k * w);
-      if (smem > optin) return -1;
-      if (aligned && packetsize % 16 == 0)
-        return (int)launch<16>(bm, rows, k, w, packetsize, in, o, batch, n,
-                               smem, s);
-      return (int)launch<1>(bm, rows, k, w, packetsize, in, o, batch, n, smem,
-                            s);
-    }
-    default:
-      return -1;
-  }
+                                long long set_bits, void* stream) {
+  return encode_as(-1, bitmat, rows, k, w, packetsize, data, out, batch, n,
+                   set_bits, stream);
+}
+
+// gf_packet_encode on design `design` (0 staged, 1 vector, 2 byte) in
+// place of the one pick() takes, so that two designs can be timed on one
+// geometry; -1 where that design does not take the geometry or the
+// pointers' alignment.
+extern "C" int gf_packet_encode_design(int design, const void* bitmat,
+                                       int rows, int k, int w,
+                                       long long packetsize, const void* data,
+                                       void* out, long long batch, long long n,
+                                       void* stream) {
+  if (design < 0 || design >= kNumDesign) return -1;
+  return encode_as(design, bitmat, rows, k, w, packetsize, data, out, batch,
+                   n, -1, stream);
 }

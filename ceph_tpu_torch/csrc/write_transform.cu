@@ -708,6 +708,24 @@ extern "C" long long wt_crc_scratch_words(long long nrows, long long len) {
   return spans > 1 ? nrows * (1 + spans) : 0;
 }
 
+// Launches crc_rows_kernel<VEC, RUN_LOG2> on a grid sized from its
+// occupancy, one warp per span of every row.
+template <int VEC, int RUN_LOG2>
+cudaError_t launch_crc(const uint8_t* in, long long nrows, long long row_stride,
+                       long long seg_stride, long long seglen, long long len,
+                       long long spans, const uint32_t* cst,
+                       const long long* pd, uint32_t* scr, uint32_t* o,
+                       cudaStream_t s) {
+  auto kernel = crc_rows_kernel<VEC, RUN_LOG2>;
+  unsigned blocks = 0;
+  const cudaError_t err = launch_common::grid_blocks(
+      kernel, kCrcThreads, 0, nrows * spans * 32, &blocks);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kCrcThreads, 0, s>>>(in, nrows, row_stride, seg_stride,
+                                        seglen, len, spans, cst, pd, scr, o);
+  return cudaSuccess;
+}
+
 // K1. Row r is nseg segments of seglen bytes, segment s at src + r *
 // row_stride + s * seg_stride; len = nseg * seglen < 2^30. consts: the
 // polynomial's table, shift and inverse matrices and slicing tables
@@ -744,28 +762,17 @@ extern "C" int wt_crc32_rows(const void* src, long long nrows,
                            ? kWideRunLog2
                            : kRunLog2;
   const long long spans = crc_spans(len, run_log2);
-  const long long threads = nrows * spans * 32;
-  unsigned blocks = 0;
   cudaError_t err;
-  if (vec && run_log2 == kWideRunLog2) {
-    auto kernel = crc_rows_kernel<16, kWideRunLog2>;
-    err = launch_common::grid_blocks(kernel, kCrcThreads, 0, threads, &blocks);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<blocks, kCrcThreads, 0, s>>>(in, nrows, row_stride, seg_stride,
-                                          seglen, len, spans, cst, pd, scr, o);
-  } else if (vec) {
-    auto kernel = crc_rows_kernel<16, kRunLog2>;
-    err = launch_common::grid_blocks(kernel, kCrcThreads, 0, threads, &blocks);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<blocks, kCrcThreads, 0, s>>>(in, nrows, row_stride, seg_stride,
-                                          seglen, len, spans, cst, pd, scr, o);
-  } else {
-    auto kernel = crc_rows_kernel<1, kRunLog2>;
-    err = launch_common::grid_blocks(kernel, kCrcThreads, 0, threads, &blocks);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<blocks, kCrcThreads, 0, s>>>(in, nrows, row_stride, seg_stride,
-                                          seglen, len, spans, cst, pd, scr, o);
-  }
+  if (vec && run_log2 == kWideRunLog2)
+    err = launch_crc<16, kWideRunLog2>(in, nrows, row_stride, seg_stride,
+                                       seglen, len, spans, cst, pd, scr, o, s);
+  else if (vec)
+    err = launch_crc<16, kRunLog2>(in, nrows, row_stride, seg_stride, seglen,
+                                   len, spans, cst, pd, scr, o, s);
+  else
+    err = launch_crc<1, kRunLog2>(in, nrows, row_stride, seg_stride, seglen,
+                                  len, spans, cst, pd, scr, o, s);
+  if (err != cudaSuccess) return (int)err;
   return (int)counted(kCrcRows);
 }
 

@@ -328,9 +328,10 @@ class GeneratorCodec(ErasureCode):
         """The numpy oracle of the layout on one [k, N] stripe."""
         raise NotImplementedError
 
-    def _device_apply(self, bitmat: torch.Tensor,
-                      data: torch.Tensor) -> torch.Tensor:
-        """The layout's kernel on [B, k, N] tensors of one device."""
+    def _device_apply(self, bitmat: torch.Tensor, data: torch.Tensor,
+                      host_bitmat: np.ndarray) -> torch.Tensor:
+        """The layout's kernel on [B, k, N] tensors of one device;
+        `host_bitmat` is the host copy of `bitmat`."""
         raise NotImplementedError
 
     def _apply_matrix(self, gf_matrix: np.ndarray, bitmat: np.ndarray,
@@ -345,10 +346,10 @@ class GeneratorCodec(ErasureCode):
         if isinstance(data, torch.Tensor):
             return self._device_apply(
                 self._as_device(bitmat, entry, data.device),
-                data.contiguous())
+                data.contiguous(), bitmat)
         out = self._device_apply(
             self._as_device(bitmat, entry, self.device),
-            host_tensor(data).to(self.device))
+            host_tensor(data).to(self.device), bitmat)
         return out.cpu().numpy()
 
     def encode_batch(self, data):
@@ -379,7 +380,7 @@ class MatrixErasureCode(GeneratorCodec):
     def _host_apply(self, gf_matrix, bitmat, data):
         return gf_ref.matrix_encode_ref(gf_matrix, data, self.w)
 
-    def _device_apply(self, bitmat, data):
+    def _device_apply(self, bitmat, data, host_bitmat):
         return xor_mm.matrix_encode(bitmat, data, self.w)
 
 
@@ -434,8 +435,9 @@ class BitmatrixErasureCode(GeneratorCodec):
         return gf_ref.bitmatrix_encode_ref(bitmat, data, self.w,
                                            self.packetsize)
 
-    def _device_apply(self, bitmat, data):
-        return xor_mm.bitmatrix_encode(bitmat, data, self.w, self.packetsize)
+    def _device_apply(self, bitmat, data, host_bitmat):
+        return xor_mm.bitmatrix_encode(bitmat, data, self.w, self.packetsize,
+                                       set_bits=int(host_bitmat.sum()))
 
 
 def load_numpy_state(codec: GeneratorCodec, coding: np.ndarray | None,

@@ -9,12 +9,14 @@ packets ``(j, s, u)`` with ``bitmat[i*w + t, j*w + u] = 1``.
 :func:`bitmatrix_encode` launches the kernel for a CUDA tensor and runs
 :func:`ceph_tpu_torch.ops.xor_mm.bitmatrix_encode_plain` only for a CPU
 tensor; it never falls back. The C entry point picks one of three designs
-(``DESIGNS``) from the geometry and the pointers' alignment:
-"staged" (each superblock's packets tiled through shared memory, every
-input byte read once), "vector" (16-byte columns loaded per set bit, for
-geometries past the staged design's budget) and "byte" (a packetsize not
-a multiple of 16 or an unaligned pointer); :func:`kernel_design` asks it
-which. ``LAUNCHES`` counts kernel launches; :func:`launches_by_design`
+(``DESIGNS``) from the geometry, the bitmatrix's count of set entries
+where the caller gives it, and the pointers' alignment: "staged" (each
+superblock's packets tiled through shared memory, every input byte read
+once), "vector" (16-byte columns loaded per set bit, for geometries past
+the staged design's budget and where it was faster: at most 3 selects
+per input packet, or k*w <= 24 on an input under 2 MiB) and "byte" (a
+packetsize not a multiple of 16 or an unaligned pointer);
+:func:`kernel_design` asks it which. ``LAUNCHES`` counts kernel launches; :func:`launches_by_design`
 reads the counts that the C entry point keeps per design, and
 :func:`reset_launches` sets all of them to 0.
 """
@@ -46,14 +48,18 @@ def _kernel() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = _build.load(_SOURCE)
-        lib.gf_packet_encode.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+        args = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_longlong, ctypes.c_longlong]
+        lib.gf_packet_encode.argtypes = [*args, ctypes.c_longlong,
+                                         ctypes.c_void_p]
         lib.gf_packet_encode.restype = ctypes.c_int
+        lib.gf_packet_encode_design.argtypes = [ctypes.c_int, *args,
+                                                ctypes.c_void_p]
+        lib.gf_packet_encode_design.restype = ctypes.c_int
         lib.gf_packet_design.argtypes = [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-            ctypes.c_int]
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong]
         lib.gf_packet_design.restype = ctypes.c_int
         lib.gf_packet_launches.argtypes = [ctypes.c_int]
         lib.gf_packet_launches.restype = ctypes.c_longlong
@@ -63,17 +69,21 @@ def _kernel() -> ctypes.CDLL:
     return _lib
 
 
-def kernel_design(rows: int, k: int, w: int, packetsize: int,
-                  aligned: bool, device) -> str:
-    """The design the kernel's entry point takes on a CUDA device for a
-    [rows, k*w] bitmatrix at `packetsize`, with the data and output
-    pointers 16-byte aligned or not."""
+def kernel_design(bitmat: torch.Tensor, data: torch.Tensor, w: int,
+                  packetsize: int, set_bits: int | None = None) -> str:
+    """The design :func:`bitmatrix_encode` takes for these CUDA tensors
+    and arguments: the geometry, the data pointer's alignment (the
+    output's is always 16 bytes), the input's bytes and `set_bits`."""
     lib = _kernel()
-    with torch.cuda.device(torch.device(device)):
-        rc = lib.gf_packet_design(rows, k, w, packetsize, int(aligned))
+    k, n = data.shape[-2:]
+    with torch.cuda.device(data.device):
+        rc = lib.gf_packet_design(
+            bitmat.shape[0], k, w, packetsize, int(data.data_ptr() % 16 == 0),
+            -1 if set_bits is None else set_bits, data.numel())
     if rc < 0:
         raise RuntimeError("gf_packet_design(%d, %d, %d, %d) failed with "
-                           "code %d" % (rows, k, w, packetsize, rc))
+                           "code %d" % (bitmat.shape[0], k, w, packetsize,
+                                        rc))
     return DESIGNS[rc]
 
 
@@ -142,14 +152,24 @@ def _check(bitmat: torch.Tensor, data: torch.Tensor, w: int,
 
 
 def bitmatrix_encode(bitmat: torch.Tensor, data: torch.Tensor, w: int,
-                     packetsize: int) -> torch.Tensor:
+                     packetsize: int, design: str | None = None,
+                     set_bits: int | None = None) -> torch.Tensor:
     """[..., k, N] uint8 -> [..., R/w, N] uint8 through the GPU kernel.
 
     bitmat: [R, k*w] 0/1 uint8 on data's device; N a multiple of
     w*packetsize. A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel on the current stream or raises."""
+    launches the kernel on the current stream or raises. `set_bits`, the
+    count of set entries of `bitmat` where the caller knows it (a codec
+    does, from its host copy), steers the design and nothing else.
+    `design`, one
+    of ``DESIGNS``, launches that design in place of the one the
+    geometry takes, so that designs can be timed against each other on
+    one geometry; the launch raises where it does not take the geometry
+    or the pointers' alignment."""
     global LAUNCHES
     _check(bitmat, data, w, packetsize)
+    if design is not None and design not in DESIGNS:
+        raise ValueError("design %r is not one of %s" % (design, DESIGNS))
     if data.device.type == "cpu":
         return bitmatrix_encode_plain(bitmat, data, w, packetsize)
     if data.device.type != "cuda":
@@ -164,11 +184,17 @@ def bitmatrix_encode(bitmat: torch.Tensor, data: torch.Tensor, w: int,
     lib = _kernel()
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
-        rc = lib.gf_packet_encode(bitmat.data_ptr(), rows, k, w, packetsize,
-                                  data.data_ptr(), out.data_ptr(), batch, n,
-                                  stream)
+        args = (bitmat.data_ptr(), rows, k, w, packetsize, data.data_ptr(),
+                out.data_ptr(), batch, n)
+        if design is None:
+            rc = lib.gf_packet_encode(
+                *args, -1 if set_bits is None else set_bits, stream)
+        else:
+            rc = lib.gf_packet_encode_design(DESIGNS.index(design), *args,
+                                             stream)
     if rc != 0:
-        raise RuntimeError("gf_packet_encode failed with code %d" % rc)
+        raise RuntimeError("gf_packet_encode (design %s) failed with code %d"
+                           % (design or "picked", rc))
     with _count_lock:
         LAUNCHES += 1
     return out

@@ -91,10 +91,12 @@ def bitmatrix_encode_plain(bitmat: torch.Tensor, data: torch.Tensor, w: int,
 
 
 def bitmatrix_encode(bitmat: torch.Tensor, data: torch.Tensor, w: int,
-                     packetsize: int) -> torch.Tensor:
+                     packetsize: int, set_bits: int | None = None
+                     ) -> torch.Tensor:
     """Packet-layout bitmatrix encode: [..., k, N] uint8 -> [..., R/w, N]
     (the Cauchy and Liberation techniques). Runs the hand-written GPU
     kernel on a CUDA tensor and :func:`bitmatrix_encode_plain` on a CPU
-    tensor."""
+    tensor; `set_bits`, the count of set entries of `bitmat` where the
+    caller knows it, steers the kernel's design."""
     from .packet_kernel import bitmatrix_encode as kernel_encode
-    return kernel_encode(bitmat, data, w, packetsize)
+    return kernel_encode(bitmat, data, w, packetsize, set_bits=set_bits)

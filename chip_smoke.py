@@ -36,11 +36,13 @@ paths against its plain PyTorch version on the card. Phases, each printing one J
                  byte off, a geometry past the staged design's budget, a
                  partial last tile, the Cauchy k=10, m=4 encode and a
                  decode bitmatrix, a random [32, 80] bitmatrix, the Cauchy
-                 encode at packetsize 8192, and a bitmatrix past shared
-                 memory (must raise); byte equality, the design each case
+                 encode at packetsize 8192, the liberation k=7, w=7
+                 encode (sparse: must take the vector design), and a
+                 bitmatrix past shared memory (must raise); byte equality, the design each case
                  took (staged, vector, byte) and its one launch, the input
                  bytes each design reads per launch against the unique
-                 bytes, the kernel's time and bound, and at the Cauchy
+                 bytes (counted from the design's loads, not measured),
+                 the kernel's time and bound, and at the Cauchy
                  shapes the plain version's time and the selected packet
                  bytes per second.
   6. codecs      the slice's path, the BASELINE's other codecs at 16
@@ -419,16 +421,20 @@ def main() -> int:
         equal to the plain version; timed on `timed` inputs if given."""
         bm = on_dev(bm_np)
         k = data.shape[-2]
-        design = packet_kernel.kernel_design(
-            bm.shape[0], k, w, packetsize, data.data_ptr() % 16 == 0, dev)
+        set_bits = int(bm_np.sum())    # as a codec gives it
+
+        def run(x):
+            return packet_kernel.bitmatrix_encode(bm, x, w, packetsize,
+                                                  set_bits=set_bits)
+        design = packet_kernel.kernel_design(bm, data, w, packetsize,
+                                             set_bits)
         before = packet_kernel.launches_by_design()
-        out = packet_kernel.bitmatrix_encode(bm, data, w, packetsize)
+        out = run(data)
         torch.cuda.synchronize()
         after = packet_kernel.launches_by_design()
         launched = {d: after[d] - before[d] for d in after}
         ref = bitmatrix_encode_plain(bm, data, w, packetsize)
         err = int((out.to(torch.int16) - ref.to(torch.int16)).abs().max())
-        set_bits = int(bm_np.sum())
         # input bytes read from device memory per launch, counted from
         # the design's loads: the staged design copies each input byte
         # once; the others load one packet row per set bit
@@ -437,12 +443,11 @@ def main() -> int:
         rec = {"case": name, "w": w, "packetsize": packetsize,
                "bitmat": list(bm.shape), "data": list(data.shape),
                "design": design, "equal": err == 0, "max_abs_err": err,
-               "read_bytes": read, "unique_bytes": data.numel(),
-               "read_over_unique": read / data.numel()}
+               "counted_read_bytes": read, "unique_bytes": data.numel(),
+               "counted_read_over_unique": read / data.numel()}
         # every case timed on its own input; the Cauchy shapes on inputs
         # rotated out of L2, beside the plain version
-        rec["ms"] = time_ms(lambda x: packet_kernel.bitmatrix_encode(
-            bm, x, w, packetsize), timed or [data], 40)
+        rec["ms"] = time_ms(run, timed or [data], 40)
         rec["bound_ms"], rec["bound_by"] = packet_bound(bm, data, out)
         rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
         if timed:
@@ -475,8 +480,9 @@ def main() -> int:
                           off_by_one(2, 4, 3 * 8 * packetsize), 8,
                           packetsize)
         packet_worst = max(packet_worst, rec["max_abs_err"])
-    # k*w tiles of 256 bytes past the staged design's 64 KiB: the vector
-    # design; and a packetsize whose last tile is 16 bytes
+    # k*w tiles past the staged design's 32 KiB buffer (64-byte tiles,
+    # under the 128-byte least): the vector design; and a packetsize whose
+    # last tile is 16 bytes
     for name, w, k, packetsize in (("vector_w32_k9_p2048", 32, 9, 2048),
                                    ("staged_w8_k10_p2064", 8, 10, 2064)):
         rec = packet_case(name, prng.integers(0, 2, (2 * w, k * w),
@@ -501,8 +507,19 @@ def main() -> int:
     p8192 = packet_case("cauchy_encode_p8192", gf.generator_to_bitmatrix(
         cauchy_coding, W), p8192_sets[0], W, 8192, timed=p8192_sets)
     del p8192_sets
+    # a sparse bitmatrix (2.1 selects per input packet): the vector design
+    lib_codec = registry.factory("torch_cuda", {
+        "technique": "liberation", "k": "7", "w": "7", "m": "2",
+        "packetsize": "2048"}, device="cpu")
+    lib_sets = [rand_dev(BATCH, 7, lib_codec.get_chunk_size(1 << 20))
+                for _ in range(4)]
+    plib = packet_case("liberation_k7_w7_encode", lib_codec._bitmat,
+                       lib_sets[0], 7, 2048, timed=lib_sets)
+    check(plib["design"] == "vector",
+          "the liberation encode takes the vector design")
+    del lib_sets
     packet_worst = max(packet_worst, *(r["max_abs_err"] for r in (
-        penc, pdec, pdense, p8192)))
+        penc, pdec, pdense, p8192, plib)))
     big = torch.zeros((1792, 1024), dtype=torch.uint8, device=dev)
     count = packet_kernel.LAUNCHES
     try:
@@ -1188,8 +1205,6 @@ def main() -> int:
         "design": penc["design"], "launches": slice_packet_launches,
         "launches_by_design": slice_packet_by_design,
         "phase5_launches_by_design": phase5_launches,
-        "read_over_unique": penc["read_over_unique"],
-        "decode_read_over_unique": pdec["read_over_unique"],
         "matched": packet_worst == 0, "max_abs_err": packet_worst,
         "ms": penc["ms"], "kernel_ms": penc["ms"],
         "plain_ms": penc["plain_ms"], "bound_ms": penc["bound_ms"],

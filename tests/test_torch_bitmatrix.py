@@ -90,6 +90,16 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
                        torch.zeros((1, 56, 32), dtype=torch.uint8))
 
 
+def test_wrapper_rejects_a_design_it_does_not_have():
+    bm = torch.zeros((16, 24), dtype=torch.uint8)
+    data = torch.zeros((1, 3, 2 * 8 * 16), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="not one of"):
+        packet_kernel.bitmatrix_encode(bm, data, 8, 16, design="tiled")
+    assert torch.equal(packet_kernel.bitmatrix_encode(bm, data, 8, 16,
+                                                      design="vector"),
+                       torch.zeros((1, 2, 2 * 8 * 16), dtype=torch.uint8))
+
+
 @pytest.mark.parametrize("rows,out_rows,want_ms", [
     (32, 4, 0.008764981492537315),      # cauchy_good k=10, m=4 encode
     (112, 14, 0.015027047164179104),    # its decode with chunks 0-3 erased

@@ -172,16 +172,16 @@ def test_dispatcher_on_card(cuda):
 
 # -- the packet-layout kernel (csrc/gf_packet.cu) ----------------------------
 
-def packet_held_against_plain(bm, data, w, packetsize, design=None):
-    """One launch, on the design the geometry and alignment take (and
-    `design` if given), byte-equal to the plain version."""
-    taken = packet_kernel.kernel_design(
-        bm.shape[0], data.shape[-2], w, packetsize, data.data_ptr() % 16 == 0,
-        data.device)
+def packet_held_against_plain(bm, data, w, packetsize, design=None,
+                              set_bits=None):
+    """One launch, on the design the geometry, alignment and `set_bits`
+    take (and `design` if given), byte-equal to the plain version."""
+    taken = packet_kernel.kernel_design(bm, data, w, packetsize, set_bits)
     assert design is None or taken == design
     before = packet_kernel.launches_by_design()
     count = packet_kernel.LAUNCHES
-    out = packet_kernel.bitmatrix_encode(bm, data, w, packetsize)
+    out = packet_kernel.bitmatrix_encode(bm, data, w, packetsize,
+                                         set_bits=set_bits)
     torch.cuda.synchronize()
     after = packet_kernel.launches_by_design()
     assert {d: after[d] - before[d] for d in after} == {
@@ -244,6 +244,69 @@ def test_packet_kernel_design_by_geometry_on_card(cuda, w, k, packetsize,
                                         dtype=np.uint8)).to(cuda)
     packet_held_against_plain(bm, buf[offset:].view(2, k, n), w, packetsize,
                               design)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w,k,supers,batch,fill,design", [
+    (7, 7, 12, 16, "liberation", "vector"),  # 104 set bits <= 3 * 49
+    (8, 8, 8, 16, "liber8tion", "staged"),   # 214 > 3 * 64
+    (8, 10, 4, 2, "cauchy", "staged"),
+    (8, 3, 2, 16, "random", "vector"),       # k*w 24, 1.5 MiB of input
+    (8, 3, 8, 16, "random", "staged"),       # k*w 24, 6 MiB
+    (16, 3, 2, 1, "random", "staged")])      # k*w 48
+def test_packet_kernel_design_by_set_bits_on_card(cuda, w, k, supers, batch,
+                                                  fill, design):
+    """With the count of set entries a codec gives, the vector design is
+    kept where it was faster than the staged one: at most 3 selects per
+    input packet, or k*w <= 24 on an input under 2 MiB."""
+    rng = np.random.default_rng(w * k + supers)
+    if fill == "random":
+        mat = rng.integers(0, 2, (2 * w, k * w), dtype=np.uint8)
+    else:
+        technique = {"cauchy": "cauchy_good"}.get(fill, fill)
+        mat = registry.factory("torch_cuda", {
+            "technique": technique, "k": str(k), "m": "2", "w": str(w),
+            "packetsize": "2048"}, device="cpu")._bitmat
+    bm = torch.from_numpy(np.ascontiguousarray(mat)).to(cuda)
+    data = torch.from_numpy(rng.integers(
+        0, 256, (batch, k, supers * w * 2048), dtype=np.uint8)).to(cuda)
+    packet_held_against_plain(bm, data, w, 2048, design, int(mat.sum()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w,k,packetsize,offset,takes", [
+    (8, 10, 2048, 0, ("staged", "vector", "byte")),
+    (32, 9, 2048, 0, ("vector", "byte")),
+    (8, 10, 24, 0, ("byte",)),
+    (8, 10, 2048, 1, ("byte",))])
+def test_packet_kernel_named_design_on_card(cuda, w, k, packetsize, offset,
+                                            takes):
+    """A named design runs where it takes the geometry and alignment,
+    byte-equal to the plain version and counted as its own launch, and
+    raises with no launch where it does not."""
+    rng = np.random.default_rng(w * k + packetsize + offset + 1)
+    bm = torch.from_numpy(rng.integers(0, 2, (2 * w, k * w),
+                                       dtype=np.uint8)).to(cuda)
+    n = 2 * w * packetsize
+    buf = torch.from_numpy(rng.integers(0, 256, 2 * k * n + offset,
+                                        dtype=np.uint8)).to(cuda)
+    data = buf[offset:].view(2, k, n)
+    want = xor_mm.bitmatrix_encode_plain(bm, data, w, packetsize)
+    for design in packet_kernel.DESIGNS:
+        before = packet_kernel.launches_by_design()
+        if design in takes:
+            out = packet_kernel.bitmatrix_encode(bm, data, w, packetsize,
+                                                 design=design)
+            torch.cuda.synchronize()
+            assert torch.equal(out, want), design
+        else:
+            with pytest.raises(RuntimeError, match="design %s" % design):
+                packet_kernel.bitmatrix_encode(bm, data, w, packetsize,
+                                               design=design)
+        after = packet_kernel.launches_by_design()
+        assert {d: after[d] - before[d] for d in after} == {
+            d: int(d == design and design in takes)
+            for d in packet_kernel.DESIGNS}
 
 
 @pytest.mark.gpu
