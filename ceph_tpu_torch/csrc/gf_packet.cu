@@ -39,8 +39,8 @@
 //    last tile of a packet may be partial. The blocks are persistent (a
 //    grid-stride loop over tiles).
 //  * vector (aligned, and past the staged design's budget or where it was
-//    faster than the staged design: few selects per input packet, or a
-//    small input with k*w <= 24; see pick()): a thread
+//    faster than the staged design: at most 3 selects per input packet on
+//    average; see pick()): a thread
 //    takes one 16-byte column of one output packet and XORs a 16-byte
 //    __ldg load per set bit of its row straight from device memory; L1
 //    and L2 serve the re-reads (about k*w/2 per input packet of a dense
@@ -371,30 +371,21 @@ long long staged_tile(int rows, int k, int w, long long packetsize,
 }
 
 // The design of a [rows, k*w] bitmatrix with set_bits set entries (-1:
-// not known) at `packetsize`, on input_bytes of data, with 16-byte
-// aligned pointers or not. The vector design is kept where the staged
-// one was slower on an H100 (tools/gf_kernel_sweep.py --kernel packet):
-//  * at most 3 selects per input packet on average (set_bits <= 3*k*w):
-//    the vector design's re-reads are few and L2 serves them, while the
-//    staged design pays a copy through shared memory and its list
-//    prologue (the liberation and blaum_roth encodes, 2.1 and 2.7
-//    selects, 6-9% faster on the vector design; liber8tion's 3.3 and
-//    everything denser faster staged);
-//  * k*w <= 24 on an input under 2 MiB: a vector thread's chain is at
-//    most 24 loads that L2 holds, and the staged block's prologue is not
-//    paid back (random [2w, 3w] bitmatrices at w = 7 and 8, 0.5-1.3 us
-//    faster on the vector design).
+// not known) at `packetsize`, with 16-byte aligned pointers or not. The
+// vector design is kept where the bitmatrix selects each input packet at
+// most 3 times on average (set_bits <= 3*k*w): its re-reads are then few
+// and L2 serves them, while the staged design pays a copy through shared
+// memory and its list prologue. On an H100 (tools/gf_kernel_sweep.py
+// --kernel packet) the liberation and blaum_roth encodes (2.1 and 2.7
+// selects) ran 6-9% faster on the vector design at 16 objects of 1 MiB,
+// and liber8tion's encode (3.3) and every denser bitmatrix ran faster
+// staged.
 Design pick(int rows, int k, int w, long long packetsize, bool aligned,
-            size_t optin, long long set_bits, long long input_bytes,
-            long long* tile) {
-  *tile = 0;
+            size_t optin, long long set_bits) {
   if (!aligned || packetsize % 16 != 0) return kByte;
-  const long long cols = (long long)k * w;
-  if ((set_bits >= 0 && set_bits <= 3 * cols) ||
-      (cols <= 24 && input_bytes < (2ll << 20)))
-    return kVector;
-  *tile = staged_tile(rows, k, w, packetsize, aligned, optin);
-  return *tile > 0 ? kStaged : kVector;
+  if (set_bits >= 0 && set_bits <= 3ll * k * w) return kVector;
+  return staged_tile(rows, k, w, packetsize, aligned, optin) > 0 ? kStaged
+                                                                 : kVector;
 }
 
 // The product on design `want`, or on the design pick() takes where
@@ -414,13 +405,11 @@ int encode_as(int want, const void* bitmat, int rows, int k, int w,
   auto s = static_cast<cudaStream_t>(stream);
   const bool aligned = reinterpret_cast<uintptr_t>(in) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(o) % 16 == 0;
-  long long tile = 0;
-  const Design d =
-      want >= 0 ? (Design)want
-                : pick(rows, k, w, packetsize, aligned, optin, set_bits,
-                       batch * k * n, &tile);
+  const Design d = want >= 0 ? (Design)want
+                             : pick(rows, k, w, packetsize, aligned, optin,
+                                    set_bits);
   if (d == kStaged) {
-    tile = staged_tile(rows, k, w, packetsize, aligned, optin);
+    const long long tile = staged_tile(rows, k, w, packetsize, aligned, optin);
     if (tile == 0) return -1;
     return (int)launch_staged(bm, rows, k, w, packetsize, tile, in, o, batch,
                               n, staged_smem(rows, k * w, tile), s);
@@ -449,18 +438,15 @@ extern "C" void gf_packet_reset_launches() {
 
 // The design (0 staged, 1 vector, 2 byte) that gf_packet_encode takes on
 // the current device for a [rows, k*w] bitmatrix with set_bits set
-// entries (-1: not known) at `packetsize`, on input_bytes of data, with
-// both pointers 16-byte aligned (aligned != 0) or not; -1 for a geometry
-// it refuses, -2 a failed device query.
+// entries (-1: not known) at `packetsize`, with both pointers 16-byte
+// aligned (aligned != 0) or not; -1 for a geometry it refuses, -2 a
+// failed device query.
 extern "C" int gf_packet_design(int rows, int k, int w, long long packetsize,
-                                int aligned, long long set_bits,
-                                long long input_bytes) {
+                                int aligned, long long set_bits) {
   if (!valid(rows, k, w, packetsize)) return -1;
   size_t optin = 0;
   if (launch_common::smem_optin(&optin) != cudaSuccess) return -2;
-  long long tile = 0;
-  return (int)pick(rows, k, w, packetsize, aligned != 0, optin, set_bits,
-                   input_bytes, &tile);
+  return (int)pick(rows, k, w, packetsize, aligned != 0, optin, set_bits);
 }
 
 // bitmat [rows, k*w] 0/1 uint8 with set_bits set entries (-1: not known;

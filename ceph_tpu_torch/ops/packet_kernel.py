@@ -8,15 +8,15 @@ packets ``(j, s, u)`` with ``bitmat[i*w + t, j*w + u] = 1``.
 
 :func:`bitmatrix_encode` launches the kernel for a CUDA tensor and runs
 :func:`ceph_tpu_torch.ops.xor_mm.bitmatrix_encode_plain` only for a CPU
-tensor; it never falls back. The C entry point picks one of three designs
-(``DESIGNS``) from the geometry, the bitmatrix's count of set entries
-where the caller gives it, and the pointers' alignment: "staged" (each
-superblock's packets tiled through shared memory, every input byte read
-once), "vector" (16-byte columns loaded per set bit, for geometries past
-the staged design's budget and where it was faster: at most 3 selects
-per input packet, or k*w <= 24 on an input under 2 MiB) and "byte" (a
-packetsize not a multiple of 16 or an unaligned pointer);
-:func:`kernel_design` asks it which. ``LAUNCHES`` counts kernel launches; :func:`launches_by_design`
+tensor; it never falls back. The C entry point picks one of three
+designs (``DESIGNS``) from the geometry, the bitmatrix's count of set
+entries where the caller gives it, and the pointers' alignment: "staged"
+(each superblock's packets tiled through shared memory, every input byte
+read once), "vector" (16-byte columns loaded per set bit, for geometries
+past the staged design's budget and where it was faster: at most 3
+selects per input packet on average) and "byte" (a packetsize not a
+multiple of 16 or an unaligned pointer); :func:`kernel_design` asks it
+which. ``LAUNCHES`` counts kernel launches; :func:`launches_by_design`
 reads the counts that the C entry point keeps per design, and
 :func:`reset_launches` sets all of them to 0.
 """
@@ -59,7 +59,7 @@ def _kernel() -> ctypes.CDLL:
         lib.gf_packet_encode_design.restype = ctypes.c_int
         lib.gf_packet_design.argtypes = [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-            ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong]
+            ctypes.c_int, ctypes.c_longlong]
         lib.gf_packet_design.restype = ctypes.c_int
         lib.gf_packet_launches.argtypes = [ctypes.c_int]
         lib.gf_packet_launches.restype = ctypes.c_longlong
@@ -73,13 +73,13 @@ def kernel_design(bitmat: torch.Tensor, data: torch.Tensor, w: int,
                   packetsize: int, set_bits: int | None = None) -> str:
     """The design :func:`bitmatrix_encode` takes for these CUDA tensors
     and arguments: the geometry, the data pointer's alignment (the
-    output's is always 16 bytes), the input's bytes and `set_bits`."""
+    output's is always 16 bytes) and `set_bits`."""
     lib = _kernel()
     k, n = data.shape[-2:]
     with torch.cuda.device(data.device):
         rc = lib.gf_packet_design(
             bitmat.shape[0], k, w, packetsize, int(data.data_ptr() % 16 == 0),
-            -1 if set_bits is None else set_bits, data.numel())
+            -1 if set_bits is None else set_bits)
     if rc < 0:
         raise RuntimeError("gf_packet_design(%d, %d, %d, %d) failed with "
                            "code %d" % (bitmat.shape[0], k, w, packetsize,

@@ -13,19 +13,19 @@ needs (one per 32 columns in the bit-sliced design).
 ``--kernel packet``: the packet kernel, every aligned design that takes
 a geometry (staged, vector) timed on it in turns (A, B, B, A), the
 design the entry point picks with the bitmatrix's set bits marked. For
-each batch size B, the cauchy_good k=10, m=4 encode bitmatrix ([32, 80]), the decode bitmatrix
-with chunks 0-3 erased ([112, 80]) and an all-zero [32, 80] bitmatrix,
-which selects nothing and so times a design's loads and stores alone
-(the intercept of its time against B is the fixed part of a launch), at
-packetsize 2048 on data [B, 10, 131072] (the BASELINE's Cauchy objects
-of 1 MiB); then the Liberation family at its largest k (liberation k=7,
-w=7; blaum_roth k=6, w=6; liber8tion k=8), m=2, packetsize 2048, on
-objects of 1 MiB, encode and the decode of chunks 0 and 1; then the
-aligned shapes of ``chip_smoke.py`` phase 5 (random [2w, 3w]
-bitmatrices at w = 7, 8, 16, 32, packetsizes 2048 and 8192, B = 1 and
-16; a [16, 80] bitmatrix at packetsize 2064; Cauchy at packetsize 8192;
-a random [32, 80]); and an all-one [16, 24] bitmatrix (k*w = 24, the
-densest) on the same shapes as the random one at w = 8.
+each batch size B, the cauchy_good k=10, m=4 encode bitmatrix ([32,
+80]), the decode bitmatrix with chunks 0-3 erased ([112, 80]) and an
+all-zero [32, 80] bitmatrix, which selects nothing and so times a
+design's loads and stores alone (the intercept of its time against B is
+the fixed part of a launch), at packetsize 2048 on data [B, 10, 131072]
+(the BASELINE's Cauchy objects of 1 MiB); then the Liberation family at
+its largest k (liberation k=7, w=7; blaum_roth k=6, w=6; liber8tion
+k=8), m=2, packetsize 2048, on objects of 1 MiB, encode and the decode
+of chunks 0 and 1; then the aligned shapes of ``chip_smoke.py`` phase 5
+(random [2w, 3w] bitmatrices at w = 7, 8, 16, 32, packetsizes 2048 and
+8192, B = 1 and 16; a [16, 80] bitmatrix at packetsize 2064; Cauchy at
+packetsize 8192; a random [32, 80]); and an all-one [16, 24] bitmatrix
+(k*w = 24, the densest) on the same shapes as the random one at w = 8.
 
 ``--kernel crc``: K1 (``crc32_rows``) on the write path's rows for B
 stripes of 4096-byte chunks (an object of B * 32 KiB; 128 stripes is 4

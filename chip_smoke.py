@@ -31,20 +31,19 @@ paths against its plain PyTorch version on the card. Phases, each printing one J
                  ``GpuDispatcher`` (encode_async and decode_async over
                  random signatures); every result is verified.
   5. packet      the packet-layout kernel against ``bitmatrix_encode_plain``
-                 on CUDA tensors: w = 7, 8, 16, 32 at packetsizes 3, 8,
-                 24, 2048, 8192 with B = 1 and 16, a data pointer one
-                 byte off, a geometry past the staged design's budget, a
-                 partial last tile, the Cauchy k=10, m=4 encode and a
-                 decode bitmatrix, a random [32, 80] bitmatrix, the Cauchy
-                 encode at packetsize 8192, the liberation k=7, w=7
-                 encode (sparse: must take the vector design), and a
-                 bitmatrix past shared memory (must raise); byte equality, the design each case
-                 took (staged, vector, byte) and its one launch, the input
-                 bytes each design reads per launch against the unique
-                 bytes (counted from the design's loads, not measured),
-                 the kernel's time and bound, and at the Cauchy
-                 shapes the plain version's time and the selected packet
-                 bytes per second.
+                 on CUDA tensors: w = 7, 8, 16, 32 at packetsizes 3, 8, 24,
+                 2048, 8192 with B = 1 and 16, a data pointer one byte off, a
+                 geometry past the staged design's budget, a partial last
+                 tile, the Cauchy k=10, m=4 encode and a decode bitmatrix, a
+                 random [32, 80] bitmatrix, the Cauchy encode at packetsize
+                 8192, the liberation k=7, w=7 encode (sparse: must take the
+                 vector design), and a bitmatrix past shared memory (must
+                 raise); byte equality, the design each case took (staged,
+                 vector, byte) and its one launch, the input bytes each design
+                 reads per launch against the unique bytes (counted from the
+                 design's loads, not measured), the kernel's time and bound,
+                 and at the Cauchy shapes the plain version's time and the
+                 selected packet bytes per second.
   6. codecs      the slice's path, the BASELINE's other codecs at 16
                  objects of 1 MiB: cauchy_good k=10, m=4 at packetsizes
                  512..8192 (encode, decode with chunks 0-3 erased, and

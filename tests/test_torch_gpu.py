@@ -251,14 +251,15 @@ def test_packet_kernel_design_by_geometry_on_card(cuda, w, k, packetsize,
     (7, 7, 12, 16, "liberation", "vector"),  # 104 set bits <= 3 * 49
     (8, 8, 8, 16, "liber8tion", "staged"),   # 214 > 3 * 64
     (8, 10, 4, 2, "cauchy", "staged"),
-    (8, 3, 2, 16, "random", "vector"),       # k*w 24, 1.5 MiB of input
-    (8, 3, 8, 16, "random", "staged"),       # k*w 24, 6 MiB
-    (16, 3, 2, 1, "random", "staged")])      # k*w 48
+    (7, 2, 2, 1, "liberation", "vector"),    # the default profile's k=2
+    (6, 6, 4, 4, "blaum_roth", "vector"),    # 97 <= 3 * 36
+    (8, 3, 2, 16, "random", "staged"),       # about 8 selects an input
+    (16, 3, 2, 1, "random", "staged")])
 def test_packet_kernel_design_by_set_bits_on_card(cuda, w, k, supers, batch,
                                                   fill, design):
     """With the count of set entries a codec gives, the vector design is
     kept where it was faster than the staged one: at most 3 selects per
-    input packet, or k*w <= 24 on an input under 2 MiB."""
+    input packet on average."""
     rng = np.random.default_rng(w * k + supers)
     if fill == "random":
         mat = rng.integers(0, 2, (2 * w, k * w), dtype=np.uint8)
