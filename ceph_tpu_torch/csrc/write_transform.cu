@@ -350,14 +350,21 @@ __device__ __forceinline__ void cp_async_wait() {
 // Aligned rows (len % 16 == 0, 16-byte aligned base): a warp per block,
 // one row per lane, tiles of kXxhTile bytes of 32 rows staged through
 // shared memory, kXxhStages - 1 tiles in flight ahead of the chain.
+// CLOCKS (timing only, no caller of the write path): lane 0 sums the
+// cycles spent issuing copies, waiting for them and running the chain,
+// and the kernel's total, into clocks[4 * block ...].
+template <bool CLOCKS>
 __global__ void __launch_bounds__(32)
 xxh32_staged_kernel(const uint8_t* __restrict__ src, long long nrows,
-                    long long len, uint32_t* __restrict__ out) {
+                    long long len, uint32_t* __restrict__ out,
+                    long long* __restrict__ clocks) {
   extern __shared__ __align__(16) uint8_t xsmem[];
   const int lane = threadIdx.x;
   const long long r0 = (long long)blockIdx.x * 32;
   const int rows = (int)(nrows - r0 < 32 ? nrows - r0 : 32);
   const long long tiles = (len + kXxhTile - 1) / kXxhTile;
+  long long c_issue = 0, c_wait = 0, c_chain = 0, c_start = 0;
+  if constexpr (CLOCKS) c_start = clock64();
 
   auto stage_tile = [&](long long t) {
     if (t < tiles) {
@@ -378,9 +385,18 @@ xxh32_staged_kernel(const uint8_t* __restrict__ src, long long nrows,
   for (int s = 0; s < kXxhStages - 1; ++s) stage_tile(s);
   uint32_t a1 = kP1 + kP2, a2 = kP2, a3 = 0, a4 = 0u - kP1;
   for (long long t = 0; t < tiles; ++t) {
+    long long c0 = 0, c1 = 0;
+    if constexpr (CLOCKS) c0 = clock64();
     stage_tile(t + kXxhStages - 1);
+    if constexpr (CLOCKS) c1 = clock64();
     cp_async_wait<kXxhStages - 1>();
     __syncwarp();
+    if constexpr (CLOCKS) {
+      const long long c2 = clock64();
+      c_issue += c1 - c0;
+      c_wait += c2 - c1;
+      c1 = c2;
+    }
     if (lane < rows) {
       const long long base = t * kXxhTile;
       const int tb = (int)(len - base < kXxhTile ? len - base : kXxhTile);
@@ -396,6 +412,7 @@ xxh32_staged_kernel(const uint8_t* __restrict__ src, long long nrows,
       }
     }
     __syncwarp();
+    if constexpr (CLOCKS) c_chain += clock64() - c1;
   }
   cp_async_wait<0>();
   if (lane < rows) {
@@ -405,6 +422,33 @@ xxh32_staged_kernel(const uint8_t* __restrict__ src, long long nrows,
     out[r0 + lane] = xxh_finish(h, src + (r0 + lane) * len, (len / 16) * 16,
                                 len);
   }
+  if constexpr (CLOCKS) {
+    if (lane == 0) {
+      long long* c = clocks + 4 * blockIdx.x;
+      c[0] = c_issue;
+      c[1] = c_wait;
+      c[2] = c_chain;
+      c[3] = clock64() - c_start;
+    }
+  }
+}
+
+// Timing only: one lane chain of `rounds` dependent xxh32 rounds per
+// thread of one warp; cycles[0] gets lane 0's clock64() difference.
+__global__ void __launch_bounds__(32)
+xxh_chain_kernel(const uint32_t* __restrict__ words, int rounds,
+                 uint32_t* __restrict__ out, long long* __restrict__ cycles) {
+  uint32_t acc = words[threadIdx.x];
+  const uint32_t w = words[32 + threadIdx.x];
+  __syncwarp();
+  const long long t0 = clock64();
+  for (int i = 0; i < rounds; i += 8) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc = xxh_round(acc, w);
+  }
+  out[threadIdx.x] = acc;
+  const long long t1 = clock64();
+  if (threadIdx.x == 0) cycles[0] = t1 - t0;
 }
 
 // Any rows: one thread per row, bytes loaded directly.
@@ -517,26 +561,34 @@ __device__ uint32_t block_scan(uint32_t v, uint32_t* total) {
 }
 
 // (A) histogram, and the stored planes of each tile of kBpThreads blocks.
+// HIST false (timing only, no caller of the write path) leaves out the
+// histogram.
+template <bool HIST>
 __global__ void __launch_bounds__(kBpThreads)
 bp_count_kernel(const uint8_t* __restrict__ flat, long long n, long long nb,
                 bool aligned, uint32_t* __restrict__ hist,
                 uint32_t* __restrict__ tile_count) {
   __shared__ uint32_t bins[kBpThreads / 32][256];
-  for (int i = threadIdx.x; i < (kBpThreads / 32) * 256; i += blockDim.x)
-    (&bins[0][0])[i] = 0;
-  __syncthreads();
+  if constexpr (HIST) {
+    for (int i = threadIdx.x; i < (kBpThreads / 32) * 256; i += blockDim.x)
+      (&bins[0][0])[i] = 0;
+    __syncthreads();
+  }
   const long long b = (long long)blockIdx.x * kBpThreads + threadIdx.x;
   uint32_t stored = 0;
   if (b < nb) {
     uint64_t g[8], planes[8];
     load_block(flat, n, b, aligned, g);
-    uint32_t* mine = bins[threadIdx.x >> 5];
-    const long long real = n - b * kBlock;  // bytes of this block in n
+    if constexpr (HIST) {
+      uint32_t* mine = bins[threadIdx.x >> 5];
+      const long long real = n - b * kBlock;  // bytes of this block in n
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int t = 0; t < 8; ++t)
-        if (i * 8 + t < real) atomicAdd(&mine[(g[i] >> (8 * t)) & 0xffu], 1u);
+        for (int t = 0; t < 8; ++t)
+          if (i * 8 + t < real)
+            atomicAdd(&mine[(g[i] >> (8 * t)) & 0xffu], 1u);
+    }
     uint32_t flags, consts;
     block_planes(g, planes, &flags, &consts);
     stored = __popc(flags);
@@ -544,6 +596,7 @@ bp_count_kernel(const uint8_t* __restrict__ flat, long long n, long long nb,
   uint32_t total;
   block_scan(stored, &total);
   if (threadIdx.x == 0) tile_count[blockIdx.x] = total;
+  if (!HIST) return;
   for (int bin = threadIdx.x; bin < 256; bin += blockDim.x) {
     uint32_t s = 0;
     for (int w = 0; w < kBpThreads / 32; ++w) s += bins[w][bin];
@@ -790,10 +843,11 @@ extern "C" int wt_xxh32_rows(const void* src, long long nrows, long long len,
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return (int)err;
     // raises the kernel's shared-memory limit past 48 KiB, once per device
-    err = launch_common::resident_blocks(xxh32_staged_kernel, 32, dev,
-                                         kXxhSmem, &per_sm);
+    err = launch_common::resident_blocks(xxh32_staged_kernel<false>, 32,
+                                         dev, kXxhSmem, &per_sm);
     if (err != cudaSuccess) return (int)err;
-    xxh32_staged_kernel<<<blocks, 32, kXxhSmem, s>>>(in, nrows, len, o);
+    xxh32_staged_kernel<false>
+        <<<blocks, 32, kXxhSmem, s>>>(in, nrows, len, o, nullptr);
   } else {
     xxh32_bytes_kernel<<<blocks, 32, 0, s>>>(in, nrows, len, o);
   }
@@ -827,8 +881,8 @@ extern "C" int wt_bitplane(const void* flat, long long n, long long cap2,
   auto* d = static_cast<long long*>(dec);
   const long long tiles = wt_bitplane_tiles(n);
   const bool aligned = reinterpret_cast<uintptr_t>(in) % 16 == 0;
-  bp_count_kernel<<<(unsigned)tiles, kBpThreads, 0, s>>>(in, n, nb, aligned,
-                                                         h, tc);
+  bp_count_kernel<true><<<(unsigned)tiles, kBpThreads, 0, s>>>(
+      in, n, nb, aligned, h, tc);
   cudaError_t err = counted(kBpCount);
   if (err != cudaSuccess) return (int)err;
   bp_decide_kernel<<<1, 1024, 0, s>>>(h, n, nb, tiles, cap2, sw, chunk,
@@ -839,4 +893,74 @@ extern "C" int wt_bitplane(const void* flat, long long n, long long cap2,
   bp_scatter_kernel<<<(unsigned)tiles, kBpThreads, 0, s>>>(
       in, n, nb, aligned, cap2, tc, d, static_cast<uint8_t*>(stored));
   return (int)counted(kBpScatter);
+}
+
+// Timing only (no caller of the write path). K2's staged kernel with its
+// clock readings: clocks [ceil(nrows / 32), 4] int64 of (issue, wait,
+// chain, total) cycles per block; rows aligned as the staged path needs.
+extern "C" int wt_timing_xxh32_clocks(const void* src, long long nrows,
+                                      long long len, void* out, void* clocks,
+                                      void* stream) {
+  if (nrows < 1 || len < 0 || len % 16 ||
+      reinterpret_cast<uintptr_t>(src) % 16)
+    return -1;
+  int dev = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = launch_common::resident_blocks(xxh32_staged_kernel<true>, 32, dev,
+                                         kXxhSmem, &per_sm);
+  if (err != cudaSuccess) return (int)err;
+  xxh32_staged_kernel<true>
+      <<<(unsigned)((nrows + 31) / 32), 32, kXxhSmem,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const uint8_t*>(src), nrows, len,
+          static_cast<uint32_t*>(out), static_cast<long long*>(clocks));
+  return (int)cudaGetLastError();
+}
+
+// Timing only: the cycles of `rounds` dependent xxh32 rounds on one lane
+// (words: 64 uint32, out: 32 uint32, cycles: one int64).
+extern "C" int wt_timing_xxh_chain(const void* words, int rounds, void* out,
+                                   void* cycles, void* stream) {
+  if (rounds < 8 || rounds % 8) return -1;
+  xxh_chain_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(words), rounds,
+      static_cast<uint32_t*>(out), static_cast<long long*>(cycles));
+  return (int)cudaGetLastError();
+}
+
+// Timing only: one pass of K3 on its own, with wt_bitplane's arguments:
+// 0 bp_count, 1 bp_count without the histogram, 2 bp_decide, 3
+// bp_scatter (each pass reads what the passes before it wrote).
+extern "C" int wt_timing_bitplane_pass(int pass, const void* flat, long long n,
+                                       long long cap2, long long sw,
+                                       long long chunk, int required_milli,
+                                       int entropy_max_milli, void* hist,
+                                       void* tile_count, void* dec,
+                                       void* stored, void* stream) {
+  const long long nb = (n + kBlock - 1) / kBlock;
+  if (n < 1 || sw < 1 || chunk < 1 || cap2 % sw != 0 || cap2 < n ||
+      cap2 < 66 * nb || pass < 0 || pass > 3)
+    return -1;
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* in = static_cast<const uint8_t*>(flat);
+  auto* h = static_cast<uint32_t*>(hist);
+  auto* tc = static_cast<uint32_t*>(tile_count);
+  auto* d = static_cast<long long*>(dec);
+  const long long tiles = wt_bitplane_tiles(n);
+  const bool aligned = reinterpret_cast<uintptr_t>(in) % 16 == 0;
+  if (pass == 0)
+    bp_count_kernel<true><<<(unsigned)tiles, kBpThreads, 0, s>>>(
+        in, n, nb, aligned, h, tc);
+  else if (pass == 1)
+    bp_count_kernel<false><<<(unsigned)tiles, kBpThreads, 0, s>>>(
+        in, n, nb, aligned, h, tc);
+  else if (pass == 2)
+    bp_decide_kernel<<<1, 1024, 0, s>>>(h, n, nb, tiles, cap2, sw, chunk,
+                                        required_milli, entropy_max_milli, tc,
+                                        d);
+  else
+    bp_scatter_kernel<<<(unsigned)tiles, kBpThreads, 0, s>>>(
+        in, n, nb, aligned, cap2, tc, d, static_cast<uint8_t*>(stored));
+  return (int)cudaGetLastError();
 }

@@ -1,7 +1,7 @@
-"""Device time of the GF bitmatrix, packet or CRC kernel against the batch size.
+"""Device time of the GF bitmatrix, packet or write kernels against the batch size.
 
     python -m ceph_tpu_torch.tools.gf_kernel_sweep [--batches 1,2,4]
-        [--kernel gf|packet|crc]
+        [--kernel gf|packet|crc|xxh32|bitplane] [--split]
 
 ``--kernel gf`` (the default): for the Reed-Solomon k=8, m=3, w=8 encode
 bitmatrix ([24, 64]) and the decode bitmatrix of signature (3..10)
@@ -34,6 +34,21 @@ streams of [B, 11, 4096] read in place, and one stream of B * 64 KiB +
 3 bytes (the byte path; 8 MiB + 3 at 128, as deep scrub's
 ``device_crc32``).
 
+``--kernel xxh32``: K2 (``xxh32_rows``) on rows of 4096 and 65536
+bytes (the write path's chunks at stripe_unit 4096 and the bench's
+64 KiB), for each row count in ``--batches`` (default 1, 2, 4, ..., 1024).
+With ``--split``: the staged kernel's clock readings at 1, 4, 16 and 32
+rows (cycles per block spent issuing copies, waiting for them and
+running the chain, per 16-byte stripe), and the cycles of one lane's
+chain of 4096 dependent rounds.
+
+``--kernel bitplane``: K3 (``bitplane_stage``) on 64 KiB to 16 MiB of
+low-entropy (values 0..3), random and zero bytes at the write path's
+stripe width (8 chunks of 4096 bytes). With ``--split``: each of a call's
+device operations on its own at 4 and 8 MiB of low-entropy and random
+bytes (the histogram's memset, the count pass with and without its
+histogram, the decision, the scatter).
+
 Every run first times the floor of the timing itself: one 16-byte
 ``zero_`` between the same events. The inputs rotate through 256 MiB,
 so that each launch finds its input out of L2. One JSON line per point,
@@ -44,6 +59,7 @@ CUDA card; it fails without one.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import subprocess
 import sys
@@ -54,7 +70,8 @@ import torch
 from .. import registry
 from ..ops import gf, gf_kernel, packet_kernel, write_kernels
 from ..osd import fused_transform
-from ..utils.cuda_timing import crc_bound, gf_bound, packet_bound, time_ms
+from ..utils.cuda_timing import (bitplane_bound, crc_bound, gf_bound,
+                                 packet_bound, time_ms, xxh32_bound)
 
 K, M, W, N = 8, 3, 8, 131072
 PACKET_K, PACKET_M, PACKETSIZE = 10, 4, 2048
@@ -207,15 +224,162 @@ def crc_sweep(pool: torch.Tensor, batches: list[int], dev) -> None:
                 flush=True)
 
 
-SWEEPS = {"gf": gf_sweep, "packet": packet_sweep, "crc": crc_sweep}
+def _timing_lib() -> ctypes.CDLL:
+    """write_transform's library with its timing-only entry points typed."""
+    lib = write_kernels._kernel()
+    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.wt_timing_xxh32_clocks.argtypes = [p, ll, ll, p, p, p]
+    lib.wt_timing_xxh_chain.argtypes = [p, i, p, p, p]
+    lib.wt_timing_bitplane_pass.argtypes = [i, p, ll, ll, ll, ll, i, i, p,
+                                            p, p, p, p]
+    for fn in (lib.wt_timing_xxh32_clocks, lib.wt_timing_xxh_chain,
+               lib.wt_timing_bitplane_pass):
+        fn.restype = i
+    return lib
+
+
+def _rc(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError("%s failed with code %d" % (name, rc))
+
+
+XXH_LENGTHS = (4096, 65536)
+
+
+def xxh32_sweep(pool: torch.Tensor, batches: list[int], dev,
+                split: bool = False) -> None:
+    if split:
+        return xxh32_split(pool, dev)
+    for length in XXH_LENGTHS:
+        for rows in batches:
+            inputs = rotated(pool, (rows, length))
+            ms = time_ms(write_kernels.xxh32_rows, inputs, 40)
+            bound_ms, bound_by = xxh32_bound(inputs[0])
+            print(json.dumps({
+                "kernel": "xxh32", "rows": rows, "length": length, "ms": ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "share_of_bound": bound_ms / ms,
+                "ns_per_stripe": ms * 1e6 / (length // 16)}), flush=True)
+
+
+def xxh32_split(pool: torch.Tensor, dev) -> None:
+    lib = _timing_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    words = pool[:256].view(torch.int32).clone()
+    out = torch.empty(32, dtype=torch.int32, device=dev)
+    cycles = torch.zeros(1, dtype=torch.int64, device=dev)
+    rounds = 4096
+    for _ in range(3):
+        _rc("wt_timing_xxh_chain", lib.wt_timing_xxh_chain(
+            words.data_ptr(), rounds, out.data_ptr(), cycles.data_ptr(),
+            stream))
+    torch.cuda.synchronize()
+    print(json.dumps({"kernel": "xxh32", "split": "chain",
+                      "rounds": rounds, "cycles": int(cycles),
+                      "cycles_per_round": int(cycles) / rounds}), flush=True)
+    for length in XXH_LENGTHS:
+        for rows in (1, 4, 16, 32):
+            inputs = rotated(pool, (rows, length))
+            res = torch.empty(rows, dtype=torch.int32, device=dev)
+            blocks = -(-rows // 32)
+            clocks = torch.zeros(blocks, 4, dtype=torch.int64, device=dev)
+            for x in inputs[:3]:
+                _rc("wt_timing_xxh32_clocks", lib.wt_timing_xxh32_clocks(
+                    x.data_ptr(), rows, length, res.data_ptr(),
+                    clocks.data_ptr(), stream))
+            torch.cuda.synchronize()
+            if not torch.equal(res, write_kernels.xxh32_rows(
+                    inputs[2]).view(torch.int32)):
+                raise RuntimeError("the clocked kernel disagrees")
+            c = clocks.double().mean(0).tolist()
+            stripes = length // 16
+            print(json.dumps({
+                "kernel": "xxh32", "split": "clocks", "rows": rows,
+                "length": length,
+                "ms": time_ms(write_kernels.xxh32_rows, inputs, 40),
+                "cycles": dict(zip(("issue", "wait", "chain", "total"), c)),
+                "cycles_per_stripe": dict(zip(
+                    ("issue", "wait", "chain", "total"),
+                    [v / stripes for v in c]))}), flush=True)
+
+
+BITPLANE_SIZES = (64 << 10, 256 << 10, 1 << 20, 4 << 20, 8 << 20, 16 << 20)
+BP_SW, BP_CHUNK = 8 * 4096, 4096
+
+
+def bitplane_sweep(pool: torch.Tensor, batches: list[int], dev,
+                   split: bool = False) -> None:
+    pools = {"low": pool & 3, "random": pool}
+    if split:
+        return bitplane_split(pools, dev)
+    pools["zeros"] = torch.zeros_like(pool)
+    for kind, src in pools.items():
+        for n in BITPLANE_SIZES:
+            inputs = rotated(src, (n,))
+            cap2 = fused_transform.plan_capacity(n, BP_SW)
+
+            def run(x):
+                return write_kernels.bitplane_stage(x, cap2, BP_SW, BP_CHUNK,
+                                                    875, 7000)
+            dec = run(inputs[0])[1]
+            ms = time_ms(run, inputs, 40)
+            bound_ms, bound_by = bitplane_bound(inputs[0], cap2)
+            print(json.dumps({
+                "kernel": "bitplane", "kind": kind, "n": n, "ms": ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "share_of_bound": bound_ms / ms,
+                "do_compress": int(dec[1])}), flush=True)
+
+
+def bitplane_split(pools: dict, dev) -> None:
+    lib = _timing_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    passes = ("count", "count_no_hist", "decide", "scatter")
+    for kind, src in pools.items():
+        for n in (4 << 20, 8 << 20):
+            inputs = rotated(src, (n,))
+            cap2 = fused_transform.plan_capacity(n, BP_SW)
+            hist = torch.zeros(256, dtype=torch.int32, device=dev)
+            tiles = torch.zeros(lib.wt_bitplane_tiles(n), dtype=torch.int32,
+                                device=dev)
+            dec = torch.zeros(6, dtype=torch.int64, device=dev)
+            stored = torch.empty(cap2, dtype=torch.uint8, device=dev)
+
+            def one(x, p):
+                _rc("wt_timing_bitplane_pass", lib.wt_timing_bitplane_pass(
+                    p, x.data_ptr(), n, cap2, BP_SW, BP_CHUNK, 875, 7000,
+                    hist.data_ptr(), tiles.data_ptr(), dec.data_ptr(),
+                    stored.data_ptr(), stream))
+            for p in (0, 2, 3):         # a whole call, pass by pass
+                one(inputs[0], p)
+            ms = {"memset": time_ms(lambda _: hist.zero_(), inputs, 40)}
+            for p, name in enumerate(passes):
+                ms[name] = time_ms(lambda x: one(x, p), inputs, 40)
+            ms["call"] = time_ms(lambda x: write_kernels.bitplane_stage(
+                x, cap2, BP_SW, BP_CHUNK, 875, 7000), inputs, 40)
+            print(json.dumps({"kernel": "bitplane", "split": "passes",
+                              "kind": kind, "n": n, "ms": ms}), flush=True)
+
+
+SWEEPS = {"gf": gf_sweep, "packet": packet_sweep, "crc": crc_sweep,
+          "xxh32": xxh32_sweep, "bitplane": bitplane_sweep}
+SPLITS = ("xxh32", "bitplane")
+DEFAULT_BATCHES = {"xxh32": "1,2,4,8,16,32,64,128,256,512,1024"}
 
 
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--batches", default="1,2,4,6,8,10,11,12,13,14,16",
-                   help="comma-separated batch sizes B")
+    p.add_argument("--batches", default=None,
+                   help="comma-separated batch sizes B (rows for xxh32; "
+                   "default 1,2,4,6,8,10,11,12,13,14,16)")
     p.add_argument("--kernel", choices=tuple(SWEEPS), default="gf")
+    p.add_argument("--split", action="store_true",
+                   help="xxh32 and bitplane: time the parts of a call")
     args = p.parse_args(argv)
+    if args.split and args.kernel not in SPLITS:
+        p.error("--split is for --kernel %s" % " or ".join(SPLITS))
+    batches = args.batches or DEFAULT_BATCHES.get(
+        args.kernel, "1,2,4,6,8,10,11,12,13,14,16")
     if not torch.cuda.is_available():
         print("gf_kernel_sweep: no CUDA device", file=sys.stderr)
         return 2
@@ -227,8 +391,11 @@ def main(argv: list[str] | None = None) -> int:
     print(json.dumps({"case": "floor", "what": "zero_ of 16 bytes",
                       "ms": time_ms(lambda x: x.zero_(), tiny, 40)}),
           flush=True)
-    SWEEPS[args.kernel](pool, [int(x) for x in args.batches.split(",")],
-                        dev)
+    run = [int(x) for x in batches.split(",")]
+    if args.kernel in SPLITS:
+        SWEEPS[args.kernel](pool, run, dev, split=args.split)
+    else:
+        SWEEPS[args.kernel](pool, run, dev)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
