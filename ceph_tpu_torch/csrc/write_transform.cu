@@ -23,12 +23,13 @@
 //  5.8 MB: 1.7 us; K3 reads N and writes cap2 ~ 1.03 N: 2.5 us at 4 MiB).
 //  K2 is bound by the larger of its bytes and its chain: a row's xxh32 is
 //  chunk/16 dependent rounds, each a multiply-add, a rotate and a multiply
-//  on one of 4 independent lanes, 12 cycles of latency a round (IMAD 4,
-//  funnel-shift rotate 4, IMUL 4). At the highest SM clock, 1.98 GHz, a
-//  4096-byte chunk is 256 rounds, 1.55 us, and a 65536-byte chunk 4096
-//  rounds, 24.8 us, however many rows run beside it.
+//  on one of 4 independent lanes. One lane's chain measures 10.4 cycles a
+//  round on an H100 (xxh_chain_kernel; utils/cuda_timing.py counts 10). At
+//  the highest SM clock, 1.98 GHz, a 4096-byte chunk is 256 rounds, 1.29
+//  us, and a 65536-byte chunk 4096 rounds, 20.7 us, however many rows run
+//  beside it.
 //
-// Design (simple; speed is later work):
+// Design:
 //  * K1 is one launch. A row is cut into 64-byte units (128-byte units
 //    for an aligned row of 2049 to 4096 bytes, so that one warp takes
 //    it whole) and front-padded with zero bytes to whole spans of 32
@@ -52,19 +53,28 @@
 //    the inverse matrices, applies the xor-out and writes the CRC. It
 //    then zeroes the counter and the span words it read, so the scratch
 //    is all zeros again for the next call on the stream.
-//  * K2 runs one thread per row, a warp per block, so that the few rows of
-//    a write spread over the SMs. Aligned rows stream through shared
-//    memory in 256-byte tiles with cp.async, several tiles in flight, so
-//    the loads overlap the chain; ragged rows load bytes directly.
-//  * K3 is three launches. (A) one thread per 64-byte block: the
-//    histogram (per-warp bins in shared memory, then global atomics), the
-//    8x8 bit transposes, flags and consts, and each tile's count of
-//    stored planes. (B) one block: the entropy in a fixed summation
-//    order, the exclusive scan of the tile counts, comp_len, the probe,
-//    the ratio test in 64-bit integers and the decision. (C) one thread
-//    per block again: a block scan places each stored plane, and the
-//    selected stream (container or raw bytes) and its zero tail are
-//    written into stored.
+//  * K2 puts a row's four accumulators on four lanes (lane 4r + j runs
+//    accumulator j of row r), so a warp holds 8 rows and a lane's chain
+//    is its own; the four lanes combine with shuffles at the end. A block
+//    is one warp, so the rows of a write spread over the SMs ([128, 65536]
+//    is 16 warps). Aligned rows stream through a ring of 4 stages of 1 KiB
+//    a row: lane 0 issues one TMA bulk copy per row tile, and each stage's
+//    mbarrier reports when its bytes are in, so 3 tiles are in flight
+//    ahead of the chain and no lane computes a copy's address; a 4096-byte
+//    row is in flight whole. Other rows load their words directly.
+//  * K3 is one cooperative launch on the blocks the card holds at once.
+//    Each thread loads its 64-byte block once, counts its bytes into
+//    per-lane copies of the histogram (no two lanes of a warp on one
+//    word), and transposes it into 8 planes kept in registers; each block
+//    publishes its bins and its tiles' counts of stored planes. After one
+//    grid-wide barrier every block reads them and computes the same
+//    decision: the entropy in a fixed summation order, comp_len, the probe,
+//    the ratio test in 64-bit integers, and its tiles' first stored
+//    planes. Each tile's container planes or raw bytes are staged in shared
+//    memory and stored coalesced; the grid writes the zero tail. A tile
+//    past the resident grid is loaded and transposed again after the
+//    barrier (counted). The scratch is left all zeros, so no memset
+//    precedes a call.
 
 #include <atomic>
 #include <cstdint>
@@ -85,22 +95,33 @@ constexpr int kSliceAt = kInvAt + kLevels * 32;
 constexpr int kCrcThreads = 256;
 constexpr int kBlock = 64;        // bytes of one bit-plane block
 constexpr int kBpThreads = 256;   // 64-byte blocks per K3 tile
-constexpr int kXxhTile = 256;     // bytes of a row per K2 stage
-constexpr int kXxhPitch = kXxhTile + 16;  // conflict-free 16-byte reads
-constexpr int kXxhStages = 6;
-constexpr size_t kXxhSmem = (size_t)kXxhStages * 32 * kXxhPitch;
+constexpr int kBpMinBlocks = 4;   // K3 blocks an SM: 64 registers, and
+                                  // the shared memory of 4
+constexpr int kBinCopies = 32;    // K3 histogram copies, one per lane
+constexpr int kBpBinBytes = kBinCopies * 256 * 4;
+constexpr int kBpParkBytes = kBpThreads * 64;  // a tile's planes
+constexpr size_t kBpSmem = kBpBinBytes + kBpParkBytes + 256 * 4;
+constexpr int kBpHist = 0;        // K3 scratch words: the histogram,
+constexpr int kBpArrive = 256;    // the barrier's arrivals,
+constexpr int kBpDepart = 257;    // the blocks done,
+constexpr int kBpTileCounts = 258;  // each tile's stored planes
+constexpr int kXxhRows = 8;       // K2 rows of a warp: 4 lanes a row
+constexpr int kXxhTile = 1024;    // bytes of a row per K2 stage
+constexpr int kXxhPitch = kXxhTile + 16;  // row r's words start on bank 4r
+constexpr int kXxhStages = 8;     // tiles in flight ahead of the chain
+constexpr size_t kXxhSmem = (size_t)kXxhStages * kXxhRows * kXxhPitch;
 
 enum Launch {
   kCrcRows = 0,
   kXxh,
-  kBpCount,
-  kBpDecide,
-  kBpScatter,
+  kBitplane,
   kNumLaunch
 };
 
 // Kernel launches of each kind, counted where each kernel is launched.
 std::atomic<long long> g_launches[kNumLaunch];
+// K3 tiles loaded and transposed a second time (past the resident grid).
+std::atomic<long long> g_recomputed_tiles;
 
 constexpr uint32_t kP1 = 2654435761u, kP2 = 2246822519u, kP3 = 3266489917u;
 constexpr uint32_t kP4 = 668265263u, kP5 = 374761393u;
@@ -315,6 +336,11 @@ __device__ __forceinline__ uint32_t xxh_round(uint32_t acc, uint32_t w) {
   return rotl(acc + w * kP2, 13) * kP1;
 }
 
+// A round on the product p = w * P2, computed ahead.
+__device__ __forceinline__ uint32_t xxh_step(uint32_t acc, uint32_t p) {
+  return rotl(acc + p, 13) * kP1;
+}
+
 __device__ __forceinline__ uint32_t load_le32(const uint8_t* p) {
   return (uint32_t)p[0] | ((uint32_t)p[1] << 8) | ((uint32_t)p[2] << 16) |
          ((uint32_t)p[3] << 24);
@@ -332,100 +358,207 @@ __device__ uint32_t xxh_finish(uint32_t h, const uint8_t* p, long long i,
   return h ^ (h >> 16);
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+// Arrives on the barrier and adds `bytes` to the transfers it waits for.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
 }
 
-// Aligned rows (len % 16 == 0, 16-byte aligned base): a warp per block,
-// one row per lane, tiles of kXxhTile bytes of 32 rows staged through
-// shared memory, kXxhStages - 1 tiles in flight ahead of the chain.
-// CLOCKS (timing only, no caller of the write path): lane 0 sums the
-// cycles spent issuing copies, waiting for them and running the chain,
-// and the kernel's total, into clocks[4 * block ...].
+// Arrives on the barrier.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Waits until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+}
+
+// TMA 1-D bulk copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from global to shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Lane j of a row's four lanes: accumulator j's seed (seed 0).
+__device__ __forceinline__ uint32_t xxh_seed(int j) {
+  return j == 0 ? kP1 + kP2 : j == 1 ? kP2 : j == 2 ? 0u : 0u - kP1;
+}
+
+// The row's four lanes (lanes 4r..4r+3 of the warp) combine their
+// accumulators, rotated by 1, 7, 12 and 18, into the row's first lane,
+// which finishes the row: the tail after its 16-byte stripes, the length
+// and the avalanche. Called by every lane of the warp.
+__device__ __forceinline__ void xxh_combine(uint32_t acc, int j, bool live,
+                                            const uint8_t* row, long long len,
+                                            uint32_t* out) {
+  const int rot = j == 0 ? 1 : j == 1 ? 7 : j == 2 ? 12 : 18;
+  uint32_t v = rotl(acc, rot);
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  if (live && j == 0) *out = xxh_finish(len >= 16 ? v : kP5, row,
+                                        (len / 16) * 16, len);
+}
+
+// Aligned rows (len a multiple of 16, at least 16; 16-byte aligned
+// base): 8 rows a block of two warps. Warp 1 stages tiles of kXxhTile
+// bytes of the 8 rows into a ring of kXxhStages stages with TMA bulk
+// copies, one per row tile from lane r, each stage's `full` mbarrier
+// counting its bytes in; it then multiplies the tile's words by P2 in
+// place and hands the stage to warp 0 through its `ready` mbarrier. Warp
+// 0 computes, lane 4r + j running accumulator j of row r on the products
+// (so each round's chain is a rotate and one multiply-add: the multiply
+// by P1 and the next product's add fuse), and frees the stage through its
+// `empty` mbarrier. The lanes of a stripe read 32 banks (row pitch
+// kXxhPitch). CLOCKS (timing only, no caller of the write path): warp 1's
+// lane 0 records its time, warp 0's lane 0 the cycles waiting for a stage
+// and running the chain and its total, into clocks[4 * block ...].
 template <bool CLOCKS>
-__global__ void __launch_bounds__(32)
-xxh32_staged_kernel(const uint8_t* __restrict__ src, long long nrows,
-                    long long len, uint32_t* __restrict__ out,
-                    long long* __restrict__ clocks) {
-  extern __shared__ __align__(16) uint8_t xsmem[];
-  const int lane = threadIdx.x;
-  const long long r0 = (long long)blockIdx.x * 32;
-  const int rows = (int)(nrows - r0 < 32 ? nrows - r0 : 32);
+__global__ void __launch_bounds__(64)
+xxh32_tma_kernel(const uint8_t* __restrict__ src, long long nrows,
+                 long long len, uint32_t* __restrict__ out,
+                 long long* __restrict__ clocks) {
+  // the ring: kXxhSmem bytes, [kXxhStages][kXxhRows][kXxhPitch]
+  extern __shared__ __align__(128) uint8_t xring[];
+  auto ring = reinterpret_cast<uint8_t(*)[kXxhRows][kXxhPitch]>(xring);
+  __shared__ __align__(8) uint64_t full[kXxhStages], ready[kXxhStages],
+      empty[kXxhStages];
+  const int lane = threadIdx.x & 31, r = lane >> 2, j = lane & 3;
+  const long long r0 = (long long)blockIdx.x * kXxhRows;
+  const int rows = (int)(nrows - r0 < kXxhRows ? nrows - r0 : kXxhRows);
   const long long tiles = (len + kXxhTile - 1) / kXxhTile;
-  long long c_issue = 0, c_wait = 0, c_chain = 0, c_start = 0;
+  long long c_start = 0;
   if constexpr (CLOCKS) c_start = clock64();
-
-  auto stage_tile = [&](long long t) {
-    if (t < tiles) {
-      const long long base = t * kXxhTile;
-      const int tb = (int)(len - base < kXxhTile ? len - base : kXxhTile);
-      const int per_row = tb / 16;
-      uint8_t* stage = xsmem + (size_t)(t % kXxhStages) * 32 * kXxhPitch;
-      for (int idx = lane; idx < rows * per_row; idx += 32) {
-        const int r = idx / per_row;
-        const int q = idx - r * per_row;
-        cp_async16(stage + r * kXxhPitch + q * 16,
-                   src + (r0 + r) * len + base + q * 16);
-      }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kXxhStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&ready[s], 1);
+      mbar_init(&empty[s], 1);
     }
-    cp_async_commit();  // empty groups keep the count uniform
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  auto tile_bytes = [&](long long t) {
+    const long long rest = len - t * kXxhTile;
+    return (unsigned)(rest < kXxhTile ? rest : kXxhTile);
   };
-
-  for (int s = 0; s < kXxhStages - 1; ++s) stage_tile(s);
-  uint32_t a1 = kP1 + kP2, a2 = kP2, a3 = 0, a4 = 0u - kP1;
-  for (long long t = 0; t < tiles; ++t) {
-    long long c0 = 0, c1 = 0;
-    if constexpr (CLOCKS) c0 = clock64();
-    stage_tile(t + kXxhStages - 1);
-    if constexpr (CLOCKS) c1 = clock64();
-    cp_async_wait<kXxhStages - 1>();
-    __syncwarp();
-    if constexpr (CLOCKS) {
-      const long long c2 = clock64();
-      c_issue += c1 - c0;
-      c_wait += c2 - c1;
-      c1 = c2;
-    }
-    if (lane < rows) {
-      const long long base = t * kXxhTile;
-      const int tb = (int)(len - base < kXxhTile ? len - base : kXxhTile);
-      const uint4* q = reinterpret_cast<const uint4*>(
-          xsmem + (size_t)(t % kXxhStages) * 32 * kXxhPitch +
-          lane * kXxhPitch);
-      for (int i = 0; i < tb / 16; ++i) {
-        const uint4 v = q[i];
-        a1 = xxh_round(a1, v.x);
-        a2 = xxh_round(a2, v.y);
-        a3 = xxh_round(a3, v.z);
-        a4 = xxh_round(a4, v.w);
+  if (threadIdx.x >= 32) {  // warp 1: copies and products
+    auto issue = [&](long long t) {
+      const int s = (int)(t % kXxhStages);
+      const unsigned tb = tile_bytes(t);
+      // this warp's and warp 0's accesses of the stage before the copies'
+      // writes
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncwarp();
+      if (lane == 0) mbar_expect(&full[s], tb * (unsigned)rows);
+      if (lane < rows)
+        bulk_load(ring[s][lane], src + (r0 + lane) * len + t * kXxhTile, tb,
+                  &full[s]);
+    };
+    for (long long t = 0; t < kXxhStages && t < tiles; ++t) issue(t);
+    for (long long t = 0; t < tiles; ++t) {
+      const int s = (int)(t % kXxhStages);
+      mbar_wait(&full[s], (unsigned)((t / kXxhStages) & 1));
+      const int quads = (int)(tile_bytes(t) / 16);  // of each row
+      if (quads == kXxhTile / 16) {  // whole tiles: every load, then stores
+        constexpr int kPer = kXxhTile / 16 / 32;
+        uint4 v[kXxhRows][kPer];
+#pragma unroll
+        for (int q = 0; q < kXxhRows; ++q)
+#pragma unroll
+          for (int i = 0; i < kPer; ++i)
+            if (q < rows)
+              v[q][i] = reinterpret_cast<const uint4*>(ring[s][q])[lane +
+                                                                   32 * i];
+#pragma unroll
+        for (int q = 0; q < kXxhRows; ++q)
+#pragma unroll
+          for (int i = 0; i < kPer; ++i)
+            if (q < rows)
+              reinterpret_cast<uint4*>(ring[s][q])[lane + 32 * i] =
+                  make_uint4(v[q][i].x * kP2, v[q][i].y * kP2,
+                             v[q][i].z * kP2, v[q][i].w * kP2);
+      } else {
+        for (int q = 0; q < rows; ++q) {
+          uint4* w = reinterpret_cast<uint4*>(ring[s][q]);
+          for (int k = lane; k < quads; k += 32) {
+            const uint4 x = w[k];
+            w[k] = make_uint4(x.x * kP2, x.y * kP2, x.z * kP2, x.w * kP2);
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&ready[s]);
+      // refill the stage of the tile before, once warp 0 is done with it
+      const long long back = t - 1 + kXxhStages;
+      if (t >= 1 && back < tiles) {
+        mbar_wait(&empty[(t - 1) % kXxhStages],
+                  (unsigned)(((t - 1) / kXxhStages) & 1));
+        issue(back);
       }
     }
-    __syncwarp();
-    if constexpr (CLOCKS) c_chain += clock64() - c1;
+    if constexpr (CLOCKS)
+      if (lane == 0) clocks[4 * blockIdx.x] = clock64() - c_start;
+    return;
   }
-  cp_async_wait<0>();
-  if (lane < rows) {
-    const uint32_t h = len >= 16 ? rotl(a1, 1) + rotl(a2, 7) + rotl(a3, 12) +
-                                       rotl(a4, 18)
-                                 : kP5;
-    out[r0 + lane] = xxh_finish(h, src + (r0 + lane) * len, (len / 16) * 16,
-                                len);
+  long long c_wait = 0, c_chain = 0, c0 = 0;
+  uint32_t acc = xxh_seed(j);
+  for (long long t = 0; t < tiles; ++t) {
+    const int s = (int)(t % kXxhStages);
+    if constexpr (CLOCKS) c0 = clock64();
+    mbar_wait(&ready[s], (unsigned)((t / kXxhStages) & 1));
+    if constexpr (CLOCKS) {
+      const long long c1 = clock64();
+      c_wait += c1 - c0;
+      c0 = c1;
+    }
+    const int n16 = (int)(tile_bytes(t) / 16);
+    const uint32_t* q = reinterpret_cast<const uint32_t*>(ring[s][r]) + j;
+    if (n16 == kXxhTile / 16) {  // a whole tile: its loads ahead of the chain
+      uint32_t w[kXxhTile / 16];
+#pragma unroll
+      for (int u = 0; u < kXxhTile / 16; ++u) w[u] = q[4 * u];
+#pragma unroll
+      for (int u = 0; u < kXxhTile / 16; ++u) acc = xxh_step(acc, w[u]);
+    } else {
+      for (int u = 0; u < n16; ++u) acc = xxh_step(acc, q[4 * u]);
+    }
+    __syncwarp();  // every lane is done with stage s
+    if (lane == 0) mbar_arrive(&empty[s]);
+    if constexpr (CLOCKS) c_chain += clock64() - c0;
   }
+  const long long row = r0 + r;
+  xxh_combine(acc, j, r < rows, src + (r < rows ? row : r0) * len, len,
+              out + row);
   if constexpr (CLOCKS) {
     if (lane == 0) {
       long long* c = clocks + 4 * blockIdx.x;
-      c[0] = c_issue;
       c[1] = c_wait;
       c[2] = c_chain;
       c[3] = clock64() - c_start;
@@ -433,8 +566,28 @@ xxh32_staged_kernel(const uint8_t* __restrict__ src, long long nrows,
   }
 }
 
+// Any rows: the same lanes, words loaded from global memory a byte at a
+// time.
+__global__ void __launch_bounds__(32)
+xxh32_direct_kernel(const uint8_t* __restrict__ src, long long nrows,
+                    long long len, uint32_t* __restrict__ out) {
+  const int lane = threadIdx.x, r = lane >> 2, j = lane & 3;
+  const long long row = (long long)blockIdx.x * kXxhRows + r;
+  const bool live = row < nrows;
+  const uint8_t* p = src + (live ? row : 0) * len;
+  uint32_t acc = xxh_seed(j);
+  if (live) {
+    const long long nblk = len / 16;
+#pragma unroll 4
+    for (long long i = 0; i < nblk; ++i)
+      acc = xxh_round(acc, load_le32(p + 16 * i + 4 * j));
+  }
+  xxh_combine(acc, j, live, p, len, out + row);
+}
+
 // Timing only: one lane chain of `rounds` dependent xxh32 rounds per
-// thread of one warp; cycles[0] gets lane 0's clock64() difference.
+// thread of one warp, 64 to a loop trip; cycles[0] gets lane 0's
+// clock64() difference.
 __global__ void __launch_bounds__(32)
 xxh_chain_kernel(const uint32_t* __restrict__ words, int rounds,
                  uint32_t* __restrict__ out, long long* __restrict__ cycles) {
@@ -442,36 +595,13 @@ xxh_chain_kernel(const uint32_t* __restrict__ words, int rounds,
   const uint32_t w = words[32 + threadIdx.x];
   __syncwarp();
   const long long t0 = clock64();
-  for (int i = 0; i < rounds; i += 8) {
+  for (int i = 0; i < rounds; i += 64) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc = xxh_round(acc, w);
+    for (int j = 0; j < 64; ++j) acc = xxh_round(acc, w);
   }
   out[threadIdx.x] = acc;
   const long long t1 = clock64();
   if (threadIdx.x == 0) cycles[0] = t1 - t0;
-}
-
-// Any rows: one thread per row, bytes loaded directly.
-__global__ void __launch_bounds__(32)
-xxh32_bytes_kernel(const uint8_t* __restrict__ src, long long nrows,
-                   long long len, uint32_t* __restrict__ out) {
-  const long long row = (long long)blockIdx.x * 32 + threadIdx.x;
-  if (row >= nrows) return;
-  const uint8_t* p = src + row * len;
-  const long long nblk = len / 16;
-  uint32_t h = kP5;
-  if (nblk) {
-    uint32_t a1 = kP1 + kP2, a2 = kP2, a3 = 0, a4 = 0u - kP1;
-    for (long long i = 0; i < nblk; ++i) {
-      const uint8_t* b = p + i * 16;
-      a1 = xxh_round(a1, load_le32(b));
-      a2 = xxh_round(a2, load_le32(b + 4));
-      a3 = xxh_round(a3, load_le32(b + 8));
-      a4 = xxh_round(a4, load_le32(b + 12));
-    }
-    h = rotl(a1, 1) + rotl(a2, 7) + rotl(a3, 12) + rotl(a4, 18);
-  }
-  out[row] = xxh_finish(h, p, nblk * 16, len);
 }
 
 // ---- K3: bit-plane compress, probe and decision -----------------------
@@ -491,14 +621,19 @@ __device__ __forceinline__ void load_block(const uint8_t* __restrict__ flat,
     }
     return;
   }
-#pragma unroll
+  // a word at a time (8 byte loads in flight, not 64), shifted in so that
+  // g is indexed statically
+#pragma unroll 1
   for (int i = 0; i < 8; ++i) {
     uint64_t w = 0;
+#pragma unroll
     for (int t = 0; t < 8; ++t) {
       const long long at = start + i * 8 + t;
       if (at < n) w |= (uint64_t)__ldg(flat + at) << (8 * t);
     }
-    g[i] = w;
+#pragma unroll
+    for (int k = 0; k < 7; ++k) g[k] = g[k + 1];
+    g[7] = w;
   }
 }
 
@@ -560,171 +695,314 @@ __device__ uint32_t block_scan(uint32_t v, uint32_t* total) {
   return before + x - v;
 }
 
-// (A) histogram, and the stored planes of each tile of kBpThreads blocks.
-// HIST false (timing only, no caller of the write path) leaves out the
-// histogram.
-template <bool HIST>
-__global__ void __launch_bounds__(kBpThreads)
-bp_count_kernel(const uint8_t* __restrict__ flat, long long n, long long nb,
-                bool aligned, uint32_t* __restrict__ hist,
-                uint32_t* __restrict__ tile_count) {
-  __shared__ uint32_t bins[kBpThreads / 32][256];
-  if constexpr (HIST) {
-    for (int i = threadIdx.x; i < (kBpThreads / 32) * 256; i += blockDim.x)
-      (&bins[0][0])[i] = 0;
-    __syncthreads();
+// Word i of a block from its planes (block_planes inverted: the same
+// byte transpose, then the same bit transpose).
+__device__ __forceinline__ uint64_t block_word(const uint64_t planes[8],
+                                               int i) {
+  uint64_t y = 0;
+#pragma unroll
+  for (int p = 0; p < 8; ++p) y |= ((planes[p] >> (8 * i)) & 0xffull) << (8 * p);
+  return transpose8(y);
+}
+
+// Sum of v over the block (kBpThreads threads); every thread gets it.
+__device__ unsigned long long block_sum(unsigned long long v) {
+  __shared__ unsigned long long part[kBpThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if (lane == 0) part[warp] = v;
+  __syncthreads();
+  unsigned long long sum = 0;
+#pragma unroll
+  for (int w = 0; w < kBpThreads / 32; ++w) sum += part[w];
+  __syncthreads();  // part is reused by the next call
+  return sum;
+}
+
+// The bytes of block g (real of them in n) counted into the block's
+// histogram copies: lane l adds to copy l, so the 32 lanes of a warp hit
+// 32 distinct words in 32 distinct banks whatever the bytes.
+__device__ __forceinline__ void count_block(uint32_t* bins, const uint64_t g[8],
+                                            long long real, int lane) {
+  if (real >= kBlock) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+        atomicAdd(&bins[((g[i] >> (8 * t)) & 0xffu) * kBinCopies + lane], 1u);
+    return;
   }
-  const long long b = (long long)blockIdx.x * kBpThreads + threadIdx.x;
-  uint32_t stored = 0;
-  if (b < nb) {
-    uint64_t g[8], planes[8];
-    load_block(flat, n, b, aligned, g);
-    if constexpr (HIST) {
-      uint32_t* mine = bins[threadIdx.x >> 5];
-      const long long real = n - b * kBlock;  // bytes of this block in n
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < 8; ++i)  // the input's last, partial block
 #pragma unroll
-        for (int t = 0; t < 8; ++t)
-          if (i * 8 + t < real)
-            atomicAdd(&mine[(g[i] >> (8 * t)) & 0xffu], 1u);
+    for (int t = 0; t < 8; ++t)
+      if (i * 8 + t < real)
+        atomicAdd(&bins[((g[i] >> (8 * t)) & 0xffu) * kBinCopies + lane], 1u);
+}
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// The grid-wide barrier of the cooperative launch: each block counts its
+// arrival and waits for all of them. A grid that cannot all be resident
+// traps rather than waits for ever (the launch refuses such a grid).
+__device__ void grid_barrier(unsigned* arrive, unsigned blocks) {
+  __threadfence();  // every thread's histogram adds and tile counts first
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    atomicAdd(arrive, 1u);
+    long long spins = 0;
+    while (ld_acquire(arrive) < blocks) {
+      __nanosleep(32);
+      if (++spins > (1ll << 28)) __trap();
     }
-    uint32_t flags, consts;
-    block_planes(g, planes, &flags, &consts);
-    stored = __popc(flags);
+    __threadfence();
   }
-  uint32_t total;
-  block_scan(stored, &total);
-  if (threadIdx.x == 0) tile_count[blockIdx.x] = total;
-  if (!HIST) return;
-  for (int bin = threadIdx.x; bin < 256; bin += blockDim.x) {
-    uint32_t s = 0;
-    for (int w = 0; w < kBpThreads / 32; ++w) s += bins[w][bin];
-    if (s) atomicAdd(&hist[bin], s);
+  __syncthreads();
+}
+
+// Block tid of tile t (thread tid's 64-byte block): its planes, and its
+// flags | consts << 8 (0 past the input); HIST counts its bytes into the
+// block's histogram copies.
+template <bool HIST>
+__device__ __forceinline__ uint32_t tile_planes(const uint8_t* __restrict__ flat,
+                                                long long n, long long nb,
+                                                long long t, bool aligned,
+                                                uint32_t* bins,
+                                                uint64_t planes[8]) {
+  const long long b = t * kBpThreads + threadIdx.x;
+  if (b >= nb) return 0;
+  uint64_t g[8];
+  load_block(flat, n, b, aligned, g);
+  if constexpr (HIST) count_block(bins, g, n - b * kBlock, threadIdx.x & 31);
+  uint32_t f, c;
+  block_planes(g, planes, &f, &c);
+  return f | (c << 8);
+}
+
+// Tile t's output, staged in sh and stored coalesced: its header and its
+// container planes from plane `first` on (rank: this thread's first
+// stored plane in the tile, total: the tile's), or its raw bytes.
+__device__ __forceinline__ void write_tile(bool compress, long long t,
+                                           long long nb,
+                                           unsigned long long first,
+                                           const uint64_t planes[8],
+                                           uint32_t fc, uint32_t rank,
+                                           uint32_t total, uint32_t* sh,
+                                           uint8_t* __restrict__ stored) {
+  const int tid = threadIdx.x;
+  const long long b0 = t * kBpThreads, b = b0 + tid;
+  __syncthreads();  // sh is free
+  if (compress) {
+    if (b < nb) reinterpret_cast<uint16_t*>(stored)[b] = (uint16_t)fc;
+    uint64_t* st = reinterpret_cast<uint64_t*>(sh);
+    uint32_t k = rank;
+#pragma unroll
+    for (int p = 0; p < 8; ++p)
+      if (fc >> p & 1u) st[k++] = planes[p];
+    __syncthreads();
+    uint8_t* dst = stored + 2 * nb + 8 * (long long)first;
+    if ((2 * nb) % 8 == 0) {  // the planes start on 8 bytes
+      for (uint32_t i = tid; i < total; i += kBpThreads)
+        reinterpret_cast<uint64_t*>(dst)[i] = st[i];
+    } else {
+      const uint16_t* st16 = reinterpret_cast<const uint16_t*>(st);
+      for (uint32_t i = tid; i < 4 * total; i += kBpThreads)
+        reinterpret_cast<uint16_t*>(dst)[i] = st16[i];
+    }
+  } else {
+    // the raw bytes (zeros past n up to the whole block), a word at a
+    // time into sh, in pairs swizzled so that a half warp's stores hit at
+    // most 2 words a bank; then 16 bytes a store
+    uint64_t* st8 = reinterpret_cast<uint64_t*>(sh);
+    const int swz = ((tid >> 1) & 3) << 1;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) st8[tid * 8 + (i ^ swz)] = block_word(planes, i);
+    const uint4* st4 = reinterpret_cast<const uint4*>(sh);
+    __syncthreads();
+    const long long blocks = nb - b0 < kBpThreads ? nb - b0 : kBpThreads;
+    uint4* dst = reinterpret_cast<uint4*>(stored + b0 * kBlock);
+    for (int m = tid; m < blocks * 4; m += kBpThreads) {
+      const int bb = m >> 2;
+      dst[m] = st4[bb * 4 + ((m & 3) ^ ((bb >> 1) & 3))];
+    }
   }
 }
 
-// (B) one block of 1024 threads: entropy, probe, scan of the tile counts
-// (in place: tile_count becomes each tile's first stored plane), comp_len
-// and the decision. dec = [comp_len, do_compress, probe_ok,
-// entropy_milli, used_stripes, pad_bytes].
-__global__ void __launch_bounds__(1024)
-bp_decide_kernel(const uint32_t* __restrict__ hist, long long n,
-                 long long nb, long long tiles, long long cap2, long long sw,
-                 long long chunk, int required_milli, int entropy_max_milli,
-                 uint32_t* __restrict__ tile_count,
-                 long long* __restrict__ dec) {
-  __shared__ float terms[256];
-  __shared__ uint32_t warp_sum[32];
-  __shared__ long long carry;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  if (tid < 256) {
-    const uint32_t cnt = hist[tid];
+// CLOCKS: block 0's thread 0 records the cycles since c_start.
+template <bool CLOCKS>
+__device__ __forceinline__ void mark_clock(long long* clocks, int i,
+                                           long long c_start) {
+  if constexpr (CLOCKS)
+    if (blockIdx.x == 0 && threadIdx.x == 0) clocks[i] = clock64() - c_start;
+}
+
+// K3 in one cooperative launch; every block resident. Block x takes the
+// tiles x, x + G, ... of kBpThreads 64-byte blocks (G the grid), one
+// 64-byte block a thread.
+//  Before the barrier: each thread loads its block once, counts its bytes
+//  (HIST; timing only without), transposes it into its 8 planes and keeps
+//  those of its first tile in registers; each block adds its histogram to
+//  the scratch's and stores each tile's count of stored planes.
+//  After the one barrier: every block reads the 256 bins and the tile
+//  counts, computes the entropy in a fixed pairwise order,
+//  comp_len, the probe, the ratio test in int64 and the decision, and its
+//  tiles' first stored planes from the tiles before them; block 0 writes
+//  dec. Each tile's output is staged in shared memory and stored
+//  coalesced: the header and the container's planes, or the raw bytes;
+//  the grid writes the zero tail. A tile past the first of its block is
+//  loaded and transposed again. The last block to finish zeroes the
+//  scratch for the next call on the stream.
+// scratch (uint32): [0, 256) histogram, 256 arrivals, 257 departures,
+// [258, 258 + tiles) tile counts; all zeros at entry and at exit.
+// CLOCKS (timing only): block 0's thread 0 writes the cycles from its
+// start to the end of its counting, the barrier, the decision, its tiles'
+// writes and its end into clocks[0..4].
+template <bool HIST, bool CLOCKS>
+__global__ void __launch_bounds__(kBpThreads, kBpMinBlocks)
+bitplane_kernel(const uint8_t* __restrict__ flat, long long n, long long nb,
+                long long tiles, bool aligned, long long cap2, long long sw,
+                long long chunk, int required_milli, int entropy_max_milli,
+                uint32_t* __restrict__ scratch, long long* __restrict__ dec,
+                uint8_t* __restrict__ stored, long long* __restrict__ clocks) {
+  // kBpSmem bytes: the histogram's copies (then each tile's output), the
+  // first tile's planes across the barrier, the entropy's terms
+  extern __shared__ __align__(16) uint8_t bp_smem[];
+  uint32_t* sh = reinterpret_cast<uint32_t*>(bp_smem);
+  uint64_t* parked = reinterpret_cast<uint64_t*>(bp_smem + kBpBinBytes);
+  float* terms = reinterpret_cast<float*>(bp_smem + kBpBinBytes +
+                                          kBpParkBytes);
+  __shared__ unsigned last_out;
+  static_assert(kBpThreads == 256, "a thread per bin");
+  const int tid = threadIdx.x;
+  const long long grid = gridDim.x;
+  uint32_t* hist = scratch + kBpHist;
+  uint32_t* tile_count = scratch + kBpTileCounts;
+  const long long c_start = CLOCKS ? clock64() : 0;
+
+  if constexpr (HIST) {
+    for (int i = tid; i < kBinCopies * 256; i += kBpThreads) sh[i] = 0;
+    __syncthreads();
+  }
+  // the first tile's planes wait in shared memory; the others are counted
+  uint64_t planes[8];
+  uint32_t fc = tile_planes<HIST>(flat, n, nb, blockIdx.x, aligned, sh,
+                                  planes);
+#pragma unroll
+  for (int p = 0; p < 8; ++p) parked[p * kBpThreads + tid] = planes[p];
+  uint32_t tile_total;
+  uint32_t rank = block_scan(__popc(fc & 0xffu), &tile_total);
+  if (tid == 0) tile_count[blockIdx.x] = tile_total;
+  for (long long t = blockIdx.x + grid; t < tiles; t += grid) {
+    uint64_t other[8];
+    const uint32_t f = tile_planes<HIST>(flat, n, nb, t, aligned, sh, other);
+    const unsigned long long total = block_sum(__popc(f & 0xffu));
+    if (tid == 0) tile_count[t] = (uint32_t)total;
+  }
+  if constexpr (HIST) {
+    __syncthreads();
+    const int lane = tid & 31;
+    uint32_t sum = 0;
+    for (int c = 0; c < kBinCopies; ++c)  // rotated: 32 banks a step
+      sum += sh[tid * kBinCopies + ((c + lane) & (kBinCopies - 1))];
+    if (sum) atomicAdd(hist + tid, sum);
+  }
+  mark_clock<CLOCKS>(clocks, 0, c_start);
+  grid_barrier(scratch + kBpArrive, (unsigned)grid);
+  mark_clock<CLOCKS>(clocks, 1, c_start);
+
+  // -- the decision, the same in every block
+  {
+    const uint32_t cnt = __ldcg(hist + tid);
     const float p = (float)cnt / (float)n;
     terms[tid] = cnt ? p * log2f(fmaxf(p, 1e-12f)) : 0.0f;
   }
-  if (tid == 0) carry = 0;
+  unsigned long long before = 0, all = 0;
+  for (long long i = tid; i < tiles; i += kBpThreads) {
+    const unsigned long long c = __ldcg(tile_count + i);
+    all += c;
+    if (i < blockIdx.x) before += c;
+  }
   __syncthreads();
-  for (int s = 128; s; s >>= 1) {  // fixed pairwise order
-    if (tid < s) terms[tid] += terms[tid + s];
+  for (int st = 128; st; st >>= 1) {  // a fixed pairwise order
+    if (tid < st) terms[tid] += terms[tid + st];
     __syncthreads();
   }
-  for (long long base = 0; base < tiles; base += 1024) {
-    const long long i = base + tid;
-    const uint32_t v = i < tiles ? tile_count[i] : 0u;
-    uint32_t x = v;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const uint32_t y = __shfl_up_sync(0xffffffffu, x, o);
-      if (lane >= o) x += y;
-    }
-    if (lane == 31) warp_sum[warp] = x;
-    __syncthreads();
-    long long before = carry;
-    long long sum = 0;
-    for (int w = 0; w < 32; ++w) {
-      if (w < warp) before += warp_sum[w];
-      sum += warp_sum[w];
-    }
-    if (i < tiles) tile_count[i] = (uint32_t)(before + x - v);
-    __syncthreads();
-    if (tid == 0) carry += sum;
-    __syncthreads();
-  }
-  if (tid == 0) {
-    const float ent = -terms[0];
-    const int milli = (int)(ent * 1000.0f);
-    const bool probe_ok = milli <= entropy_max_milli;
-    const long long comp_len = 2 * nb + 8 * carry;
-    const bool ratio_ok = comp_len * 1000 <= n * (long long)required_milli;
-    const bool do_compress = probe_ok && ratio_ok;
-    const long long stored_len = do_compress ? comp_len : n;
+  before = block_sum(before);
+  all = block_sum(all);
+  const int milli = (int)(-terms[0] * 1000.0f);
+  const bool probe_ok = milli <= entropy_max_milli;
+  const long long comp_len = 2 * nb + 8 * (long long)all;
+  const bool ratio_ok = comp_len * 1000 <= n * (long long)required_milli;
+  const bool compress = probe_ok && ratio_ok;
+  if (blockIdx.x == 0 && tid == 0) {
+    const long long stored_len = compress ? comp_len : n;
     const long long used = (stored_len + sw - 1) / sw;
     dec[0] = comp_len;
-    dec[1] = do_compress;
+    dec[1] = compress;
     dec[2] = probe_ok;
     dec[3] = milli;
     dec[4] = used;
     dec[5] = (cap2 / sw - used) * chunk;
   }
-}
+  mark_clock<CLOCKS>(clocks, 2, c_start);
 
-// (C) the stored stream: the container (header, stored planes) or the raw
-// bytes, then zeros up to cap2.
-__global__ void __launch_bounds__(kBpThreads)
-bp_scatter_kernel(const uint8_t* __restrict__ flat, long long n, long long nb,
-                  bool aligned, long long cap2,
-                  const uint32_t* __restrict__ tile_first,
-                  const long long* __restrict__ dec,
-                  uint8_t* __restrict__ stored) {
-  const bool compress = dec[1] != 0;
-  const long long b = (long long)blockIdx.x * kBpThreads + threadIdx.x;
-  uint64_t g[8], planes[8];
-  uint32_t flags = 0, consts = 0;
-  if (b < nb) load_block(flat, n, b, aligned, g);
-  if (compress) {
-    if (b < nb) block_planes(g, planes, &flags, &consts);
-    uint32_t total;
-    const uint32_t rank = block_scan(__popc(flags), &total);
-    if (b < nb) {
-      stored[2 * b] = (uint8_t)flags;
-      stored[2 * b + 1] = (uint8_t)consts;
-      uint8_t* dst = stored + 2 * nb + 8 * ((long long)tile_first[blockIdx.x] +
-                                            rank);
+  // -- each tile's output; a tile past the first is loaded again
 #pragma unroll
-      for (int p = 0; p < 8; ++p) {
-        if (flags >> p & 1u) {
-#pragma unroll
-          for (int t = 0; t < 8; ++t) dst[t] = (uint8_t)(planes[p] >> (8 * t));
-          dst += 8;
-        }
-      }
-    }
-  } else if (b < nb) {
-    const long long start = b * kBlock;
-    if (start + kBlock <= n) {
-      uint4* q = reinterpret_cast<uint4*>(stored + start);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        q[i] = make_uint4((uint32_t)g[2 * i], (uint32_t)(g[2 * i] >> 32),
-                          (uint32_t)g[2 * i + 1],
-                          (uint32_t)(g[2 * i + 1] >> 32));
-    } else {
-      for (long long at = start; at < n; ++at)
-        stored[at] = (uint8_t)(g[(at - start) >> 3] >> (8 * ((at - start) & 7)));
-    }
+  for (int p = 0; p < 8; ++p) planes[p] = parked[p * kBpThreads + tid];
+  write_tile(compress, blockIdx.x, nb, before, planes, fc, rank, tile_total,
+             sh, stored);
+  long long prev = blockIdx.x;
+  unsigned long long first = before;
+  for (long long t = blockIdx.x + grid; t < tiles; t += grid) {
+    unsigned long long mid = 0;  // the planes of the tiles from prev to t
+    for (long long i = prev + tid; i < t; i += kBpThreads)
+      mid += __ldcg(tile_count + i);
+    first += block_sum(mid);
+    fc = tile_planes<false>(flat, n, nb, t, aligned, sh, planes);
+    rank = block_scan(__popc(fc & 0xffu), &tile_total);
+    write_tile(compress, t, nb, first, planes, fc, rank, tile_total, sh,
+               stored);
+    prev = t;
   }
+  mark_clock<CLOCKS>(clocks, 3, c_start);
+
   // zeros from the end of the selected stream to cap2
-  const long long zfrom = compress ? dec[0] : n;
+  const long long zfrom = compress ? comp_len : n;
   const long long a16 = (zfrom + 15) / 16 * 16 < cap2 ? (zfrom + 15) / 16 * 16
                                                        : cap2;
   const long long e16 = cap2 / 16 * 16 > a16 ? cap2 / 16 * 16 : a16;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long nthreads = (long long)gridDim.x * blockDim.x;
-  for (long long at = zfrom + tid; at < a16; at += nthreads) stored[at] = 0;
-  for (long long at = a16 / 16 + tid; at < e16 / 16; at += nthreads)
+  const long long gtid = (long long)blockIdx.x * kBpThreads + tid;
+  const long long nthreads = grid * kBpThreads;
+  for (long long at = zfrom + gtid; at < a16; at += nthreads) stored[at] = 0;
+  for (long long at = a16 / 16 + gtid; at < e16 / 16; at += nthreads)
     reinterpret_cast<uint4*>(stored)[at] = make_uint4(0u, 0u, 0u, 0u);
-  for (long long at = e16 + tid; at < cap2; at += nthreads) stored[at] = 0;
+  for (long long at = e16 + gtid; at < cap2; at += nthreads) stored[at] = 0;
+
+  // the last block out zeroes the scratch: every block has read it
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    last_out = atomicAdd(scratch + kBpDepart, 1u) == (unsigned)(grid - 1);
+  }
+  __syncthreads();
+  if (last_out) {
+    __threadfence();
+    hist[tid] = 0;
+    for (long long i = tid; i < tiles; i += kBpThreads) tile_count[i] = 0;
+    if (tid == 0) {
+      scratch[kBpArrive] = 0;
+      scratch[kBpDepart] = 0;
+    }
+  }
+  mark_clock<CLOCKS>(clocks, 4, c_start);
 }
 
 cudaError_t counted(Launch kind) {
@@ -743,14 +1021,15 @@ long long crc_spans(long long len, int run_log2) {
 
 }  // namespace
 
-// Launches of kernel `kind` (0 crc_rows, 1 xxh32, 2 bp_count,
-// 3 bp_decide, 4 bp_scatter) since the last reset, or -1.
+// Launches of kernel `kind` (0 crc_rows, 1 xxh32, 2 bitplane) since the
+// last reset, or -1.
 extern "C" long long wt_launches(int kind) {
   return kind >= 0 && kind < kNumLaunch ? g_launches[kind].load() : -1;
 }
 
 extern "C" void wt_reset_launches() {
   for (auto& count : g_launches) count.store(0);
+  g_recomputed_tiles.store(0);
 }
 
 // uint32 words of scratch K1 needs for nrows rows of `len` bytes: a
@@ -829,7 +1108,19 @@ extern "C" int wt_crc32_rows(const void* src, long long nrows,
   return (int)counted(kCrcRows);
 }
 
-// K2. rows [nrows, len] contiguous uint8 -> out [nrows] uint32.
+// Raises K2's ring past 48 KiB of shared memory, once per kernel and
+// device.
+template <typename Kernel>
+cudaError_t raise_xxh_smem(Kernel kernel) {
+  int dev = 0, per_sm = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return launch_common::resident_blocks(kernel, 64, dev, kXxhSmem, &per_sm);
+}
+
+// K2. rows [nrows, len] contiguous uint8 -> out [nrows] uint32. One
+// launch, a warp of 8 rows a block: the TMA ring for 16-byte aligned rows
+// of a multiple of 16 bytes, direct loads for any other rows.
 extern "C" int wt_xxh32_rows(const void* src, long long nrows, long long len,
                              void* out, void* stream) {
   if (nrows < 0 || len < 0) return -1;
@@ -837,130 +1128,152 @@ extern "C" int wt_xxh32_rows(const void* src, long long nrows, long long len,
   auto s = static_cast<cudaStream_t>(stream);
   const auto* in = static_cast<const uint8_t*>(src);
   auto* o = static_cast<uint32_t*>(out);
-  const unsigned blocks = (unsigned)((nrows + 31) / 32);
-  if (len % 16 == 0 && reinterpret_cast<uintptr_t>(in) % 16 == 0) {
-    int dev = 0, per_sm = 0;
-    cudaError_t err = cudaGetDevice(&dev);
+  const unsigned blocks = (unsigned)((nrows + kXxhRows - 1) / kXxhRows);
+  if (len >= 16 && len % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(in) % 16 == 0) {
+    const cudaError_t err = raise_xxh_smem(xxh32_tma_kernel<false>);
     if (err != cudaSuccess) return (int)err;
-    // raises the kernel's shared-memory limit past 48 KiB, once per device
-    err = launch_common::resident_blocks(xxh32_staged_kernel<false>, 32,
-                                         dev, kXxhSmem, &per_sm);
-    if (err != cudaSuccess) return (int)err;
-    xxh32_staged_kernel<false>
-        <<<blocks, 32, kXxhSmem, s>>>(in, nrows, len, o, nullptr);
+    xxh32_tma_kernel<false><<<blocks, 64, kXxhSmem, s>>>(in, nrows, len, o,
+                                                         nullptr);
   } else {
-    xxh32_bytes_kernel<<<blocks, 32, 0, s>>>(in, nrows, len, o);
+    xxh32_direct_kernel<<<blocks, 32, 0, s>>>(in, nrows, len, o);
   }
   return (int)counted(kXxh);
 }
 
-// Bytes of scratch K3 needs: 256 uint32 of histogram (zeroed by the
-// caller) and one uint32 per tile of kBpThreads blocks.
-extern "C" long long wt_bitplane_tiles(long long n) {
+// Words of scratch K3 needs for n bytes: the histogram, the barrier's two
+// counters and a count per tile of kBpThreads 64-byte blocks.
+extern "C" long long wt_bitplane_scratch_words(long long n) {
   const long long nb = (n + kBlock - 1) / kBlock;
-  return (nb + kBpThreads - 1) / kBpThreads;
+  return kBpTileCounts + (nb + kBpThreads - 1) / kBpThreads;
 }
 
-// K3. flat [n] uint8 -> stored [cap2] uint8 and dec [6] int64, with
-// hist [256] uint32 zeroed and tile_count [wt_bitplane_tiles(n)] uint32
-// of scratch. cap2 must hold the worst-case container (66 bytes per
-// block) and n, and be a multiple of sw.
+// Launches bitplane_kernel<HIST, CLOCKS> cooperatively on the
+// blocks the card holds at once, at most one per tile; *grid gets the
+// blocks. A card that cannot hold a block gets
+// cudaErrorCooperativeLaunchTooLarge, and so does a grid the launch
+// cannot make resident: neither waits.
+template <bool HIST, bool CLOCKS>
+cudaError_t launch_bitplane(const uint8_t* in, long long n, long long cap2,
+                            long long sw, long long chunk, int required_milli,
+                            int entropy_max_milli, uint32_t* scr,
+                            long long* d, uint8_t* st, long long* clk,
+                            cudaStream_t s, long long* grid) {
+  auto kernel = bitplane_kernel<HIST, CLOCKS>;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = launch_common::resident_blocks(kernel, kBpThreads, dev, kBpSmem,
+                                         &per_sm);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  long long nb = (n + kBlock - 1) / kBlock;
+  long long tiles = (nb + kBpThreads - 1) / kBpThreads;
+  const long long resident = (long long)sms * per_sm;
+  *grid = tiles < resident ? tiles : resident;
+  bool aligned = reinterpret_cast<uintptr_t>(in) % 16 == 0;
+  void* args[] = {&in,  &n,  &nb, &tiles, &aligned, &cap2,
+                  &sw,  &chunk, &required_milli, &entropy_max_milli,
+                  &scr, &d,  &st, &clk};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                     dim3((unsigned)*grid), dim3(kBpThreads),
+                                     args, kBpSmem, s);
+}
+
+// K3. flat [n] uint8 -> stored [cap2] uint8 (16-byte aligned) and dec [6]
+// int64, with scratch: wt_bitplane_scratch_words(n) uint32, all zeros at
+// entry and left all zeros (a buffer kept for the stream). cap2 must hold
+// the worst-case container (66 bytes per block) and n, and be a multiple
+// of sw. One cooperative launch.
 extern "C" int wt_bitplane(const void* flat, long long n, long long cap2,
                            long long sw, long long chunk, int required_milli,
-                           int entropy_max_milli, void* hist,
-                           void* tile_count, void* dec, void* stored,
-                           void* stream) {
+                           int entropy_max_milli, void* scratch, void* dec,
+                           void* stored, void* stream) {
   const long long nb = (n + kBlock - 1) / kBlock;
   if (n < 1 || sw < 1 || chunk < 1 || cap2 % sw != 0 || cap2 < n ||
-      cap2 < 66 * nb)
+      cap2 < 66 * nb || reinterpret_cast<uintptr_t>(stored) % 16)
     return -1;
-  auto s = static_cast<cudaStream_t>(stream);
-  const auto* in = static_cast<const uint8_t*>(flat);
-  auto* h = static_cast<uint32_t*>(hist);
-  auto* tc = static_cast<uint32_t*>(tile_count);
-  auto* d = static_cast<long long*>(dec);
-  const long long tiles = wt_bitplane_tiles(n);
-  const bool aligned = reinterpret_cast<uintptr_t>(in) % 16 == 0;
-  bp_count_kernel<true><<<(unsigned)tiles, kBpThreads, 0, s>>>(
-      in, n, nb, aligned, h, tc);
-  cudaError_t err = counted(kBpCount);
+  long long grid = 0;
+  const cudaError_t err = launch_bitplane<true, false>(
+      static_cast<const uint8_t*>(flat), n, cap2, sw, chunk, required_milli,
+      entropy_max_milli, static_cast<uint32_t*>(scratch),
+      static_cast<long long*>(dec), static_cast<uint8_t*>(stored), nullptr,
+      static_cast<cudaStream_t>(stream), &grid);
   if (err != cudaSuccess) return (int)err;
-  bp_decide_kernel<<<1, 1024, 0, s>>>(h, n, nb, tiles, cap2, sw, chunk,
-                                      required_milli, entropy_max_milli, tc,
-                                      d);
-  err = counted(kBpDecide);
-  if (err != cudaSuccess) return (int)err;
-  bp_scatter_kernel<<<(unsigned)tiles, kBpThreads, 0, s>>>(
-      in, n, nb, aligned, cap2, tc, d, static_cast<uint8_t*>(stored));
-  return (int)counted(kBpScatter);
+  const long long tiles = (nb + kBpThreads - 1) / kBpThreads;
+  g_recomputed_tiles.fetch_add(tiles - grid);
+  return (int)counted(kBitplane);
 }
 
-// Timing only (no caller of the write path). K2's staged kernel with its
-// clock readings: clocks [ceil(nrows / 32), 4] int64 of (issue, wait,
-// chain, total) cycles per block; rows aligned as the staged path needs.
+// K3 tiles loaded and transposed twice (past the resident grid) since the
+// last reset.
+extern "C" long long wt_bitplane_recomputed_tiles() {
+  return g_recomputed_tiles.load();
+}
+
+// Timing only (no caller of the write path). K2's TMA kernel with its
+// clock readings: clocks [ceil(nrows / 8), 4] int64 of (the copying
+// warp's time, the computing warp's waits for a stage, its chain, its
+// total) in cycles per block; rows as the TMA path takes them.
 extern "C" int wt_timing_xxh32_clocks(const void* src, long long nrows,
                                       long long len, void* out, void* clocks,
                                       void* stream) {
-  if (nrows < 1 || len < 0 || len % 16 ||
+  if (nrows < 1 || len < 16 || len % 16 ||
       reinterpret_cast<uintptr_t>(src) % 16)
     return -1;
-  int dev = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = launch_common::resident_blocks(xxh32_staged_kernel<true>, 32, dev,
-                                         kXxhSmem, &per_sm);
+  const cudaError_t err = raise_xxh_smem(xxh32_tma_kernel<true>);
   if (err != cudaSuccess) return (int)err;
-  xxh32_staged_kernel<true>
-      <<<(unsigned)((nrows + 31) / 32), 32, kXxhSmem,
+  xxh32_tma_kernel<true>
+      <<<(unsigned)((nrows + kXxhRows - 1) / kXxhRows), 64, kXxhSmem,
          static_cast<cudaStream_t>(stream)>>>(
           static_cast<const uint8_t*>(src), nrows, len,
           static_cast<uint32_t*>(out), static_cast<long long*>(clocks));
   return (int)cudaGetLastError();
 }
 
-// Timing only: the cycles of `rounds` dependent xxh32 rounds on one lane
-// (words: 64 uint32, out: 32 uint32, cycles: one int64).
+// Timing only: the cycles of `rounds` (a multiple of 64) dependent xxh32
+// rounds on one lane (words: 64 uint32, out: 32 uint32, cycles: one
+// int64).
 extern "C" int wt_timing_xxh_chain(const void* words, int rounds, void* out,
                                    void* cycles, void* stream) {
-  if (rounds < 8 || rounds % 8) return -1;
+  if (rounds < 64 || rounds % 64) return -1;
   xxh_chain_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(words), rounds,
       static_cast<uint32_t*>(out), static_cast<long long*>(cycles));
   return (int)cudaGetLastError();
 }
 
-// Timing only: one pass of K3 on its own, with wt_bitplane's arguments:
-// 0 bp_count, 1 bp_count without the histogram, 2 bp_decide, 3
-// bp_scatter (each pass reads what the passes before it wrote).
-extern "C" int wt_timing_bitplane_pass(int pass, const void* flat, long long n,
-                                       long long cap2, long long sw,
-                                       long long chunk, int required_milli,
-                                       int entropy_max_milli, void* hist,
-                                       void* tile_count, void* dec,
-                                       void* stored, void* stream) {
+// Timing only: K3 with wt_bitplane's arguments as `variant` 0 (the
+// kernel of wt_bitplane, uncounted), 1 (without the histogram: the
+// decision then sees no bytes) or 2 (block 0's phase clocks into
+// clocks[5]); *grid gets the blocks.
+extern "C" int wt_timing_bitplane(int variant, const void* flat, long long n,
+                                  long long cap2, long long sw,
+                                  long long chunk, void* scratch, void* dec,
+                                  void* stored, void* clocks, long long* grid,
+                                  void* stream) {
   const long long nb = (n + kBlock - 1) / kBlock;
   if (n < 1 || sw < 1 || chunk < 1 || cap2 % sw != 0 || cap2 < n ||
-      cap2 < 66 * nb || pass < 0 || pass > 3)
+      cap2 < 66 * nb || reinterpret_cast<uintptr_t>(stored) % 16 ||
+      variant < 0 || variant > 2)
     return -1;
-  auto s = static_cast<cudaStream_t>(stream);
   const auto* in = static_cast<const uint8_t*>(flat);
-  auto* h = static_cast<uint32_t*>(hist);
-  auto* tc = static_cast<uint32_t*>(tile_count);
+  auto* scr = static_cast<uint32_t*>(scratch);
   auto* d = static_cast<long long*>(dec);
-  const long long tiles = wt_bitplane_tiles(n);
-  const bool aligned = reinterpret_cast<uintptr_t>(in) % 16 == 0;
-  if (pass == 0)
-    bp_count_kernel<true><<<(unsigned)tiles, kBpThreads, 0, s>>>(
-        in, n, nb, aligned, h, tc);
-  else if (pass == 1)
-    bp_count_kernel<false><<<(unsigned)tiles, kBpThreads, 0, s>>>(
-        in, n, nb, aligned, h, tc);
-  else if (pass == 2)
-    bp_decide_kernel<<<1, 1024, 0, s>>>(h, n, nb, tiles, cap2, sw, chunk,
-                                        required_milli, entropy_max_milli, tc,
-                                        d);
+  auto* st = static_cast<uint8_t*>(stored);
+  auto* clk = static_cast<long long*>(clocks);
+  auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (variant == 0)
+    err = launch_bitplane<true, false>(
+        in, n, cap2, sw, chunk, 875, 7000, scr, d, st, nullptr, s, grid);
+  else if (variant == 1)
+    err = launch_bitplane<false, false>(
+        in, n, cap2, sw, chunk, 875, 7000, scr, d, st, nullptr, s, grid);
   else
-    bp_scatter_kernel<<<(unsigned)tiles, kBpThreads, 0, s>>>(
-        in, n, nb, aligned, cap2, tc, d, static_cast<uint8_t*>(stored));
-  return (int)cudaGetLastError();
+    err = launch_bitplane<true, true>(
+        in, n, cap2, sw, chunk, 875, 7000, scr, d, st, clk, s, grid);
+  return (int)err;
 }

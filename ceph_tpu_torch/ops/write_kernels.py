@@ -17,9 +17,11 @@ around the encode, each with its plain PyTorch version beside it:
 A wrapper runs its plain version only for a CPU tensor; for a CUDA tensor
 it launches the kernel on the current stream or raises. ``LAUNCHES``
 counts wrapper calls that launched, per wrapper; :func:`launches_by_kernel`
-reads the counts the C entry points keep per CUDA kernel (K1 and K2 are
-one launch each, K3 three), and :func:`reset_launches` sets all of them
-to 0.
+reads the counts the C entry points keep per CUDA kernel (each wrapper is
+one launch a call), :func:`bitplane_recomputed_tiles` the tiles K3 loaded
+twice (past the resident grid), and :func:`reset_launches` sets all of
+them to 0. K1 and K3 use a scratch buffer kept per (device, stream) that
+each kernel leaves all zeros, so no call clears it first.
 
 CRC constants (``consts``): uint32 ``[CONSTS_WORDS]`` on the view's device,
 the polynomial's byte table ``[256]``, then the 31 "append 2^l zero bytes"
@@ -41,7 +43,8 @@ from . import _build
 
 __all__ = ["crc32_rows", "crc32_rows_plain", "xxh32_rows",
            "xxh32_rows_plain", "bitplane_stage", "bitplane_stage_plain",
-           "launches_by_kernel", "reset_launches", "CONSTS_WORDS",
+           "launches_by_kernel", "bitplane_recomputed_tiles",
+           "reset_launches", "CONSTS_WORDS",
            "KERNELS", "LAUNCHES", "BLOCK"]
 
 _SOURCE = "write_transform"
@@ -53,15 +56,15 @@ DEC_FIELDS = ("comp_len", "do_compress", "probe_ok", "entropy_milli",
               "used_stripes", "pad_bytes")
 
 # CUDA kernels by the C entry points' kind number
-KERNELS = ("crc_rows", "xxh32", "bp_count", "bp_decide", "bp_scatter")
+KERNELS = ("crc_rows", "xxh32", "bitplane")
 
 LAUNCHES = {"crc32_rows": 0, "xxh32_rows": 0, "bitplane_stage": 0}
 _count_lock = threading.Lock()
 _lib = None
-# K1's scratch per (device, stream): all zeros between calls (the kernel
-# leaves it so), reused by every call on the stream, which the stream
-# orders; grown, zeroed, when a call needs more
-_crc_scratch: dict = {}
+# K1's and K3's scratch per (device, stream): all zeros between calls
+# (both kernels leave it so), reused by every call on the stream, which
+# the stream orders; grown, zeroed, when a call needs more
+_scratch: dict = {}
 _scratch_lock = threading.Lock()
 
 _M32 = 0xFFFFFFFF
@@ -80,10 +83,12 @@ def _kernel() -> ctypes.CDLL:
         lib.wt_crc_scratch_words.restype = ll
         lib.wt_xxh32_rows.argtypes = [p, ll, ll, p, p]
         lib.wt_xxh32_rows.restype = i
-        lib.wt_bitplane_tiles.argtypes = [ll]
-        lib.wt_bitplane_tiles.restype = ll
-        lib.wt_bitplane.argtypes = [p, ll, ll, ll, ll, i, i, p, p, p, p, p]
+        lib.wt_bitplane_scratch_words.argtypes = [ll]
+        lib.wt_bitplane_scratch_words.restype = ll
+        lib.wt_bitplane.argtypes = [p, ll, ll, ll, ll, i, i, p, p, p, p]
         lib.wt_bitplane.restype = i
+        lib.wt_bitplane_recomputed_tiles.argtypes = []
+        lib.wt_bitplane_recomputed_tiles.restype = ll
         lib.wt_launches.argtypes = [i]
         lib.wt_launches.restype = ll
         lib.wt_reset_launches.argtypes = []
@@ -98,6 +103,13 @@ def launches_by_kernel() -> dict[str, int]:
     if _lib is None:            # nothing was built, so nothing launched
         return dict.fromkeys(KERNELS, 0)
     return {k: int(_lib.wt_launches(i)) for i, k in enumerate(KERNELS)}
+
+
+def bitplane_recomputed_tiles() -> int:
+    """Tiles of 256 64-byte blocks that K3 loaded and transposed a second
+    time since the last reset: those past the grid the card holds at once
+    (an input over about 8 MiB on an H100)."""
+    return 0 if _lib is None else int(_lib.wt_bitplane_recomputed_tiles())
 
 
 def reset_launches() -> None:
@@ -226,15 +238,15 @@ def _check_crc(view, consts, pad, out) -> None:
 
 def _scratch_for(device: torch.device, stream: int,
                  words: int) -> torch.Tensor:
-    """K1's zeroed scratch of at least `words` uint32 (as int32) for calls
-    on `stream`."""
+    """The zeroed scratch of at least `words` uint32 (as int32) for K1's
+    and K3's calls on `stream`."""
     key = (device.index, stream)
     with _scratch_lock:
-        buf = _crc_scratch.get(key)
+        buf = _scratch.get(key)
         if buf is None or buf.numel() < words:
             size = max(words, 1, 0 if buf is None else 2 * buf.numel())
-            buf = _crc_scratch[key] = torch.zeros(size, dtype=torch.int32,
-                                                  device=device)
+            buf = _scratch[key] = torch.zeros(size, dtype=torch.int32,
+                                              device=device)
         return buf
 
 
@@ -422,18 +434,15 @@ def bitplane_stage(flat: torch.Tensor, cap2: int, sw: int, chunk: int,
                                     entropy_max_milli)
     lib = _kernel()
     dev = flat.device
-    # uint32 scratch of the kernel, allocated as int32 (counts < 2^31)
-    hist = torch.zeros(256, dtype=torch.int32, device=dev)
-    tiles = torch.empty(lib.wt_bitplane_tiles(n), dtype=torch.int32,
-                        device=dev)
     dec = torch.empty(len(DEC_FIELDS), dtype=torch.int64, device=dev)
     stored = torch.empty(cap2, dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
+        stream = _stream(dev)
+        scratch = _scratch_for(dev, stream, lib.wt_bitplane_scratch_words(n))
         rc = lib.wt_bitplane(flat.data_ptr(), n, cap2, sw, chunk,
                              required_milli, entropy_max_milli,
-                             hist.data_ptr(), tiles.data_ptr(),
-                             dec.data_ptr(), stored.data_ptr(),
-                             _stream(dev))
+                             scratch.data_ptr(), dec.data_ptr(),
+                             stored.data_ptr(), stream)
     _raise_rc("wt_bitplane", rc)
     _count("bitplane_stage")
     return stored, dec

@@ -37,17 +37,21 @@ streams of [B, 11, 4096] read in place, and one stream of B * 64 KiB +
 ``--kernel xxh32``: K2 (``xxh32_rows``) on rows of 4096 and 65536
 bytes (the write path's chunks at stripe_unit 4096 and the bench's
 64 KiB), for each row count in ``--batches`` (default 1, 2, 4, ..., 1024).
-With ``--split``: the staged kernel's clock readings at 1, 4, 16 and 32
-rows (cycles per block spent issuing copies, waiting for them and
-running the chain, per 16-byte stripe), and the cycles of one lane's
-chain of 4096 dependent rounds.
+With ``--split``: the cycles of one lane's chain of 4096 dependent rounds
+(the chain that ``utils/cuda_timing.XXH_ROUND_CYCLES`` counts), and the
+TMA kernel's clock readings at 1, 8, 16 and 128 rows (cycles per block:
+the copying warp's time, the computing warp's waits for a stage, its
+chain and its total, and each per 16-byte stripe).
 
 ``--kernel bitplane``: K3 (``bitplane_stage``) on 64 KiB to 16 MiB of
 low-entropy (values 0..3), random and zero bytes at the write path's
 stripe width (8 chunks of 4096 bytes). With ``--split``: each of a call's
 device operations on its own at 4 and 8 MiB of low-entropy and random
-bytes (the histogram's memset, the count pass with and without its
-histogram, the decision, the scatter).
+bytes, and at 16 MiB (past the grid the card holds at once): the kernel
+with and without its histogram, in turns, the tiles each loaded twice,
+and block 0's clock at the
+end of each phase (counting, the barrier, the decision, its tiles'
+writes, its end).
 
 Every run first times the floor of the timing itself: one 16-byte
 ``zero_`` between the same events. The inputs rotate through 256 MiB,
@@ -230,10 +234,10 @@ def _timing_lib() -> ctypes.CDLL:
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.wt_timing_xxh32_clocks.argtypes = [p, ll, ll, p, p, p]
     lib.wt_timing_xxh_chain.argtypes = [p, i, p, p, p]
-    lib.wt_timing_bitplane_pass.argtypes = [i, p, ll, ll, ll, ll, i, i, p,
-                                            p, p, p, p]
+    lib.wt_timing_bitplane.argtypes = [i, p, ll, ll, ll, ll, p, p, p, p,
+                                       ctypes.POINTER(ll), p]
     for fn in (lib.wt_timing_xxh32_clocks, lib.wt_timing_xxh_chain,
-               lib.wt_timing_bitplane_pass):
+               lib.wt_timing_bitplane):
         fn.restype = i
     return lib
 
@@ -244,6 +248,7 @@ def _rc(name: str, rc: int) -> None:
 
 
 XXH_LENGTHS = (4096, 65536)
+XXH_CLOCKS = ("copier", "wait", "chain", "total")
 
 
 def xxh32_sweep(pool: torch.Tensor, batches: list[int], dev,
@@ -278,10 +283,10 @@ def xxh32_split(pool: torch.Tensor, dev) -> None:
                       "rounds": rounds, "cycles": int(cycles),
                       "cycles_per_round": int(cycles) / rounds}), flush=True)
     for length in XXH_LENGTHS:
-        for rows in (1, 4, 16, 32):
+        for rows in (1, 8, 16, 128):
             inputs = rotated(pool, (rows, length))
             res = torch.empty(rows, dtype=torch.int32, device=dev)
-            blocks = -(-rows // 32)
+            blocks = -(-rows // 8)
             clocks = torch.zeros(blocks, 4, dtype=torch.int64, device=dev)
             for x in inputs[:3]:
                 _rc("wt_timing_xxh32_clocks", lib.wt_timing_xxh32_clocks(
@@ -297,10 +302,9 @@ def xxh32_split(pool: torch.Tensor, dev) -> None:
                 "kernel": "xxh32", "split": "clocks", "rows": rows,
                 "length": length,
                 "ms": time_ms(write_kernels.xxh32_rows, inputs, 40),
-                "cycles": dict(zip(("issue", "wait", "chain", "total"), c)),
+                "cycles": dict(zip(XXH_CLOCKS, c)),
                 "cycles_per_stripe": dict(zip(
-                    ("issue", "wait", "chain", "total"),
-                    [v / stripes for v in c]))}), flush=True)
+                    XXH_CLOCKS, [v / stripes for v in c]))}), flush=True)
 
 
 BITPLANE_SIZES = (64 << 10, 256 << 10, 1 << 20, 4 << 20, 8 << 20, 16 << 20)
@@ -331,34 +335,46 @@ def bitplane_sweep(pool: torch.Tensor, batches: list[int], dev,
                 "do_compress": int(dec[1])}), flush=True)
 
 
+BP_VARIANTS = {"kernel": 0, "no_hist": 1}
+BP_PHASES = ("counted", "barrier", "decided", "written", "end")
+
+
 def bitplane_split(pools: dict, dev) -> None:
     lib = _timing_lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    passes = ("count", "count_no_hist", "decide", "scatter")
     for kind, src in pools.items():
-        for n in (4 << 20, 8 << 20):
+        for n in (4 << 20, 8 << 20, 16 << 20):
             inputs = rotated(src, (n,))
             cap2 = fused_transform.plan_capacity(n, BP_SW)
-            hist = torch.zeros(256, dtype=torch.int32, device=dev)
-            tiles = torch.zeros(lib.wt_bitplane_tiles(n), dtype=torch.int32,
-                                device=dev)
+            scratch = write_kernels._scratch_for(
+                dev, stream, write_kernels._kernel().wt_bitplane_scratch_words(
+                    n))
             dec = torch.zeros(6, dtype=torch.int64, device=dev)
             stored = torch.empty(cap2, dtype=torch.uint8, device=dev)
+            clocks = torch.zeros(5, dtype=torch.int64, device=dev)
+            grid = ctypes.c_longlong(0)
+            tiles = -(-(-(-n // 64)) // 256)    # of 256 64-byte blocks
 
-            def one(x, p):
-                _rc("wt_timing_bitplane_pass", lib.wt_timing_bitplane_pass(
-                    p, x.data_ptr(), n, cap2, BP_SW, BP_CHUNK, 875, 7000,
-                    hist.data_ptr(), tiles.data_ptr(), dec.data_ptr(),
-                    stored.data_ptr(), stream))
-            for p in (0, 2, 3):         # a whole call, pass by pass
-                one(inputs[0], p)
-            ms = {"memset": time_ms(lambda _: hist.zero_(), inputs, 40)}
-            for p, name in enumerate(passes):
-                ms[name] = time_ms(lambda x: one(x, p), inputs, 40)
-            ms["call"] = time_ms(lambda x: write_kernels.bitplane_stage(
-                x, cap2, BP_SW, BP_CHUNK, 875, 7000), inputs, 40)
-            print(json.dumps({"kernel": "bitplane", "split": "passes",
-                              "kind": kind, "n": n, "ms": ms}), flush=True)
+            def run(x, variant):
+                _rc("wt_timing_bitplane", lib.wt_timing_bitplane(
+                    variant, x.data_ptr(), n, cap2, BP_SW, BP_CHUNK,
+                    scratch.data_ptr(), dec.data_ptr(), stored.data_ptr(),
+                    clocks.data_ptr(), ctypes.byref(grid), stream))
+            ms, recomputed = {}, {}
+            for name in (*BP_VARIANTS, *reversed(BP_VARIANTS)):  # in turns
+                run(inputs[0], BP_VARIANTS[name])
+                recomputed[name] = tiles - grid.value
+                ms.setdefault(name, []).append(time_ms(
+                    lambda x: run(x, BP_VARIANTS[name]), inputs, 40))
+            phases = []
+            for x in inputs[:3]:
+                run(x, 2)
+                torch.cuda.synchronize()
+                phases.append(dict(zip(BP_PHASES, clocks.tolist())))
+            print(json.dumps({"kernel": "bitplane", "split": "variants",
+                              "kind": kind, "n": n, "ms": ms,
+                              "recomputed_tiles": recomputed,
+                              "block0_cycles": phases[-1]}), flush=True)
 
 
 SWEEPS = {"gf": gf_sweep, "packet": packet_sweep, "crc": crc_sweep,

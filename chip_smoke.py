@@ -61,11 +61,14 @@ paths against its plain PyTorch version on the card. Phases, each printing one J
                  [128, 8, 4096] and [16, 8, 65536], ragged chunks of 1,
                  15, 96 and 4097 bytes, a pointer one byte off, the shard
                  streams read in place, pads of 0, one stripe and most of
-                 the compress capacity, one 8 MiB + 3 byte stream) and the
-                 bit-plane stage (low-entropy, random and all-zero bytes,
-                 an N that is not a multiple of 64); CUDA launches per
-                 call; kernel / plain / bound times and, for the
-                 histogram, torch.bincount.
+                 the compress capacity, one 8 MiB + 3 byte stream; xxh32
+                 also at 3 and 33 rows, not multiples of a warp's 8) and
+                 the bit-plane stage (low-entropy, random, all-zero and
+                 all-one bytes, an N that is not a multiple of 64, 16 MiB
+                 past the grid the card holds at once: its tiles loaded
+                 twice are counted); CUDA launches per call (one each),
+                 and no memset before a bit-plane call; kernel / plain /
+                 bound times and, for the histogram, torch.bincount.
   8. write_path  the slice's path on RS k=8, m=3: ec_util.encode_fused in
                  store mode on one 4 MiB object at stripe_unit 4096
                  ([128, 8, 4096]; shards equal ec_util.encode, shard crcs
@@ -76,8 +79,9 @@ paths against its plain PyTorch version on the card. Phases, each printing one J
                  objects of 4 MiB, one in four compressed), fused against
                  separate at [16, 8, 65536] (medians of interleaved
                  windows), device_crc32 against zlib; launches per fused
-                 write (by kernel and in all), counted from 0 just before
-                 the phase.
+                 write (by kernel and in all: 5 a store write, 6 a
+                 compress write) and the queued device time of each,
+                 counted from 0 just before the phase.
   9. kernels     one JSON line per the port's kernel table: the design
                  the main path takes, launches on the main path (phases
                  3-4 for the GF bitmatrix kernel, phase 6 for the packet
@@ -764,7 +768,7 @@ def main() -> int:
         return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
     consts = ft.dev_consts(dev)
-    CUDA_PER_CALL = {"crc32_rows": 1, "xxh32_rows": 1, "bitplane_stage": 3}
+    CUDA_PER_CALL = {"crc32_rows": 1, "xxh32_rows": 1, "bitplane_stage": 1}
     wk_worst = dict.fromkeys(wk.LAUNCHES, 0)
     wk_timed = {}
 
@@ -833,6 +837,12 @@ def main() -> int:
         write_case("xxh32_rows", "chunk_xxh32_%dx%dx%d" % (s_, K, c_), fn,
                    plain, sets, xxh32_bound(sets[0].view(-1, c_)),
                    rows=s_ * K, length=c_)
+        for rows in (3, 33):             # a warp's 8 rows, not filled
+            part = sets[1].view(-1, c_)[:rows]
+            write_case("xxh32_rows", "chunk_xxh32_%dx%d" % (rows, c_),
+                       lambda _: wk.xxh32_rows(part),
+                       lambda _: wk.xxh32_rows_plain(part), rows=rows,
+                       length=c_)
     # the store mode's shard streams of [128, 11, 4096], read in place
     shard_sets = [rand_dev(WSTRIPES, K + M, WCHUNK) for _ in range(12)]
     write_case("crc32_rows", "shard_crc32_128x11x4096",
@@ -876,6 +886,11 @@ def main() -> int:
                    lambda _: wk.xxh32_rows(batch.view(64 * K, chunk)),
                    lambda _: wk.xxh32_rows_plain(batch.view(64 * K, chunk)),
                    rows=64 * K, length=chunk)
+        write_case("xxh32_rows", "chunk_xxh32_ragged_%d_33_rows" % chunk,
+                   lambda _: wk.xxh32_rows(batch.view(64 * K, chunk)[:33]),
+                   lambda _: wk.xxh32_rows_plain(
+                       batch.view(64 * K, chunk)[:33]), rows=33,
+                   length=chunk)
     odd = off_by_one(64 * K, WCHUNK)
     write_case("xxh32_rows", "chunk_xxh32_offset1", lambda _: wk.xxh32_rows(
         odd), lambda _: wk.xxh32_rows_plain(odd), rows=64 * K, length=WCHUNK)
@@ -921,12 +936,45 @@ def main() -> int:
                          lib if timed else None, n=n, cap2=cap2)
         check(bool(out[1][1]) == (kind != "random"),
               "bitplane %s decision" % kind)
+    ones = torch.full_like(obj_sets[0], 255)
+    cap2, fn, plain, _ = bitplane_fn(ones.numel(), K * WCHUNK, WCHUNK)
+    out = write_case("bitplane_stage", "bitplane_ones_%d" % ones.numel(),
+                     lambda _: fn(ones), lambda _: plain(ones),
+                     n=ones.numel(), cap2=cap2)
+    check(bool(out[1][1]), "bitplane ones decision")
     ragged = rand_dev(4 * K * 4097)          # N not a multiple of 64
     cap2, fn, plain, _ = bitplane_fn(ragged.numel(), K * 4097, 4097)
     write_case("bitplane_stage", "bitplane_ragged_%d" % ragged.numel(),
                lambda _: fn(ragged), lambda _: plain(ragged),
                n=ragged.numel(), cap2=cap2)
-    del ragged, bench_sets, low_bench
+    # 16 MiB: more 64-byte blocks than the resident grid has threads, so
+    # the tiles past it are loaded and transposed again after the barrier
+    big = on_dev(rng.integers(0, 4, 16 << 20, dtype=np.uint8))
+    cap2, fn, plain, _ = bitplane_fn(big.numel(), K * WCHUNK, WCHUNK)
+    recomputed0 = wk.bitplane_recomputed_tiles()
+    out = write_case("bitplane_stage", "bitplane_low_%d" % big.numel(),
+                     lambda _: fn(big), lambda _: plain(big),
+                     n=big.numel(), cap2=cap2)
+    big_recomputed = wk.bitplane_recomputed_tiles() - recomputed0
+    check(bool(out[1][1]) and big_recomputed > 0,
+          "16 MiB compresses, with tiles past the resident grid")
+    # no memset before a bit-plane call: the scratch the kernel leaves
+    # zeroed is reused, so the wrapper clears nothing
+    clears = []
+    saved = torch.zeros, torch.zeros_like, torch.Tensor.zero_
+    torch.zeros = lambda *a, **k: clears.append("zeros") or saved[0](*a, **k)
+    torch.zeros_like = lambda *a, **k: clears.append("zeros_like") or \
+        saved[1](*a, **k)
+    torch.Tensor.zero_ = lambda t: clears.append("zero_") or saved[2](t)
+    try:
+        fn(big)
+    finally:
+        torch.zeros, torch.zeros_like, torch.Tensor.zero_ = saved
+    torch.cuda.synchronize()
+    emit("write_kernels", case="bitplane_no_memset", clears=clears,
+         recomputed_tiles_16MiB=big_recomputed)
+    check(not clears, "a bit-plane call clears no buffer")
+    del ragged, bench_sets, low_bench, big, ones
     wk_by_kernel = wk.launches_by_kernel()
     emit("write_kernels", worst=wk_worst, launches_by_kernel=wk_by_kernel)
 
@@ -1028,6 +1076,8 @@ def main() -> int:
     per_cwrite = {k_: v - counts0[0][k_]
                   for k_, v in wk.launches_by_kernel().items()}
     per_cwrite["gf_bitmatrix"] = gf_kernel.LAUNCHES - counts0[1]
+    check(sum(per_cwrite.values()) == 6, "a compress write is 6 launches: "
+          "K1 three times, K2, K3 and the GF encode once each")
     twin, padded = ft.bitplane_compress_host(low.tobytes())
     stored = cr.stored.reshape(-1)
     check(cr.compressed and stored[:cr.comp_len].tobytes() == twin and
@@ -1050,6 +1100,8 @@ def main() -> int:
           "random bytes: the probe rejects and the raw bytes are stored")
     emit("write_path", case="compress", bench_shape=[BSTRIPES, K, BCHUNK],
          launches_per_write=per_cwrite,
+         launches_per_write_total=sum(per_cwrite.values()),
+         device_queued_ms_4MiB=compress_queued_ms,
          bench={"comp_len": cr.comp_len, "used_stripes": cr.used_stripes,
                 "entropy_bpb": cr.entropy_bpb},
          obj_4MiB={"compressed": cr4.compressed, "comp_len": cr4.comp_len,
@@ -1218,8 +1270,7 @@ def main() -> int:
 
     CUDA_KERNELS = {"crc32_rows": ("crc_rows",),
                     "xxh32_rows": ("xxh32",),
-                    "bitplane_stage": ("bp_count", "bp_decide",
-                                       "bp_scatter")}
+                    "bitplane_stage": ("bitplane",)}
 
     def write_line(name, kernel, replaces, main, extra):
         """A write-transform kernel's line: launches on the write path,

@@ -445,8 +445,13 @@ def test_shard_crcs_with_pad_match_plain_on_card(cuda, shape, pad_stripes):
 @pytest.mark.gpu
 @pytest.mark.parametrize("rows,length,offset", [
     (3, 0, 0), (3, 1, 0), (5, 15, 0), (4, 16, 0), (33, 96, 0), (3, 4097, 0),
-    (1024, 4096, 0), (128, 65536, 0), (40, 4096, 1), (2, 300, 0)])
+    (1024, 4096, 0), (128, 65536, 0), (40, 4096, 1), (2, 300, 0),
+    (3, 4096, 0), (33, 4096, 0), (3, 65536, 0), (33, 65536, 0),
+    (33, 4097, 0), (3, 4112, 1), (9, 1040, 0)])
 def test_xxh32_rows_match_plain_on_card(cuda, rows, length, offset):
+    """Rows on the TMA ring (aligned, a multiple of 16 bytes: whole 1 KiB
+    tiles and a partial last one) and on direct loads, at row counts that
+    fill a warp's 8 rows and that do not."""
     data = rand_card(cuda, (rows, length), rows * 7 + length, offset)
     got, n = launched(lambda: write_kernels.xxh32_rows(data))
     assert n["xxh32_rows"] == 1
@@ -462,14 +467,19 @@ def test_xxh32_rows_match_plain_on_card(cuda, rows, length, offset):
     ("low", 8 * 4 * 4096, 0), ("random", 8 * 4 * 4096, 0),
     ("zeros", 8 * 4 * 4096, 0), ("low", 3 * 4097, 0),
     ("low", 8 * 4 * 4096, 1), ("ones", 64 * 1000, 0),
-    ("low", 128 * 8 * 4096, 0)])
+    ("low", 128 * 8 * 4096, 0), ("ones", 128 * 8 * 4096, 0),
+    ("random", 128 * 8 * 4096, 0), ("low", 16 << 20, 0),
+    ("random", 16 << 20, 0), ("low", 8 * 4096 + 64 * 3, 0)])
 def test_bitplane_stage_matches_plain_on_card(cuda, kind, n, offset):
+    """One cooperative launch: low-entropy, random, all-zero and all-one
+    bytes; an unaligned pointer; 16 MiB, past the grid the card holds at
+    once (tiles loaded twice); a container whose planes start off 8
+    bytes (N not a multiple of 256)."""
     high = {"low": 4, "random": 256, "zeros": 1, "ones": 1}[kind]
     flat = rand_card(cuda, (n,), n + high, offset, high)
     if kind == "ones":
         flat = (flat + 255).contiguous()
-    sw = 8 * 4096 if n % (8 * 4096) == 0 else 3 * 4097
-    chunk = sw // (8 if sw == 8 * 4096 else 3)
+    sw, chunk = (8 * 4096, 4096) if n % (8 * 4096) == 0 else (3 * 4097, 4097)
     cap2 = ft.plan_capacity(n, sw)
     (stored, dec), count = launched(lambda: write_kernels.bitplane_stage(
         flat, cap2, sw, chunk, 875, 7000))
@@ -484,6 +494,37 @@ def test_bitplane_stage_matches_plain_on_card(cuda, kind, n, offset):
     if got["do_compress"]:
         twin, _ = ft.bitplane_compress_host(flat.cpu().numpy().tobytes())
         assert stored[:len(twin)].cpu().numpy().tobytes() == twin
+
+
+@pytest.mark.gpu
+def test_bitplane_stage_is_one_launch_without_memset_on_card(cuda,
+                                                             monkeypatch):
+    """A K3 call is one CUDA launch and clears no buffer: the scratch the
+    kernel leaves zeroed is reused by the next call on the stream, which
+    then gets the same result."""
+    n = 128 * 8 * 4096
+    flat = rand_card(cuda, (n,), 11, high=4)
+    cap2 = ft.plan_capacity(n, 8 * 4096)
+    args = (cap2, 8 * 4096, 4096, 875, 7000)
+    first = write_kernels.bitplane_stage(flat, *args)
+    torch.cuda.synchronize()
+    clears = []
+    for name in ("zeros", "zeros_like", "full"):
+        real = getattr(torch, name)
+        monkeypatch.setattr(torch, name, lambda *a, real=real, name=name,
+                            **k: clears.append(name) or real(*a, **k))
+    real_zero = torch.Tensor.zero_
+    monkeypatch.setattr(torch.Tensor, "zero_",
+                        lambda t: clears.append("zero_") or real_zero(t))
+    before = write_kernels.launches_by_kernel()
+    again = write_kernels.bitplane_stage(flat, *args)
+    torch.cuda.synchronize()
+    after = write_kernels.launches_by_kernel()
+    monkeypatch.undo()
+    assert clears == []
+    assert {k: after[k] - before[k] for k in after} == {
+        "crc_rows": 0, "xxh32": 0, "bitplane": 1}
+    assert torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])
 
 
 @pytest.mark.gpu
