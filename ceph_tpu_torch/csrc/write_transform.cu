@@ -109,6 +109,7 @@ constexpr int kXxhRows = 8;       // K2 rows of a warp: 4 lanes a row
 constexpr int kXxhTile = 1024;    // bytes of a row per K2 stage
 constexpr int kXxhPitch = kXxhTile + 16;  // row r's words start on bank 4r
 constexpr int kXxhStages = 8;     // tiles in flight ahead of the chain
+constexpr int kXxhThreads = 96;   // K2 warps: chain, copies, products
 constexpr size_t kXxhSmem = (size_t)kXxhStages * kXxhRows * kXxhPitch;
 
 enum Launch {
@@ -427,20 +428,20 @@ __device__ __forceinline__ void xxh_combine(uint32_t acc, int j, bool live,
 }
 
 // Aligned rows (len a multiple of 16, at least 16; 16-byte aligned
-// base): 8 rows a block of two warps. Warp 1 stages tiles of kXxhTile
-// bytes of the 8 rows into a ring of kXxhStages stages with TMA bulk
-// copies, one per row tile from lane r, each stage's `full` mbarrier
-// counting its bytes in; it then multiplies the tile's words by P2 in
-// place and hands the stage to warp 0 through its `ready` mbarrier. Warp
-// 0 computes, lane 4r + j running accumulator j of row r on the products
-// (so each round's chain is a rotate and one multiply-add: the multiply
-// by P1 and the next product's add fuse), and frees the stage through its
-// `empty` mbarrier. The lanes of a stripe read 32 banks (row pitch
-// kXxhPitch). CLOCKS (timing only, no caller of the write path): warp 1's
+// base): 8 rows a block of three warps around a ring of kXxhStages stages
+// of kXxhTile bytes a row. Warp 1 copies: one TMA bulk copy per row tile
+// from lane r, the stage's `full` mbarrier counting its bytes in. Warp 2
+// multiplies the landed tile's words by P2 in place and hands the stage
+// on through its `ready` mbarrier. Warp 0 computes, lane 4r + j running
+// accumulator j of row r on the products, so that each round's chain is
+// a rotate and one multiply-add (the multiply by P1 and the next
+// product's add fuse); it frees the stage through its `empty` mbarrier
+// for warp 1's next copy. The lanes of a stripe read 32 banks (row pitch
+// kXxhPitch). CLOCKS (timing only, no caller of the write path): warp 2's
 // lane 0 records its time, warp 0's lane 0 the cycles waiting for a stage
 // and running the chain and its total, into clocks[4 * block ...].
 template <bool CLOCKS>
-__global__ void __launch_bounds__(64)
+__global__ void __launch_bounds__(kXxhThreads)
 xxh32_tma_kernel(const uint8_t* __restrict__ src, long long nrows,
                  long long len, uint32_t* __restrict__ out,
                  long long* __restrict__ clocks) {
@@ -449,7 +450,7 @@ xxh32_tma_kernel(const uint8_t* __restrict__ src, long long nrows,
   auto ring = reinterpret_cast<uint8_t(*)[kXxhRows][kXxhPitch]>(xring);
   __shared__ __align__(8) uint64_t full[kXxhStages], ready[kXxhStages],
       empty[kXxhStages];
-  const int lane = threadIdx.x & 31, r = lane >> 2, j = lane & 3;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long r0 = (long long)blockIdx.x * kXxhRows;
   const int rows = (int)(nrows - r0 < kXxhRows ? nrows - r0 : kXxhRows);
   const long long tiles = (len + kXxhTile - 1) / kXxhTile;
@@ -468,20 +469,24 @@ xxh32_tma_kernel(const uint8_t* __restrict__ src, long long nrows,
     const long long rest = len - t * kXxhTile;
     return (unsigned)(rest < kXxhTile ? rest : kXxhTile);
   };
-  if (threadIdx.x >= 32) {  // warp 1: copies and products
-    auto issue = [&](long long t) {
+  if (warp == 1) {  // the copies
+    for (long long t = 0; t < tiles; ++t) {
       const int s = (int)(t % kXxhStages);
+      if (t >= kXxhStages)  // warp 0 is done with the stage's last tile
+        mbar_wait(&empty[s], (unsigned)((t / kXxhStages + 1) & 1));
       const unsigned tb = tile_bytes(t);
-      // this warp's and warp 0's accesses of the stage before the copies'
-      // writes
+      // the other warps' accesses of the stage before the copies' writes
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       __syncwarp();
       if (lane == 0) mbar_expect(&full[s], tb * (unsigned)rows);
+      __syncwarp();
       if (lane < rows)
         bulk_load(ring[s][lane], src + (r0 + lane) * len + t * kXxhTile, tb,
                   &full[s]);
-    };
-    for (long long t = 0; t < kXxhStages && t < tiles; ++t) issue(t);
+    }
+    return;
+  }
+  if (warp == 2) {  // the products
     for (long long t = 0; t < tiles; ++t) {
       const int s = (int)(t % kXxhStages);
       mbar_wait(&full[s], (unsigned)((t / kXxhStages) & 1));
@@ -515,18 +520,12 @@ xxh32_tma_kernel(const uint8_t* __restrict__ src, long long nrows,
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(&ready[s]);
-      // refill the stage of the tile before, once warp 0 is done with it
-      const long long back = t - 1 + kXxhStages;
-      if (t >= 1 && back < tiles) {
-        mbar_wait(&empty[(t - 1) % kXxhStages],
-                  (unsigned)(((t - 1) / kXxhStages) & 1));
-        issue(back);
-      }
     }
     if constexpr (CLOCKS)
       if (lane == 0) clocks[4 * blockIdx.x] = clock64() - c_start;
     return;
   }
+  const int r = lane >> 2, j = lane & 3;
   long long c_wait = 0, c_chain = 0, c0 = 0;
   uint32_t acc = xxh_seed(j);
   for (long long t = 0; t < tiles; ++t) {
@@ -701,7 +700,8 @@ __device__ __forceinline__ uint64_t block_word(const uint64_t planes[8],
                                                int i) {
   uint64_t y = 0;
 #pragma unroll
-  for (int p = 0; p < 8; ++p) y |= ((planes[p] >> (8 * i)) & 0xffull) << (8 * p);
+  for (int p = 0; p < 8; ++p)
+    y |= ((planes[p] >> (8 * i)) & 0xffull) << (8 * p);
   return transpose8(y);
 }
 
@@ -769,19 +769,16 @@ __device__ void grid_barrier(unsigned* arrive, unsigned blocks) {
 }
 
 // Block tid of tile t (thread tid's 64-byte block): its planes, and its
-// flags | consts << 8 (0 past the input); HIST counts its bytes into the
-// block's histogram copies.
-template <bool HIST>
-__device__ __forceinline__ uint32_t tile_planes(const uint8_t* __restrict__ flat,
-                                                long long n, long long nb,
-                                                long long t, bool aligned,
-                                                uint32_t* bins,
-                                                uint64_t planes[8]) {
+// flags | consts << 8 (0 past the input); with `count`, its bytes counted
+// into the block's histogram copies.
+__device__ __forceinline__ uint32_t tile_planes(
+    const uint8_t* __restrict__ flat, long long n, long long nb, long long t,
+    bool aligned, bool count, uint32_t* bins, uint64_t planes[8]) {
   const long long b = t * kBpThreads + threadIdx.x;
   if (b >= nb) return 0;
   uint64_t g[8];
   load_block(flat, n, b, aligned, g);
-  if constexpr (HIST) count_block(bins, g, n - b * kBlock, threadIdx.x & 31);
+  if (count) count_block(bins, g, n - b * kBlock, threadIdx.x & 31);
   uint32_t f, c;
   block_planes(g, planes, &f, &c);
   return f | (c << 8);
@@ -824,7 +821,8 @@ __device__ __forceinline__ void write_tile(bool compress, long long t,
     uint64_t* st8 = reinterpret_cast<uint64_t*>(sh);
     const int swz = ((tid >> 1) & 3) << 1;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) st8[tid * 8 + (i ^ swz)] = block_word(planes, i);
+    for (int i = 0; i < 8; ++i)
+      st8[tid * 8 + (i ^ swz)] = block_word(planes, i);
     const uint4* st4 = reinterpret_cast<const uint4*>(sh);
     __syncthreads();
     const long long blocks = nb - b0 < kBpThreads ? nb - b0 : kBpThreads;
@@ -848,9 +846,10 @@ __device__ __forceinline__ void mark_clock(long long* clocks, int i,
 // tiles x, x + G, ... of kBpThreads 64-byte blocks (G the grid), one
 // 64-byte block a thread.
 //  Before the barrier: each thread loads its block once, counts its bytes
-//  (HIST; timing only without), transposes it into its 8 planes and keeps
-//  those of its first tile in registers; each block adds its histogram to
-//  the scratch's and stores each tile's count of stored planes.
+//  (`count`; timing only without), transposes it into its 8 planes and
+//  parks those of its first tile in shared memory; each block adds its
+//  histogram to the scratch's and stores each tile's count of stored
+//  planes.
 //  After the one barrier: every block reads the 256 bins and the tile
 //  counts, computes the entropy in a fixed pairwise order,
 //  comp_len, the probe, the ratio test in int64 and the decision, and its
@@ -865,10 +864,11 @@ __device__ __forceinline__ void mark_clock(long long* clocks, int i,
 // CLOCKS (timing only): block 0's thread 0 writes the cycles from its
 // start to the end of its counting, the barrier, the decision, its tiles'
 // writes and its end into clocks[0..4].
-template <bool HIST, bool CLOCKS>
+template <bool CLOCKS>
 __global__ void __launch_bounds__(kBpThreads, kBpMinBlocks)
 bitplane_kernel(const uint8_t* __restrict__ flat, long long n, long long nb,
-                long long tiles, bool aligned, long long cap2, long long sw,
+                long long tiles, bool aligned, bool count, long long cap2,
+                long long sw,
                 long long chunk, int required_milli, int entropy_max_milli,
                 uint32_t* __restrict__ scratch, long long* __restrict__ dec,
                 uint8_t* __restrict__ stored, long long* __restrict__ clocks) {
@@ -887,14 +887,14 @@ bitplane_kernel(const uint8_t* __restrict__ flat, long long n, long long nb,
   uint32_t* tile_count = scratch + kBpTileCounts;
   const long long c_start = CLOCKS ? clock64() : 0;
 
-  if constexpr (HIST) {
+  if (count) {
     for (int i = tid; i < kBinCopies * 256; i += kBpThreads) sh[i] = 0;
     __syncthreads();
   }
   // the first tile's planes wait in shared memory; the others are counted
   uint64_t planes[8];
-  uint32_t fc = tile_planes<HIST>(flat, n, nb, blockIdx.x, aligned, sh,
-                                  planes);
+  uint32_t fc =
+      tile_planes(flat, n, nb, blockIdx.x, aligned, count, sh, planes);
 #pragma unroll
   for (int p = 0; p < 8; ++p) parked[p * kBpThreads + tid] = planes[p];
   uint32_t tile_total;
@@ -902,11 +902,11 @@ bitplane_kernel(const uint8_t* __restrict__ flat, long long n, long long nb,
   if (tid == 0) tile_count[blockIdx.x] = tile_total;
   for (long long t = blockIdx.x + grid; t < tiles; t += grid) {
     uint64_t other[8];
-    const uint32_t f = tile_planes<HIST>(flat, n, nb, t, aligned, sh, other);
+    const uint32_t f = tile_planes(flat, n, nb, t, aligned, count, sh, other);
     const unsigned long long total = block_sum(__popc(f & 0xffu));
     if (tid == 0) tile_count[t] = (uint32_t)total;
   }
-  if constexpr (HIST) {
+  if (count) {
     __syncthreads();
     const int lane = tid & 31;
     uint32_t sum = 0;
@@ -966,7 +966,7 @@ bitplane_kernel(const uint8_t* __restrict__ flat, long long n, long long nb,
     for (long long i = prev + tid; i < t; i += kBpThreads)
       mid += __ldcg(tile_count + i);
     first += block_sum(mid);
-    fc = tile_planes<false>(flat, n, nb, t, aligned, sh, planes);
+    fc = tile_planes(flat, n, nb, t, aligned, false, sh, planes);
     rank = block_scan(__popc(fc & 0xffu), &tile_total);
     write_tile(compress, t, nb, first, planes, fc, rank, tile_total, sh,
                stored);
@@ -1115,7 +1115,8 @@ cudaError_t raise_xxh_smem(Kernel kernel) {
   int dev = 0, per_sm = 0;
   const cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  return launch_common::resident_blocks(kernel, 64, dev, kXxhSmem, &per_sm);
+  return launch_common::resident_blocks(kernel, kXxhThreads, dev, kXxhSmem,
+                                        &per_sm);
 }
 
 // K2. rows [nrows, len] contiguous uint8 -> out [nrows] uint32. One
@@ -1133,8 +1134,8 @@ extern "C" int wt_xxh32_rows(const void* src, long long nrows, long long len,
       reinterpret_cast<uintptr_t>(in) % 16 == 0) {
     const cudaError_t err = raise_xxh_smem(xxh32_tma_kernel<false>);
     if (err != cudaSuccess) return (int)err;
-    xxh32_tma_kernel<false><<<blocks, 64, kXxhSmem, s>>>(in, nrows, len, o,
-                                                         nullptr);
+    xxh32_tma_kernel<false><<<blocks, kXxhThreads, kXxhSmem, s>>>(
+        in, nrows, len, o, nullptr);
   } else {
     xxh32_direct_kernel<<<blocks, 32, 0, s>>>(in, nrows, len, o);
   }
@@ -1148,18 +1149,19 @@ extern "C" long long wt_bitplane_scratch_words(long long n) {
   return kBpTileCounts + (nb + kBpThreads - 1) / kBpThreads;
 }
 
-// Launches bitplane_kernel<HIST, CLOCKS> cooperatively on the
+// Launches bitplane_kernel<CLOCKS> cooperatively on the
 // blocks the card holds at once, at most one per tile; *grid gets the
 // blocks. A card that cannot hold a block gets
 // cudaErrorCooperativeLaunchTooLarge, and so does a grid the launch
 // cannot make resident: neither waits.
-template <bool HIST, bool CLOCKS>
-cudaError_t launch_bitplane(const uint8_t* in, long long n, long long cap2,
+template <bool CLOCKS>
+cudaError_t launch_bitplane(const uint8_t* in, long long n, bool count,
+                            long long cap2,
                             long long sw, long long chunk, int required_milli,
                             int entropy_max_milli, uint32_t* scr,
                             long long* d, uint8_t* st, long long* clk,
                             cudaStream_t s, long long* grid) {
-  auto kernel = bitplane_kernel<HIST, CLOCKS>;
+  auto kernel = bitplane_kernel<CLOCKS>;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -1174,9 +1176,9 @@ cudaError_t launch_bitplane(const uint8_t* in, long long n, long long cap2,
   const long long resident = (long long)sms * per_sm;
   *grid = tiles < resident ? tiles : resident;
   bool aligned = reinterpret_cast<uintptr_t>(in) % 16 == 0;
-  void* args[] = {&in,  &n,  &nb, &tiles, &aligned, &cap2,
-                  &sw,  &chunk, &required_milli, &entropy_max_milli,
-                  &scr, &d,  &st, &clk};
+  void* args[] = {&in,    &n,     &nb,  &tiles,          &aligned,
+                  &count, &cap2,  &sw,  &chunk,          &required_milli,
+                  &entropy_max_milli, &scr, &d, &st, &clk};
   return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
                                      dim3((unsigned)*grid), dim3(kBpThreads),
                                      args, kBpSmem, s);
@@ -1196,8 +1198,9 @@ extern "C" int wt_bitplane(const void* flat, long long n, long long cap2,
       cap2 < 66 * nb || reinterpret_cast<uintptr_t>(stored) % 16)
     return -1;
   long long grid = 0;
-  const cudaError_t err = launch_bitplane<true, false>(
-      static_cast<const uint8_t*>(flat), n, cap2, sw, chunk, required_milli,
+  const cudaError_t err = launch_bitplane<false>(
+      static_cast<const uint8_t*>(flat), n, true, cap2, sw, chunk,
+      required_milli,
       entropy_max_milli, static_cast<uint32_t*>(scratch),
       static_cast<long long*>(dec), static_cast<uint8_t*>(stored), nullptr,
       static_cast<cudaStream_t>(stream), &grid);
@@ -1214,7 +1217,7 @@ extern "C" long long wt_bitplane_recomputed_tiles() {
 }
 
 // Timing only (no caller of the write path). K2's TMA kernel with its
-// clock readings: clocks [ceil(nrows / 8), 4] int64 of (the copying
+// clock readings: clocks [ceil(nrows / 8), 4] int64 of (the product
 // warp's time, the computing warp's waits for a stage, its chain, its
 // total) in cycles per block; rows as the TMA path takes them.
 extern "C" int wt_timing_xxh32_clocks(const void* src, long long nrows,
@@ -1226,7 +1229,7 @@ extern "C" int wt_timing_xxh32_clocks(const void* src, long long nrows,
   const cudaError_t err = raise_xxh_smem(xxh32_tma_kernel<true>);
   if (err != cudaSuccess) return (int)err;
   xxh32_tma_kernel<true>
-      <<<(unsigned)((nrows + kXxhRows - 1) / kXxhRows), 64, kXxhSmem,
+      <<<(unsigned)((nrows + kXxhRows - 1) / kXxhRows), kXxhThreads, kXxhSmem,
          static_cast<cudaStream_t>(stream)>>>(
           static_cast<const uint8_t*>(src), nrows, len,
           static_cast<uint32_t*>(out), static_cast<long long*>(clocks));
@@ -1267,13 +1270,13 @@ extern "C" int wt_timing_bitplane(int variant, const void* flat, long long n,
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (variant == 0)
-    err = launch_bitplane<true, false>(
-        in, n, cap2, sw, chunk, 875, 7000, scr, d, st, nullptr, s, grid);
+    err = launch_bitplane<false>(in, n, true, cap2, sw, chunk, 875, 7000,
+                                 scr, d, st, nullptr, s, grid);
   else if (variant == 1)
-    err = launch_bitplane<false, false>(
-        in, n, cap2, sw, chunk, 875, 7000, scr, d, st, nullptr, s, grid);
+    err = launch_bitplane<false>(in, n, false, cap2, sw, chunk, 875, 7000,
+                                 scr, d, st, nullptr, s, grid);
   else
-    err = launch_bitplane<true, true>(
-        in, n, cap2, sw, chunk, 875, 7000, scr, d, st, clk, s, grid);
+    err = launch_bitplane<true>(in, n, true, cap2, sw, chunk, 875, 7000,
+                                scr, d, st, clk, s, grid);
   return (int)err;
 }
