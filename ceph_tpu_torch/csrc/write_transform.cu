@@ -22,12 +22,12 @@
 //  byte written once (K1 of the 11 shard streams of a 4 MiB object moves
 //  5.8 MB: 1.7 us; K3 reads N and writes cap2 ~ 1.03 N: 2.5 us at 4 MiB).
 //  K2 is bound by the larger of its bytes and its chain: a row's xxh32 is
-//  chunk/16 dependent rounds, each a multiply-add, a rotate and a multiply
-//  on one of 4 independent lanes. One lane's chain measures 10.4 cycles a
-//  round on an H100 (xxh_chain_kernel; utils/cuda_timing.py counts 10). At
-//  the highest SM clock, 1.98 GHz, a 4096-byte chunk is 256 rounds, 1.29
-//  us, and a 65536-byte chunk 4096 rounds, 20.7 us, however many rows run
-//  beside it.
+//  chunk/16 dependent rounds on each of 4 independent lanes, each round a
+//  rotate and one multiply-add once the word's product with P2 is made
+//  off the chain. That chain measures 10.25 cycles a round on an H100
+//  (xxh_chain_kernel). At the highest SM clock, 1.98 GHz, a 4096-byte
+//  chunk is 256 rounds, 1.33 us, and a 65536-byte chunk 4096 rounds, 21.2
+//  us, however many rows run beside it.
 //
 // Design:
 //  * K1 is one launch. A row is cut into 64-byte units (128-byte units
@@ -56,12 +56,13 @@
 //  * K2 puts a row's four accumulators on four lanes (lane 4r + j runs
 //    accumulator j of row r), so a warp holds 8 rows and a lane's chain
 //    is its own; the four lanes combine with shuffles at the end. A block
-//    is one warp, so the rows of a write spread over the SMs ([128, 65536]
-//    is 16 warps). Aligned rows stream through a ring of 4 stages of 1 KiB
-//    a row: lane 0 issues one TMA bulk copy per row tile, and each stage's
-//    mbarrier reports when its bytes are in, so 3 tiles are in flight
-//    ahead of the chain and no lane computes a copy's address; a 4096-byte
-//    row is in flight whole. Other rows load their words directly.
+//    takes 8 rows, so the rows of a write spread over the SMs ([128,
+//    65536] is 16 blocks). Aligned rows stream through a ring of 8 stages
+//    of 1 KiB a row in shared memory, three warps around it: one issues a
+//    TMA bulk copy per row tile, whose stage's mbarrier counts its bytes
+//    in; one multiplies the landed words by P2 in place; one runs the
+//    chain on the products, a rotate and a fused multiply-add a round.
+//    Other rows load their words directly.
 //  * K3 is one cooperative launch on the blocks the card holds at once.
 //    Each thread loads its 64-byte block once, counts its bytes into
 //    per-lane copies of the histogram (no two lanes of a warp on one
@@ -101,6 +102,9 @@ constexpr int kBinCopies = 32;    // K3 histogram copies, one per lane
 constexpr int kBpBinBytes = kBinCopies * 256 * 4;
 constexpr int kBpParkBytes = kBpThreads * 64;  // a tile's planes
 constexpr size_t kBpSmem = kBpBinBytes + kBpParkBytes + 256 * 4;
+// resident_blocks opts a kernel in only past 48 KiB of dynamic shared
+// memory, and K2's and K3's static parts need the opt-in too
+static_assert(kBpSmem > launch_common::kDefaultSmem, "K3 opts in");
 constexpr int kBpHist = 0;        // K3 scratch words: the histogram,
 constexpr int kBpArrive = 256;    // the barrier's arrivals,
 constexpr int kBpDepart = 257;    // the blocks done,
@@ -111,6 +115,7 @@ constexpr int kXxhPitch = kXxhTile + 16;  // row r's words start on bank 4r
 constexpr int kXxhStages = 8;     // tiles in flight ahead of the chain
 constexpr int kXxhThreads = 96;   // K2 warps: chain, copies, products
 constexpr size_t kXxhSmem = (size_t)kXxhStages * kXxhRows * kXxhPitch;
+static_assert(kXxhSmem > launch_common::kDefaultSmem, "K2 opts in");
 
 enum Launch {
   kCrcRows = 0,

@@ -13,9 +13,12 @@ import torch
 # H100 SXM published peaks (NVIDIA data sheet), used for the bounds
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
-# an xxh32 round's dependent chain (IMAD 4 + funnel-shift rotate 4 + IMUL
-# 4 cycles of latency) at the H100 SXM's highest SM clock, 1.98 GHz
-XXH_ROUND_CYCLES = 12
+# an xxh32 round's dependent chain on one lane: a funnel-shift rotate and
+# one multiply-add (the multiply by P1 fused with the next product's add),
+# 10.25 cycles a round on an H100 as measured by csrc/write_transform.cu's
+# xxh_chain_kernel (tools/gf_kernel_sweep.py --kernel xxh32 --split), at
+# the H100 SXM's highest SM clock, 1.98 GHz
+XXH_ROUND_CYCLES = 10.25
 SM_CLOCK_HZ = 1.98e9
 
 

@@ -21,7 +21,10 @@ def profile(k: int, m: int) -> dict:
 
 
 def make_batch(shape, kind: str, seed: int = 0) -> np.ndarray:
-    """Low-entropy bytes (values 0..3, the bench's own data) or random."""
+    """Low-entropy bytes (values 0..3, the bench's own data), random
+    bytes, or all zeros or all ones."""
+    if kind in ("zeros", "ones"):
+        return np.full(shape, 0 if kind == "zeros" else 255, np.uint8)
     rng = np.random.default_rng(seed)
     high = 4 if kind == "low" else 256
     return rng.integers(0, high, size=shape, dtype=np.uint8)
@@ -44,3 +47,26 @@ def reference(m: int, shape: tuple, kind: str, mode: str,
     codec = jax_codec(shape[1], m)
     return jax.device_get(jft.run_fused(codec, make_batch(shape, kind, seed),
                                         mode=mode))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_xxh32(length: int, rows: int, seed: int = 0):
+    """(random rows [rows, length] uint8, the JAX package's _xxh32_dev of
+    them as uint32); read-only."""
+    data = make_batch((rows, length), "random", seed)
+    return data, np.asarray(jax.jit(jft._xxh32_dev)(data)).astype(np.uint32)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_bitplane(n: int, kind: str, cap2: int, seed: int = 0):
+    """(n bytes of `kind`, the JAX package's _bitplane_dev container of
+    them zero-padded to whole 64-byte blocks: header ++ payload [cap2],
+    comp_len); read-only."""
+    data = make_batch((n,), kind, seed)
+    nb = -(-n // jft._BLOCK)
+    flat = np.zeros(nb * jft._BLOCK, np.uint8)
+    flat[:n] = data
+    header, payload, comp_len = jax.jit(
+        jft._bitplane_dev, static_argnums=1)(flat, cap2 - 2 * nb)
+    return data, np.concatenate([np.asarray(header), np.asarray(payload)]), \
+        int(comp_len)
