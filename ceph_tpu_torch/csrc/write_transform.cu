@@ -102,9 +102,6 @@ constexpr int kBinCopies = 32;    // K3 histogram copies, one per lane
 constexpr int kBpBinBytes = kBinCopies * 256 * 4;
 constexpr int kBpParkBytes = kBpThreads * 64;  // a tile's planes
 constexpr size_t kBpSmem = kBpBinBytes + kBpParkBytes + 256 * 4;
-// resident_blocks opts a kernel in only past 48 KiB of dynamic shared
-// memory, and K2's and K3's static parts need the opt-in too
-static_assert(kBpSmem > launch_common::kDefaultSmem, "K3 opts in");
 constexpr int kBpHist = 0;        // K3 scratch words: the histogram,
 constexpr int kBpArrive = 256;    // the barrier's arrivals,
 constexpr int kBpDepart = 257;    // the blocks done,
@@ -115,7 +112,6 @@ constexpr int kXxhPitch = kXxhTile + 16;  // row r's words start on bank 4r
 constexpr int kXxhStages = 8;     // tiles in flight ahead of the chain
 constexpr int kXxhThreads = 96;   // K2 warps: chain, copies, products
 constexpr size_t kXxhSmem = (size_t)kXxhStages * kXxhRows * kXxhPitch;
-static_assert(kXxhSmem > launch_common::kDefaultSmem, "K2 opts in");
 
 enum Launch {
   kCrcRows = 0,

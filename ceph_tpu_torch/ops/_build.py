@@ -92,8 +92,9 @@ def build(names=None) -> dict[str, float]:
 
 def ptxas_report(name: str) -> dict[str, dict]:
     """{mangled kernel name: {"registers", "spill_stores", "spill_loads",
-    "stack"}} from ptxas' report in ``build/<name>.log``, one entry per
-    kernel instantiation."""
+    "stack", "smem"}} from ptxas' report in ``build/<name>.log``, one
+    entry per kernel instantiation; "smem" is its static shared memory in
+    bytes."""
     report: dict[str, dict] = {}
     current = None
     for line in (BUILD / (name + ".log")).read_text().splitlines():
@@ -112,7 +113,18 @@ def ptxas_report(name: str) -> dict[str, dict]:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             current["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            current["smem"] = int(m.group(1)) if m else 0
     return report
+
+
+def launch_failure(lib) -> str:
+    """": <text>" of the library's last shared-memory refusal on this
+    thread (``launch_common_error``, naming the sizes), or ""."""
+    fn = lib.launch_common_error
+    fn.restype = ctypes.c_char_p
+    text = fn().decode()
+    return ": " + text if text else ""
 
 
 def load(name: str) -> ctypes.CDLL:

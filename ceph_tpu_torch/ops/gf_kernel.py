@@ -163,7 +163,8 @@ def matrix_encode(bitmat: torch.Tensor, data: torch.Tensor,
                                      data.data_ptr(), out.data_ptr(), batch,
                                      n, stream)
     if rc != 0:
-        raise RuntimeError("gf_bitmatrix_encode failed with code %d" % rc)
+        raise RuntimeError("gf_bitmatrix_encode failed with code %d%s"
+                           % (rc, _build.launch_failure(lib)))
     with _count_lock:
         LAUNCHES += 1
     return out

@@ -193,8 +193,9 @@ def bitmatrix_encode(bitmat: torch.Tensor, data: torch.Tensor, w: int,
             rc = lib.gf_packet_encode_design(DESIGNS.index(design), *args,
                                              stream)
     if rc != 0:
-        raise RuntimeError("gf_packet_encode (design %s) failed with code %d"
-                           % (design or "picked", rc))
+        raise RuntimeError("gf_packet_encode (design %s) failed with code %d%s"
+                           % (design or "picked", rc,
+                              _build.launch_failure(lib)))
     with _count_lock:
         LAUNCHES += 1
     return out

@@ -132,7 +132,8 @@ def _stream(device: torch.device) -> int:
 
 def _raise_rc(fn: str, rc: int) -> None:
     if rc != 0:
-        raise RuntimeError("%s failed with code %d" % (fn, rc))
+        raise RuntimeError("%s failed with code %d%s"
+                           % (fn, rc, _build.launch_failure(_lib)))
 
 
 def _require_device(t: torch.Tensor) -> None:

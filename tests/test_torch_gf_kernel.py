@@ -191,7 +191,7 @@ ptxas info    : Used 168 registers, used 1 barriers, 400 bytes cmem[0]
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119gf_bitmatrix_kernelILi32ELi16EEEvPKhiiS2_Phxxb' for 'sm_90a'
 ptxas info    : Function properties for _ZN12_GLOBAL__N_119gf_bitmatrix_kernelILi32ELi16EEEvPKhiiS2_Phxxb
     24 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
-ptxas info    : Used 255 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Used 255 registers, used 1 barriers, 1024 bytes smem, 400 bytes cmem[0]
 """
 
 
@@ -203,10 +203,10 @@ def test_ptxas_report_reads_registers_and_spills(tmp_path, monkeypatch):
         "_ZN48_GLOBAL__N__a9876c8f_15_gf_bitmatrix_cu_87fc942319"
         "gf_bitsliced_kernelILi16EEEvPKhiiS2_Phxxb": {
             "stack": 0, "spill_stores": 0, "spill_loads": 0,
-            "registers": 168},
+            "registers": 168, "smem": 0},
         "_ZN12_GLOBAL__N_119gf_bitmatrix_kernelILi32ELi16EEEvPKhiiS2_Phxxb": {
             "stack": 24, "spill_stores": 8, "spill_loads": 12,
-            "registers": 255},
+            "registers": 255, "smem": 1024},
     }
 
 
