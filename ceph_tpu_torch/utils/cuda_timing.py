@@ -100,3 +100,33 @@ def bitplane_bound(flat, cap2: int) -> tuple[float, str]:
     stream [cap2] written once at the HBM rate; its per-byte histogram
     adds and bit moves at the int8 rate never bind."""
     return _bound(flat.numel() + cap2, 8 * flat.numel())
+
+
+# the H100 SXM's 32-bit integer issue rate: 64 INT32 lanes an SM a clock
+# (NVIDIA Hopper architecture white paper: 16 INT32 units in each of an
+# SM's 4 partitions), 132 SMs, at SM_CLOCK_HZ
+INT32_OPS_PER_S = 132 * 64 * SM_CLOCK_HZ
+# integer instructions of one straw2 draw of csrc/crush_straw2.cu, counted
+# in its SASS (cuobjdump -sass of the sm_90a build, CUDA 12.8): the draw
+# loop's IADD3 59, LOP3 50, IMAD 43, SHF 35, ISETP 13, VIADD 4, SEL 3, FLO
+# and VIMNMX 1 each (the hash, crush_ln, the division's integer steps, the
+# comparison), beside 9 FP64 and conversion instructions of the division's
+# estimate and 26 loads, branches and uniform moves, which are not counted
+CRUSH_DRAW_OPS = 209
+# is_out's 2-word hash, counted from the code: 3 mixes of 9 steps (a
+# 3-input subtraction, a shift and an xor each), the seed's xor, the mask
+CRUSH_HASH2_OPS = 3 * 27 + 2
+
+
+def crush_bound(work, result_max: int) -> tuple[float, str]:
+    """Least time (ms) of a CRUSH sweep: the integer operations of the
+    draws and is_out hashes this run's seeds needed (`work`, [B, 2] as
+    the kernel counts them) at INT32_OPS_PER_S, or the seeds read and
+    the [B, result_max] int64 result written at the HBM rate, whichever
+    is larger, with the name of the bound."""
+    counts = work.to(torch.int64).sum(dim=0).tolist()
+    ops = counts[0] * CRUSH_DRAW_OPS + counts[1] * CRUSH_HASH2_OPS
+    nbytes = work.shape[0] * 8 * (1 + result_max)
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")

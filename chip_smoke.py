@@ -5,14 +5,18 @@
 
 Drives the port's main path at the bench's real size — Reed-Solomon
 reed_sol_van k=8, m=3, w=8 on batches of 16 objects of 1 MiB
-([16, 8, 131072] uint8) — and the OSD's fused write of a 4 MiB object
-through the entry points a user calls, and holds every kernel of the
+([16, 8, 131072] uint8) — the OSD's fused write of a 4 MiB object and
+the batched CRUSH placement of a 1024-OSD cluster through the entry
+points a user calls, and holds every kernel of the
 paths against its plain PyTorch version on the card. Phases, each printing one JSON line:
 
   1. setup       build every ``ceph_tpu_torch/csrc/*.cu`` (one nvcc each,
                  all at once), report the card and, from ptxas' log, the
-                 registers and spill bytes of every kernel instantiation
-                 (a spill fails the phase).
+                 registers, spill bytes and static shared memory of every
+                 kernel instantiation (a spill fails the phase); launch a
+                 kernel with 48 KiB of dynamic shared memory beside its
+                 static shared memory (``ops/launch_check.py``), which
+                 must run.
   2. kernel      the GF bitmatrix kernel against ``matrix_encode_plain``
                  on CUDA tensors, on both of its designs: bit-sliced
                  (w=8 k=8 encode and three decode bitmatrices, w=8 k=16
@@ -82,13 +86,35 @@ paths against its plain PyTorch version on the card. Phases, each printing one J
                  write (by kernel and in all: 5 a store write, 6 a
                  compress write) and the queued device time of each,
                  counted from 0 just before the phase.
-  9. kernels     one JSON line per the port's kernel table: the design
+  9. crush       the batched CRUSH sweep, ``batched_do_rule`` from host
+                 seeds to host results, on the bench's map (bench.py:820:
+                 8 hosts of 4 OSDs, chooseleaf indep 5, OSD 3 out) at
+                 65,536 seeds, and on the 1024-OSD cluster that
+                 ``crushtool --build --num-osds 1024 host straw2 16 rack
+                 straw2 8 root straw2 0`` makes (73 buckets), under a
+                 rebalance's reweights, with its EC rule (chooseleaf indep
+                 over hosts, 12 slots) and its replicated one (chooseleaf
+                 firstn, 3) at 8,192 PGs and 1,048,576 seeds, and the EC
+                 rule with a two-position weight set at 65,536: every
+                 sweep one launch of the CUDA kernel (none on the scalar
+                 path, counted from 0 just before), every seed equal to
+                 the plain version on the card, 256 sampled seeds equal
+                 to the scalar mapper; kernel ms (CUDA events, seeds on
+                 the card, tables cached), PGs per second, the plain
+                 version's ms at 65,536 seeds, the bound from the draws
+                 the kernel counts, and the end-to-end split (compile_map,
+                 the tables' upload, h2d, kernel, d2h). Then
+                 ``crushtool --test --batched --show-utilization`` on the
+                 cluster at 8,192 PGs, its report at 512 PGs equal to the
+                 scalar run's.
+  10. kernels    one JSON line per the port's kernel table: the design
                  the main path takes, launches on the main path (phases
                  3-4 for the GF bitmatrix kernel, phase 6 for the packet
-                 kernel, phase 8 for the write transform's kernels, each
-                 counted from 0 just before its path), the GF kernel's
-                 launches on phases 6 and 8 as well, max_abs_err, ms,
-                 plain_ms, bound_ms, bound_by, library_ms.
+                 kernel, phase 8 for the write transform's kernels, phase
+                 9 for the CRUSH kernel, each counted from 0 just before
+                 its path), the GF kernel's launches on phases 6 and 8 as
+                 well, max_abs_err, ms, plain_ms, bound_ms, bound_by,
+                 library_ms.
 
 Then the card's name and power limit as nvidia-smi prints them, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -138,6 +164,214 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def crush_bench_map(CrushMap, Rule, cm_mod, np):
+    """bench.py:820 _crush_bench_map in the port's classes: 8 hosts of 4
+    OSDs (straw2, weights from seed 7070), rule 0 chooseleaf indep 5 over
+    hosts, OSD 3 reweighted to 0."""
+    rng = np.random.default_rng(7070)
+    weights = rng.integers(0x8000, 3 * 0x10000, size=32, dtype=np.uint32)
+    m = CrushMap()
+    m.type_names = {"osd": 0, "host": 1, "root": 2}
+    hids, hw = [], []
+    for h in range(8):
+        items = [h * 4 + i for i in range(4)]
+        w = [int(weights[i]) for i in items]
+        hids.append(m.add_bucket("straw2", 1, items, w, id=-2 - h))
+        hw.append(sum(w))
+    m.add_bucket("straw2", 2, hids, hw, id=-1, name="default")
+    m.add_rule(Rule(steps=[(cm_mod.RULE_TAKE, -1),
+                           (cm_mod.RULE_CHOOSELEAF_INDEP, 5, 1),
+                           (cm_mod.RULE_EMIT,)]))
+    reweight = np.full(32, 0x10000, dtype=np.int64)
+    reweight[3] = 0
+    return m, reweight
+
+
+def crush_phase(np, torch, dev, smi):
+    """Phase 9: the batched CRUSH sweep (``crush.batched.batched_do_rule``
+    and ``tools/crushtool.py --test --batched``) on the bench's map and on
+    the 1024-OSD cluster. Returns the kernel's line."""
+    from ceph_tpu_torch.crush import batched, mapper_ref
+    from ceph_tpu_torch.crush import map as cm_mod
+    from ceph_tpu_torch.crush.map import CRUSH_ITEM_NONE, CrushMap, Rule
+    from ceph_tpu_torch.ops import crush_kernel
+    from ceph_tpu_torch.tools import crushtool
+    from ceph_tpu_torch.utils.cuda_timing import crush_bound, time_ms
+
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    map_path = out_dir / "crush_cluster_1024.json"
+    layers = ["host", "straw2", "16", "rack", "straw2", "8",
+              "root", "straw2", "0"]
+    check(crushtool.main(["--build", "--num-osds", "1024", "-o",
+                          str(map_path), *layers]) == 0, "crushtool --build")
+    cluster = crushtool.map_from_json(json.loads(map_path.read_text()))
+    check(len(cluster.buckets) == 73, "73 buckets")
+    ec = cluster.add_simple_rule("ec", "default", "host", mode="indep")
+    rep = cluster.add_simple_rule("rep", "default", "host")
+    map_path.write_text(json.dumps(crushtool.map_to_json(cluster)))
+    c_rw = np.full(1024, 0x10000, dtype=np.int64)
+    c_rw[::97] = 0                 # a rebalance: every 97th OSD out,
+    c_rw[5::89] = 0x8000           # every 89th from OSD 5 at half weight
+    weighted = crushtool.map_from_json(json.loads(map_path.read_text()))
+    weighted.create_choose_args(0, positions=2)
+    for host in (3, 17, 29, 42, 58):   # the balancer's weight-set path
+        weighted.choose_args_adjust_item_weight(
+            0, -1 - host, host * 16 + 4, [0x4000, 0xC000])
+    bench, b_rw = crush_bench_map(CrushMap, Rule, cm_mod, np)
+
+    cases = [  # name, map, rule, result_max, reweight, choose_args, seeds
+        ("bench_65536", bench, 0, 5, b_rw, None, 65536),
+        ("cluster_ec_8192", cluster, ec, 12, c_rw, None, 8192),
+        ("cluster_rep_8192", cluster, rep, 3, c_rw, None, 8192),
+        ("cluster_ec_weight_sets_65536", weighted, ec, 12, c_rw, 0, 65536),
+        ("cluster_ec_1048576", cluster, ec, 12, c_rw, None, 1 << 20),
+        ("cluster_rep_1048576", cluster, rep, 3, c_rw, None, 1 << 20),
+    ]
+    seeds = {n: np.arange(n, dtype=np.int64) for n in (8192, 65536, 1 << 20)}
+
+    # the main path: each case once, host seeds to host results, from
+    # cold tables; the counts are zeroed just before and read just after
+    crush_kernel.clear_tables()
+    batched.reset_paths()
+    crush_kernel.reset_launches()
+    results, e2e_first = {}, {}
+    for name, m, rule, rmax, rw, args, n in cases:
+        t0 = time.perf_counter()
+        results[name] = batched.batched_do_rule(m, rule, seeds[n], rmax, rw,
+                                                choose_args=args)
+        e2e_first[name] = (time.perf_counter() - t0) * 1e3
+    paths = batched.paths()
+    launches = crush_kernel.LAUNCHES
+    by_design = crush_kernel.launches_by_design()
+    emit("crush", case="main_path", paths=paths, launches=launches,
+         launches_by_design=by_design, end_to_end_first_ms=e2e_first)
+    check(paths == {"kernel": len(cases), "plain": 0, "scalar": 0},
+          "every sweep took the kernel, none the scalar path")
+    check(launches == len(cases) and by_design["shared"] == len(cases),
+          "one launch a sweep, tables in shared memory")
+
+    worst, records = 0, {}
+    for name, m, rule, rmax, rw, args, n in cases:
+        cargs = m.choose_args_get_with_fallback(args) \
+            if args is not None else None
+        xs = seeds[n]
+        t0 = time.perf_counter()
+        cm = batched.compile_map(m, cargs)
+        compile_ms = (time.perf_counter() - t0) * 1e3
+        plan = batched.plan_rule(m, rule, rmax)
+        wvec = batched.reweight_vector(rw, cm.max_devices)
+        wdev = torch.from_numpy(wvec).to(dev)
+        # the split of one end-to-end call: upload (cold), h2d, kernel, d2h
+        crush_kernel.clear_tables()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        crush_kernel.device_tables(cm, wvec, dev)
+        torch.cuda.synchronize()
+        upload_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        xs_dev = torch.from_numpy(xs).to(dev)
+        torch.cuda.synchronize()
+        h2d_ms = (time.perf_counter() - t0) * 1e3
+        out = crush_kernel.crush_sweep(cm, plan, xs_dev, wvec)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = out.cpu().numpy()
+        d2h_ms = (time.perf_counter() - t0) * 1e3
+        check(np.array_equal(host, results[name]),
+              "%s: the main path's result is the kernel's" % name)
+        e2e = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            batched.batched_do_rule(m, rule, xs, rmax, rw, choose_args=args)
+            e2e.append((time.perf_counter() - t0) * 1e3)
+        reps = 20 if n <= 65536 else 5
+        ms = time_ms(lambda x: crush_kernel.crush_sweep(cm, plan, x, wvec),
+                     [xs_dev], reps)
+        # every seed against the plain version on the card (chunked)
+        t0 = time.perf_counter()
+        plain = batched.map_plain(cm, plan, xs_dev, wdev)
+        torch.cuda.synchronize()
+        plain_all_s = time.perf_counter() - t0
+        bad = int((plain != out).any(dim=1).sum())
+        err = int((plain - out).abs().max()) if bad else 0
+        worst = max(worst, err)
+        check(bad == 0, "%s: kernel equals plain on every seed" % name)
+        x65 = xs_dev[:65536]
+        plain_ms = time_ms(lambda x: batched.map_plain(cm, plan, x, wdev),
+                           [x65], 2)
+        # 256 sampled seeds against the scalar mapper on the host
+        sample = np.random.default_rng(n).choice(n, 256, replace=False)
+        for i in sample:
+            ref = mapper_ref.crush_do_rule(m, rule, int(xs[i]), rmax,
+                                           list(rw), choose_args=cargs)
+            ref = ref + [CRUSH_ITEM_NONE] * (rmax - len(ref))
+            check(list(host[i]) == ref,
+                  "%s: seed %d equals the scalar mapper" % (name, xs[i]))
+        work = torch.zeros((n, 2), dtype=torch.int32, device=dev)
+        crush_kernel.crush_sweep(cm, plan, xs_dev, wvec, work=work)
+        bound_ms, bound_by = crush_bound(work, rmax)
+        draws = work.to(torch.int64).sum(dim=0).tolist()
+        placed = host != CRUSH_ITEM_NONE
+        records[name] = rec = dict(
+            seeds=n, result_max=rmax, rule="indep" if not plan.firstn
+            else "firstn", design=crush_kernel.kernel_design(
+                cm, plan, wvec.size), ms=ms, pgs_per_s=n / ms * 1e3,
+            plain_ms=plain_ms, plain_seeds=int(x65.shape[0]),
+            plain_all_s=plain_all_s, bound_ms=bound_ms, bound_by=bound_by,
+            share_of_bound=bound_ms / ms, draws=draws[0],
+            is_out_hashes=draws[1], draws_per_seed=draws[0] / n,
+            compile_map_ms=compile_ms, upload_ms=upload_ms, h2d_ms=h2d_ms,
+            d2h_ms=d2h_ms, end_to_end_ms=e2e,
+            end_to_end_first_ms=e2e_first[name],
+            table_bytes=int(crush_kernel.pack_tables(cm, wvec).nbytes),
+            mismatched_seeds=bad, max_abs_err=err, holes=int((~placed).sum()))
+        emit("crush", case=name, **rec)
+
+    # crushtool --test --batched on the cluster at 8,192 PGs, and its
+    # per-device counts against the scalar run on a sample of 512
+    import contextlib
+    import io
+
+    def tool(*extra):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = crushtool.main(["-i", str(map_path), "--test", "--rule",
+                                 str(ec), "--num-rep", "12",
+                                 "--show-utilization", *extra])
+        check(rc == 0, "crushtool --test %s" % " ".join(extra))
+        return buf.getvalue()
+
+    t0 = time.perf_counter()
+    report = tool("--batched", "--min-x", "0", "--max-x", "8191")
+    tool_s = time.perf_counter() - t0
+    sample_b = tool("--batched", "--min-x", "0", "--max-x", "511")
+    sample_s = tool("--min-x", "0", "--max-x", "511")
+    check(sample_b == sample_s, "crushtool: batched and scalar reports "
+          "equal on 512 PGs")
+    (out_dir / "crushtool_test_8192.txt").write_text(report)
+    emit("crush", case="crushtool_test_batched", pgs=8192, seconds=tool_s,
+         summary=report.strip().splitlines()[-2:],
+         devices_listed=report.count("device "),
+         scalar_sample_equal=sample_b == sample_s)
+
+    head = records["bench_65536"]
+    return {
+        "name": "crush_straw2", "route": "cuda",
+        "source": "ceph_tpu_torch/csrc/crush_straw2.cu",
+        "replaces": "ceph_tpu/crush/batched.py:128",
+        "design": head["design"], "launches": launches,
+        "launches_by_design": by_design, "matched": worst == 0,
+        "max_abs_err": worst, "ms": head["ms"], "kernel_ms": head["ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": None,
+        "share_of_bound": head["share_of_bound"], "case": "bench_65536",
+        "gpu": smi,
+        "other_cases": {n: {f: r[f] for f in (
+            "seeds", "ms", "pgs_per_s", "plain_ms", "bound_ms", "bound_by")}
+            for n, r in records.items() if n != "bench_65536"}}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -153,7 +387,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from ceph_tpu_torch import registry
     from ceph_tpu_torch.device import host_tensor
-    from ceph_tpu_torch.ops import _build, gf, gf_kernel, gf_ref, packet_kernel
+    from ceph_tpu_torch.ops import (_build, gf, gf_kernel, gf_ref,
+                                    launch_check, packet_kernel)
     from ceph_tpu_torch.ops import write_kernels as wk
     from ceph_tpu_torch.ops.xor_mm import bitmatrix_encode_plain
     from ceph_tpu_torch.osd import ec_util
@@ -178,6 +413,13 @@ def main() -> int:
          gpu=smi, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, ptxas=ptxas)
+    edge_static, edge_sums = launch_check.smem_edge()
+    torch.cuda.synchronize()
+    emit("setup", case="smem_edge", static_bytes=edge_static,
+         dynamic_bytes=launch_check.EDGE_BYTES, sums=edge_sums.tolist())
+    check(edge_static > 0 and edge_sums.tolist() ==
+          [launch_check.smem_edge_expected()] * edge_sums.numel(),
+          "48 KiB of dynamic beside static shared memory launches")
     for name, kernels in ptxas.items():
         check(bool(kernels), "ptxas reported the kernels of " + name)
         for inst, res in kernels.items():
@@ -1228,7 +1470,10 @@ def main() -> int:
           and write_gf_launches > 0,
           "the write path launched every kernel")
 
-    # -- 9. kernels line --------------------------------------------------
+    # -- 9. batched CRUSH: the bench's map and the 1024-OSD cluster -------
+    crush_line = crush_phase(np, torch, dev, smi)
+
+    # -- 10. kernels line -------------------------------------------------
     enc = timings["encode"]
     dec = timings["decode345678910"]
     kernels = [{
@@ -1304,6 +1549,7 @@ def main() -> int:
                "ceph_tpu/osd/fused_transform.py:442",
                "bitplane_low_%d" % obj_bytes,
                ["bitplane_low_%d" % (BSTRIPES * K * BCHUNK)])
+    kernels.append(crush_line)
     _records.append({"kernels": kernels})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

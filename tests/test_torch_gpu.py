@@ -15,6 +15,13 @@ shared memory where k*w tiles fit, 16-byte columns loaded per set bit
 past that, byte columns for other packetsizes or unaligned pointers. The write transform's kernels (CRC rows, xxh32
 rows, the bit-plane stage) on their aligned and byte paths, and one
 ``ec_util.encode_fused`` on the card in each mode against the CPU path.
+The CRUSH straw2 kernel on both of its designs (tables staged in shared
+memory, past 48 KiB too, or read from device memory) on the bench's map,
+the 1024-OSD cluster with and without weight sets, a bucket of 20,000
+OSDs and a hierarchy of depth 4, each whole sweep equal to the plain
+version on the card and sampled seeds to the scalar mapper. And a kernel
+at the edge of ``launch_common``'s shared-memory opt-in: 48 KiB of
+dynamic shared memory beside static shared memory.
 """
 
 import itertools
@@ -25,8 +32,13 @@ import pytest
 import torch
 
 from ceph_tpu_torch import registry
-from ceph_tpu_torch.ops import (gf, gf_kernel, gf_ref, packet_kernel,
-                                write_kernels, xor_mm)
+from ceph_tpu_torch.crush import batched, mapper_ref
+from ceph_tpu_torch.crush.map import CRUSH_ITEM_NONE, CrushMap, Rule
+from ceph_tpu_torch.crush import map as cmap_mod
+from ceph_tpu_torch.ops import (crush_kernel, gf, gf_kernel, gf_ref,
+                                launch_check, packet_kernel, write_kernels,
+                                xor_mm)
+from ceph_tpu_torch.tools import crushtool
 from ceph_tpu_torch.osd import ec_util
 from ceph_tpu_torch.osd import fused_transform as ft
 from ceph_tpu_torch.osd.gpu_dispatch import GpuDispatcher
@@ -553,3 +565,181 @@ def test_encode_fused_on_card_matches_cpu(cuda, mode, kind):
     for s in host_shards:
         assert np.array_equal(shards[s], host_shards[s]), s
         assert r.shard_crcs[s] == zlib.crc32(shards[s].tobytes())
+
+
+@pytest.mark.gpu
+def test_smem_edge_launches_on_card(cuda):
+    """48 KiB of dynamic shared memory beside 1 KiB of static: the launch
+    needs the opt-in that resident_blocks now makes from both sizes."""
+    static, sums = launch_check.smem_edge()
+    torch.cuda.synchronize()
+    assert static == 1024
+    assert sums.tolist() == [launch_check.smem_edge_expected()] * 4
+    optin = torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
+    with pytest.raises(RuntimeError, match="1024 bytes of static and %d"
+                       % optin):
+        launch_check.smem_edge(optin)
+
+
+def crush_bench_map():
+    rng = np.random.default_rng(7070)
+    weights = rng.integers(0x8000, 3 * 0x10000, size=32, dtype=np.uint32)
+    m = CrushMap()
+    m.type_names = {"osd": 0, "host": 1, "root": 2}
+    hids, hw = [], []
+    for h in range(8):
+        items = [h * 4 + i for i in range(4)]
+        w = [int(weights[i]) for i in items]
+        hids.append(m.add_bucket("straw2", 1, items, w, id=-2 - h))
+        hw.append(sum(w))
+    m.add_bucket("straw2", 2, hids, hw, id=-1, name="default")
+    m.add_rule(Rule(steps=[(cmap_mod.RULE_TAKE, -1),
+                           (cmap_mod.RULE_CHOOSELEAF_INDEP, 5, 1),
+                           (cmap_mod.RULE_EMIT,)]))
+    m.add_rule(Rule(steps=[(cmap_mod.RULE_TAKE, -1),
+                           (cmap_mod.RULE_CHOOSELEAF_FIRSTN, 3, 1),
+                           (cmap_mod.RULE_EMIT,)]))
+    rw = np.full(32, 0x10000, dtype=np.int64)
+    rw[3] = 0
+    rw[9] = 0x8000
+    return m, rw, None
+
+
+def crush_layers(n, layers, weight_sets=0):
+    m = crushtool.build_map(n, layers)
+    m.add_simple_rule("ec", "default", layers[0][0], mode="indep")
+    m.add_simple_rule("rep", "default", layers[0][0])
+    m.add_rule(Rule(steps=[(cmap_mod.RULE_TAKE, m.bucket_names["default"]),
+                           (cmap_mod.RULE_CHOOSE_INDEP, 4, 0),
+                           (cmap_mod.RULE_EMIT,)]))
+    rw = np.full(n, 0x10000, dtype=np.int64)
+    rw[::97] = 0
+    rw[5::89] = 0x8000
+    cargs = None
+    if weight_sets:
+        m.create_choose_args(0, positions=weight_sets)
+        for host in range(0, 60, 7):
+            m.choose_args_adjust_item_weight(0, -1 - host, host * 16 + 2,
+                                             [0x4000 * (p + 1) for p in
+                                              range(weight_sets)])
+        cargs = 0
+    return m, rw, cargs
+
+
+def crush_cluster(weight_sets=0):
+    return crush_layers(1024, [("host", "straw2", 16), ("rack", "straw2", 8),
+                               ("root", "straw2", 0)], weight_sets)
+
+
+def crush_flat(n):
+    m = CrushMap()
+    m.type_names = {"osd": 0, "root": 1}
+    m.add_bucket("straw2", 1, list(range(n)),
+                 [0x8000 + (i * 7919) % 0x20000 for i in range(n)], id=-1,
+                 name="default")
+    for op, numrep in ((cmap_mod.RULE_CHOOSE_INDEP, 6),
+                       (cmap_mod.RULE_CHOOSE_FIRSTN, 3)):
+        m.add_rule(Rule(steps=[(cmap_mod.RULE_TAKE, -1), (op, numrep, 0),
+                               (cmap_mod.RULE_EMIT,)]))
+    rw = np.full(n, 0x10000, dtype=np.int64)
+    rw[::13] = 0
+    rw[1::17] = 0x9000
+    return m, rw, None
+
+
+CRUSH_CASES = {
+    # name: (map maker, rule, result_max, seeds, design, scalar samples)
+    "bench_indep": (crush_bench_map, 0, 5, 4096, "shared", 72),
+    "bench_firstn": (crush_bench_map, 1, 3, 4096, "shared", 72),
+    "cluster_ec": (crush_cluster, 0, 12, 8192, "shared", 72),
+    "cluster_rep": (crush_cluster, 1, 3, 8192, "shared", 72),
+    "cluster_ec_weight_sets": (lambda: crush_cluster(2), 0, 12, 8192,
+                               "shared", 72),
+    "cluster_rep_weight_sets": (lambda: crush_cluster(3), 1, 3, 8192,
+                                "shared", 72),
+    # a scalar draw over 3,000 or 20,000 items takes the host 0.1-0.6 s
+    "flat_3000_past_48KiB": (lambda: crush_flat(3000), 0, 6, 2048, "shared",
+                             12),
+    "flat_20000_global": (lambda: crush_flat(20000), 0, 6, 1024, "global",
+                          3),
+    "flat_20000_global_firstn": (lambda: crush_flat(20000), 1, 3, 512,
+                                 "global", 3),
+    "depth_4_ec": (lambda: crush_layers(
+        512, [("host", "straw2", 8), ("rack", "straw2", 4),
+              ("row", "straw2", 4), ("root", "straw2", 0)]), 0, 6, 4096,
+        "shared", 72),
+    "depth_4_osds": (lambda: crush_layers(
+        512, [("host", "straw2", 8), ("rack", "straw2", 4),
+              ("row", "straw2", 4), ("root", "straw2", 0)]), 2, 4, 4096,
+        "shared", 72),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(CRUSH_CASES))
+def test_crush_kernel_matches_plain_on_card(cuda, name):
+    make, rule, rmax, n, design, samples = CRUSH_CASES[name]
+    m, rw, cargs = make()
+    args = m.choose_args_get_with_fallback(cargs) if cargs is not None \
+        else None
+    xs = np.concatenate([np.arange(n - 8), [-1, -(2**31), 2**31 - 1, 2**31,
+                                             2**32 - 1, 2**32, 2**40, -5]])
+    plan = batched.plan_rule(m, rule, rmax)
+    cm = batched.compile_map(m, args)
+    wvec = batched.reweight_vector(rw, cm.max_devices)
+    assert crush_kernel.kernel_design(cm, plan, wvec.size) == design
+    batched.reset_paths()
+    crush_kernel.reset_launches()
+    xs_dev = torch.from_numpy(xs).to(cuda)
+    out = batched.batched_do_rule(m, rule, xs_dev, rmax, rw,
+                                  choose_args=cargs, device_out=True)
+    torch.cuda.synchronize()
+    assert batched.paths() == {"kernel": 1, "plain": 0, "scalar": 0}
+    assert crush_kernel.launches_by_design() == {
+        d: int(d == design) for d in crush_kernel.DESIGNS}
+    assert crush_kernel.LAUNCHES == 1
+    plain = batched.map_plain(cm, plan, xs_dev,
+                              torch.from_numpy(wvec).to(cuda))
+    assert torch.equal(out, plain)
+    host = out.cpu().numpy()
+    # the 8 seeds past 2^31 and below 0, or two of them on a large bucket
+    tail = list(range(n - 8, n)) if samples >= 16 else [n - 5, n - 3]
+    picks = np.random.default_rng(n).choice(n - 8, samples - len(tail),
+                                            replace=False)
+    for i in list(picks) + tail:
+        ref = mapper_ref.crush_do_rule(m, rule, int(xs[i]), rmax, list(rw),
+                                       choose_args=args)
+        assert list(host[i]) == ref + [CRUSH_ITEM_NONE] * (rmax - len(ref))
+
+
+@pytest.mark.gpu
+def test_crush_kernel_counts_its_work_on_card(cuda):
+    m, rw, _ = crush_cluster()
+    plan = batched.plan_rule(m, 0, 12)
+    cm = batched.compile_map(m)
+    wvec = batched.reweight_vector(rw, cm.max_devices)
+    xs = torch.arange(4096, device=cuda)
+    work = torch.zeros((4096, 2), dtype=torch.int32, device=cuda)
+    out = crush_kernel.crush_sweep(cm, plan, xs, wvec, work=work)
+    again = crush_kernel.crush_sweep(cm, plan, xs, wvec)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    draws = work[:, 0].cpu().numpy()
+    # 12 slots of 8 + 8 + 16 draws at least (root, rack, host's OSDs)
+    assert draws.min() >= 12 * 32 and work[:, 1].sum().item() > 0
+
+
+@pytest.mark.gpu
+def test_crush_fallback_on_card_takes_no_launch(cuda):
+    m, rw, _ = crush_bench_map()
+    b = m.buckets[-3]
+    m.buckets[-3] = cmap_mod.Bucket(id=-3, alg="list", type=1, items=b.items,
+                                    weights=b.weights)
+    batched.reset_paths()
+    crush_kernel.reset_launches()
+    got = batched.batched_do_rule(m, 0, np.arange(64), 5, rw)
+    assert batched.paths() == {"kernel": 0, "plain": 0, "scalar": 1}
+    assert crush_kernel.launches_by_design() == {"shared": 0, "global": 0}
+    for x in range(64):
+        ref = mapper_ref.crush_do_rule(m, 0, x, 5, list(rw))
+        assert list(got[x]) == ref + [CRUSH_ITEM_NONE] * (5 - len(ref))

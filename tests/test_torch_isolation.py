@@ -7,6 +7,7 @@ without it instead of running on the CPU.
 """
 
 import ast
+import json
 import zlib
 from pathlib import Path
 
@@ -14,6 +15,8 @@ import pytest
 import torch
 
 from ceph_tpu_torch import registry
+from ceph_tpu_torch.crush import batched as crush_batched
+from ceph_tpu_torch.tools import crushtool
 from ceph_tpu_torch.osd import fused_transform
 from ceph_tpu_torch.osd.gpu_dispatch import GpuDispatcher
 from ceph_tpu_torch.tools import erasure_code_benchmark as bench
@@ -92,4 +95,19 @@ def test_device_crc32_without_device_raises(no_cuda):
 
 def test_benchmark_without_device_fails(no_cuda, capsys):
     assert bench.main(["-P", "k=8", "-P", "m=3"]) == 1
+    assert "CUDA" in capsys.readouterr().err
+
+
+def test_crush_sweep_without_device_raises(no_cuda, tmp_path, capsys):
+    m = crushtool.build_map(16, [("host", "straw2", 4), ("root", "straw2", 0)])
+    m.add_simple_rule("rep", "default", "host")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        crush_batched.batched_do_rule(m, 0, [1, 2, 3], 3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        crush_batched.batched_do_rule(m, 0, [1, 2, 3], 3, device="cuda")
+    assert crush_batched.batched_do_rule(m, 0, [1, 2, 3], 3,
+                                         device="cpu").shape == (3, 3)
+    path = tmp_path / "map.json"
+    path.write_text(json.dumps(crushtool.map_to_json(m)))
+    assert crushtool.main(["-i", str(path), "--test", "--batched"]) == 1
     assert "CUDA" in capsys.readouterr().err
