@@ -71,6 +71,22 @@
 // bounds mask, bytes past N reading as zero. k*w <= 512; the popcount
 // design needs R * NW * 4 <= 48 KiB, and the entry point refuses a
 // geometry that neither design takes.
+//
+// Per-lane bitmatrices (gf_bitmatrix_encode_multi). Replaces the XLA
+// program of ceph_tpu/ops/xor_mm.py:91 (matrix_encode_multi, the vmap of
+// matrix_encode with a different bitmatrix per lane), which the HBM chunk
+// tier's reconstruct_batch runs with one decode bitmatrix per object.
+// bitmats [P, R, k*w], data [P, L, k, N], out [P, L, R/w, N], in ONE
+// launch whatever P is: both kernels loop over lanes lane = blockIdx.y,
+// blockIdx.y + gridDim.y, ... (gridDim.y <= 65535), stage that lane's
+// bitmatrix in shared memory (masks, or the 8x8 expansion) and stride
+// over its L*N/VEC units with the blockIdx.x threads, exactly as the
+// single-matrix launch does over its batch; a block synchronises before
+// it stages the next lane's bitmatrix. The single-matrix entry point is
+// the same kernel with P = 1 and a bitmatrix stride of 0. The grid takes
+// the blocks the card holds at once (as a single matrix does), split
+// over min(P, 65535) rows of blocks. Bound: gf_bound summed over the
+// lanes (utils/cuda_timing.py gf_multi_bound).
 
 #include <atomic>
 #include <cstdint>
@@ -86,12 +102,13 @@ constexpr int kMaxBits = 512;
 
 enum Design { kPopcount = 0, kBitsliced = 1 };
 
-// Kernel launches of each design, counted where the kernel is launched.
-std::atomic<long long> g_launches[2];
+// Kernel launches of each design, counted where the kernel is launched:
+// [0] from the single-matrix entry point, [1] from the per-lane one.
+std::atomic<long long> g_launches[2][2];
 
-cudaError_t count_launch(Design design) {
+cudaError_t count_launch(Design design, bool multi) {
   const cudaError_t err = cudaGetLastError();
-  if (err == cudaSuccess) g_launches[design].fetch_add(1);
+  if (err == cudaSuccess) g_launches[multi][design].fetch_add(1);
   return err;
 }
 
@@ -107,121 +124,139 @@ struct Geometry {
 
 template <int W, int NW>
 __global__ void __launch_bounds__(kThreads)
-gf_bitmatrix_kernel(const uint8_t* __restrict__ bitmat, int rows, int k,
-                    const uint8_t* __restrict__ data,
-                    uint8_t* __restrict__ out, long long batch, long long n,
-                    bool vec_ok) {
+gf_bitmatrix_kernel(const uint8_t* __restrict__ bitmats,
+                    long long bm_stride, int rows, int k,
+                    const uint8_t* __restrict__ data_all,
+                    uint8_t* __restrict__ out_all, int lanes,
+                    long long batch, long long n, bool vec_ok) {
   using G = Geometry<W, NW>;
   extern __shared__ uint32_t masks[];  // [rows][NW]
-
-  launch_common::pack_masks(bitmat, rows, k * W, NW, masks);
-  __syncthreads();
 
   const int out_rows = rows / W;
   const long long chunks = (n + G::VEC - 1) / G::VEC;
   const long long units = batch * chunks;
   const uint32_t elem_mask = W == 32 ? 0xffffffffu : (1u << W) - 1u;
 
-  for (long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       u < units; u += (long long)gridDim.x * blockDim.x) {
-    const long long b = u / chunks;
-    const long long off = (u - b * chunks) * G::VEC;
-    const bool full = vec_ok && off + G::VEC <= n;
+  for (int lane = blockIdx.y; lane < lanes; lane += gridDim.y) {
+    const uint8_t* __restrict__ data = data_all + lane * batch * k * n;
+    uint8_t* __restrict__ out = out_all + lane * batch * out_rows * n;
+    launch_common::pack_masks(bitmats + lane * bm_stride, rows, k * W, NW,
+                              masks);
+    __syncthreads();
 
-    // v[c][q]: word q of the k*w-bit vector of element column c
-    uint32_t v[G::COLS][NW];
+    for (long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         u < units; u += (long long)gridDim.x * blockDim.x) {
+      const long long b = u / chunks;
+      const long long off = (u - b * chunks) * G::VEC;
+      const bool full = vec_ok && off + G::VEC <= n;
+
+      // v[c][q]: word q of the k*w-bit vector of element column c
+      uint32_t v[G::COLS][NW];
 #pragma unroll
-    for (int c = 0; c < G::COLS; ++c)
+      for (int c = 0; c < G::COLS; ++c)
 #pragma unroll
-      for (int q = 0; q < NW; ++q) v[c][q] = 0;
+        for (int q = 0; q < NW; ++q) v[c][q] = 0;
 
 #pragma unroll
-    for (int j = 0; j < G::KMAX; ++j) {
-      if (j < k) {
-        const uint8_t* row = data + (b * k + j) * n + off;
-        uint32_t d[G::VW];
+      for (int j = 0; j < G::KMAX; ++j) {
+        if (j < k) {
+          const uint8_t* row = data + (b * k + j) * n + off;
+          uint32_t d[G::VW];
+          if (full) {
+            if constexpr (G::VEC == 16) {
+              const uint4 x = __ldcs(reinterpret_cast<const uint4*>(row));
+              d[0] = x.x;
+              d[1] = x.y;
+              d[2] = x.z;
+              d[3] = x.w;
+            } else {
+              d[0] = __ldcs(reinterpret_cast<const unsigned int*>(row));
+            }
+          } else {
+#pragma unroll
+            for (int t = 0; t < G::VW; ++t) d[t] = 0;
+#pragma unroll
+            for (int i = 0; i < G::VEC; ++i)
+              if (off + i < n) d[i / 4] |= (uint32_t)row[i] << (8 * (i % 4));
+          }
+#pragma unroll
+          for (int c = 0; c < G::COLS; ++c) {
+            const uint32_t e = (d[(c * W) / 32] >> ((c * W) % 32)) & elem_mask;
+            v[c][(j * W) / 32] |= e << ((j * W) % 32);
+          }
+        }
+      }
+
+      uint8_t* orow = out + b * out_rows * n + off;
+      for (int i = 0; i < out_rows; ++i, orow += n) {
+        uint32_t o[G::VW];
+#pragma unroll
+        for (int t = 0; t < G::VW; ++t) o[t] = 0;
+#pragma unroll
+        for (int t = 0; t < W; ++t) {
+          const uint32_t* mk = masks + (i * W + t) * NW;
+          uint32_t mw[NW];
+#pragma unroll
+          for (int q = 0; q < NW; ++q) mw[q] = mk[q];
+#pragma unroll
+          for (int c = 0; c < G::COLS; ++c) {
+            uint32_t acc = 0;
+#pragma unroll
+            for (int q = 0; q < NW; ++q) acc ^= mw[q] & v[c][q];
+            const int pos = c * W + t;  // bit t of element c within the chunk
+            o[pos / 32] |= (__popc(acc) & 1u) << (pos % 32);
+          }
+        }
         if (full) {
           if constexpr (G::VEC == 16) {
-            const uint4 x = __ldcs(reinterpret_cast<const uint4*>(row));
-            d[0] = x.x;
-            d[1] = x.y;
-            d[2] = x.z;
-            d[3] = x.w;
+            __stcs(reinterpret_cast<uint4*>(orow), make_uint4(o[0], o[1], o[2], o[3]));
           } else {
-            d[0] = __ldcs(reinterpret_cast<const unsigned int*>(row));
+            __stcs(reinterpret_cast<unsigned int*>(orow), o[0]);
           }
         } else {
 #pragma unroll
-          for (int t = 0; t < G::VW; ++t) d[t] = 0;
-#pragma unroll
-          for (int i = 0; i < G::VEC; ++i)
-            if (off + i < n) d[i / 4] |= (uint32_t)row[i] << (8 * (i % 4));
-        }
-#pragma unroll
-        for (int c = 0; c < G::COLS; ++c) {
-          const uint32_t e = (d[(c * W) / 32] >> ((c * W) % 32)) & elem_mask;
-          v[c][(j * W) / 32] |= e << ((j * W) % 32);
+          for (int x = 0; x < G::VEC; ++x)
+            if (off + x < n) orow[x] = (uint8_t)(o[x / 4] >> (8 * (x % 4)));
         }
       }
     }
-
-    uint8_t* orow = out + b * out_rows * n + off;
-    for (int i = 0; i < out_rows; ++i, orow += n) {
-      uint32_t o[G::VW];
-#pragma unroll
-      for (int t = 0; t < G::VW; ++t) o[t] = 0;
-#pragma unroll
-      for (int t = 0; t < W; ++t) {
-        const uint32_t* mk = masks + (i * W + t) * NW;
-        uint32_t mw[NW];
-#pragma unroll
-        for (int q = 0; q < NW; ++q) mw[q] = mk[q];
-#pragma unroll
-        for (int c = 0; c < G::COLS; ++c) {
-          uint32_t acc = 0;
-#pragma unroll
-          for (int q = 0; q < NW; ++q) acc ^= mw[q] & v[c][q];
-          const int pos = c * W + t;  // bit t of element c within the chunk
-          o[pos / 32] |= (__popc(acc) & 1u) << (pos % 32);
-        }
-      }
-      if (full) {
-        if constexpr (G::VEC == 16) {
-          __stcs(reinterpret_cast<uint4*>(orow), make_uint4(o[0], o[1], o[2], o[3]));
-        } else {
-          __stcs(reinterpret_cast<unsigned int*>(orow), o[0]);
-        }
-      } else {
-#pragma unroll
-        for (int x = 0; x < G::VEC; ++x)
-          if (off + x < n) orow[x] = (uint8_t)(o[x / 4] >> (8 * (x % 4)));
-      }
-    }
+    // every thread has read this lane's masks before the next lane's land
+    if (lane + gridDim.y < lanes) __syncthreads();
   }
 }
 
+// Grid of a per-lane launch: `lanes` rows of blocks (at most 65535, the
+// kernels loop over the rest) and, in each, the blocks one lane's units
+// need, together at most `resident` blocks (at least one a row).
+dim3 lane_grid(long long lane_units, int lanes, long long resident) {
+  const unsigned gy = lanes < 65535 ? (unsigned)lanes : 65535u;
+  long long gx = (lane_units + kThreads - 1) / kThreads;
+  const long long share = (resident + gy - 1) / gy;
+  if (gx > share) gx = share;
+  return dim3((unsigned)(gx > 0 ? gx : 1), gy);
+}
+
 template <int W, int NW>
-cudaError_t launch_popcount(const uint8_t* bitmat, int rows, int k,
-                            const uint8_t* data, uint8_t* out,
-                            long long batch, long long n,
-                            cudaStream_t stream) {
+cudaError_t launch_popcount(const uint8_t* bitmat, long long bm_stride,
+                            int rows, int k, const uint8_t* data,
+                            uint8_t* out, int lanes, long long batch,
+                            long long n, bool multi, cudaStream_t stream) {
   using G = Geometry<W, NW>;
   const long long units = batch * ((n + G::VEC - 1) / G::VEC);
-  if (units == 0 || rows == 0) return cudaSuccess;
+  if (units == 0 || rows == 0 || lanes == 0) return cudaSuccess;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  long long blocks = (units + kThreads - 1) / kThreads;
-  if (blocks > (long long)sms * 8) blocks = (long long)sms * 8;
+  const dim3 grid = lane_grid(units, lanes, (long long)sms * 8);
   const bool vec_ok = n % G::VEC == 0 &&
                       reinterpret_cast<uintptr_t>(data) % G::VEC == 0 &&
                       reinterpret_cast<uintptr_t>(out) % G::VEC == 0;
   const size_t smem = (size_t)rows * NW * sizeof(uint32_t);
-  gf_bitmatrix_kernel<W, NW><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      bitmat, rows, k, data, out, batch, n, vec_ok);
-  return count_launch(kPopcount);
+  gf_bitmatrix_kernel<W, NW><<<grid, kThreads, smem, stream>>>(
+      bitmat, bm_stride, rows, k, data, out, lanes, batch, n, vec_ok);
+  return count_launch(kPopcount, multi);
 }
 
 int mask_words(int bits) {
@@ -335,10 +370,11 @@ size_t bitsliced_smem(int rows) {
 
 template <int KMAX>
 __global__ void __launch_bounds__(kThreads)
-gf_bitsliced_kernel(const uint8_t* __restrict__ bitmat, int rows, int k,
-                    const uint8_t* __restrict__ data,
-                    uint8_t* __restrict__ out, long long batch, long long n,
-                    bool vec_ok) {
+gf_bitsliced_kernel(const uint8_t* __restrict__ bitmats,
+                    long long bm_stride, int rows, int k,
+                    const uint8_t* __restrict__ data_all,
+                    uint8_t* __restrict__ out_all, int lanes,
+                    long long batch, long long n, bool vec_ok) {
   constexpr int STRIDE = KMAX * 8;  // E words per bitmatrix row
   extern __shared__ uint4 bs_smem[];
   uint32_t* E = reinterpret_cast<uint32_t*>(bs_smem);
@@ -350,131 +386,140 @@ gf_bitsliced_kernel(const uint8_t* __restrict__ bitmat, int rows, int k,
   const long long chunks = (n + kCols - 1) / kCols;
   const long long units = batch * chunks;
   const long long step = (long long)gridDim.x * blockDim.x;
-  long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x;
 
-  // p: the words, then the planes, of the unit's KMAX data rows
-  uint32_t p[STRIDE];
-  if (u < units) load_unit<KMAX>(data, k, n, chunks, u, vec_ok, p);
+  for (int lane = blockIdx.y; lane < lanes; lane += gridDim.y) {
+    const uint8_t* __restrict__ bitmat = bitmats + lane * bm_stride;
+    const uint8_t* __restrict__ data = data_all + lane * batch * k * n;
+    uint8_t* __restrict__ out = out_all + lane * batch * out_rows * n;
+    long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x;
 
-  // One thread per 8x8 block (i, j): its 64 loads are all in flight at
-  // once, so the expansion costs one memory latency, not one per entry.
-  // Blocks j >= k are never read (their mask bits are 0). KMAX divides
-  // 32, so a warp's vote holds whole output rows. Bit j of id[i]: block
-  // (i, j) is the identity; of nz[i]: it has a one and is not the
-  // identity.
-  const int pairs = out_rows * KMAX;
-  for (int base = 0; base < pairs; base += blockDim.x) {
-    const int idx = base + threadIdx.x;
-    const int i = idx / KMAX;
-    const int j = idx - i * KMAX;
-    uint32_t any = 0, ident = 0;
-    if (idx < pairs && j < k) {
-      const uint8_t* blk = bitmat + (long long)i * 8 * bits + j * 8;
-      uint32_t bt[8][8];
-#pragma unroll
-      for (int t = 0; t < 8; ++t)
-#pragma unroll
-        for (int s = 0; s < 8; ++s) bt[t][s] = blk[(long long)t * bits + s] & 1u;
-      ident = 1;
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        uint4* e = reinterpret_cast<uint4*>(E + (i * 8 + t) * STRIDE + j * 8);
-        e[0] = make_uint4(0u - bt[t][0], 0u - bt[t][1], 0u - bt[t][2], 0u - bt[t][3]);
-        e[1] = make_uint4(0u - bt[t][4], 0u - bt[t][5], 0u - bt[t][6], 0u - bt[t][7]);
-#pragma unroll
-        for (int s = 0; s < 8; ++s) {
-          any |= bt[t][s];
-          ident &= bt[t][s] == (t == s ? 1u : 0u);
-        }
-      }
-    }
-    const uint32_t vote = __ballot_sync(0xffffffffu, any);
-    const uint32_t vote_id = __ballot_sync(0xffffffffu, ident);
-    if (idx < pairs && j == 0) {
-      const uint32_t low = 0xffffffffu >> (32 - KMAX);
-      const int lane = threadIdx.x % 32;
-      nz[i] = ((vote & ~vote_id) >> lane) & low;
-      id[i] = (vote_id >> lane) & low;
-    }
-  }
-  __syncthreads();
+    // p: the words, then the planes, of the unit's KMAX data rows
+    uint32_t p[STRIDE];
+    if (u < units) load_unit<KMAX>(data, k, n, chunks, u, vec_ok, p);
 
-  while (u < units) {
-    const long long b = u / chunks;
-    const long long off = (u - b * chunks) * kCols;
-    const bool full = vec_ok && off + kCols <= n;
+    // One thread per 8x8 block (i, j): its 64 loads are all in flight at
+    // once, so the expansion costs one memory latency, not one per entry.
+    // Blocks j >= k are never read (their mask bits are 0). KMAX divides
+    // 32, so a warp's vote holds whole output rows. Bit j of id[i]: block
+    // (i, j) is the identity; of nz[i]: it has a one and is not the
+    // identity.
+    const int pairs = out_rows * KMAX;
+    for (int base = 0; base < pairs; base += blockDim.x) {
+      const int idx = base + threadIdx.x;
+      const int i = idx / KMAX;
+      const int j = idx - i * KMAX;
+      uint32_t any = 0, ident = 0;
+      if (idx < pairs && j < k) {
+        const uint8_t* blk = bitmat + (long long)i * 8 * bits + j * 8;
+        uint32_t bt[8][8];
 #pragma unroll
-    for (int j = 0; j < KMAX; ++j)
-      if (j < k) to_planes(p + 8 * j);
-
-    uint8_t* orow = out + b * out_rows * n + off;
-    for (int i = 0; i < out_rows; ++i, orow += n) {
-      const uint32_t mask = nz[i];
-      const uint32_t imask = id[i];
-      uint32_t acc[8];
+        for (int t = 0; t < 8; ++t)
 #pragma unroll
-      for (int t = 0; t < 8; ++t) acc[t] = 0;
-      const uint32_t* Ei = E + (size_t)i * 8 * STRIDE;
+          for (int s = 0; s < 8; ++s) bt[t][s] = blk[(long long)t * bits + s] & 1u;
+        ident = 1;
 #pragma unroll
-      for (int j = 0; j < KMAX; ++j) {
-        const uint32_t* pj = p + 8 * j;
-        if ((imask >> j) & 1u) {
+        for (int t = 0; t < 8; ++t) {
+          uint4* e = reinterpret_cast<uint4*>(E + (i * 8 + t) * STRIDE + j * 8);
+          e[0] = make_uint4(0u - bt[t][0], 0u - bt[t][1], 0u - bt[t][2], 0u - bt[t][3]);
+          e[1] = make_uint4(0u - bt[t][4], 0u - bt[t][5], 0u - bt[t][6], 0u - bt[t][7]);
 #pragma unroll
-          for (int t = 0; t < 8; ++t) acc[t] ^= pj[t];
-        } else if ((mask >> j) & 1u) {
-#pragma unroll
-          for (int t = 0; t < 8; ++t) {
-            const uint4* e = reinterpret_cast<const uint4*>(Ei + t * STRIDE + 8 * j);
-            const uint4 e0 = e[0];
-            const uint4 e1 = e[1];
-            acc[t] ^= pj[0] & e0.x;
-            acc[t] ^= pj[1] & e0.y;
-            acc[t] ^= pj[2] & e0.z;
-            acc[t] ^= pj[3] & e0.w;
-            acc[t] ^= pj[4] & e1.x;
-            acc[t] ^= pj[5] & e1.y;
-            acc[t] ^= pj[6] & e1.z;
-            acc[t] ^= pj[7] & e1.w;
+          for (int s = 0; s < 8; ++s) {
+            any |= bt[t][s];
+            ident &= bt[t][s] == (t == s ? 1u : 0u);
           }
         }
       }
-      from_planes(acc);
-      if (full) {
-        __stcs(reinterpret_cast<uint4*>(orow),
-               make_uint4(acc[0], acc[1], acc[2], acc[3]));
-        __stcs(reinterpret_cast<uint4*>(orow) + 1,
-               make_uint4(acc[4], acc[5], acc[6], acc[7]));
-      } else {
-#pragma unroll
-        for (int x = 0; x < kCols; ++x)
-          if (off + x < n) orow[x] = (uint8_t)(acc[x / 4] >> (8 * (x % 4)));
+      const uint32_t vote = __ballot_sync(0xffffffffu, any);
+      const uint32_t vote_id = __ballot_sync(0xffffffffu, ident);
+      if (idx < pairs && j == 0) {
+        const uint32_t low = 0xffffffffu >> (32 - KMAX);
+        const int bit = threadIdx.x % 32;
+        nz[i] = ((vote & ~vote_id) >> bit) & low;
+        id[i] = (vote_id >> bit) & low;
       }
     }
+    __syncthreads();
 
-    u += step;
-    if (u < units) load_unit<KMAX>(data, k, n, chunks, u, vec_ok, p);
+    while (u < units) {
+      const long long b = u / chunks;
+      const long long off = (u - b * chunks) * kCols;
+      const bool full = vec_ok && off + kCols <= n;
+#pragma unroll
+      for (int j = 0; j < KMAX; ++j)
+        if (j < k) to_planes(p + 8 * j);
+
+      uint8_t* orow = out + b * out_rows * n + off;
+      for (int i = 0; i < out_rows; ++i, orow += n) {
+        const uint32_t mask = nz[i];
+        const uint32_t imask = id[i];
+        uint32_t acc[8];
+#pragma unroll
+        for (int t = 0; t < 8; ++t) acc[t] = 0;
+        const uint32_t* Ei = E + (size_t)i * 8 * STRIDE;
+#pragma unroll
+        for (int j = 0; j < KMAX; ++j) {
+          const uint32_t* pj = p + 8 * j;
+          if ((imask >> j) & 1u) {
+#pragma unroll
+            for (int t = 0; t < 8; ++t) acc[t] ^= pj[t];
+          } else if ((mask >> j) & 1u) {
+#pragma unroll
+            for (int t = 0; t < 8; ++t) {
+              const uint4* e = reinterpret_cast<const uint4*>(Ei + t * STRIDE + 8 * j);
+              const uint4 e0 = e[0];
+              const uint4 e1 = e[1];
+              acc[t] ^= pj[0] & e0.x;
+              acc[t] ^= pj[1] & e0.y;
+              acc[t] ^= pj[2] & e0.z;
+              acc[t] ^= pj[3] & e0.w;
+              acc[t] ^= pj[4] & e1.x;
+              acc[t] ^= pj[5] & e1.y;
+              acc[t] ^= pj[6] & e1.z;
+              acc[t] ^= pj[7] & e1.w;
+            }
+          }
+        }
+        from_planes(acc);
+        if (full) {
+          __stcs(reinterpret_cast<uint4*>(orow),
+                 make_uint4(acc[0], acc[1], acc[2], acc[3]));
+          __stcs(reinterpret_cast<uint4*>(orow) + 1,
+                 make_uint4(acc[4], acc[5], acc[6], acc[7]));
+        } else {
+#pragma unroll
+          for (int x = 0; x < kCols; ++x)
+            if (off + x < n) orow[x] = (uint8_t)(acc[x / 4] >> (8 * (x % 4)));
+        }
+      }
+
+      u += step;
+      if (u < units) load_unit<KMAX>(data, k, n, chunks, u, vec_ok, p);
+    }
+    // every thread has read this lane's E before the next lane's lands
+    if (lane + gridDim.y < lanes) __syncthreads();
   }
 }
 
 template <int KMAX>
-cudaError_t launch_bitsliced(const uint8_t* bitmat, int rows, int k,
-                             const uint8_t* data, uint8_t* out,
-                             long long batch, long long n,
-                             cudaStream_t stream) {
+cudaError_t launch_bitsliced(const uint8_t* bitmat, long long bm_stride,
+                             int rows, int k, const uint8_t* data,
+                             uint8_t* out, int lanes, long long batch,
+                             long long n, bool multi, cudaStream_t stream) {
   const long long units = batch * ((n + kCols - 1) / kCols);
-  if (units == 0 || rows == 0) return cudaSuccess;
+  if (units == 0 || rows == 0 || lanes == 0) return cudaSuccess;
   auto kernel = gf_bitsliced_kernel<KMAX>;
   const size_t smem = bitsliced_smem<KMAX>(rows);
-  unsigned blocks = 0;
-  const cudaError_t err =
-      launch_common::grid_blocks(kernel, kThreads, smem, units, &blocks);
+  unsigned resident = 0;
+  const cudaError_t err = launch_common::grid_blocks(
+      kernel, kThreads, smem, units * lanes, &resident);
   if (err != cudaSuccess) return err;
+  const dim3 grid = lane_grid(units, lanes, resident);
   const bool vec_ok = n % 16 == 0 &&
                       reinterpret_cast<uintptr_t>(data) % 16 == 0 &&
                       reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  kernel<<<blocks, kThreads, smem, stream>>>(bitmat, rows, k, data, out, batch,
-                                             n, vec_ok);
-  return count_launch(kBitsliced);
+  kernel<<<grid, kThreads, smem, stream>>>(bitmat, bm_stride, rows, k, data,
+                                           out, lanes, batch, n, vec_ok);
+  return count_launch(kBitsliced, multi);
 }
 
 // ---- design choice ---------------------------------------------------------
@@ -518,46 +563,52 @@ extern "C" int gf_bitmatrix_design(int rows, int k, int w) {
   return rc == 0 ? design : rc < 0 ? -1 : -2;
 }
 
-// Launches of `design` (0 popcount, 1 bit-sliced) since the last reset.
-extern "C" long long gf_bitmatrix_launches(int design) {
-  return design == kPopcount || design == kBitsliced ? g_launches[design].load()
-                                                     : -1;
+// Launches of `design` (0 popcount, 1 bit-sliced) since the last reset:
+// from gf_bitmatrix_encode with multi = 0, from gf_bitmatrix_encode_multi
+// with multi = 1.
+extern "C" long long gf_bitmatrix_launches(int design, int multi) {
+  return (design == kPopcount || design == kBitsliced) &&
+                 (multi == 0 || multi == 1)
+             ? g_launches[multi][design].load()
+             : -1;
 }
 
 extern "C" void gf_bitmatrix_reset_launches() {
-  for (auto& count : g_launches) count.store(0);
+  for (auto& by_design : g_launches)
+    for (auto& count : by_design) count.store(0);
 }
 
-// bitmat [rows, k*w] 0/1 uint8, data [batch, k, n] uint8, out
-// [batch, rows/w, n] uint8, all contiguous on the current device. Returns
-// 0, a cudaError_t code from the launch, or -1 for a geometry the kernel
-// does not take. Launches on `stream` and does not synchronise.
-extern "C" int gf_bitmatrix_encode(const void* bitmat, int rows, int k, int w,
-                                   const void* data, void* out,
-                                   long long batch, long long n,
-                                   void* stream) {
-  if (batch < 0 || n < 0) return -1;
+namespace {
+
+int encode_lanes(const void* bitmats, long long bm_stride, int lanes,
+                 int rows, int k, int w, const void* data, void* out,
+                 long long batch, long long n, bool multi, void* stream) {
+  if (batch < 0 || n < 0 || lanes < 0) return -1;
   int design = kPopcount;
   const int rc = pick_design(rows, k, w, &design);
   if (rc != 0) return rc;
   if (n % (w / 8) != 0) return -1;
-  const auto* bm = static_cast<const uint8_t*>(bitmat);
+  const auto* bm = static_cast<const uint8_t*>(bitmats);
   const auto* in = static_cast<const uint8_t*>(data);
   auto* o = static_cast<uint8_t*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSuccess;
   if (design == kBitsliced) {
     if (k <= 4)
-      err = launch_bitsliced<4>(bm, rows, k, in, o, batch, n, s);
+      err = launch_bitsliced<4>(bm, bm_stride, rows, k, in, o, lanes, batch,
+                                n, multi, s);
     else if (k <= 8)
-      err = launch_bitsliced<8>(bm, rows, k, in, o, batch, n, s);
+      err = launch_bitsliced<8>(bm, bm_stride, rows, k, in, o, lanes, batch,
+                                n, multi, s);
     else
-      err = launch_bitsliced<16>(bm, rows, k, in, o, batch, n, s);
+      err = launch_bitsliced<16>(bm, bm_stride, rows, k, in, o, lanes, batch,
+                                 n, multi, s);
     return (int)err;
   }
 #define GF_CASE(W_, NW_)                                                  \
   case W_ * 100 + NW_:                                                    \
-    err = launch_popcount<W_, NW_>(bm, rows, k, in, o, batch, n, s);      \
+    err = launch_popcount<W_, NW_>(bm, bm_stride, rows, k, in, o, lanes,  \
+                                   batch, n, multi, s);                   \
     break;
   switch (w * 100 + mask_words(k * w)) {
     GF_CASE(8, 1) GF_CASE(8, 2) GF_CASE(8, 4) GF_CASE(8, 8) GF_CASE(8, 16)
@@ -568,4 +619,31 @@ extern "C" int gf_bitmatrix_encode(const void* bitmat, int rows, int k, int w,
   }
 #undef GF_CASE
   return (int)err;
+}
+
+}  // namespace
+
+// bitmat [rows, k*w] 0/1 uint8, data [batch, k, n] uint8, out
+// [batch, rows/w, n] uint8, all contiguous on the current device. Returns
+// 0, a cudaError_t code from the launch, or -1 for a geometry the kernel
+// does not take. Launches on `stream` and does not synchronise.
+extern "C" int gf_bitmatrix_encode(const void* bitmat, int rows, int k, int w,
+                                   const void* data, void* out,
+                                   long long batch, long long n,
+                                   void* stream) {
+  return encode_lanes(bitmat, 0, 1, rows, k, w, data, out, batch, n, false,
+                      stream);
+}
+
+// A different bitmatrix per lane, in one launch: bitmats [lanes, rows,
+// k*w] 0/1 uint8, data [lanes, batch, k, n] uint8, out [lanes, batch,
+// rows/w, n] uint8, all contiguous on the current device. Returns as
+// gf_bitmatrix_encode does.
+extern "C" int gf_bitmatrix_encode_multi(const void* bitmats, int lanes,
+                                         int rows, int k, int w,
+                                         const void* data, void* out,
+                                         long long batch, long long n,
+                                         void* stream) {
+  return encode_lanes(bitmats, (long long)rows * k * w, lanes, rows, k, w,
+                      data, out, batch, n, true, stream);
 }

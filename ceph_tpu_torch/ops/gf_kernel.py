@@ -10,11 +10,19 @@ The source holds two designs, and its entry point picks one from the
 geometry alone: the bit-sliced kernel for w = 8 with k*8 <= 128 (the main
 path's), the popcount kernel for every other geometry.
 
-:func:`matrix_encode` launches the kernel for a CUDA tensor and runs
-:func:`matrix_encode_plain` only for a CPU tensor; it never falls back.
-``LAUNCHES`` counts kernel launches; :func:`launches_by_design` reads the
-counts that the C entry point keeps per design where it launches each
-kernel, and :func:`reset_launches` sets all of them to 0.
+:func:`matrix_encode_multi` is the per-lane form, a port of the XLA
+program of ``ceph_tpu/ops/xor_mm.py:91`` (``matrix_encode_multi``, the
+vmap of ``matrix_encode`` with a different bitmatrix per lane): P lanes
+in one launch of the same kernels (``gf_bitmatrix_encode_multi``). The
+HBM chunk tier's ``reconstruct_batch`` runs it.
+
+:func:`matrix_encode` and :func:`matrix_encode_multi` launch the kernel
+for a CUDA tensor and run their plain versions only for a CPU tensor;
+they never fall back. ``LAUNCHES`` and ``MULTI_LAUNCHES`` count kernel
+launches; :func:`launches_by_design` reads the counts that the C entry
+points keep per design where they launch each kernel (``multi=True``
+for the per-lane entry point), and :func:`reset_launches` sets all of
+them to 0.
 """
 
 from __future__ import annotations
@@ -27,9 +35,10 @@ import torch
 from . import _build
 from .xor_mm import pack_element_bits, unpack_element_bits, xor_matmul
 
-__all__ = ["matrix_encode", "matrix_encode_plain", "kernel_design",
+__all__ = ["matrix_encode", "matrix_encode_plain", "matrix_encode_multi",
+           "matrix_encode_multi_plain", "kernel_design",
            "launches_by_design", "reset_launches", "DESIGNS", "LAUNCHES",
-           "MAX_BITS"]
+           "MULTI_LAUNCHES", "MAX_BITS"]
 
 MAX_BITS = 512              # k*w the kernel takes
 _MAX_SMEM = 48 * 1024       # packed bitmatrix bytes of the popcount design
@@ -38,6 +47,7 @@ _SOURCE = "gf_bitmatrix"
 DESIGNS = ("popcount", "bitsliced")  # by the C entry point's design number
 
 LAUNCHES = 0
+MULTI_LAUNCHES = 0
 _count_lock = threading.Lock()
 _lib = None
 
@@ -51,9 +61,14 @@ def _kernel() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
             ctypes.c_longlong, ctypes.c_void_p]
         lib.gf_bitmatrix_encode.restype = ctypes.c_int
+        lib.gf_bitmatrix_encode_multi.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+        lib.gf_bitmatrix_encode_multi.restype = ctypes.c_int
         lib.gf_bitmatrix_design.argtypes = [ctypes.c_int] * 3
         lib.gf_bitmatrix_design.restype = ctypes.c_int
-        lib.gf_bitmatrix_launches.argtypes = [ctypes.c_int]
+        lib.gf_bitmatrix_launches.argtypes = [ctypes.c_int] * 2
         lib.gf_bitmatrix_launches.restype = ctypes.c_longlong
         lib.gf_bitmatrix_reset_launches.argtypes = []
         lib.gf_bitmatrix_reset_launches.restype = None
@@ -73,20 +88,23 @@ def kernel_design(rows: int, k: int, w: int, device) -> str:
     return DESIGNS[rc]
 
 
-def launches_by_design() -> dict[str, int]:
+def launches_by_design(multi: bool = False) -> dict[str, int]:
     """{design: kernel launches since the last reset}, as the C entry
-    point counts them where it launches each kernel."""
+    point counts them where it launches each kernel: the single-matrix
+    entry point's, or with `multi` the per-lane one's."""
     if _lib is None:            # nothing was built, so nothing launched
         return dict.fromkeys(DESIGNS, 0)
-    return {d: int(_lib.gf_bitmatrix_launches(i))
+    return {d: int(_lib.gf_bitmatrix_launches(i, int(multi)))
             for i, d in enumerate(DESIGNS)}
 
 
 def reset_launches() -> None:
-    """Sets ``LAUNCHES`` and the per-design counts to 0."""
-    global LAUNCHES
+    """Sets ``LAUNCHES``, ``MULTI_LAUNCHES`` and the per-design counts of
+    both entry points to 0."""
+    global LAUNCHES, MULTI_LAUNCHES
     with _count_lock:
         LAUNCHES = 0
+        MULTI_LAUNCHES = 0
         if _lib is not None:
             _lib.gf_bitmatrix_reset_launches()
 
@@ -99,17 +117,25 @@ def _mask_words(bits: int) -> int:
     return nw
 
 
-def _check(bitmat: torch.Tensor, data: torch.Tensor, w: int) -> None:
+def _check(bitmat: torch.Tensor, data: torch.Tensor, w: int,
+           lanes: int | None = None) -> None:
+    """Checks a [R, k*w] bitmatrix and [..., k, N] data, or with `lanes`
+    a [P, R, k*w] stack and [P, ..., k, N] data."""
     if w not in (8, 16, 32):
         raise ValueError("w=%d must be one of 8, 16, 32" % w)
     if bitmat.dtype != torch.uint8 or data.dtype != torch.uint8:
         raise TypeError("bitmat and data must be uint8, got %s and %s"
                         % (bitmat.dtype, data.dtype))
-    if bitmat.dim() != 2 or data.dim() < 2:
-        raise ValueError("bitmat must be [R, k*w] and data [..., k, N]; "
-                         "got %s and %s" % (tuple(bitmat.shape),
+    lead = 0 if lanes is None else 1
+    if bitmat.dim() != 2 + lead or data.dim() < 2 + lead:
+        raise ValueError("bitmat must be %s[R, k*w] and data %s[..., k, N]; "
+                         "got %s and %s" % ("[P] " * lead, "[P] " * lead,
+                                            tuple(bitmat.shape),
                                             tuple(data.shape)))
-    rows, cols = bitmat.shape
+    if lead and (bitmat.shape[0] != lanes or data.shape[0] != lanes):
+        raise ValueError("bitmats have %d lanes, data %d"
+                         % (bitmat.shape[0], data.shape[0]))
+    rows, cols = bitmat.shape[-2:]
     k, n = data.shape[-2:]
     if cols != k * w:
         raise ValueError("bitmat has %d columns, data k*w is %d"
@@ -167,4 +193,51 @@ def matrix_encode(bitmat: torch.Tensor, data: torch.Tensor,
                            % (rc, _build.launch_failure(lib)))
     with _count_lock:
         LAUNCHES += 1
+    return out
+
+
+def matrix_encode_multi_plain(bitmats: torch.Tensor, data: torch.Tensor,
+                              w: int) -> torch.Tensor:
+    """The per-lane kernel's function in plain PyTorch: lane p's data
+    [..., k, N] times lane p's bitmatrix, as one broadcast 0/1 matmul."""
+    lead = data.dim() - 3                  # dims between P and [k, N]
+    bm = bitmats.reshape(bitmats.shape[0], *([1] * lead),
+                         *bitmats.shape[1:])
+    return pack_element_bits(xor_matmul(bm, unpack_element_bits(data, w)),
+                             w)
+
+
+def matrix_encode_multi(bitmats: torch.Tensor, data: torch.Tensor,
+                        w: int) -> torch.Tensor:
+    """[P, ..., k, N] uint8 -> [P, ..., R/w, N] uint8 with a different
+    bitmatrix per lane, in one launch of the GPU kernel whatever P is.
+
+    bitmats: [P, R, k*w] 0/1 uint8 on data's device. A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel on the current
+    stream or raises."""
+    global MULTI_LAUNCHES
+    lanes = bitmats.shape[0] if bitmats.dim() == 3 else -1
+    _check(bitmats, data, w, lanes)
+    if data.device.type == "cpu":
+        return matrix_encode_multi_plain(bitmats, data, w)
+    if data.device.type != "cuda":
+        raise ValueError("no kernel for device %s" % data.device)
+    rows = bitmats.shape[1]
+    _, *lead, k, n = data.shape
+    batch = int(torch.Size(lead).numel())
+    out = torch.empty((lanes, *lead, rows // w, n), dtype=torch.uint8,
+                      device=data.device)
+    if out.numel() == 0:        # no work: the entry point launches nothing
+        return out
+    lib = _kernel()
+    with torch.cuda.device(data.device):
+        stream = torch.cuda.current_stream(data.device).cuda_stream
+        rc = lib.gf_bitmatrix_encode_multi(
+            bitmats.data_ptr(), lanes, rows, k, w, data.data_ptr(),
+            out.data_ptr(), batch, n, stream)
+    if rc != 0:
+        raise RuntimeError("gf_bitmatrix_encode_multi failed with code %d%s"
+                           % (rc, _build.launch_failure(lib)))
+    with _count_lock:
+        MULTI_LAUNCHES += 1
     return out

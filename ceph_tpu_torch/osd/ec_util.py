@@ -14,9 +14,10 @@ Port of ``ceph_tpu/osd/ec_util.py``, the role of the reference's ECUtil
   HashInfo       cumulative per-shard crc xattr (ECUtil.h:105-163)
 
 All byte movement stays in numpy; the codec's encode_batch/decode_batch
-own the device. HBM-tier residency (``resident=``), the cross-chip
-recovery and the repair helpers of the reference wait for the slices
-that port the HBM tier and repair.
+own the device. ``resident=(tier, key)`` on encode and encode_fused keeps
+the object in the device chunk tier (osd/hbm_tier.py). The cross-chip
+recovery and the repair helpers of the reference wait for the slice that
+ports repair.
 """
 
 from __future__ import annotations
@@ -111,27 +112,45 @@ def _shard_map(codec, rows, parity, want) -> dict:
     return out
 
 
+def _adopt(resident, rows, parity, codec, digests=None) -> None:
+    """The tier adopts host arrays (its upload is the object's one
+    crossing); a failure never fails the write: the tier is a cache."""
+    tier, key = resident
+    try:
+        tier.adopt_encode(key, rows, parity, codec, digests=digests)
+    except Exception:
+        pass
+
+
 def encode(sinfo: StripeInfo, codec, data, want=None,
-           dispatcher=None, trace=None) -> dict:
+           dispatcher=None, trace=None, resident=None) -> dict:
     """Encode a stripe-aligned payload -> {shard: chunk bytes}.
 
     data: bytes/uint8 array whose length is a multiple of stripe_width.
     ONE batched device call for all stripes. Returns every shard unless
     `want` restricts it. With a dispatcher (osd/gpu_dispatch.py),
-    concurrent callers sharing this codec coalesce into one launch."""
+    concurrent callers sharing this codec coalesce into one launch.
+
+    resident=(tier, key) keeps the encode in the device chunk tier:
+    through the dispatcher the pipeline adopts the staged device arrays
+    (no chunk byte crosses again); without one the tier adopts the host
+    arrays itself (that upload is then the object's one crossing)."""
     batch = _stripes(sinfo, codec, data)
     if batch is None:
         return {}
     if dispatcher is not None:
-        parity = np.asarray(dispatcher.encode(codec, batch, trace=trace))
+        parity = np.asarray(dispatcher.encode(codec, batch, trace=trace,
+                                              resident=resident))
     else:
         parity = np.asarray(codec.encode_batch(batch))
+        if resident is not None:
+            _adopt(resident, batch, parity, codec)
     return _shard_map(codec, batch, parity, want)
 
 
 def encode_fused(sinfo: StripeInfo, codec, data, want=None,
-                 dispatcher=None, trace=None, mode: str = "store",
-                 required_ratio: float = 0.875,
+                 dispatcher=None, trace=None, resident=None,
+                 mode: str = "store", required_ratio: float = 0.875,
                  entropy_max_bits: float = 7.0) -> tuple:
     """Whole-object write through the fused device transform: per-chunk
     digests, the compressibility probe + compress-vs-store decision, and
@@ -144,7 +163,11 @@ def encode_fused(sinfo: StripeInfo, codec, data, want=None,
     mode="compress" and the device chose to compress, the raw stripes
     otherwise. The FusedResult carries the device-computed per-shard crcs
     (HashInfo.set_device_hashes), the per-chunk crc32c/xxh32 digests, and
-    the compression verdict the caller records in the hinfo xattr."""
+    the compression verdict the caller records in the hinfo xattr.
+
+    resident=(tier, key) adopts the STORED rows, the parity and the shard
+    crcs into the device chunk tier (scrub-from-digest), as encode()'s
+    resident does."""
     from . import fused_transform
     batch = _stripes(sinfo, codec, data)
     if batch is None:
@@ -153,12 +176,17 @@ def encode_fused(sinfo: StripeInfo, codec, data, want=None,
     if dispatcher is not None:
         r = dispatcher.fused_write(
             codec, batch, mode=mode, required_ratio=required_ratio,
-            entropy_max_bits=entropy_max_bits, trace=trace)
+            entropy_max_bits=entropy_max_bits, trace=trace,
+            resident=resident)
     else:
         out = fused_transform.run_fused(
             codec, batch, mode=mode, required_ratio=required_ratio,
             entropy_max_bits=entropy_max_bits)
         r = fused_transform.finish_fused(out, stripes, k, chunk, mode)
+        if resident is not None:
+            _adopt(resident, r.stored if r.stored is not None else batch,
+                   r.parity, codec,
+                   np.asarray(r.shard_crcs, dtype=np.uint32))
     rows = r.stored if r.stored is not None else batch
     return _shard_map(codec, rows, r.parity, want), r
 

@@ -38,8 +38,21 @@ thread, with its legs timed by ``common.tracer.device_segments``.
 Whole-object writes ride the same pipeline through the fused write
 transform (``fused_write_async``): digests, compression decision and
 encode in one dispatch per object, never coalesced, with every output
-drained by one d2h. HBM-tier adoption, repair, telemetry and the stage
-profiler of the reference wait for later slices.
+drained by one d2h.
+
+``resident=(tier, key)`` on an encode or a fused write asks the pipeline
+to adopt what it staged and computed into the device chunk tier
+(``osd/hbm_tier.py``): the staged data rows and the parity of an encode;
+the staged raw rows, the parity and the shard crcs of a store-mode fused
+write; the stored rows and parity of a compress-mode one. Pipelined, the
+arrays are already on the device, so adoption moves no chunk byte from
+the host; it runs on the d2h stream after the result's copy, and a
+staging buffer goes back to the pool only once the tier's copy of it is
+made (otherwise the next batch of the shape would be staged into the
+rows being adopted). At depth 1 the tier adopts the host arrays, as the
+reference's synchronous path does. An adoption failure never fails the
+submitter: the tier is a cache. Repair, telemetry and the stage profiler
+of the reference wait for later slices.
 """
 
 from __future__ import annotations
@@ -64,15 +77,17 @@ class _Pending:
     """One submitter's slot in a fused dispatch — and the future the
     async API hands back (result()/done()/exception())."""
 
-    __slots__ = ("batch", "event", "out", "error", "trace", "t_submit")
+    __slots__ = ("batch", "event", "out", "error", "trace", "t_submit",
+                 "resident")
 
-    def __init__(self, batch, trace=NULL_SPAN):
+    def __init__(self, batch, trace=NULL_SPAN, resident=None):
         self.batch = batch
         self.event = threading.Event()
         self.out = None
         self.error = None
         self.trace = trace if trace is not None else NULL_SPAN
         self.t_submit = time.monotonic()
+        self.resident = resident     # (tier, key, codec) adoption ask
 
     # -- future surface ------------------------------------------------
 
@@ -160,6 +175,16 @@ class _CudaDevOps:
         done.synchronize()
         return out, done
 
+    def adopt(self, fn) -> None:
+        """Runs fn (the tier's device copies) on the d2h stream, which is
+        already ordered after the dispatch's compute, and waits for the
+        copies: the staged buffer may then go back to the pool."""
+        with torch.cuda.stream(self.d2h_stream):
+            fn()
+            copied = torch.cuda.Event()
+            copied.record(self.d2h_stream)
+        copied.synchronize()
+
     def d2h(self, out, done):
         """The result in pinned host memory: a tensor, or every tensor of
         a fused output dict, copied on the d2h stream behind one event."""
@@ -185,6 +210,9 @@ class _HostDevOps:
 
     def d2h(self, out, done):
         return to_numpy(out)
+
+    def adopt(self, fn) -> None:
+        fn()
 
     def release(self, buf) -> None:
         pass
@@ -236,6 +264,14 @@ class GpuDispatcher:
                      .add_u64_counter("l_gpu_reused",
                                       "dispatches staged into a reused "
                                       "device buffer")
+                     .add_u64_counter("l_gpu_h2d_bytes",
+                                      "bytes the h2d leg staged")
+                     .add_u64_counter("l_gpu_adopted",
+                                      "results adopted into a device "
+                                      "chunk tier")
+                     .add_u64_counter("l_gpu_adopt_failed",
+                                      "adoptions the tier refused (the "
+                                      "write itself succeeds)")
                      .add_u64_counter("l_gpu_fused_dispatches",
                                       "fused write transforms dispatched")
                      .add_u64_counter("l_gpu_fused_bytes_in",
@@ -313,14 +349,19 @@ class GpuDispatcher:
             pass
         return key
 
-    def encode_async(self, codec, batch: np.ndarray,
-                     trace=NULL_SPAN) -> _Pending:
+    def encode_async(self, codec, batch: np.ndarray, trace=NULL_SPAN,
+                     resident=None) -> _Pending:
         """Async codec.encode_batch(batch): returns a future whose
-        result() is the parity array."""
+        result() is the parity array. resident=(tier, key) asks the
+        pipeline to adopt the staged data and computed parity into the
+        device chunk tier."""
         key = (self._codec_key(codec), "enc", batch.shape[1:],
                str(batch.dtype))
         self.perf.inc("l_gpu_enc_bytes", int(batch.nbytes))
-        return self._submit_async(key, codec.encode_batch, batch, trace)
+        if resident is not None:
+            resident = (resident[0], resident[1], codec)
+        return self._submit_async(key, codec.encode_batch, batch, trace,
+                                  resident=resident)
 
     def decode_async(self, codec, avail_rows: tuple,
                      chunks: np.ndarray, trace=NULL_SPAN) -> _Pending:
@@ -352,11 +393,12 @@ class GpuDispatcher:
             entry.setdefault(
                 devkey, host_tensor(entry["bitmat"]).to(self.device))
 
-    def encode(self, codec, batch: np.ndarray,
-               trace=NULL_SPAN) -> np.ndarray:
+    def encode(self, codec, batch: np.ndarray, trace=NULL_SPAN,
+               resident=None) -> np.ndarray:
         """codec.encode_batch(batch), coalesced across submitters — the
         blocking facade over encode_async."""
-        return self.encode_async(codec, batch, trace).result()
+        return self.encode_async(codec, batch, trace,
+                                 resident=resident).result()
 
     def decode(self, codec, avail_rows: tuple,
                chunks: np.ndarray, trace=NULL_SPAN) -> np.ndarray:
@@ -375,10 +417,12 @@ class GpuDispatcher:
                           mode: str = "store",
                           required_ratio: float = 0.875,
                           entropy_max_bits: float = 7.0,
-                          trace=NULL_SPAN) -> _Pending:
+                          trace=NULL_SPAN, resident=None) -> _Pending:
         """Async fused write transform over one whole-object batch: one
         h2d, the transform's launches, one d2h of every output. The
-        codec must live on this dispatcher's device.
+        codec must live on this dispatcher's device. resident=(tier, key)
+        adopts the stored rows, parity and shard crcs into the device
+        chunk tier.
 
         Fused dispatches never coalesce across submitters (the
         compression decision and the shard crc chains are per object),
@@ -399,18 +443,23 @@ class GpuDispatcher:
             self._fused_seq += 1
             seq = self._fused_seq
         key = (self._codec_key(codec), "fused", mode, seq)
-        return self._submit_async(key, fn, batch, trace, kind="fused")
+        if resident is not None:
+            resident = (resident[0], resident[1], codec)
+        return self._submit_async(key, fn, batch, trace, kind="fused",
+                                  resident=resident)
 
     def fused_write(self, codec, batch: np.ndarray, mode: str = "store",
                     required_ratio: float = 0.875,
-                    entropy_max_bits: float = 7.0, trace=NULL_SPAN):
+                    entropy_max_bits: float = 7.0, trace=NULL_SPAN,
+                    resident=None):
         """Blocking facade over fused_write_async -> FusedResult."""
         from . import fused_transform
         batch = np.asarray(batch)
         S, k, chunk = batch.shape
         host = self.fused_write_async(
             codec, batch, mode=mode, required_ratio=required_ratio,
-            entropy_max_bits=entropy_max_bits, trace=trace).result()
+            entropy_max_bits=entropy_max_bits, trace=trace,
+            resident=resident).result()
         return fused_transform.result_from_host(host, S, k, chunk, mode)
 
     def shutdown(self) -> None:
@@ -426,8 +475,9 @@ class GpuDispatcher:
     # -- internals -----------------------------------------------------
 
     def _submit_async(self, key, fn, batch, trace=NULL_SPAN,
-                      prefetch=None, kind="codec") -> _Pending:
-        p = _Pending(np.asarray(batch), trace)
+                      prefetch=None, kind="codec", resident=None
+                      ) -> _Pending:
+        p = _Pending(np.asarray(batch), trace, resident)
         with self.cv:
             q = self.queues.get(key)
             if q is None:
@@ -522,8 +572,12 @@ class GpuDispatcher:
         try:
             if d.prefetch is not None:
                 d.prefetch()
-            out, seg = device_segments(d.fn, self._stack(d), self.device)
+            stacked = self._stack(d)
+            self.perf.inc("l_gpu_h2d_bytes", int(stacked.nbytes))
+            out, seg = device_segments(d.fn, stacked, self.device)
             self._slice_results(d, out)
+            # the host arrays: the tier's upload is the object's crossing
+            self._adopt_residents(d, stacked, out)
             t1 = t_start + seg["h2d"]
             t2 = t1 + seg["compute"]
             d.seg = {"h2d": (t_start, t1), "compute": (t1, t2),
@@ -559,7 +613,9 @@ class GpuDispatcher:
                 return
             try:
                 t0 = time.monotonic()
-                d.dev, d.ready, reused = self._devops.h2d(self._stack(d))
+                stacked = self._stack(d)
+                d.dev, d.ready, reused = self._devops.h2d(stacked)
+                self.perf.inc("l_gpu_h2d_bytes", int(stacked.nbytes))
                 if reused:
                     self.perf.inc("l_gpu_reused")
                 if d.prefetch is not None:
@@ -587,9 +643,11 @@ class GpuDispatcher:
                 self._fail(d, e)
                 continue
             # compute has consumed the staged input: the next batch of
-            # this shape is staged into it
-            self._devops.release(d.dev)
-            d.dev = None
+            # this shape is staged into it, unless the tier is still to
+            # copy it (the d2h stage releases it then)
+            if not any(p.resident is not None for p in d.pend):
+                self._devops.release(d.dev)
+                d.dev = None
             self._q_d2h.put(d)
 
     def _d2h_loop(self) -> None:
@@ -600,9 +658,16 @@ class GpuDispatcher:
             try:
                 t0 = time.monotonic()
                 out = self._devops.d2h(d.out_dev, d.done)
-                d.out_dev = None
                 d.seg["d2h"] = (t0, time.monotonic())
                 self._slice_results(d, out)
+                if d.dev is not None:
+                    # the staged rows and the device outputs, copied on
+                    # the device; then the staging buffer is free
+                    self._devops.adopt(lambda: self._adopt_residents(
+                        d, d.dev, d.out_dev))
+                    self._devops.release(d.dev)
+                    d.dev = None
+                d.out_dev = None
                 self._account(d)
                 if d.kind == "fused":
                     self._account_fused(d)
@@ -622,6 +687,48 @@ class GpuDispatcher:
         for p in d.pend:
             s = p.batch.shape[0]
             p.out = out[off:off + s]
+            off += s
+
+    def _adopt_residents(self, d: _Dispatch, data_src, out) -> None:
+        """Hand the staged data rows and the computed outputs to the
+        device chunk tier for every submitter that asked (device tensors
+        when pipelined, host arrays at depth 1). Adoption failures never
+        fail the submitter (the tier is a cache)."""
+        if d.kind == "fused":
+            # one submitter per fused dispatch (its key is unique): adopt
+            # what was STORED, the compressed rows when the device chose
+            # to compress, the staged raw rows when it chose store, and
+            # keep the device-computed shard crcs beside them
+            p = d.pend[0]
+            if p.resident is None or not isinstance(p.out, dict):
+                return
+            tier, key, codec = p.resident
+            host = p.out
+            try:
+                if "do_compress" in host:
+                    used = int(host["used_stripes"])
+                    rows, par = out["stored"][:used], out["parity"][:used]
+                else:
+                    rows = data_src
+                    par = out["parity"][:data_src.shape[0]]
+                tier.adopt_encode(
+                    key, rows, par, codec,
+                    digests=np.asarray(host["shard_crcs"], dtype=np.uint32))
+                self.perf.inc("l_gpu_adopted")
+            except Exception:
+                self.perf.inc("l_gpu_adopt_failed")
+            return
+        off = 0
+        for p in d.pend:
+            s = p.batch.shape[0]
+            if p.resident is not None:
+                tier, key, codec = p.resident
+                try:
+                    tier.adopt_encode(key, data_src[off:off + s],
+                                      out[off:off + s], codec)
+                    self.perf.inc("l_gpu_adopted")
+                except Exception:
+                    self.perf.inc("l_gpu_adopt_failed")
             off += s
 
     def _account(self, d: _Dispatch) -> None:

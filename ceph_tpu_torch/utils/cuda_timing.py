@@ -130,3 +130,32 @@ def crush_bound(work, result_max: int) -> tuple[float, str]:
     t_ops = ops / INT32_OPS_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def gf_multi_bound(bitmats, data, out, w: int) -> tuple[float, str]:
+    """Least time (ms) of a per-lane GF bitmatrix product (bitmats
+    [P, R, k*w], data [P, ..., k, N]): gf_bound summed over the lanes,
+    every lane's bitmatrix, data and output bytes once at the HBM rate, or
+    every lane's GF(2) product as int8 multiply-adds at the int8 rate."""
+    nbytes = bitmats.numel() + data.numel() + out.numel()
+    columns = data.numel() * 8 // (data.shape[-2] * w)
+    return _bound(nbytes, 2 * bitmats.shape[1] * bitmats.shape[2] * columns)
+
+
+# integer instructions of one 16-byte step of csrc/hbm_digest.cu's fast
+# path, counted in its SASS (cuobjdump -sass of the sm_90a build, CUDA
+# 12.8): IDP.4A 8, IMAD and IMAD.IADD 3, VIADD 2 (the weight's step and
+# wrap), ISETP 2 (the wrap test and the straddle test), beside the load,
+# the branches and barriers and the uniform moves of the constants, which
+# are not counted
+DIGEST_VECTOR_OPS = 15
+
+
+def digest_bound(nbytes: int, rows: int) -> tuple[float, str]:
+    """Least time (ms) of the chunk digest over `rows` rows of `nbytes`
+    bytes in all: the bytes read once and two uint32 written a row at the
+    HBM rate, or DIGEST_VECTOR_OPS a 16-byte step at INT32_OPS_PER_S,
+    whichever is larger, with the name of the bound."""
+    t_bytes = (nbytes + 8 * rows) / HBM_BYTES_PER_S * 1e3
+    t_ops = nbytes / 16 * DIGEST_VECTOR_OPS / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")

@@ -5,10 +5,11 @@
 
 Drives the port's main path at the bench's real size — Reed-Solomon
 reed_sol_van k=8, m=3, w=8 on batches of 16 objects of 1 MiB
-([16, 8, 131072] uint8) — the OSD's fused write of a 4 MiB object and
-the batched CRUSH placement of a 1024-OSD cluster through the entry
-points a user calls, and holds every kernel of the
-paths against its plain PyTorch version on the card. Phases, each printing one JSON line:
+([16, 8, 131072] uint8) — the OSD's fused write of a 4 MiB object, the
+batched CRUSH placement of a 1024-OSD cluster and the device chunk tier
+fed by the dispatcher's writes, through the entry points a user calls,
+and holds every kernel of the paths against its plain PyTorch version on
+the card. Phases, each printing one JSON line:
 
   1. setup       build every ``ceph_tpu_torch/csrc/*.cu`` (one nvcc each,
                  all at once), report the card and, from ptxas' log, the
@@ -107,14 +108,45 @@ paths against its plain PyTorch version on the card. Phases, each printing one J
                  ``crushtool --test --batched --show-utilization`` on the
                  cluster at 8,192 PGs, its report at 512 PGs equal to the
                  scalar run's.
-  10. kernels    one JSON line per the port's kernel table: the design
+  10. hbm_tier   the device chunk tier (``osd/hbm_tier.py``) and its two
+                 kernels, the chunk digest (``csrc/hbm_digest.cu``) and
+                 the per-lane GF product (``gf_bitmatrix_encode_multi``):
+                 (a) the reference bench's resident pipeline
+                 (bench.py:915-935): RS k=8, m=3, 3 rounds of 16 objects
+                 of 1 MiB through ``put_encode`` (one upload each), then
+                 ``deep_scrub(device_out=True)`` of all 48 x1, x3 and x9
+                 and ``reconstruct_batch`` with lost shard (i + r) % 11,
+                 every digest equal to ``host_digest`` and every rebuilt
+                 shard to the original; (b) the OSD's write path: 64
+                 writes of 4 MiB ([128, 8, 4096]) from 8 threads through
+                 ``GpuDispatcher.fused_write_async(resident=)``, one in
+                 four compress-mode on low-entropy bytes, into a tier of
+                 the default 64 objects: every object resident with no
+                 upload by the tier, the dispatcher staging the same bytes
+                 as without ``resident=``, ``shard_digests`` equal to the
+                 write's crcs and zlib, ``deep_scrub`` to ``host_digest``
+                 of the shard streams, ``reconstruct`` of 1 and 2 shards
+                 and ``reconstruct_batch`` per chunk shape to the shard
+                 map, and a 65th write evicting the least recently used;
+                 (c) 1024 objects of 4 MiB through ``put_encode`` in
+                 batches of 16 ([16, 8, 524288]) into a tier of 1024 (5.5
+                 GiB resident): one ``deep_scrub`` (one digest launch),
+                 one ``reconstruct_batch`` of 1024 lost shards (one
+                 per-lane launch), every digest against the plain version
+                 on the card, every rebuilt shard against the resident
+                 original and 32 sampled against the host bytes. Launches
+                 per call, counted from before each call; then each
+                 kernel alone on each part's inputs (CUDA events), its
+                 plain version, bound and bound_by, and the digest on one
+                 batch array beside ``torch.sum`` of the same bytes.
+  11. kernels    one JSON line per the port's kernel table: the design
                  the main path takes, launches on the main path (phases
                  3-4 for the GF bitmatrix kernel, phase 6 for the packet
                  kernel, phase 8 for the write transform's kernels, phase
-                 9 for the CRUSH kernel, each counted from 0 just before
-                 its path), the GF kernel's launches on phases 6 and 8 as
-                 well, max_abs_err, ms, plain_ms, bound_ms, bound_by,
-                 library_ms.
+                 9 for the CRUSH kernel, phase 10 for the tier's two,
+                 each counted from 0 just before its path), the GF
+                 kernel's launches on phases 6 and 8 as well, max_abs_err,
+                 ms, plain_ms, bound_ms, bound_by, library_ms.
 
 Then the card's name and power limit as nvidia-smi prints them, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -140,6 +172,13 @@ ROOT = Path(__file__).resolve().parent
 
 BATCH, K, M, W, N = 16, 8, 3, 8, 131072
 PROFILE = {"technique": "reed_sol_van", "k": str(K), "m": str(M), "w": str(W)}
+# phase 10's sizes: (a) rounds, objects a round, object bytes (bench.py's
+# resident pipeline); (b) stripes and chunk of a 4 MiB write at
+# stripe_unit 4096, writer threads, writes a thread; (c) objects, objects
+# an upload batch, object bytes
+TIER_A = (3, 16, 1 << 20)
+TIER_B = (128, 4096, 8, 8)
+TIER_C = (1024, 16, 4 << 20)
 
 _records: list[dict] = []
 
@@ -370,6 +409,403 @@ def crush_phase(np, torch, dev, smi):
         "other_cases": {n: {f: r[f] for f in (
             "seeds", "ms", "pgs_per_s", "plain_ms", "bound_ms", "bound_by")}
             for n, r in records.items() if n != "bench_65536"}}
+
+
+def hbm_tier_phase(np, torch, dev, smi):
+    """Phase 10: the device chunk tier (``osd/hbm_tier.py``) fed by the
+    dispatcher's writes, its deep scrub (the chunk digest kernel) and its
+    batched rebuild (the per-lane GF kernel), at (a) the reference
+    bench's resident pipeline, (b) the OSD's write path of 4 MiB objects
+    and (c) a tier of 1024 objects of 4 MiB. Returns the two kernels'
+    lines."""
+    from ceph_tpu_torch import registry
+    from ceph_tpu_torch.ops import digest_kernel as dk
+    from ceph_tpu_torch.ops import gf_kernel, gf_ref
+    from ceph_tpu_torch.osd import fused_transform as ft
+    from ceph_tpu_torch.osd.gpu_dispatch import GpuDispatcher
+    from ceph_tpu_torch.osd.hbm_tier import HbmChunkTier, host_digest
+    from ceph_tpu_torch.utils.cuda_timing import (digest_bound,
+                                                  gf_multi_bound, time_ms)
+
+    codec = registry.factory("torch_cuda", dict(PROFILE))
+    nn = K + M
+    rng = np.random.default_rng(20261017)
+
+    def n_launched():
+        return {"chunk_digest": dk.cuda_launches(),
+                "gf_bitmatrix_multi": sum(
+                    gf_kernel.launches_by_design(multi=True).values()),
+                "gf_bitmatrix": sum(gf_kernel.launches_by_design().values())}
+
+    def per_call(fn):
+        """fn()'s result, its wall seconds to a synchronise, and the CUDA
+        launches of each kernel it made (counted from before the call)."""
+        torch.cuda.synchronize()
+        before = n_launched()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return out, wall, {k_: v - before[k_]
+                           for k_, v in n_launched().items()}
+
+    def u32(t):
+        return t.view(torch.int32).cpu().numpy().view(np.uint32)
+
+    def digest_err(s, ws, ps, pws):
+        """The largest difference of two digest pairs, as uint32 values."""
+        def val(t):
+            return t.reshape(-1).view(torch.int32).long() & 0xFFFFFFFF
+        return int(max((val(s) - val(ps)).abs().max(),
+                       (val(ws) - val(pws)).abs().max()))
+
+    # the main path, driven with every count at 0 just before and read
+    # just after; timing and the plain versions come after it
+    dk.reset_launches()
+    gf_kernel.reset_launches()
+
+    # (a) the reference bench's resident pipeline (bench.py:915-935): RS
+    # k=8, m=3, 3 rounds of 16 objects of 1 MiB, each round one put_encode
+    rounds, nobjs, obj_a = TIER_A
+    n_a = codec.get_chunk_size(obj_a)
+    batches = [rng.integers(0, 256, (nobjs, K, n_a), dtype=np.uint8)
+               for _ in range(rounds)]
+    names_a = [["o%d-%d" % (r, i) for i in range(nobjs)]
+               for r in range(rounds)]
+    all_a = [nm for row in names_a for nm in row]
+    lost_a = [(i + r) % nn for r in range(rounds) for i in range(nobjs)]
+    runs_a = {}
+    for scrubs in (0, 1, 3, 9):     # 0: the warm-up, as bench.py runs one
+        def pipeline():
+            tier = HbmChunkTier(codec, capacity_objects=rounds * nobjs + 1)
+            for r in range(rounds):
+                tier.put_encode(names_a[r], batches[r])   # the one h2d
+            for _ in range(max(scrubs, 1)):
+                s, ws = tier.deep_scrub(all_a, device_out=True)
+            shards = tier.reconstruct_batch(all_a, lost_a)
+            return (tier, tier.finalize_digests(all_a, s, ws),
+                    shards.cpu().numpy())
+        (tier_a, digs, shards), wall, calls = per_call(pipeline)
+        runs_a[scrubs or "warm-up"] = dict(
+            seconds=wall, launches=calls,
+            MBps=rounds * nobjs * obj_a / wall / 1e6)
+        check(calls["chunk_digest"] == max(scrubs, 1) and
+              calls["gf_bitmatrix_multi"] == 1,
+              "(a): one digest launch a scrub, one rebuild launch")
+        check(tier_a.uploads() == (rounds, sum(b.nbytes for b in batches)),
+              "(a): one upload per put_encode")
+        if scrubs == 0:
+            full_a = {nm: tier_a.get(nm).cpu().numpy() for nm in all_a}
+            digs_a = digs
+            for r in range(rounds):
+                for i, nm in enumerate(names_a[r]):
+                    check(np.array_equal(full_a[nm][:K], batches[r][i]),
+                          "(a): resident data rows equal the host bytes")
+            ref0 = gf_ref.matrix_encode_ref(codec.coding, batches[0][0], W)
+            check(np.array_equal(full_a[all_a[0]][K:], ref0),
+                  "(a): parity equals gf_ref")
+        for nm in all_a:
+            check(np.array_equal(digs[nm], host_digest(full_a[nm]))
+                  if scrubs == 0 else np.array_equal(digs[nm], digs_a[nm]),
+                  "(a): digest of %s equals host_digest" % nm)
+        for i, nm in enumerate(all_a):
+            check(np.array_equal(shards[i], full_a[nm][lost_a[i]]),
+                  "(a): rebuilt shard of %s equals the original" % nm)
+    emit("hbm_tier", case="a_bench_resident_pipeline",
+         objects=[rounds, nobjs, K, n_a], pipelines=runs_a)
+
+    # (b) the OSD's write path into the tier: 4 MiB objects at stripe_unit
+    # 4096 ([128, 8, 4096]), 64 writes from 8 threads through
+    # fused_write_async(resident=), one in four compress-mode on
+    # low-entropy bytes, into a tier of the default 64 objects
+    WS, WC, threads, per_thread = TIER_B
+    nw = threads * per_thread
+    objs = [rng.integers(0, 4 if i % 4 == 0 else 256, (WS, K, WC),
+                         dtype=np.uint8) for i in range(nw + 1)]
+    modes = ["compress" if i % 4 == 0 else "store" for i in range(nw + 1)]
+    keys = [("pg%d" % (i % 8), "obj%d" % i) for i in range(nw + 1)]
+    tier_b = HbmChunkTier(codec)
+    check(tier_b.capacity == 64, "(b): the default capacity")
+    results: list = [None] * (nw + 1)
+    errors: list = []
+
+    def write_all(disp, resident):
+        def writer(t):
+            try:
+                for j in range(per_thread):
+                    i = t * per_thread + j
+                    fut = disp.fused_write_async(
+                        codec, objs[i], mode=modes[i],
+                        resident=(tier_b, keys[i]) if resident else None)
+                    results[i] = ft.result_from_host(fut.result(300), WS, K,
+                                                     WC, modes[i])
+            except Exception as e:  # reported below; the run then fails
+                errors.append(repr(e))
+        pool = [threading.Thread(target=writer, args=(t,))
+                for t in range(threads)]
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join(600)
+        check(not any(t.is_alive() for t in pool) and not errors,
+              "(b): every write returned: %s" % errors[:3])
+
+    disp = GpuDispatcher()
+    (_, wall_b, calls_b) = per_call(lambda: write_all(disp, True))
+    staged = disp.perf.dump()
+    disp.shutdown()
+    check(tier_b.uploads() == (0, 0),
+          "(b): adoption moved no chunk byte from the host")
+    check(staged["l_gpu_adopted"] == nw and
+          all(tier_b.resident(k_) for k_ in keys[:nw]),
+          "(b): every object resident")
+    want_b, shard_maps = {}, {}
+    for i in range(nw):
+        r = results[i]
+        check(r.compressed == (modes[i] == "compress"),
+              "(b): one write in four stored compressed")
+        rows = r.stored if r.stored is not None else objs[i]
+        want = np.concatenate([rows, r.parity], 1).transpose(1, 0, 2) \
+            .reshape(nn, -1)
+        want_b[keys[i]] = want
+        check(np.array_equal(tier_b.get(keys[i]).cpu().numpy(), want),
+              "(b): the resident copy is what landed on disk")
+        crcs = [zlib.crc32(want[j].tobytes()) for j in range(nn)]
+        check(list(tier_b.shard_digests(keys[i])) == r.shard_crcs == crcs,
+              "(b): shard_digests equal the write's crcs and zlib")
+    scrub_b, _, scrub_calls = per_call(lambda: tier_b.deep_scrub(keys[:nw]))
+    check(scrub_calls["chunk_digest"] == 2,
+          "(b): one digest launch per chunk shape (store, compressed)")
+    for k_ in keys[:nw]:
+        check(np.array_equal(scrub_b[k_], host_digest(want_b[k_])),
+              "(b): deep_scrub equals host_digest of the shard streams")
+    for i in (1, 2, 4, 8):
+        for lost in ((i % nn,), (1, 9)):
+            got = tier_b.reconstruct(keys[i], lost).cpu().numpy()
+            check(np.array_equal(got, want_b[keys[i]][list(lost)]),
+                  "(b): reconstruct %s of %s" % (lost, keys[i]))
+    groups = {"store": [i for i in range(nw) if modes[i] == "store"],
+              "compress": [i for i in range(nw) if modes[i] == "compress"]}
+    rebuild_calls = {}
+    for g, idx in groups.items():
+        lost = [i % nn for i in idx]
+        got, _, rebuild_calls[g] = per_call(lambda: tier_b.reconstruct_batch(
+            [keys[i] for i in idx], lost))
+        check(rebuild_calls[g]["gf_bitmatrix_multi"] == 1,
+              "(b): one rebuild launch for the %s objects" % g)
+        for j, i in enumerate(idx):
+            check(np.array_equal(got[j].cpu().numpy(),
+                                 want_b[keys[i]][lost[j]]),
+                  "(b): reconstruct_batch of %s" % (keys[i],))
+    for k_ in keys[:nw]:               # key 0 becomes the least recent
+        tier_b.get(k_)
+    disp = GpuDispatcher()
+    results[nw] = ft.result_from_host(disp.fused_write_async(
+        codec, objs[nw], mode=modes[nw],
+        resident=(tier_b, keys[nw])).result(300), WS, K, WC, modes[nw])
+    disp.shutdown()
+    st = tier_b.stats()
+    check(not tier_b.resident(keys[0]) and tier_b.resident(keys[nw]) and
+          st["evictions"] == 1 and st["resident_objects"] == 64,
+          "(b): the 65th write evicts the least recently used object")
+    # the same 64 writes without resident=: the dispatcher stages the
+    # same bytes
+    disp = GpuDispatcher()
+    write_all(disp, False)
+    plain_staged = disp.perf.dump()["l_gpu_h2d_bytes"]
+    disp.shutdown()
+    check(staged["l_gpu_h2d_bytes"] == plain_staged == nw * WS * K * WC,
+          "(b): the dispatcher stages the same bytes with resident=")
+    emit("hbm_tier", case="b_osd_write_path", objects=nw + 1,
+         shape=[WS, K, WC], threads=threads, wall_s=wall_b,
+         writes_per_s=nw / wall_b, launches=calls_b,
+         staged_bytes=staged["l_gpu_h2d_bytes"],
+         staged_bytes_without_resident=plain_staged,
+         tier_uploads=tier_b.uploads(), stats=st,
+         deep_scrub_launches=scrub_calls,
+         reconstruct_batch_launches=rebuild_calls,
+         compressed_chunk=int(tier_b.get(keys[4]).shape[1]))
+    del objs, results
+
+    # (c) a tier at an OSD's size: 1024 objects of 4 MiB through
+    # put_encode in batches of 16 ([16, 8, 524288]), capacity 1024
+    nc, per, obj_c = TIER_C
+    n_c = codec.get_chunk_size(obj_c)
+    tier_c = HbmChunkTier(codec, capacity_objects=nc)
+    names_c = ["c%d" % i for i in range(nc)]
+    sampled = {b * per + (b * 5) % per: None for b in range(0, nc // per, 2)}
+    t0 = time.perf_counter()
+    for b in range(nc // per):
+        data = np.frombuffer(rng.bytes(per * K * n_c), np.uint8).reshape(
+            per, K, n_c)
+        for i in range(b * per, (b + 1) * per):
+            if i in sampled:
+                sampled[i] = data[i - b * per].copy()
+        tier_c.put_encode(names_c[b * per:(b + 1) * per], data)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    st_c = tier_c.stats()
+    check(st_c["resident_objects"] == nc and
+          st_c["resident_bytes"] == nc * nn * n_c,
+          "(c): 1024 objects resident")
+    (s_c, ws_c), scrub_wall_c, scrub_calls_c = per_call(
+        lambda: tier_c.deep_scrub(names_c, device_out=True))
+    check(scrub_calls_c["chunk_digest"] == 1,
+          "(c): one digest launch for the whole tier")
+    lost_c = [(i * 7) % nn for i in range(nc)]
+    out_c, rebuild_wall_c, rebuild_calls_c = per_call(
+        lambda: tier_c.reconstruct_batch(names_c, lost_c))
+    check(rebuild_calls_c["gf_bitmatrix_multi"] == 1,
+          "(c): one rebuild launch for 1024 lost shards")
+    main = n_launched()
+    check(main["chunk_digest"] > 0 and main["gf_bitmatrix_multi"] > 0,
+          "the tier's path launched both kernels")
+
+    # (c), checked: every digest against the plain version on the card,
+    # every rebuilt shard against the resident original, 32 sampled
+    # against the original host bytes
+    worst_digest = worst_multi = 0
+    for b in range(nc // per):
+        stack = torch.stack([tier_c.get(nm) for nm in
+                             names_c[b * per:(b + 1) * per]])
+        ps, pws = dk.chunk_digest_plain(stack)
+        worst_digest = max(worst_digest, digest_err(
+            s_c[b * per:(b + 1) * per], ws_c[b * per:(b + 1) * per], ps, pws))
+        for j in range(per):
+            i = b * per + j
+            check(torch.equal(out_c[i], stack[j, lost_c[i]]),
+                  "(c): rebuilt shard of %s equals the resident original"
+                  % names_c[i])
+        del stack
+    check(worst_digest == 0, "(c): every digest equals the plain version")
+    for i, data in sampled.items():
+        want = data[lost_c[i]] if lost_c[i] < K else \
+            tier_c.get(names_c[i])[lost_c[i]].cpu().numpy()
+        check(np.array_equal(out_c[i].cpu().numpy(), want),
+              "(c): sampled %s equals the original bytes" % names_c[i])
+    emit("hbm_tier", case="c_osd_tier", objects=nc, chunk=n_c,
+         resident_bytes=st_c["resident_bytes"], fill_s=fill_s,
+         fill_MBps=nc * K * n_c / fill_s / 1e6,
+         deep_scrub_wall_ms=scrub_wall_c * 1e3,
+         deep_scrub_launches=scrub_calls_c,
+         reconstruct_batch_wall_ms=rebuild_wall_c * 1e3,
+         reconstruct_batch_launches=rebuild_calls_c,
+         memory_allocated=torch.cuda.memory_allocated(),
+         sampled=len(sampled))
+
+    # the kernels alone on each part's inputs: CUDA events, inputs past
+    # or rotated out of L2, the plain versions on the same inputs
+    parts = {}
+
+    def digest_case(name, tier, names, n):
+        objs_ = [tier.get(nm) for nm in names]
+        table = dk.row_table(objs_)
+        s, ws = dk.chunk_digest_rows(*table)
+        stack = torch.stack(objs_)
+        ps, pws = dk.chunk_digest_plain(stack)
+        err = digest_err(s, ws, ps, pws)
+        ms = time_ms(lambda _: dk.chunk_digest_rows(*table), [None], 20)
+        plain_ms = time_ms(lambda x: dk.chunk_digest_plain(x), [stack], 2)
+        bound_ms, bound_by = digest_bound(stack.numel(), len(names) * nn)
+        parts["digest_" + name] = rec = dict(
+            rows=len(names) * nn, n=n, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+            share_of_bound=bound_ms / ms, launches_per_call=1)
+        emit("hbm_tier", case="digest_" + name, **rec)
+        return err
+
+    def multi_case(name, tier, names, lost, lanes_per_plain=None):
+        bm, surv, w = tier.rebuild_operands(names, lost)
+        data = surv[:, None]
+        out = gf_kernel.matrix_encode_multi(bm, data, w)
+        step = lanes_per_plain or len(names)
+
+        def plain(x):
+            return torch.cat([gf_kernel.matrix_encode_multi_plain(
+                bm[p:p + step], x[p:p + step], w)
+                for p in range(0, len(names), step)])
+        ref = plain(data)
+        err = int((out.to(torch.int16) - ref.to(torch.int16)).abs().max())
+        del ref
+        inputs = [data] if data.numel() > (64 << 20) else \
+            [data] + [data.clone() for _ in range(2)]
+        ms = time_ms(lambda x: gf_kernel.matrix_encode_multi(bm, x, w),
+                     inputs, 20)
+        plain_ms = time_ms(plain, [data], 1)
+        bound_ms, bound_by = gf_multi_bound(bm, data, out, w)
+        parts[name] = rec = dict(lanes=len(names), n=int(data.shape[-1]),
+                                 bitmats=list(bm.shape), ms=ms,
+                                 plain_ms=plain_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by, max_abs_err=err,
+                                 share_of_bound=bound_ms / ms,
+                                 design=gf_kernel.kernel_design(
+                                     bm.shape[1], K, w, dev),
+                                 launches_per_call=1)
+        emit("hbm_tier", case="multi_" + name, **rec)
+        return err
+
+    worst_digest = max(worst_digest,
+                       digest_case("a_bench", tier_a, all_a, n_a),
+                       digest_case("b_store", tier_b,
+                                   [keys[i] for i in groups["store"]],
+                                   WS * WC),
+                       digest_case("c_osd_tier", tier_c, names_c, n_c))
+    worst_multi = max(worst_multi,
+                      multi_case("a_bench", tier_a, all_a, lost_a),
+                      multi_case("b_store", tier_b,
+                                 [keys[i] for i in groups["store"]],
+                                 [i % nn for i in groups["store"]]),
+                      multi_case("c_osd_tier", tier_c, names_c, lost_c, 32))
+    check(worst_digest == 0 and worst_multi == 0,
+          "both kernels equal their plain versions on the card")
+    # the digest on one contiguous batch array beside torch.sum, the sum
+    # half's library yardstick, on the same bytes
+    arrays = [torch.stack([tier_c.get(nm) for nm in
+                           names_c[b * per:(b + 1) * per]]) for b in range(3)]
+    one = dict(shape=list(arrays[0].shape),
+               ms=time_ms(dk.chunk_digest, arrays, 20),
+               plain_ms=time_ms(dk.chunk_digest_plain, arrays[:1], 2),
+               library_ms=time_ms(lambda x: torch.sum(
+                   x, dim=-1, dtype=torch.int64), arrays, 20))
+    one["bound_ms"], one["bound_by"] = digest_bound(arrays[0].numel(),
+                                                    per * nn)
+    ps, pws = dk.chunk_digest_plain(arrays[0])
+    s1, ws1 = dk.chunk_digest(arrays[0])
+    one["max_abs_err"] = digest_err(s1, ws1, ps, pws)
+    check(one["max_abs_err"] == 0, "the digest of one batch array")
+    emit("hbm_tier", case="digest_one_batch_array", **one)
+    del arrays, tier_c, out_c, s_c, ws_c
+    torch.cuda.empty_cache()
+
+    multi = parts["c_osd_tier"]
+    lines = [{
+        "name": "gf_bitmatrix_multi", "route": "cuda",
+        "source": "ceph_tpu_torch/csrc/gf_bitmatrix.cu",
+        "replaces": "ceph_tpu/ops/xor_mm.py:91",
+        "design": multi["design"], "launches": main["gf_bitmatrix_multi"],
+        "matched": worst_multi == 0, "max_abs_err": worst_multi,
+        "ms": multi["ms"], "kernel_ms": multi["ms"],
+        "plain_ms": multi["plain_ms"], "bound_ms": multi["bound_ms"],
+        "bound_by": multi["bound_by"], "library_ms": None,
+        "share_of_bound": multi["share_of_bound"],
+        "case": "c_osd_tier_%d_lanes" % nc, "gpu": smi,
+        "other_cases": {n_: parts[n_] for n_ in ("a_bench", "b_store")}}, {
+        "name": "chunk_digest", "route": "cuda",
+        "source": "ceph_tpu_torch/csrc/hbm_digest.cu",
+        "replaces": "ceph_tpu/osd/hbm_tier.py:60",
+        "launches": main["chunk_digest"],
+        "matched": worst_digest == 0 and one["max_abs_err"] == 0,
+        "max_abs_err": max(worst_digest, one["max_abs_err"]),
+        "ms": one["ms"], "kernel_ms": one["ms"],
+        "plain_ms": one["plain_ms"], "bound_ms": one["bound_ms"],
+        "bound_by": one["bound_by"], "library_ms": one["library_ms"],
+        "library_call": "torch.sum(x, dim=-1, dtype=torch.int64)",
+        "share_of_bound": one["bound_ms"] / one["ms"],
+        "case": "one_batch_array_%s" % "x".join(map(str, one["shape"])),
+        "gpu": smi,
+        "other_cases": {n_: parts["digest_" + n_] for n_ in (
+            "a_bench", "b_store", "c_osd_tier")}}]
+    return lines
 
 
 def main() -> int:
@@ -1473,7 +1909,10 @@ def main() -> int:
     # -- 9. batched CRUSH: the bench's map and the 1024-OSD cluster -------
     crush_line = crush_phase(np, torch, dev, smi)
 
-    # -- 10. kernels line -------------------------------------------------
+    # -- 10. the device chunk tier ----------------------------------------
+    tier_lines = hbm_tier_phase(np, torch, dev, smi)
+
+    # -- 11. kernels line -------------------------------------------------
     enc = timings["encode"]
     dec = timings["decode345678910"]
     kernels = [{
@@ -1550,6 +1989,7 @@ def main() -> int:
                "bitplane_low_%d" % obj_bytes,
                ["bitplane_low_%d" % (BSTRIPES * K * BCHUNK)])
     kernels.append(crush_line)
+    kernels.extend(tier_lines)
     _records.append({"kernels": kernels})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

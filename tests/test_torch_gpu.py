@@ -21,7 +21,12 @@ the 1024-OSD cluster with and without weight sets, a bucket of 20,000
 OSDs and a hierarchy of depth 4, each whole sweep equal to the plain
 version on the card and sampled seeds to the scalar mapper. And a kernel
 at the edge of ``launch_common``'s shared-memory opt-in: 48 KiB of
-dynamic shared memory beside static shared memory.
+dynamic shared memory beside static shared memory. The device chunk
+tier's kernels: the chunk digest (the 65535 wrap, ragged n, rows not on
+16 bytes, a 17 MB row, no rows and rows of 0 bytes, one launch a call)
+and the per-lane GF product (both designs, 1, 3, 64 and 70,000 lanes,
+one launch a call); and the tier on the card: its consumers, adoption
+from the pipelined dispatcher with no upload, eviction.
 """
 
 import itertools
@@ -35,13 +40,14 @@ from ceph_tpu_torch import registry
 from ceph_tpu_torch.crush import batched, mapper_ref
 from ceph_tpu_torch.crush.map import CRUSH_ITEM_NONE, CrushMap, Rule
 from ceph_tpu_torch.crush import map as cmap_mod
-from ceph_tpu_torch.ops import (crush_kernel, gf, gf_kernel, gf_ref,
-                                launch_check, packet_kernel, write_kernels,
-                                xor_mm)
+from ceph_tpu_torch.ops import (crush_kernel, digest_kernel, gf, gf_kernel,
+                                gf_ref, launch_check, packet_kernel,
+                                write_kernels, xor_mm)
 from ceph_tpu_torch.tools import crushtool
 from ceph_tpu_torch.osd import ec_util
 from ceph_tpu_torch.osd import fused_transform as ft
 from ceph_tpu_torch.osd.gpu_dispatch import GpuDispatcher
+from ceph_tpu_torch.osd.hbm_tier import HbmChunkTier, host_digest
 
 PROFILE = {"technique": "reed_sol_van", "k": "8", "m": "3", "w": "8"}
 
@@ -743,3 +749,225 @@ def test_crush_fallback_on_card_takes_no_launch(cuda):
     for x in range(64):
         ref = mapper_ref.crush_do_rule(m, 0, x, 5, list(rw))
         assert list(got[x]) == ref + [CRUSH_ITEM_NONE] * (5 - len(ref))
+
+
+# -- the HBM chunk tier's kernels (csrc/hbm_digest.cu, the per-lane entry
+# point of csrc/gf_bitmatrix.cu) ---------------------------------------------
+
+def as_values(t):
+    """uint32 results compare as int32 views: torch lacks uint32 ops."""
+    return t.view(torch.int32)
+
+
+def digest_held_against_plain(x, calls=2):
+    """One launch a call (none for no rows), equal to the plain version;
+    a second call over the same scratch gives the same digests."""
+    rows = x.numel() // x.shape[-1] if x.shape[-1] else \
+        int(torch.Size(x.shape[:-1]).numel())
+    plain = [as_values(t) for t in digest_kernel.chunk_digest_plain(x)]
+    for _ in range(calls):
+        before = digest_kernel.cuda_launches()
+        count = digest_kernel.LAUNCHES
+        s, ws = digest_kernel.chunk_digest(x)
+        torch.cuda.synchronize()
+        assert digest_kernel.cuda_launches() - before == int(rows > 0)
+        assert digest_kernel.LAUNCHES - count == int(rows > 0)
+        assert s.shape == ws.shape == x.shape[:-1]
+        assert torch.equal(as_values(s), plain[0])
+        assert torch.equal(as_values(ws), plain[1])
+    return s, ws
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,n,offset", [
+    (11, 131072, 0), (3, 65535, 0), (3, 65536, 0), (2, 131075, 0),
+    (5, 15, 0), (4, 1, 0), (7, 4096, 1), (3, 70000, 3), (64, 16, 0),
+    (0, 4096, 0), (3, 0, 0),
+])
+def test_chunk_digest_matches_plain_on_card(cuda, rows, n, offset):
+    """The 65535 wrap (n past 65535), ragged n, rows not on 16 bytes (n %
+    16 != 0, or a pointer `offset` bytes off), no rows and rows of 0
+    bytes."""
+    g = torch.Generator(device=cuda).manual_seed(rows * 7 + n)
+    buf = torch.randint(0, 256, (rows * n + offset,), generator=g,
+                        dtype=torch.uint8, device=cuda)
+    digest_held_against_plain(buf[offset:].view(rows, n))
+
+
+@pytest.mark.gpu
+def test_chunk_digest_wraps_on_card(cuda):
+    """Rows of 0xFF past the ws wrap (about 260 bytes), one 17 MB row past
+    the s wrap (about 16.8 MB), and [P, k+m, n] chunk stacks."""
+    ones = torch.full((4, 65536 + 300), 0xFF, dtype=torch.uint8,
+                      device=cuda)
+    s, ws = digest_held_against_plain(ones)
+    assert as_values(s)[0].item() == 255 * (65536 + 300)
+    big = torch.full((1, 17_000_000), 0xFF, dtype=torch.uint8, device=cuda)
+    s, _ = digest_held_against_plain(big, calls=1)
+    assert as_values(s)[0].item() & 0xFFFFFFFF == \
+        (255 * 17_000_000) % (1 << 32)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    stack = torch.randint(0, 256, (4, 11, 32768 * 3 + 16), generator=g,
+                          dtype=torch.uint8, device=cuda)
+    digest_held_against_plain(stack)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,offset", [(131072, 0), (5000, 0), (4096, 1)])
+def test_chunk_digest_many_through_a_row_table_on_card(cuda, n, offset):
+    """Rows read where they lie: parts of one n in several tensors, a
+    pick of sub-tensors along the first dimension, rows on 16 bytes or
+    not; one launch, equal to the plain version of the concatenation."""
+    g = torch.Generator(device=cuda).manual_seed(n + offset)
+    buf = torch.randint(0, 256, (4 * 11 * n + offset,), generator=g,
+                        dtype=torch.uint8, device=cuda)
+    a = buf[offset:].view(4, 11, n)
+    b = torch.randint(0, 256, (3, n), generator=g, dtype=torch.uint8,
+                      device=cuda)
+    before = digest_kernel.cuda_launches()
+    s, ws = digest_kernel.chunk_digest_many([a, b], [[3, 1], None])
+    torch.cuda.synchronize()
+    assert digest_kernel.cuda_launches() == before + 1
+    ps, pws = digest_kernel.chunk_digest_plain(
+        torch.cat([a[[3, 1]].reshape(-1, n), b]))
+    assert torch.equal(as_values(s), as_values(ps))
+    assert torch.equal(as_values(ws), as_values(pws))
+
+
+def multi_held_against_plain(bms, data, w, design):
+    """One launch of the per-lane entry point on `design` (the single-matrix
+    counts unchanged), byte-equal to the plain version."""
+    assert gf_kernel.kernel_design(bms.shape[1], data.shape[-2], w,
+                                   data.device) == design
+    single = gf_kernel.launches_by_design()
+    before = gf_kernel.launches_by_design(multi=True)
+    count = gf_kernel.MULTI_LAUNCHES
+    out = gf_kernel.matrix_encode_multi(bms, data, w)
+    torch.cuda.synchronize()
+    after = gf_kernel.launches_by_design(multi=True)
+    assert {d: after[d] - before[d] for d in after} == {
+        d: int(d == design) for d in gf_kernel.DESIGNS}
+    assert gf_kernel.MULTI_LAUNCHES == count + 1
+    assert gf_kernel.launches_by_design() == single
+    assert torch.equal(out, gf_kernel.matrix_encode_multi_plain(bms, data, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [1, 3, 64])
+@pytest.mark.parametrize("w,k,rows,lead,n,design", [
+    (8, 8, 88, (2,), 32 * 40 + 7, "bitsliced"),   # decode bitmatrices
+    (8, 8, 8, (1,), 4096, "bitsliced"),           # one lost shard's rows
+    (8, 4, 16, (2, 3), 1000, "bitsliced"),
+    (8, 40, 32, (2,), 1024 + 5, "popcount"),
+    (16, 8, 48, (2,), 2050, "popcount"),
+    (32, 4, 64, (1,), 4100, "popcount"),
+])
+def test_matrix_encode_multi_matches_plain_on_card(cuda, lanes, w, k, rows,
+                                                   lead, n, design):
+    rng = np.random.default_rng(lanes * 100 + k)
+    if rows == (k + 3) * w and w == 8:
+        coding = gf.rs_vandermonde_generator(k, 3, w)
+        sigs = list(itertools.combinations(range(k + 3), k))
+        mats = [decode_bitmat(coding, k, sigs[(p * 37) % len(sigs)], w)
+                for p in range(lanes)]
+        bms = np.stack(mats)
+    else:
+        bms = rng.integers(0, 2, (lanes, rows, k * w), dtype=np.uint8)
+    data = rng.integers(0, 256, (lanes, *lead, k, n), dtype=np.uint8)
+    multi_held_against_plain(torch.from_numpy(bms).to(cuda),
+                             torch.from_numpy(data).to(cuda), w, design)
+
+
+@pytest.mark.gpu
+def test_matrix_encode_multi_past_the_grid_rows_on_card(cuda):
+    """70,000 lanes: more than gridDim.y holds, so blocks take a second
+    lane and stage its bitmatrix after the first."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    bms = torch.randint(0, 2, (70_000, 8, 32), generator=g,
+                        dtype=torch.uint8, device=cuda)
+    data = torch.randint(0, 256, (70_000, 1, 4, 64), generator=g,
+                         dtype=torch.uint8, device=cuda)
+    multi_held_against_plain(bms, data, 8, "bitsliced")
+
+
+# -- the device chunk tier on the card (osd/hbm_tier.py) ----------------------
+
+@pytest.mark.gpu
+def test_tier_consumers_on_card(cuda):
+    """put_encode (its one upload), deep_scrub (one digest launch), the
+    rebuilds (one per-lane launch for the batch), equal to the host."""
+    codec = registry.factory("torch_cuda", dict(PROFILE))
+    tier = HbmChunkTier(codec)
+    assert tier.device.type == "cuda"
+    data = np.random.default_rng(4).integers(0, 256, (4, 8, 8192),
+                                             dtype=np.uint8)
+    names = ["o%d" % i for i in range(4)]
+    parity = tier.put_encode(names, data)
+    assert parity.is_cuda and tier.uploads() == (1, data.nbytes)
+    assert np.array_equal(parity.cpu().numpy(), codec.encode_batch(data))
+    full = {n: tier.get(n).cpu().numpy() for n in names}
+    before = digest_kernel.cuda_launches()
+    digs = tier.deep_scrub(names)
+    assert digest_kernel.cuda_launches() == before + 1
+    for n in names:
+        assert np.array_equal(digs[n], host_digest(full[n]))
+    for lost in ((0,), (9,), (1, 10)):
+        got = tier.reconstruct("o1", lost).cpu().numpy()
+        assert all(np.array_equal(got[j], full["o1"][s])
+                   for j, s in enumerate(lost))
+    lost = [3, 8, 10, 0]
+    before = gf_kernel.MULTI_LAUNCHES
+    got = tier.reconstruct_batch(["o2", "o0", "o3", "o1"], lost).cpu()
+    assert gf_kernel.MULTI_LAUNCHES == before + 1
+    for i, n in enumerate(["o2", "o0", "o3", "o1"]):
+        assert np.array_equal(got[i].numpy(), full[n][lost[i]])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["encode", "store", "compress"])
+def test_tier_adopts_from_the_pipelined_dispatcher_on_card(cuda, kind):
+    """Four writes of one shape back to back with resident= through the
+    pipelined dispatcher: no upload by the tier, the dispatcher stages
+    each byte once, every entry holds its own write (a staging buffer
+    released before the tier's copy would hold the next write's), and
+    the fourth evicts the first at capacity 3."""
+    codec = registry.factory("torch_cuda", dict(PROFILE))
+    tier = HbmChunkTier(codec, capacity_objects=3)
+    rng = np.random.default_rng(8)
+    high = 4 if kind == "compress" else 256
+    batches = [rng.integers(0, high, (16, 8, 4096), dtype=np.uint8)
+               for _ in range(4)]
+    disp = GpuDispatcher(max_batch=1)
+    try:
+        if kind == "encode":
+            futs = [disp.encode_async(codec, b, resident=(tier, i))
+                    for i, b in enumerate(batches)]
+        else:
+            futs = [disp.fused_write_async(codec, b, mode=kind,
+                                           resident=(tier, i))
+                    for i, b in enumerate(batches)]
+        outs = [f.result(120) for f in futs]
+    finally:
+        disp.shutdown()
+    assert tier.uploads() == (0, 0)
+    assert disp.perf.dump()["l_gpu_h2d_bytes"] == sum(b.nbytes
+                                                      for b in batches)
+    assert disp.perf.dump()["l_gpu_adopted"] == 4
+    assert not tier.resident(0) and tier.stats()["evictions"] == 1
+    for i in range(1, 4):
+        if kind == "encode":
+            rows, par, crcs = batches[i], outs[i], None
+        else:
+            r = ft.result_from_host(outs[i], 16, 8, 4096, kind)
+            rows = r.stored if r.stored is not None else batches[i]
+            par, crcs = r.parity, r.shard_crcs
+            assert r.compressed == (kind == "compress")
+        want = np.concatenate([rows, par], 1).transpose(1, 0, 2).reshape(
+            11, -1)
+        assert np.array_equal(tier.get(i).cpu().numpy(), want)
+        assert np.array_equal(tier.deep_scrub([i])[i], host_digest(want))
+        if crcs is not None:
+            assert list(tier.shard_digests(i)) == crcs
+            assert crcs == [zlib.crc32(want[s].tobytes()) for s in range(11)]
+        got = tier.reconstruct(i, (2, 9)).cpu().numpy()
+        assert np.array_equal(got, want[[2, 9]])

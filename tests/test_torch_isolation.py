@@ -19,6 +19,7 @@ from ceph_tpu_torch.crush import batched as crush_batched
 from ceph_tpu_torch.tools import crushtool
 from ceph_tpu_torch.osd import fused_transform
 from ceph_tpu_torch.osd.gpu_dispatch import GpuDispatcher
+from ceph_tpu_torch.osd.hbm_tier import HbmChunkTier
 from ceph_tpu_torch.tools import erasure_code_benchmark as bench
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -43,6 +44,19 @@ def test_no_jax_or_reference_imports(path):
             if node.module and forbidden(node.module):
                 bad.append(node.module)
     assert bad == []
+
+
+def test_the_walk_covers_the_tier_and_its_kernels():
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    assert {"ceph_tpu_torch/osd/hbm_tier.py",
+            "ceph_tpu_torch/ops/digest_kernel.py",
+            "ceph_tpu_torch/ops/gf_kernel.py",
+            "ceph_tpu_torch/osd/gpu_dispatch.py",
+            "ceph_tpu_torch/osd/ec_util.py",
+            "ceph_tpu_torch/compressor/__init__.py",
+            "ceph_tpu_torch/compressor/base.py",
+            "ceph_tpu_torch/compressor/plugins.py",
+            "ceph_tpu_torch/compressor/registry.py"} <= names
 
 
 def test_forbidden_names():
@@ -111,3 +125,11 @@ def test_crush_sweep_without_device_raises(no_cuda, tmp_path, capsys):
     path.write_text(json.dumps(crushtool.map_to_json(m)))
     assert crushtool.main(["-i", str(path), "--test", "--batched"]) == 1
     assert "CUDA" in capsys.readouterr().err
+
+
+def test_tier_without_device_raises(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        HbmChunkTier()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        HbmChunkTier(device="cuda")
+    assert HbmChunkTier(device="cpu").stats()["device"] == "cpu:0"
