@@ -11,14 +11,16 @@ numpy twin). :func:`chunk_digest` launches the kernel once for a CUDA
 tensor and runs :func:`chunk_digest_plain` only for a CPU tensor; it
 never falls back. :func:`chunk_digest_many` digests the rows of several
 tensors of one row length in one launch, through a table of the rows'
-device addresses (the tier's objects where they lie, ungathered). They
+device addresses (the tier's objects where they lie, ungathered;
+``_row_table`` builds it and ``_rows_digest`` launches over it). They
 return uint32 tensors, which compare as values through
 ``t.view(torch.int32)`` (torch lacks uint32 arithmetic).
 
 ``LAUNCHES`` counts the wrapper's launches and :func:`cuda_launches` the
 C entry point's; :func:`reset_launches` sets both to 0. Rows longer than
-one 32 KiB span sum their spans through a scratch buffer kept per
-(device, stream) that the kernel leaves all zeros, so no call clears it.
+one 32 KiB span sum their spans through the scratch buffer that the
+write kernels keep per (device, stream) (``write_kernels._scratch_for``):
+every kernel that uses it leaves it all zeros, so no call clears it.
 """
 
 from __future__ import annotations
@@ -30,10 +32,10 @@ import numpy as np
 import torch
 
 from . import _build
-from .write_kernels import _to_u32
+from .write_kernels import _scratch_for, _to_u32
 
 __all__ = ["chunk_digest", "chunk_digest_many", "chunk_digest_plain",
-           "row_table", "chunk_digest_rows", "cuda_launches",
+           "cuda_launches",
            "reset_launches", "LAUNCHES", "PERIOD"]
 
 _SOURCE = "hbm_digest"
@@ -44,11 +46,6 @@ _PLAIN_ELEMS = 1 << 24       # bytes the plain version widens at a time
 LAUNCHES = 0
 _count_lock = threading.Lock()
 _lib = None
-# the scratch per (device, stream): all zeros between calls (the kernel
-# leaves it so), reused by every call on the stream, which the stream
-# orders; grown, zeroed, when a call needs more
-_scratch: dict = {}
-_scratch_lock = threading.Lock()
 
 
 def _kernel() -> ctypes.CDLL:
@@ -118,20 +115,6 @@ def chunk_digest_plain(chunks: torch.Tensor
             _to_u32(ws & _M32).reshape(lead))
 
 
-def _scratch_for(device: torch.device, stream: int,
-                 words: int) -> torch.Tensor | None:
-    if words == 0:
-        return None
-    key = (device.index, stream)
-    with _scratch_lock:
-        buf = _scratch.get(key)
-        if buf is None or buf.numel() < words:
-            size = max(words, 0 if buf is None else 2 * buf.numel())
-            buf = _scratch[key] = torch.zeros(size, dtype=torch.int32,
-                                              device=device)
-        return buf
-
-
 def _launch(device: torch.device, lead, rows: int, n: int,
             data: torch.Tensor | None, table: torch.Tensor | None,
             aligned: bool) -> tuple[torch.Tensor, torch.Tensor]:
@@ -145,8 +128,8 @@ def _launch(device: torch.device, lead, rows: int, n: int,
     lib = _kernel()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        scratch = _scratch_for(device, stream,
-                               lib.hbm_digest_scratch_words(rows, n))
+        words = lib.hbm_digest_scratch_words(rows, n)
+        scratch = _scratch_for(device, stream, words) if words else None
         rc = lib.hbm_digest(
             None if data is None else data.data_ptr(),
             None if table is None else table.data_ptr(), int(aligned),
@@ -198,7 +181,7 @@ def _check_parts(parts: list[torch.Tensor]) -> None:
         raise ValueError("parts must share one row length and device")
 
 
-def row_table(parts: list[torch.Tensor], picks=None
+def _row_table(parts: list[torch.Tensor], picks=None
               ) -> tuple[torch.Tensor, int, bool]:
     """(the device addresses of the rows to digest, as int64 [rows]; n;
     whether every row starts on 16 bytes). Each part is [..., n] uint8,
@@ -220,10 +203,10 @@ def row_table(parts: list[torch.Tensor], picks=None
     return table, n, aligned
 
 
-def chunk_digest_rows(table: torch.Tensor, n: int, aligned: bool
-                      ) -> tuple[torch.Tensor, torch.Tensor]:
+def _rows_digest(table: torch.Tensor, n: int, aligned: bool
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(s, ws) uint32 [rows] of the rows of n bytes at the addresses of a
-    :func:`row_table`, in one launch."""
+    :func:`_row_table`, in one launch."""
     rows = table.numel()
     return _launch(table.device, [rows], rows, n, None, table, aligned)
 
@@ -238,7 +221,7 @@ def chunk_digest_many(parts: list[torch.Tensor], picks=None
     for CPU tensors."""
     _check_parts(parts)
     if parts[0].device.type != "cpu":
-        return chunk_digest_rows(*row_table(parts, picks))
+        return _rows_digest(*_row_table(parts, picks))
     n = parts[0].shape[-1]
     pairs = [chunk_digest_plain(t.reshape(-1, n)[torch.from_numpy(rows)])
              if n else chunk_digest_plain(

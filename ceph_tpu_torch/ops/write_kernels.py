@@ -61,9 +61,10 @@ KERNELS = ("crc_rows", "xxh32", "bitplane")
 LAUNCHES = {"crc32_rows": 0, "xxh32_rows": 0, "bitplane_stage": 0}
 _count_lock = threading.Lock()
 _lib = None
-# K1's and K3's scratch per (device, stream): all zeros between calls
-# (both kernels leave it so), reused by every call on the stream, which
-# the stream orders; grown, zeroed, when a call needs more
+# K1's, K3's and the chunk digest's (``digest_kernel``) scratch per
+# (device, stream): all zeros between calls (each kernel leaves it so),
+# reused by every call on the stream, which the stream orders; grown,
+# zeroed, when a call needs more
 _scratch: dict = {}
 _scratch_lock = threading.Lock()
 
@@ -239,8 +240,8 @@ def _check_crc(view, consts, pad, out) -> None:
 
 def _scratch_for(device: torch.device, stream: int,
                  words: int) -> torch.Tensor:
-    """The zeroed scratch of at least `words` uint32 (as int32) for K1's
-    and K3's calls on `stream`."""
+    """The zeroed scratch of at least `words` uint32 (as int32) for K1's,
+    K3's and the chunk digest's calls on `stream`."""
     key = (device.index, stream)
     with _scratch_lock:
         buf = _scratch.get(key)

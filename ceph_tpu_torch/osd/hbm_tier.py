@@ -165,6 +165,14 @@ class HbmChunkTier:
         self.perf.inc("l_hbm_upload_bytes", int(arr.nbytes))
         return t
 
+    def _operand(self, t: torch.Tensor) -> torch.Tensor:
+        """A small host tensor of a consumer's operands (indices,
+        bitmatrices) on the device, copied from pinned memory without
+        blocking the host, in order on the current stream."""
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
     def _on_device(self, a) -> torch.Tensor:
         """A tensor on the tier's device as it is; a host array uploaded.
         A tensor on another device is refused: it is never copied
@@ -311,8 +319,8 @@ class HbmChunkTier:
         width = len(shards[0])
         flat = np.asarray([row for _, row in ents])[:, None] * nn + \
             np.asarray(shards)
-        idx = torch.from_numpy(flat.reshape(-1).astype(np.int64)).to(
-            self.device)
+        idx = self._operand(torch.from_numpy(
+            flat.reshape(-1).astype(np.int64)))
         out = torch.empty((len(names), width, n), dtype=torch.uint8,
                           device=self.device)
         i = 0
@@ -464,7 +472,7 @@ class HbmChunkTier:
         all_rows = codec.decode_batch(avail[:k], survivors)
         return all_rows[0][list(lost_shards)]
 
-    def rebuild_operands(self, names: list, lost_per_name: list):
+    def _rebuild_operands(self, names: list, lost_per_name: list):
         """The per-lane kernel's operands of :meth:`reconstruct_batch`:
         (bitmats [P, w, k*w] on the device, each lane's lost shard's rows
         of its decode bitmatrix; survivors [P, k, n], each object's first
@@ -483,7 +491,7 @@ class HbmChunkTier:
                        for av, lost in zip(avail, lost_per_name)]
             survivors = self._gather(names, avail)
         bm = host_tensor(np.ascontiguousarray(np.stack(bitmats)))
-        return bm.to(self.device), survivors, w
+        return self._operand(bm), survivors, w
 
     def reconstruct_batch(self, names: list, lost_per_name: list):
         """One per-lane GF launch rebuilding one lost shard per named
@@ -492,7 +500,7 @@ class HbmChunkTier:
         into); a lane is given only its lost shard's w rows, which is the
         row the reference keeps of its full decode. Needs one codec and
         shape across names. Returns the device array [len(names), n]."""
-        bm, survivors, w = self.rebuild_operands(names, lost_per_name)
+        bm, survivors, w = self._rebuild_operands(names, lost_per_name)
         return gf_kernel.matrix_encode_multi(bm, survivors[:, None],
                                              w)[:, 0, 0]
 

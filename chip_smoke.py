@@ -698,26 +698,40 @@ def hbm_tier_phase(np, torch, dev, smi):
     parts = {}
 
     def digest_case(name, tier, names, n):
+        # the launch alone, over the row table deep_scrub builds (an
+        # internal of the wrapper, reached here to time it apart)
         objs_ = [tier.get(nm) for nm in names]
-        table = dk.row_table(objs_)
-        s, ws = dk.chunk_digest_rows(*table)
+        table = dk._row_table(objs_)
+        (s, ws), _, calls = per_call(lambda: dk._rows_digest(*table))
+        check(calls["chunk_digest"] == 1,
+              "digest %s: one launch a call" % name)
         stack = torch.stack(objs_)
         ps, pws = dk.chunk_digest_plain(stack)
         err = digest_err(s, ws, ps, pws)
-        ms = time_ms(lambda _: dk.chunk_digest_rows(*table), [None], 20)
+        ms = time_ms(lambda _: dk._rows_digest(*table), [None], 20)
         plain_ms = time_ms(lambda x: dk.chunk_digest_plain(x), [stack], 2)
         bound_ms, bound_by = digest_bound(stack.numel(), len(names) * nn)
         parts["digest_" + name] = rec = dict(
             rows=len(names) * nn, n=n, ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
-            share_of_bound=bound_ms / ms, launches_per_call=1)
+            share_of_bound=bound_ms / ms,
+            launches_per_call=calls["chunk_digest"])
         emit("hbm_tier", case="digest_" + name, **rec)
         return err
 
     def multi_case(name, tier, names, lost, lanes_per_plain=None):
-        bm, surv, w = tier.rebuild_operands(names, lost)
+        # reconstruct_batch in its two parts: the operands (the lanes'
+        # bitmatrices and the survivors' gather, an internal of the tier
+        # reached here to time it apart), then the kernel alone
+        def operands():
+            return tier._rebuild_operands(names, lost)
+        (bm, surv, w), operands_wall, _ = per_call(operands)
+        operands_ms = time_ms(lambda _: operands(), [None], 3)
         data = surv[:, None]
-        out = gf_kernel.matrix_encode_multi(bm, data, w)
+        out, _, calls = per_call(
+            lambda: gf_kernel.matrix_encode_multi(bm, data, w))
+        check(calls["gf_bitmatrix_multi"] == 1,
+              "per-lane product %s: one launch a call" % name)
         step = lanes_per_plain or len(names)
 
         def plain(x):
@@ -740,7 +754,11 @@ def hbm_tier_phase(np, torch, dev, smi):
                                  share_of_bound=bound_ms / ms,
                                  design=gf_kernel.kernel_design(
                                      bm.shape[1], K, w, dev),
-                                 launches_per_call=1)
+                                 launches_per_call=calls[
+                                     "gf_bitmatrix_multi"],
+                                 operands_ms=operands_ms,
+                                 operands_wall_ms=operands_wall * 1e3,
+                                 gathered_bytes=surv.numel())
         emit("hbm_tier", case="multi_" + name, **rec)
         return err
 
