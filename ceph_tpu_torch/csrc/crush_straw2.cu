@@ -1,36 +1,64 @@
-// Batched CRUSH straw2 placement: one thread maps one seed through a whole
-// rule (take -> choose/chooseleaf, indep or firstn -> emit) under the jewel
-// tunables, with choose_args weight sets and ids and a reweight vector.
+// Batched CRUSH straw2 placement: a group of G lanes maps one seed through a
+// whole rule (take -> choose/chooseleaf, indep or firstn -> emit) under the
+// jewel tunables, with choose_args weight sets and ids and a reweight
+// vector.
 //
 // Replaces the XLA program of ceph_tpu/crush/batched.py (_straw2_choose
 // :128 inside _descend :173, _make_indep :217, _make_firstn :305), which
 // vectorises every retry over [B, numrep, tries, S] because a TPU has no
-// cheap per-lane control flow. Here each thread runs the scalar mapper's
-// loop (ceph_tpu_torch/crush/mapper_ref.py _choose_indep / _choose_firstn,
-// Ceph's mapper.c:443-826) on its seed: retries cost only the seeds that
-// retry, and a warp diverges only where its seeds do.
+// cheap per-lane control flow. Here a seed runs the scalar mapper's loop
+// (ceph_tpu_torch/crush/mapper_ref.py _choose_indep / _choose_firstn,
+// Ceph's mapper.c:443-826): retries cost only the seeds that retry.
 //
 // Bound: integer operations. A straw2 draw is a 3-word rjenkins hash (5
 // mixes of 27 ALU operations), the fixed-point log (two table loads, a
-// 64-bit product) and an exact division of the log by the item's weight
-// (div_exact); utils/cuda_timing.crush_bound counts them per draw, and the
-// kernel counts its draws per seed when asked (`work`). Seeds and results
-// are the only device-memory traffic of size.
+// 64-bit product) and an exact division of the log by the item's weight;
+// utils/cuda_timing.crush_bound counts them per draw, and the kernel
+// counts its draws per seed when asked (`work`). Seeds and results are the
+// only device-memory traffic of size.
+//
+// Design (PERF.md, PR 10):
+//  * A group of G lanes a seed. In a bucket, lane l draws items l, l + G,
+//    ... (a larger bucket loops), and the group takes the maximum by
+//    (draw, lowest index) with __shfl_xor_sync: C's strict > in item
+//    order, so the first maximum wins, and item 0 when every draw is
+//    S64_MIN (idle lanes offer S64_MIN at an index past every item). Every
+//    other step of the seed (retries, collisions, is_out, the weight-set
+//    position, vary_r) runs the same on each lane of the group, so a group
+//    never diverges and a seed's chain of draws is split G ways. G trades
+//    that split against the bookkeeping that every lane repeats and the
+//    lanes a small bucket leaves idle: it is the smallest power of two
+//    whose square holds the largest bucket (4 for buckets of 16), doubled
+//    while the sweep's seeds would leave the card short of 8 warps an SM
+//    (8 at a pool's 8,192 PGs), at most the power of two that holds the
+//    bucket (make_plan). One thread a seed (the parent design) left half
+//    the SMs idle at 8,192 seeds, with 46% of its lanes active at a draw.
+//  * The division by the weight is a multiply-high by the weight's
+//    reciprocal m = floor((2^64 - 1) / d), made with the tables
+//    (ops/crush_kernel.pack_tables), and one correction: the numerator is
+//    at most 2^48, so the estimate is q or q - 1 (the CPU model in
+//    tests/test_torch_crush_model.py holds it to n // d).
+//  * A seed's working slots (out, out2 of the C) live in shared memory, two
+//    rows of result_max words a group; G doubles while a block's slots
+//    exceed kSlotBudget (a result_max past 1024 is refused). Every lane of
+//    a group writes each slot (the same value), so a lane reads only what
+//    it wrote; a collision test splits the slots over the group's lanes
+//    and votes.
 //
 // Tables: one int32 buffer laid out by ops/crush_kernel.pack_tables: the
 // ln tables (RH_LH [258] and LL [256] uint64), then items [NB, S], hash ids
-// [NB, S], weight sets [NB, P, S], size [NB], type [NB] and the reweight
-// vector [NW]. The ln tables are staged in shared memory always (their
-// indices differ per thread, which constant memory would serialise); the
-// map's tables too when the whole buffer fits kSmemBudget, else they are
-// read from device memory through the read-only path (kGlobal). Any bucket
-// size and depth takes one of the two.
-//
-// Per-seed working slots (out, out2 of the C) live in `scratch`, [2, R, B]
-// int32 with R = result_max, so a warp's accesses to one slot coalesce. The
-// result is written as int64 [B, result_max] with CRUSH_ITEM_NONE holes.
+// [NB, S], weight sets [NB, P, S], size [NB], type [NB], the reweight
+// vector [NW] and, from an even word, the weight sets' reciprocals
+// [NB, P, S] uint64. The ln tables are staged in shared memory always
+// (their indices differ per thread, which constant memory would
+// serialise); the map's tables too when the whole buffer fits
+// kSmemBudget, else they are read from device memory through the
+// read-only path (kGlobal). Any bucket size and depth takes one of the
+// two. The result is written as int64 [B, result_max] with
+// CRUSH_ITEM_NONE holes.
 
 #include <atomic>
+#include <climits>
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -43,6 +71,8 @@ constexpr int kThreads = 128;
 constexpr int kLnWords = (258 + 256) * 2;   // the ln tables, as int32 words
 constexpr int kLlAt = 258;                  // LL's first uint64
 constexpr size_t kSmemBudget = 64 * 1024;   // tables staged up to this
+constexpr size_t kSlotBudget = 32 * 1024;   // a block's slots, at most
+constexpr int kFillWarps = 8;               // warps an SM that fill the card
 constexpr int32_t kUndef = 0x7FFFFFFE;
 constexpr int32_t kNone = 0x7FFFFFFF;
 constexpr uint32_t kHashSeed = 1315423911u;
@@ -57,7 +87,8 @@ struct Plan {
   int nb, s, npos, nw, max_devices;
   int root, firstn, chooseleaf, target_type, numrep, out_size, result_max;
   int tries, recurse_tries, vary_r;
-  int items_at, ids_at, wsets_at, size_at, btype_at, w_at, words;
+  int items_at, ids_at, wsets_at, size_at, btype_at, w_at, recip_at, words;
+  int group, group_log;   // G, lanes a seed, and log2(G)
 };
 
 // Reads table words from shared (SMEM) or device memory, one layout.
@@ -68,6 +99,20 @@ struct Tabs {
     if constexpr (SMEM) return base[i];
     else return __ldg(base + i);
   }
+  // the uint64 at words i, i + 1 (i even)
+  __device__ __forceinline__ unsigned long long at64(int i) const {
+    const auto* q = reinterpret_cast<const unsigned long long*>(base + i);
+    if constexpr (SMEM) return *q;
+    else return __ldg(q);
+  }
+};
+
+// A seed's lanes: this lane's index in the group, G, the group's lanes in
+// the warp.
+struct Group {
+  int lane;
+  int size;
+  unsigned mask;
 };
 
 __device__ __forceinline__ void mix(uint32_t& a, uint32_t& b, uint32_t& c) {
@@ -120,67 +165,83 @@ __device__ __forceinline__ unsigned long long crush_ln(
   return ((unsigned long long)iexpon << 44) + ((lh + ln[kLlAt + index2]) >> 4);
 }
 
-// A chosen item and the draws (items hashed) it took. Counts travel in
-// return values, not through pointers or references: a local whose address
-// is taken must live in memory across the 64-bit division's call.
+// A chosen item and the draws (items hashed) this lane took.
 struct Pick {
   int item;
   int draws;
 };
 
-// floor(n / d) for n < 2^49 and 0 < d < 2^32, exact and without a call.
-// The compiler's 64-bit division is a subroutine behind a call, and the
-// registers that call's convention saves spilled the kernel's device-memory
-// design. Here a double reciprocal (the hardware estimate refined by two
-// Newton steps, relative error near 2^-52) gives a quotient within one of
-// the true one (n/d < 2^49), and integer steps correct it: the loops run at
-// most once each, and make the result exact whatever the estimate.
-__device__ __forceinline__ unsigned long long div_exact(unsigned long long n,
+// The clock split of a profiled launch (PROF): per warp, in shared
+// memory, the draw steps it issued (a step is one issue of a draw by the
+// lanes that run it together) and the lanes active at those steps.
+template <bool PROF>
+struct Prof {
+  unsigned* steps;
+  unsigned* lanes;
+};
+
+template <bool PROF>
+__device__ __forceinline__ void count_draw(Prof<PROF> pf) {
+  if constexpr (PROF) {
+    const unsigned am = __activemask();
+    if ((int)(threadIdx.x & 31) == __ffs(am) - 1) {
+      atomicAdd(pf.steps + threadIdx.x / 32, 1u);
+      atomicAdd(pf.lanes + threadIdx.x / 32, (unsigned)__popc(am));
+    }
+  }
+}
+
+// floor(n / d) for n <= 2^48 and 0 < d < 2^32, given m = floor((2^64 - 1)
+// / d): m * d lies in (2^64 - 1 - d, 2^64 - 1], so n * m / 2^64 lies
+// within n * (d + 1) / (d * 2^64) < 2^-15 below n / d, and the high word
+// of the product is q or q - 1; one compare corrects it. A weight of 1
+// (m = 2^64 - 1) estimates n - 1 for every n > 0 and is corrected.
+__device__ __forceinline__ unsigned long long div_recip(unsigned long long n,
+                                                        unsigned long long m,
                                                         uint32_t d) {
-  const double dd = (double)d;
-  double r;
-  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(r) : "d"(dd));
-  r = __fma_rn(r, __fma_rn(-dd, r, 1.0), r);
-  r = __fma_rn(r, __fma_rn(-dd, r, 1.0), r);
-  unsigned long long q = __double2ull_rz(__dmul_rz((double)n, r));
-  long long rem = (long long)(n - q * d);
-  while (rem < 0) {
-    --q;
-    rem += d;
-  }
-  while (rem >= (long long)d) {
-    ++q;
-    rem -= d;
-  }
+  unsigned long long q = __umul64hi(n, m);
+  if (n - q * d >= d) ++q;
   return q;
 }
 
-// bucket_straw2_choose (mapper.c:322-367) of bucket index b: the hash takes
-// the substituted ids, the draw divides by the position's weight-set row,
-// truncating toward zero; a zero weight draws S64_MIN; the first maximum
-// wins (strict >). The bucket is not empty.
-template <bool SMEM>
+// bucket_straw2_choose (mapper.c:322-367) of bucket index b, by a group: the
+// hash takes the substituted ids, the draw divides by the position's
+// weight-set row, truncating toward zero; a zero weight draws S64_MIN; the
+// first maximum wins (strict >). Every lane returns the group's choice.
+// The bucket is not empty.
+template <bool SMEM, bool PROF>
 __device__ __forceinline__ Pick straw2(Tabs<SMEM> t, const Plan& p,
-                                       const unsigned long long* ln, int b,
+                                       const unsigned long long* ln,
+                                       Group g, Prof<PROF> pf, int b,
                                        uint32_t x, uint32_t r, int pos) {
   const int size = t.at(p.size_at + b);
   const int row = b * p.s;
-  const int wrow = (b * p.npos + min(pos, p.npos - 1)) * p.s;
-  int high = 0, draws = 0;
-  long long high_draw = 0;
-  for (int i = 0; i < size; ++i) {
-    const uint32_t wt = (uint32_t)t.at(p.wsets_at + wrow + i);
+  const int cell = (b * p.npos + min(pos, p.npos - 1)) * p.s;
+  int high = INT_MAX, draws = 0;
+  long long high_draw = kS64Min;
+  for (int i = g.lane; i < size; i += g.size) {
+    const uint32_t wt = (uint32_t)t.at(p.wsets_at + cell + i);
     long long draw = kS64Min;
     if (wt) {
+      count_draw(pf);
       const uint32_t u =
           hash32_3(x, (uint32_t)t.at(p.ids_at + row + i), r) & 0xFFFF;
       const long long lnv = (long long)crush_ln(ln, u) - kLnOffset;
-      draw = -(long long)div_exact((unsigned long long)(-lnv), wt);
+      draw = -(long long)div_recip((unsigned long long)(-lnv),
+                                   t.at64(p.recip_at + 2 * (cell + i)), wt);
       ++draws;
     }
-    if (i == 0 || draw > high_draw) {
+    if (high == INT_MAX || draw > high_draw) {
       high = i;
       high_draw = draw;
+    }
+  }
+  for (int off = g.size >> 1; off > 0; off >>= 1) {
+    const long long od = __shfl_xor_sync(g.mask, high_draw, off);
+    const int oi = __shfl_xor_sync(g.mask, high, off);
+    if (od > high_draw || (od == high_draw && oi < high)) {
+      high = oi;
+      high_draw = od;
     }
   }
   return Pick{t.at(p.items_at + row + high), draws};
@@ -213,16 +274,17 @@ struct Step {
 // choose_indep makes CRUSH_ITEM_NONE, mapper.c:724-751). The map is
 // acyclic (compile_map checked), so a walk visits at most nb buckets; the
 // bound only keeps a corrupt table from hanging the card.
-template <bool SMEM>
+template <bool SMEM, bool PROF>
 __device__ __forceinline__ Step descend(Tabs<SMEM> t, const Plan& p,
-                                        const unsigned long long* ln, int b,
+                                        const unsigned long long* ln,
+                                        Group g, Prof<PROF> pf, int b,
                                         uint32_t x, uint32_t r, int type,
                                         int pos) {
   int draws = 0;
   if (b < 0 || b >= p.nb) return Step{kRetry, 0, 0};
   for (int level = 0; level < p.nb; ++level) {
     if (t.at(p.size_at + b) == 0) return Step{kRetry, 0, draws};
-    const Pick pick = straw2(t, p, ln, b, x, r, pos);
+    const Pick pick = straw2(t, p, ln, g, pf, b, x, r, pos);
     const int it = pick.item;
     draws += pick.draws;
     if (it >= p.max_devices || (it < 0 && -1 - it >= p.nb))
@@ -235,16 +297,26 @@ __device__ __forceinline__ Step descend(Tabs<SMEM> t, const Plan& p,
   return Step{kRetry, 0, draws};
 }
 
-// One seed's working slots: out (o) and out2 (o2), slot i at i * n.
+// One seed's working slots in shared memory: out (o) and out2 (o2). Every
+// lane of the group writes each slot it sets, with the same value.
 struct Slots {
   int32_t* o;
   int32_t* o2;
-  long long n;
-  __device__ __forceinline__ int32_t& out(int i) const { return o[i * n]; }
-  __device__ __forceinline__ int32_t& out2(int i) const { return o2[i * n]; }
+  __device__ __forceinline__ int32_t& out(int i) const { return o[i]; }
+  __device__ __forceinline__ int32_t& out2(int i) const { return o2[i]; }
 };
 
-// A seed's slots filled and its work: draws and is_out hashes.
+// Whether any of slots [0, count) of `slots` holds item: the group's lanes
+// test every G-th slot each and vote.
+__device__ __forceinline__ bool any_slot(Group g, const int32_t* slots,
+                                         int count, int item) {
+  bool hit = false;
+  for (int i = g.lane; i < count; i += g.size) hit |= slots[i] == item;
+  return __any_sync(g.mask, hit);
+}
+
+// A seed's slots filled and this lane's work: draws and is_out hashes
+// (the same on every lane).
 struct Done {
   int filled;
   int draws;
@@ -255,9 +327,10 @@ struct Done {
 // slots retried in rounds, r = rep + numrep * ftotal; chooseleaf recurses
 // with left = 1 at outpos rep, r = rep + parent_r + numrep * ftotal_inner
 // and weight-set position rep (the top level uses position 0).
-template <bool SMEM>
+template <bool SMEM, bool PROF>
 __device__ __forceinline__ Done map_indep(Tabs<SMEM> t, const Plan& p,
                                           const unsigned long long* ln,
+                                          Group g, Prof<PROF> pf,
                                           uint32_t x, Slots sl) {
   const int n = p.out_size;
   int draws = 0, hashes = 0;
@@ -267,7 +340,8 @@ __device__ __forceinline__ Done map_indep(Tabs<SMEM> t, const Plan& p,
     for (int rep = 0; rep < n; ++rep) {
       if (sl.out(rep) != kUndef) continue;
       const uint32_t r = (uint32_t)rep + (uint32_t)p.numrep * ftotal;
-      const Step st = descend(t, p, ln, -1 - p.root, x, r, p.target_type, 0);
+      const Step st =
+          descend(t, p, ln, g, pf, -1 - p.root, x, r, p.target_type, 0);
       draws += st.draws;
       if (st.walk == kRetry) continue;
       if (st.walk == kPerm) {
@@ -276,16 +350,14 @@ __device__ __forceinline__ Done map_indep(Tabs<SMEM> t, const Plan& p,
         continue;
       }
       const int item = st.item;
-      bool collide = false;
-      for (int i = 0; i < n; ++i) collide |= sl.out(i) == item;
-      if (collide) continue;
+      if (any_slot(g, sl.o, n, item)) continue;
       if (p.chooseleaf) {
         int leaf = item;
         if (item < 0) {
           leaf = kUndef;
           for (int f2 = 0; f2 < p.recurse_tries; ++f2) {
             const Step s2 =
-                descend(t, p, ln, -1 - item, x,
+                descend(t, p, ln, g, pf, -1 - item, x,
                         (uint32_t)rep + r + (uint32_t)p.numrep * f2, 0, rep);
             draws += s2.draws;
             if (s2.walk == kRetry) continue;
@@ -323,36 +395,33 @@ __device__ __forceinline__ Done map_indep(Tabs<SMEM> t, const Plan& p,
 // permanent failure (skip_rep); the weight-set position is the live outpos.
 // chooseleaf recurses with numrep 1, parent_r = r >> (vary_r - 1) and
 // recurse_tries tries, against the leaves placed so far.
-template <bool SMEM>
+template <bool SMEM, bool PROF>
 __device__ __forceinline__ Done map_firstn(Tabs<SMEM> t, const Plan& p,
                                            const unsigned long long* ln,
+                                           Group g, Prof<PROF> pf,
                                            uint32_t x, Slots sl) {
   int outpos = 0, draws = 0, hashes = 0;
   for (int rep = 0; rep < p.numrep && outpos < p.result_max; ++rep) {
     for (int ftotal = 0; ftotal < p.tries; ++ftotal) {
       const uint32_t r = (uint32_t)rep + (uint32_t)ftotal;
       const Step st =
-          descend(t, p, ln, -1 - p.root, x, r, p.target_type, outpos);
+          descend(t, p, ln, g, pf, -1 - p.root, x, r, p.target_type, outpos);
       draws += st.draws;
       if (st.walk == kPerm) break;            // skip_rep
       if (st.walk == kRetry) continue;        // reject
       const int item = st.item;
-      bool collide = false;
-      for (int i = 0; i < outpos; ++i) collide |= sl.out(i) == item;
-      if (collide) continue;
+      if (any_slot(g, sl.o, outpos, item)) continue;
       if (p.chooseleaf) {
         if (item < 0) {
           const uint32_t sub_r = p.vary_r ? r >> (p.vary_r - 1) : 0;
           bool got = false;
           for (int f2 = 0; f2 < p.recurse_tries; ++f2) {
-            const Step s2 = descend(t, p, ln, -1 - item, x,
+            const Step s2 = descend(t, p, ln, g, pf, -1 - item, x,
                                     sub_r + (uint32_t)f2, 0, outpos);
             draws += s2.draws;
             if (s2.walk == kPerm) break;      // the inner skip_rep
             if (s2.walk == kRetry) continue;
-            bool c2 = false;
-            for (int i = 0; i < outpos; ++i) c2 |= sl.out2(i) == s2.item;
-            if (c2) continue;
+            if (any_slot(g, sl.o2, outpos, s2.item)) continue;
             const int o = out_state(t, p, s2.item, x);
             hashes += o >> 1;
             if (o & 1) continue;
@@ -377,34 +446,49 @@ __device__ __forceinline__ Done map_firstn(Tabs<SMEM> t, const Plan& p,
   return Done{outpos, draws, hashes};
 }
 
-template <bool SMEM>
+template <bool SMEM, bool PROF>
 __global__ void __launch_bounds__(kThreads)
     crush_straw2_kernel(const int32_t* __restrict__ tables,
                         const __grid_constant__ Plan p,
                         const long long* __restrict__ xs, long long n,
                         long long* __restrict__ out,
-                        int32_t* __restrict__ scratch,
-                        int* __restrict__ work) {
+                        int* __restrict__ work,
+                        long long* __restrict__ clk) {
   extern __shared__ __align__(16) int32_t sm[];
+  __shared__ unsigned prof_steps[PROF ? kThreads / 32 : 1];
+  __shared__ unsigned prof_lanes[PROF ? kThreads / 32 : 1];
   const int staged = SMEM ? kLnWords + p.words : kLnWords;
   for (int i = threadIdx.x; i < staged; i += blockDim.x) sm[i] = tables[i];
+  if constexpr (PROF) {
+    if (threadIdx.x < kThreads / 32)
+      prof_steps[threadIdx.x] = prof_lanes[threadIdx.x] = 0;
+  }
   __syncthreads();
   const unsigned long long* ln =
       reinterpret_cast<const unsigned long long*>(sm);
   Tabs<SMEM> t;
   if constexpr (SMEM) t.base = sm + kLnWords;
   else t.base = tables + kLnWords;
+  const Prof<PROF> pf{prof_steps, prof_lanes};
+  const long long t0 = PROF ? clock64() : 0;
 
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long rn = (long long)p.result_max * n;
-  for (long long seed = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int G = p.group;
+  const int warp_lane = threadIdx.x & 31;
+  const Group g{warp_lane & (G - 1), G,
+                (G == 32 ? 0xFFFFFFFFu : (1u << G) - 1u)
+                    << (warp_lane & ~(G - 1))};
+  const int per_block = kThreads >> p.group_log;   // seeds a block holds
+  const int in_block = threadIdx.x >> p.group_log;
+  int32_t* const slots = sm + staged + in_block * 2 * p.result_max;
+  const Slots sl{slots, slots + p.result_max};
+  const long long stride = (long long)gridDim.x * per_block;
+  for (long long seed = (long long)blockIdx.x * per_block + in_block;
        seed < n; seed += stride) {
     const uint32_t x = (uint32_t)xs[seed];
-    const Slots sl{scratch + seed, scratch + rn + seed, n};
-    const Done d = p.firstn ? map_firstn(t, p, ln, x, sl)
-                            : map_indep(t, p, ln, x, sl);
+    const Done d = p.firstn ? map_firstn(t, p, ln, g, pf, x, sl)
+                            : map_indep(t, p, ln, g, pf, x, sl);
     long long* row = out + seed * p.result_max;
-    for (int i = 0; i < p.result_max; ++i) {
+    for (int i = g.lane; i < p.result_max; i += G) {
       int32_t v = kNone;
       if (i < d.filled) {
         v = p.chooseleaf ? sl.out2(i) : sl.out(i);
@@ -412,40 +496,92 @@ __global__ void __launch_bounds__(kThreads)
       }
       row[i] = v;
     }
+    // the next seed rewrites the slots: every lane has read this one's
+    __syncwarp(g.mask);
     if (work != nullptr) {
-      work[2 * seed] = d.draws;
-      work[2 * seed + 1] = d.hashes;
+      int draws = d.draws;
+      for (int off = G >> 1; off > 0; off >>= 1)
+        draws += __shfl_xor_sync(g.mask, draws, off);
+      if (g.lane == 0) {
+        work[2 * seed] = draws;
+        work[2 * seed + 1] = d.hashes;
+      }
+    }
+  }
+  if constexpr (PROF) {
+    // per warp: its cycles from the first seed to the last, the draw
+    // steps it issued, the lanes active at them, its SM
+    __syncwarp();
+    const long long cycles = clock64() - t0;
+    const long long gw =
+        ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
+    if (warp_lane == 0 && gw * 32 < n * G) {
+      unsigned smid;
+      asm volatile("mov.u32 %0, %%smid;" : "=r"(smid));
+      clk[4 * gw] = cycles;
+      clk[4 * gw + 1] = prof_steps[threadIdx.x / 32];
+      clk[4 * gw + 2] = prof_lanes[threadIdx.x / 32];
+      clk[4 * gw + 3] = smid;
     }
   }
 }
 
-template <bool SMEM>
-cudaError_t launch(const int32_t* tables, const Plan& p, size_t smem,
-                   const long long* xs, long long n, long long* out,
-                   int32_t* scratch, int* work, cudaStream_t stream) {
-  auto kernel = crush_straw2_kernel<SMEM>;
+// A block's slots: two rows of result_max words for each of its seeds.
+size_t slot_bytes(int group, int result_max) {
+  return (size_t)(kThreads / group) * 2 * result_max * sizeof(int32_t);
+}
+
+// Dynamic shared memory of a launch: the ln tables, the map's tables when
+// staged, the slots.
+size_t smem_bytes(const Plan& p, bool tables) {
+  return (kLnWords + (tables ? (size_t)p.words : 0)) * sizeof(int32_t) +
+         slot_bytes(p.group, p.result_max);
+}
+
+bool tables_staged(const Plan& p) {
+  return (size_t)(kLnWords + p.words) * sizeof(int32_t) <= kSmemBudget;
+}
+
+template <bool SMEM, bool PROF>
+cudaError_t launch(const int32_t* tables, const Plan& p, const long long* xs,
+                   long long n, long long* out, int* work, long long* clk,
+                   cudaStream_t stream) {
+  auto kernel = crush_straw2_kernel<SMEM, PROF>;
+  const size_t smem = smem_bytes(p, SMEM);
   unsigned blocks = 0;
   cudaError_t err =
-      launch_common::grid_blocks(kernel, kThreads, smem, n, &blocks);
+      launch_common::grid_blocks(kernel, kThreads, smem, n * p.group, &blocks);
   if (err != cudaSuccess) return err;
-  kernel<<<blocks, kThreads, smem, stream>>>(tables, p, xs, n, out, scratch,
-                                             work);
+  kernel<<<blocks, kThreads, smem, stream>>>(tables, p, xs, n, out, work,
+                                             clk);
   err = cudaGetLastError();
   if (err == cudaSuccess) g_launches[SMEM ? kShared : kGlobal].fetch_add(1);
   return err;
 }
 
-size_t staged_bytes(int words) {
-  return (size_t)(kLnWords + words) * sizeof(int32_t);
-}
-
 }  // namespace
+
+// The threads that fill the card: kFillWarps warps on each SM.
+static cudaError_t fill_threads(long long* threads) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *threads = (long long)sms * kFillWarps * 32;
+  return err;
+}
 
 // geo: nb, s, npos, nw, max_devices; plan: root, firstn, chooseleaf,
 // target_type, numrep, out_size, result_max, tries, recurse_tries, vary_r.
 // The table offsets follow from geo as ops/crush_kernel.pack_tables lays
-// them out.
-static bool make_plan(const int* geo, const int* rule, Plan* p) {
+// them out. The group (PERF.md, PR 10): the smallest power of two whose
+// square holds a bucket of s items, doubled while a sweep of n seeds
+// would leave the card short of `fill` threads (but not past the power
+// of two that holds s), and doubled while a block's slots exceed
+// kSlotBudget; a power of two `group` up to 32 (for tests and timing)
+// names it instead. A group past 32 is refused.
+static bool make_plan(const int* geo, const int* rule, int group,
+                      long long n, long long fill, Plan* p) {
   *p = Plan{geo[0],  geo[1],  geo[2],  geo[3],  geo[4],  rule[0],
             rule[1], rule[2], rule[3], rule[4], rule[5], rule[6],
             rule[7], rule[8], rule[9]};
@@ -453,15 +589,28 @@ static bool make_plan(const int* geo, const int* rule, Plan* p) {
       p->result_max < 1 || p->out_size > p->result_max)
     return false;
   const long long cells = (long long)p->nb * p->s;
-  const long long words = cells * (2 + p->npos) + 2LL * p->nb + p->nw;
+  const long long w_at = cells * (2 + p->npos) + 2LL * p->nb;
+  const long long recip_at = (w_at + p->nw + 1) & ~1LL;
+  const long long words = recip_at + 2 * cells * p->npos;
   if (words + kLnWords > (1LL << 31) - 1) return false;
   p->items_at = 0;
   p->ids_at = (int)cells;
   p->wsets_at = (int)(2 * cells);
   p->size_at = (int)(cells * (2 + p->npos));
   p->btype_at = p->size_at + p->nb;
-  p->w_at = p->btype_at + p->nb;
+  p->w_at = (int)w_at;
+  p->recip_at = (int)recip_at;
   p->words = (int)words;
+  if (group < 0 || group > 32 || (group & (group - 1)) != 0) return false;
+  int g = 1, holds = 1;
+  while (holds < 32 && holds < p->s) holds *= 2;
+  while (g < 32 && g * g < p->s) g *= 2;
+  while (g < holds && n * g < fill) g *= 2;
+  if (group > 0) g = group;
+  while (g <= 32 && slot_bytes(g, p->result_max) > kSlotBudget) g *= 2;
+  if (g > 32 || (group > 0 && g != group)) return false;
+  p->group = g;
+  p->group_log = __builtin_ctz(g);
   return true;
 }
 
@@ -469,28 +618,45 @@ static bool make_plan(const int* geo, const int* rule, Plan* p) {
 // memory, 1 tables read from device memory; -1 a geometry refused.
 extern "C" int crush_straw2_design(const int* geo, const int* rule) {
   Plan p;
-  if (!make_plan(geo, rule, &p)) return -1;
-  return staged_bytes(p.words) <= kSmemBudget ? kShared : kGlobal;
+  if (!make_plan(geo, rule, 0, 0, 0, &p)) return -1;
+  return tables_staged(p) ? kShared : kGlobal;
+}
+
+// The lanes a seed (G) of a sweep of n seeds of this geometry on the
+// current device; -1 a geometry refused, -2 a failed device query.
+extern "C" int crush_straw2_group(const int* geo, const int* rule,
+                                  long long n) {
+  long long fill = 0;
+  if (fill_threads(&fill) != cudaSuccess) return -2;
+  Plan p;
+  return make_plan(geo, rule, 0, n, fill, &p) ? p.group : -1;
 }
 
 // Maps seeds xs [n] (int64, hashed as uint32) into out [n, result_max]
-// int64; scratch holds 2 * result_max * n int32; work, when not null, gets
-// each seed's straw2 draws (items hashed) and is_out hashes ([n, 2]
-// int32). Returns
-// 0 or a cudaError_t, -1 for a refused geometry.
+// int64, `group` lanes a seed (0: as make_plan picks); work, when not
+// null, gets each seed's straw2 draws (items hashed) and is_out hashes
+// ([n, 2] int32); clk, when not null, makes a profiled launch that writes
+// each warp's clock split ([ceil(n * G / 32), 4] int64: cycles, draw
+// steps, lanes active at them, SM). Returns 0 or a cudaError_t, -1 for a
+// refused geometry.
 extern "C" int crush_straw2_map(const int32_t* tables, const int* geo,
-                                const int* rule, const long long* xs,
-                                long long n, long long* out, int32_t* scratch,
-                                int* work, void* stream) {
+                                const int* rule, int group,
+                                const long long* xs, long long n,
+                                long long* out, int* work, long long* clk,
+                                void* stream) {
+  long long fill = 0;
+  const cudaError_t err = fill_threads(&fill);
+  if (err != cudaSuccess) return (int)err;
   Plan p;
-  if (!make_plan(geo, rule, &p)) return -1;
+  if (!make_plan(geo, rule, group, n, fill, &p)) return -1;
   if (n == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (staged_bytes(p.words) <= kSmemBudget)
-    return launch<true>(tables, p, staged_bytes(p.words), xs, n, out,
-                        scratch, work, s);
-  return launch<false>(tables, p, staged_bytes(0), xs, n, out, scratch, work,
-                       s);
+  const bool smem = tables_staged(p);
+  if (clk != nullptr)
+    return smem ? launch<true, true>(tables, p, xs, n, out, work, clk, s)
+                : launch<false, true>(tables, p, xs, n, out, work, clk, s);
+  return smem ? launch<true, false>(tables, p, xs, n, out, work, clk, s)
+              : launch<false, false>(tables, p, xs, n, out, work, clk, s);
 }
 
 extern "C" long long crush_straw2_launches(int design) {

@@ -87,6 +87,17 @@
 // the blocks the card holds at once (as a single matrix does), split
 // over min(P, 65535) rows of blocks. Bound: gf_bound summed over the
 // lanes (utils/cuda_timing.py gf_multi_bound).
+//
+// Survivors where they lie (gf_bitmatrix_encode_multi_rows): the same
+// kernels with lane p's k data rows named by a device table of row
+// addresses, entries p*k ... p*k + k - 1, each row n bytes (batch 1), so
+// the HBM chunk tier's rebuild reads each object's survivors in its upload
+// batch instead of gathering them into a [P, k, n] copy first (at 1024
+// objects of 4 MiB a 4 GiB temporary, written and read again), as the
+// chunk digest (hbm_digest.cu) reads a scrub's rows. A thread loads the
+// address of each row it reads (read-only path, the same address across
+// the block) beside the row's bytes. Every row must start on 16 bytes,
+// which the wrapper checks.
 
 #include <atomic>
 #include <cstdint>
@@ -112,6 +123,20 @@ cudaError_t count_launch(Design design, bool multi) {
   return err;
 }
 
+// Row j of batch lane b of per-lane lane `lane`: in the dense array
+// [lanes, batch, k, n], or (TABLE, batch 1) at the table's address
+// lane * k + j.
+template <bool TABLE>
+__device__ __forceinline__ const uint8_t* data_row(
+    const uint8_t* __restrict__ data_all, const uint8_t* const* table,
+    int lane, long long batch, int k, long long n, long long b, int j) {
+  if constexpr (TABLE)
+    return reinterpret_cast<const uint8_t*>(
+        __ldg(reinterpret_cast<const unsigned long long*>(table) +
+              (long long)lane * k + j));
+  else return data_all + ((lane * batch + b) * k + j) * n;
+}
+
 // ---- popcount design ------------------------------------------------------
 
 template <int W, int NW>
@@ -122,11 +147,12 @@ struct Geometry {
   static constexpr int COLS = VEC * 8 / W;         // element columns per thread
 };
 
-template <int W, int NW>
+template <int W, int NW, bool TABLE>
 __global__ void __launch_bounds__(kThreads)
 gf_bitmatrix_kernel(const uint8_t* __restrict__ bitmats,
                     long long bm_stride, int rows, int k,
                     const uint8_t* __restrict__ data_all,
+                    const uint8_t* const* __restrict__ table,
                     uint8_t* __restrict__ out_all, int lanes,
                     long long batch, long long n, bool vec_ok) {
   using G = Geometry<W, NW>;
@@ -138,7 +164,6 @@ gf_bitmatrix_kernel(const uint8_t* __restrict__ bitmats,
   const uint32_t elem_mask = W == 32 ? 0xffffffffu : (1u << W) - 1u;
 
   for (int lane = blockIdx.y; lane < lanes; lane += gridDim.y) {
-    const uint8_t* __restrict__ data = data_all + lane * batch * k * n;
     uint8_t* __restrict__ out = out_all + lane * batch * out_rows * n;
     launch_common::pack_masks(bitmats + lane * bm_stride, rows, k * W, NW,
                               masks);
@@ -160,7 +185,8 @@ gf_bitmatrix_kernel(const uint8_t* __restrict__ bitmats,
 #pragma unroll
       for (int j = 0; j < G::KMAX; ++j) {
         if (j < k) {
-          const uint8_t* row = data + (b * k + j) * n + off;
+          const uint8_t* row =
+              data_row<TABLE>(data_all, table, lane, batch, k, n, b, j) + off;
           uint32_t d[G::VW];
           if (full) {
             if constexpr (G::VEC == 16) {
@@ -236,11 +262,12 @@ dim3 lane_grid(long long lane_units, int lanes, long long resident) {
   return dim3((unsigned)(gx > 0 ? gx : 1), gy);
 }
 
-template <int W, int NW>
+template <int W, int NW, bool TABLE>
 cudaError_t launch_popcount(const uint8_t* bitmat, long long bm_stride,
                             int rows, int k, const uint8_t* data,
-                            uint8_t* out, int lanes, long long batch,
-                            long long n, bool multi, cudaStream_t stream) {
+                            const uint8_t* const* table, uint8_t* out,
+                            int lanes, long long batch, long long n,
+                            bool multi, cudaStream_t stream) {
   using G = Geometry<W, NW>;
   const long long units = batch * ((n + G::VEC - 1) / G::VEC);
   if (units == 0 || rows == 0 || lanes == 0) return cudaSuccess;
@@ -250,12 +277,13 @@ cudaError_t launch_popcount(const uint8_t* bitmat, long long bm_stride,
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   const dim3 grid = lane_grid(units, lanes, (long long)sms * 8);
+  // a table's rows start on 16 bytes (the wrapper checks)
   const bool vec_ok = n % G::VEC == 0 &&
                       reinterpret_cast<uintptr_t>(data) % G::VEC == 0 &&
                       reinterpret_cast<uintptr_t>(out) % G::VEC == 0;
   const size_t smem = (size_t)rows * NW * sizeof(uint32_t);
-  gf_bitmatrix_kernel<W, NW><<<grid, kThreads, smem, stream>>>(
-      bitmat, bm_stride, rows, k, data, out, lanes, batch, n, vec_ok);
+  gf_bitmatrix_kernel<W, NW, TABLE><<<grid, kThreads, smem, stream>>>(
+      bitmat, bm_stride, rows, k, data, table, out, lanes, batch, n, vec_ok);
   return count_launch(kPopcount, multi);
 }
 
@@ -326,11 +354,11 @@ __device__ __forceinline__ void from_planes(uint32_t* q) {
 
 // Loads unit u (batch lane, 32 columns) of the KMAX data rows into p as
 // 8 words a row; rows j >= k and bytes past N are zero.
-template <int KMAX>
-__device__ __forceinline__ void load_unit(const uint8_t* __restrict__ data,
-                                          int k, long long n,
-                                          long long chunks, long long u,
-                                          bool vec_ok, uint32_t* p) {
+template <int KMAX, bool TABLE>
+__device__ __forceinline__ void load_unit(
+    const uint8_t* __restrict__ data_all, const uint8_t* const* table,
+    int lane, long long batch, int k, long long n, long long chunks,
+    long long u, bool vec_ok, uint32_t* p) {
   const long long b = u / chunks;
   const long long off = (u - b * chunks) * kCols;
   const bool full = vec_ok && off + kCols <= n;
@@ -340,7 +368,8 @@ __device__ __forceinline__ void load_unit(const uint8_t* __restrict__ data,
 #pragma unroll
     for (int x = 0; x < 8; ++x) q[x] = 0;
     if (j < k) {
-      const uint8_t* row = data + (b * k + j) * n + off;
+      const uint8_t* row =
+          data_row<TABLE>(data_all, table, lane, batch, k, n, b, j) + off;
       if (full) {
         const uint4 x0 = __ldcs(reinterpret_cast<const uint4*>(row));
         const uint4 x1 = __ldcs(reinterpret_cast<const uint4*>(row) + 1);
@@ -368,11 +397,12 @@ size_t bitsliced_smem(int rows) {
          sizeof(uint32_t);
 }
 
-template <int KMAX>
+template <int KMAX, bool TABLE>
 __global__ void __launch_bounds__(kThreads)
 gf_bitsliced_kernel(const uint8_t* __restrict__ bitmats,
                     long long bm_stride, int rows, int k,
                     const uint8_t* __restrict__ data_all,
+                    const uint8_t* const* __restrict__ table,
                     uint8_t* __restrict__ out_all, int lanes,
                     long long batch, long long n, bool vec_ok) {
   constexpr int STRIDE = KMAX * 8;  // E words per bitmatrix row
@@ -389,13 +419,14 @@ gf_bitsliced_kernel(const uint8_t* __restrict__ bitmats,
 
   for (int lane = blockIdx.y; lane < lanes; lane += gridDim.y) {
     const uint8_t* __restrict__ bitmat = bitmats + lane * bm_stride;
-    const uint8_t* __restrict__ data = data_all + lane * batch * k * n;
     uint8_t* __restrict__ out = out_all + lane * batch * out_rows * n;
     long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x;
 
     // p: the words, then the planes, of the unit's KMAX data rows
     uint32_t p[STRIDE];
-    if (u < units) load_unit<KMAX>(data, k, n, chunks, u, vec_ok, p);
+    if (u < units)
+      load_unit<KMAX, TABLE>(data_all, table, lane, batch, k, n, chunks, u,
+                             vec_ok, p);
 
     // One thread per 8x8 block (i, j): its 64 loads are all in flight at
     // once, so the expansion costs one memory latency, not one per entry.
@@ -493,32 +524,37 @@ gf_bitsliced_kernel(const uint8_t* __restrict__ bitmats,
       }
 
       u += step;
-      if (u < units) load_unit<KMAX>(data, k, n, chunks, u, vec_ok, p);
+      if (u < units)
+        load_unit<KMAX, TABLE>(data_all, table, lane, batch, k, n, chunks, u,
+                               vec_ok, p);
     }
     // every thread has read this lane's E before the next lane's lands
     if (lane + gridDim.y < lanes) __syncthreads();
   }
 }
 
-template <int KMAX>
+template <int KMAX, bool TABLE>
 cudaError_t launch_bitsliced(const uint8_t* bitmat, long long bm_stride,
                              int rows, int k, const uint8_t* data,
-                             uint8_t* out, int lanes, long long batch,
-                             long long n, bool multi, cudaStream_t stream) {
+                             const uint8_t* const* table, uint8_t* out,
+                             int lanes, long long batch, long long n,
+                             bool multi, cudaStream_t stream) {
   const long long units = batch * ((n + kCols - 1) / kCols);
   if (units == 0 || rows == 0 || lanes == 0) return cudaSuccess;
-  auto kernel = gf_bitsliced_kernel<KMAX>;
+  auto kernel = gf_bitsliced_kernel<KMAX, TABLE>;
   const size_t smem = bitsliced_smem<KMAX>(rows);
   unsigned resident = 0;
   const cudaError_t err = launch_common::grid_blocks(
       kernel, kThreads, smem, units * lanes, &resident);
   if (err != cudaSuccess) return err;
   const dim3 grid = lane_grid(units, lanes, resident);
+  // a table's rows start on 16 bytes (the wrapper checks)
   const bool vec_ok = n % 16 == 0 &&
                       reinterpret_cast<uintptr_t>(data) % 16 == 0 &&
                       reinterpret_cast<uintptr_t>(out) % 16 == 0;
   kernel<<<grid, kThreads, smem, stream>>>(bitmat, bm_stride, rows, k, data,
-                                           out, lanes, batch, n, vec_ok);
+                                           table, out, lanes, batch, n,
+                                           vec_ok);
   return count_launch(kBitsliced, multi);
 }
 
@@ -580,9 +616,11 @@ extern "C" void gf_bitmatrix_reset_launches() {
 
 namespace {
 
+template <bool TABLE>
 int encode_lanes(const void* bitmats, long long bm_stride, int lanes,
-                 int rows, int k, int w, const void* data, void* out,
-                 long long batch, long long n, bool multi, void* stream) {
+                 int rows, int k, int w, const void* data,
+                 const uint8_t* const* table, void* out, long long batch,
+                 long long n, bool multi, void* stream) {
   if (batch < 0 || n < 0 || lanes < 0) return -1;
   int design = kPopcount;
   const int rc = pick_design(rows, k, w, &design);
@@ -595,20 +633,21 @@ int encode_lanes(const void* bitmats, long long bm_stride, int lanes,
   cudaError_t err = cudaSuccess;
   if (design == kBitsliced) {
     if (k <= 4)
-      err = launch_bitsliced<4>(bm, bm_stride, rows, k, in, o, lanes, batch,
-                                n, multi, s);
+      err = launch_bitsliced<4, TABLE>(bm, bm_stride, rows, k, in, table, o,
+                                       lanes, batch, n, multi, s);
     else if (k <= 8)
-      err = launch_bitsliced<8>(bm, bm_stride, rows, k, in, o, lanes, batch,
-                                n, multi, s);
+      err = launch_bitsliced<8, TABLE>(bm, bm_stride, rows, k, in, table, o,
+                                       lanes, batch, n, multi, s);
     else
-      err = launch_bitsliced<16>(bm, bm_stride, rows, k, in, o, lanes, batch,
-                                 n, multi, s);
+      err = launch_bitsliced<16, TABLE>(bm, bm_stride, rows, k, in, table, o,
+                                        lanes, batch, n, multi, s);
     return (int)err;
   }
 #define GF_CASE(W_, NW_)                                                  \
   case W_ * 100 + NW_:                                                    \
-    err = launch_popcount<W_, NW_>(bm, bm_stride, rows, k, in, o, lanes,  \
-                                   batch, n, multi, s);                   \
+    err = launch_popcount<W_, NW_, TABLE>(bm, bm_stride, rows, k, in,     \
+                                          table, o, lanes, batch, n,      \
+                                          multi, s);                      \
     break;
   switch (w * 100 + mask_words(k * w)) {
     GF_CASE(8, 1) GF_CASE(8, 2) GF_CASE(8, 4) GF_CASE(8, 8) GF_CASE(8, 16)
@@ -631,8 +670,8 @@ extern "C" int gf_bitmatrix_encode(const void* bitmat, int rows, int k, int w,
                                    const void* data, void* out,
                                    long long batch, long long n,
                                    void* stream) {
-  return encode_lanes(bitmat, 0, 1, rows, k, w, data, out, batch, n, false,
-                      stream);
+  return encode_lanes<false>(bitmat, 0, 1, rows, k, w, data, nullptr, out,
+                             batch, n, false, stream);
 }
 
 // A different bitmatrix per lane, in one launch: bitmats [lanes, rows,
@@ -644,6 +683,21 @@ extern "C" int gf_bitmatrix_encode_multi(const void* bitmats, int lanes,
                                          const void* data, void* out,
                                          long long batch, long long n,
                                          void* stream) {
-  return encode_lanes(bitmats, (long long)rows * k * w, lanes, rows, k, w,
-                      data, out, batch, n, true, stream);
+  return encode_lanes<false>(bitmats, (long long)rows * k * w, lanes, rows,
+                             k, w, data, nullptr, out, batch, n, true,
+                             stream);
+}
+
+// The per-lane product with lane p's k data rows at the device addresses
+// table[p*k ... p*k + k - 1] (uint64, each row n bytes on 16 bytes):
+// bitmats [lanes, rows, k*w] 0/1 uint8, out [lanes, rows/w, n] uint8.
+// Returns and counts as gf_bitmatrix_encode_multi does.
+extern "C" int gf_bitmatrix_encode_multi_rows(const void* bitmats, int lanes,
+                                              int rows, int k, int w,
+                                              const void* table, void* out,
+                                              long long n, void* stream) {
+  return encode_lanes<true>(bitmats, (long long)rows * k * w, lanes, rows, k,
+                            w, nullptr,
+                            static_cast<const uint8_t* const*>(table), out,
+                            1, n, true, stream);
 }

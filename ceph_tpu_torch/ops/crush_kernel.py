@@ -29,6 +29,7 @@ from . import _build
 
 __all__ = ["crush_sweep", "pack_tables", "device_tables", "clear_tables",
            "kernel_design", "launches_by_design", "reset_launches",
+           "clock_rows", "kernel_group", "reciprocals",
            "LAUNCHES", "DESIGNS"]
 
 _SOURCE = "crush_straw2"
@@ -48,11 +49,13 @@ def _kernel() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load(_SOURCE)
         p = ctypes.c_void_p
-        lib.crush_straw2_map.argtypes = [p, p, p, p, ctypes.c_longlong, p, p,
-                                         p, p]
+        lib.crush_straw2_map.argtypes = [p, p, p, ctypes.c_int, p,
+                                         ctypes.c_longlong, p, p, p, p]
         lib.crush_straw2_map.restype = ctypes.c_int
         lib.crush_straw2_design.argtypes = [p, p]
         lib.crush_straw2_design.restype = ctypes.c_int
+        lib.crush_straw2_group.argtypes = [p, p, ctypes.c_longlong]
+        lib.crush_straw2_group.restype = ctypes.c_int
         lib.crush_straw2_launches.argtypes = [ctypes.c_int]
         lib.crush_straw2_launches.restype = ctypes.c_longlong
         lib.crush_straw2_reset_launches.argtypes = []
@@ -61,21 +64,36 @@ def _kernel() -> ctypes.CDLL:
     return _lib
 
 
+def reciprocals(weights: np.ndarray) -> np.ndarray:
+    """uint64 floor((2^64 - 1) / d) of each weight d (0 for d = 0): the
+    kernel divides by d as a multiply-high by it and one correction."""
+    d = np.asarray(weights, dtype=np.uint64).reshape(-1)
+    m = np.zeros(d.shape, dtype=np.uint64)
+    nz = d != 0
+    m[nz] = np.uint64(0xFFFFFFFFFFFFFFFF) // d[nz]
+    return m
+
+
 def pack_tables(cm: CompiledMap, wvec: np.ndarray) -> np.ndarray:
     """The kernel's table buffer, int32: the ln tables (RH_LH, then LL, as
     uint64 words), items [NB, S], hash ids [NB, S] (their low 32 bits, as
     the hash reads them), weight sets [NB, P, S] (uint32 bits), size [NB],
-    type [NB] and the reweight vector [NW] (values in [0, 0x10000]).
+    type [NB], the reweight vector [NW] (values in [0, 0x10000]), a zero
+    word where that ends on an odd word, and the weight sets'
+    reciprocals [NB, P, S] (uint64, two words each: :func:`reciprocals`).
     ``compile_map`` has checked that every value fits."""
     ln = np.concatenate([RH_LH_TBL, LL_TBL]).astype(np.int64)
-    return np.concatenate([
-        ln.view(np.int32),
+    head = [
         cm.items.reshape(-1).astype(np.int32),
         (cm.ids.reshape(-1) & 0xFFFFFFFF).astype(np.uint32).view(np.int32),
         cm.wsets.reshape(-1).astype(np.uint32).view(np.int32),
         cm.size.astype(np.int32),
         cm.btype.astype(np.int32),
-        np.asarray(wvec, dtype=np.int32).reshape(-1)])
+        np.asarray(wvec, dtype=np.int32).reshape(-1)]
+    pad = sum(a.size for a in head) % 2
+    return np.concatenate([
+        ln.view(np.int32), *head, np.zeros(pad, dtype=np.int32),
+        reciprocals(cm.wsets).view(np.int32)])
 
 
 def _geometry(cm: CompiledMap, plan: RulePlan, nw: int):
@@ -138,9 +156,26 @@ def reset_launches() -> None:
             _lib.crush_straw2_reset_launches()
 
 
+def kernel_group(cm: CompiledMap, plan: RulePlan, nw: int, n: int) -> int:
+    """The lanes that map one seed (G) in a sweep of n seeds on the
+    current CUDA device: from the largest bucket and the seeds, as the C
+    entry point's make_plan picks it."""
+    g = _kernel().crush_straw2_group(*_geometry(cm, plan, nw), n)
+    if g < 0:
+        raise ValueError("crush_straw2 refuses this geometry (%d)" % g)
+    return g
+
+
+def clock_rows(cm: CompiledMap, plan: RulePlan, nw: int, n: int,
+               group: int = 0) -> int:
+    """Rows of the `clocks` tensor of a sweep of n seeds: one a warp."""
+    return (n * (group or kernel_group(cm, plan, nw, n)) + 31) // 32
+
+
 def crush_sweep(cm: CompiledMap, plan: RulePlan, xs: torch.Tensor,
-                wvec: np.ndarray, work: torch.Tensor | None = None
-                ) -> torch.Tensor:
+                wvec: np.ndarray, work: torch.Tensor | None = None,
+                clocks: torch.Tensor | None = None,
+                group: int = 0) -> torch.Tensor:
     """Seeds xs [B] int64 -> [B, result_max] int64 (CRUSH_ITEM_NONE holes)
     on xs' device, under the reweight vector `wvec` (numpy int64, as
     ``batched.reweight_vector`` makes it).
@@ -148,36 +183,49 @@ def crush_sweep(cm: CompiledMap, plan: RulePlan, xs: torch.Tensor,
     A CUDA tensor takes one launch of the kernel, which raises if it
     cannot build or launch; a CPU tensor takes the plain version. `work`
     (CUDA only, int32 [B, 2]) receives each seed's straw2 draws and
-    is_out hashes, for the bound."""
+    is_out hashes, for the bound. `clocks` (CUDA only, int64
+    [clock_rows(...), 4], zeros) makes a profiled launch, which writes
+    each warp's cycles from its first seed to its last, the draw steps it
+    issued, the lanes active at them and its SM: the clock split of the
+    sweep's time. `group` (a power of two up to 32; 0 as
+    :func:`kernel_group` picks it) sets the lanes a seed, for tests and
+    timing: the placements are the same at any."""
     if xs.dtype != torch.int64 or xs.dim() != 1:
         raise TypeError("xs must be int64 [B], got %s %s"
                         % (xs.dtype, tuple(xs.shape)))
     if xs.device.type == "cpu":
-        if work is not None:
-            raise ValueError("work counts come from the CUDA kernel only")
+        if work is not None or clocks is not None:
+            raise ValueError("work and clocks come from the CUDA kernel "
+                             "only")
         return map_plain(cm, plan, xs, torch.from_numpy(
             np.asarray(wvec, dtype=np.int64)))
     if xs.device.type != "cuda":
         raise ValueError("unsupported device %s" % xs.device)
     global LAUNCHES
     n = xs.shape[0]
+    nw = int(np.asarray(wvec).size)
     if work is not None and (work.dtype != torch.int32 or
                              tuple(work.shape) != (n, 2) or
                              work.device != xs.device or
                              not work.is_contiguous()):
         raise ValueError("work must be int32 [B, 2] beside xs")
+    if clocks is not None and (
+            clocks.dtype != torch.int64 or clocks.device != xs.device or
+            tuple(clocks.shape) != (clock_rows(cm, plan, nw, n, group), 4)
+            or not clocks.is_contiguous()):
+        raise ValueError("clocks must be int64 [clock_rows(...), 4] beside "
+                         "xs")
     xs = xs.contiguous()
     with torch.cuda.device(xs.device):
         lib = _kernel()
         tables = device_tables(cm, wvec, xs.device)
         out = torch.empty((n, plan.result_max), dtype=torch.int64,
                           device=xs.device)
-        scratch = torch.empty(2 * plan.result_max * n, dtype=torch.int32,
-                              device=xs.device)
-        geo, rule = _geometry(cm, plan, int(np.asarray(wvec).size))
+        geo, rule = _geometry(cm, plan, nw)
         rc = lib.crush_straw2_map(
-            tables.data_ptr(), geo, rule, xs.data_ptr(), n, out.data_ptr(),
-            scratch.data_ptr(), None if work is None else work.data_ptr(),
+            tables.data_ptr(), geo, rule, group, xs.data_ptr(), n,
+            out.data_ptr(), None if work is None else work.data_ptr(),
+            None if clocks is None else clocks.data_ptr(),
             torch.cuda.current_stream(xs.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("crush_straw2_map failed with code %d%s"

@@ -12,7 +12,8 @@ tensor and runs :func:`chunk_digest_plain` only for a CPU tensor; it
 never falls back. :func:`chunk_digest_many` digests the rows of several
 tensors of one row length in one launch, through a table of the rows'
 device addresses (the tier's objects where they lie, ungathered;
-``_row_table`` builds it and ``_rows_digest`` launches over it). They
+``ops/row_table.row_table`` builds it and ``_rows_digest`` launches over
+it). They
 return uint32 tensors, which compare as values through
 ``t.view(torch.int32)`` (torch lacks uint32 arithmetic).
 
@@ -32,6 +33,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .row_table import row_table
 from .write_kernels import _scratch_for, _to_u32
 
 __all__ = ["chunk_digest", "chunk_digest_many", "chunk_digest_plain",
@@ -181,34 +183,14 @@ def _check_parts(parts: list[torch.Tensor]) -> None:
         raise ValueError("parts must share one row length and device")
 
 
-def _row_table(parts: list[torch.Tensor], picks=None
-              ) -> tuple[torch.Tensor, int, bool]:
-    """(the device addresses of the rows to digest, as int64 [rows]; n;
-    whether every row starts on 16 bytes). Each part is [..., n] uint8,
-    contiguous, on one CUDA device; with `picks`, part i gives only the
-    rows of parts[i][picks[i]] (a sequence of indices along its first
-    dimension, or None for all). The caller keeps `parts` alive while a
-    launch over the table may read them."""
-    _check_parts(parts)
-    n, device = parts[0].shape[-1], parts[0].device
-    if device.type != "cuda":
-        raise ValueError("a row table addresses CUDA memory, not %s"
-                         % device)
-    addrs = np.concatenate([
-        np.uint64(t.data_ptr()) + np.uint64(n) * rows.astype(np.uint64)
-        for t, rows in zip(parts, _rows_of(parts, picks))])
-    aligned = n % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in parts)
-    table = torch.from_numpy(addrs.view(np.int64)).pin_memory().to(
-        device, non_blocking=True)
-    return table, n, aligned
-
-
-def _rows_digest(table: torch.Tensor, n: int, aligned: bool
+def _rows_digest(table: torch.Tensor, n: int, unaligned: int | None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """(s, ws) uint32 [rows] of the rows of n bytes at the addresses of a
-    :func:`_row_table`, in one launch."""
+    ``row_table`` (its triple: table, n, first address not on 16 bytes),
+    in one launch: 16-byte vectors where every row allows them."""
     rows = table.numel()
-    return _launch(table.device, [rows], rows, n, None, table, aligned)
+    return _launch(table.device, [rows], rows, n, None, table,
+                   n % 16 == 0 and unaligned is None)
 
 
 def chunk_digest_many(parts: list[torch.Tensor], picks=None
@@ -221,7 +203,7 @@ def chunk_digest_many(parts: list[torch.Tensor], picks=None
     for CPU tensors."""
     _check_parts(parts)
     if parts[0].device.type != "cpu":
-        return _rows_digest(*_row_table(parts, picks))
+        return _rows_digest(*row_table(parts, _rows_of(parts, picks)))
     n = parts[0].shape[-1]
     pairs = [chunk_digest_plain(t.reshape(-1, n)[torch.from_numpy(rows)])
              if n else chunk_digest_plain(

@@ -13,15 +13,19 @@ path's), the popcount kernel for every other geometry.
 :func:`matrix_encode_multi` is the per-lane form, a port of the XLA
 program of ``ceph_tpu/ops/xor_mm.py:91`` (``matrix_encode_multi``, the
 vmap of ``matrix_encode`` with a different bitmatrix per lane): P lanes
-in one launch of the same kernels (``gf_bitmatrix_encode_multi``). The
-HBM chunk tier's ``reconstruct_batch`` runs it.
+in one launch of the same kernels (``gf_bitmatrix_encode_multi``).
+:func:`matrix_encode_multi_rows` is the same product with each lane's k
+data rows read where they lie, through a table of their addresses
+(``gf_bitmatrix_encode_multi_rows``, ``ops/row_table.py``): the HBM chunk
+tier's ``reconstruct_batch`` runs it on the survivors in their upload
+batches, with no gathered copy.
 
 :func:`matrix_encode` and :func:`matrix_encode_multi` launch the kernel
 for a CUDA tensor and run their plain versions only for a CPU tensor;
 they never fall back. ``LAUNCHES`` and ``MULTI_LAUNCHES`` count kernel
 launches; :func:`launches_by_design` reads the counts that the C entry
 points keep per design where they launch each kernel (``multi=True``
-for the per-lane entry point), and :func:`reset_launches` sets all of
+for the per-lane entry points, dense and through a table), and :func:`reset_launches` sets all of
 them to 0.
 """
 
@@ -33,10 +37,12 @@ import threading
 import torch
 
 from . import _build
+from .row_table import row_indices, row_table
 from .xor_mm import pack_element_bits, unpack_element_bits, xor_matmul
 
 __all__ = ["matrix_encode", "matrix_encode_plain", "matrix_encode_multi",
-           "matrix_encode_multi_plain", "kernel_design",
+           "matrix_encode_multi_plain", "matrix_encode_multi_rows",
+           "matrix_encode_multi_rows_plain", "kernel_design",
            "launches_by_design", "reset_launches", "DESIGNS", "LAUNCHES",
            "MULTI_LAUNCHES", "MAX_BITS"]
 
@@ -66,6 +72,11 @@ def _kernel() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
         lib.gf_bitmatrix_encode_multi.restype = ctypes.c_int
+        lib.gf_bitmatrix_encode_multi_rows.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_void_p]
+        lib.gf_bitmatrix_encode_multi_rows.restype = ctypes.c_int
         lib.gf_bitmatrix_design.argtypes = [ctypes.c_int] * 3
         lib.gf_bitmatrix_design.restype = ctypes.c_int
         lib.gf_bitmatrix_launches.argtypes = [ctypes.c_int] * 2
@@ -117,6 +128,23 @@ def _mask_words(bits: int) -> int:
     return nw
 
 
+def _check_geometry(rows: int, cols: int, k: int, n: int, w: int) -> None:
+    """Checks an [R, cols] bitmatrix on k data rows of N bytes at w."""
+    if w not in (8, 16, 32):
+        raise ValueError("w=%d must be one of 8, 16, 32" % w)
+    if cols != k * w:
+        raise ValueError("bitmat has %d columns, data k*w is %d"
+                         % (cols, k * w))
+    if cols > MAX_BITS:
+        raise ValueError("k*w=%d exceeds %d" % (cols, MAX_BITS))
+    if rows % w or n % (w // 8):
+        raise ValueError("bitmat rows %d and N %d must be multiples of "
+                         "w=%d and w/8" % (rows, n, w))
+    if rows * _mask_words(cols) * 4 > _MAX_SMEM:
+        raise ValueError("bitmatrix of %d rows exceeds the kernel's "
+                         "shared memory" % rows)
+
+
 def _check(bitmat: torch.Tensor, data: torch.Tensor, w: int,
            lanes: int | None = None) -> None:
     """Checks a [R, k*w] bitmatrix and [..., k, N] data, or with `lanes`
@@ -137,17 +165,7 @@ def _check(bitmat: torch.Tensor, data: torch.Tensor, w: int,
                          % (bitmat.shape[0], data.shape[0]))
     rows, cols = bitmat.shape[-2:]
     k, n = data.shape[-2:]
-    if cols != k * w:
-        raise ValueError("bitmat has %d columns, data k*w is %d"
-                         % (cols, k * w))
-    if cols > MAX_BITS:
-        raise ValueError("k*w=%d exceeds %d" % (cols, MAX_BITS))
-    if rows % w or n % (w // 8):
-        raise ValueError("bitmat rows %d and N %d must be multiples of "
-                         "w=%d and w/8" % (rows, n, w))
-    if rows * _mask_words(cols) * 4 > _MAX_SMEM:
-        raise ValueError("bitmatrix of %d rows exceeds the kernel's "
-                         "shared memory" % rows)
+    _check_geometry(rows, cols, k, n, w)
     if bitmat.device != data.device:
         raise ValueError("bitmat on %s, data on %s"
                          % (bitmat.device, data.device))
@@ -241,3 +259,98 @@ def matrix_encode_multi(bitmats: torch.Tensor, data: torch.Tensor,
     with _count_lock:
         MULTI_LAUNCHES += 1
     return out
+
+
+def _check_rows(bitmats: torch.Tensor, parts: list[torch.Tensor], rows,
+                w: int) -> tuple[int, int, list]:
+    """Checks a [P, R, k*w] bitmatrix stack against P*k rows of parts;
+    returns (k, n, the rows' indices per part)."""
+    if not parts:
+        raise ValueError("no survivor rows")
+    if bitmats.dim() != 3 or bitmats.dtype != torch.uint8:
+        raise ValueError("bitmats must be uint8 [P, R, k*w], got %s %s"
+                         % (bitmats.dtype, tuple(bitmats.shape)))
+    if w not in (8, 16, 32):
+        raise ValueError("w=%d must be one of 8, 16, 32" % w)
+    k = bitmats.shape[2] // w
+    n = parts[0].shape[-1]
+    if any(t.dtype != torch.uint8 or t.shape[-1] != n or
+           t.device != bitmats.device for t in parts):
+        raise ValueError("rows must be uint8 of one length on the "
+                         "bitmatrices' device")
+    idx = row_indices(parts, rows)
+    count = sum(i.size for i in idx)
+    if count != bitmats.shape[0] * k:
+        raise ValueError("%d lanes of k=%d need %d rows, got %d"
+                         % (bitmats.shape[0], k, bitmats.shape[0] * k,
+                            count))
+    _check_geometry(bitmats.shape[1], bitmats.shape[2], k, n, w)
+    return k, n, idx
+
+
+def matrix_encode_multi_rows_plain(bitmats: torch.Tensor,
+                                   parts: list[torch.Tensor], rows,
+                                   w: int) -> torch.Tensor:
+    """The table entry point's function in plain PyTorch: the rows
+    stacked into [P, 1, k, n] and :func:`matrix_encode_multi_plain`."""
+    k, n, idx = _check_rows(bitmats, parts, rows, w)
+    data = torch.cat([t.reshape(-1, n)[torch.from_numpy(i).to(t.device)]
+                      for t, i in zip(parts, idx)])
+    return matrix_encode_multi_plain(
+        bitmats, data.reshape(bitmats.shape[0], 1, k, n), w)[:, 0]
+
+
+def _multi_rows(bitmats: torch.Tensor, table: torch.Tensor, n: int,
+                w: int) -> torch.Tensor:
+    """[P, R/w, n]: one launch over the rows at a ``row_table``'s
+    addresses (P*k of them, every one on 16 bytes)."""
+    global MULTI_LAUNCHES
+    lanes, rows, cols = bitmats.shape
+    k = cols // w
+    if table.numel() != lanes * k or table.dtype != torch.int64:
+        raise ValueError("a table of %d int64 addresses for %d lanes of "
+                         "k=%d, got %d" % (lanes * k, lanes, k,
+                                           table.numel()))
+    out = torch.empty((lanes, rows // w, n), dtype=torch.uint8,
+                      device=bitmats.device)
+    if out.numel() == 0:        # no work: the entry point launches nothing
+        return out
+    lib = _kernel()
+    with torch.cuda.device(bitmats.device):
+        stream = torch.cuda.current_stream(bitmats.device).cuda_stream
+        rc = lib.gf_bitmatrix_encode_multi_rows(
+            bitmats.data_ptr(), lanes, rows, k, w, table.data_ptr(),
+            out.data_ptr(), n, stream)
+    if rc != 0:
+        raise RuntimeError("gf_bitmatrix_encode_multi_rows failed with "
+                           "code %d%s" % (rc, _build.launch_failure(lib)))
+    with _count_lock:
+        MULTI_LAUNCHES += 1
+    return out
+
+
+def matrix_encode_multi_rows(bitmats: torch.Tensor,
+                             parts: list[torch.Tensor], rows,
+                             w: int) -> torch.Tensor:
+    """[P, R/w, n] uint8: lane p's bitmatrix times its k data rows, which
+    are rows p*k ... p*k + k - 1 of the parts' rows in order (rows[i]
+    indexes parts[i].reshape(-1, n); None takes all), in one launch of
+    the GPU kernel that reads each row where it lies.
+
+    bitmats: [P, R, k*w] 0/1 uint8 on the parts' device. CUDA rows must
+    start on 16 bytes (the kernel's vector): a row that does not is
+    refused with its address. The caller keeps the parts from reuse
+    until the launch has read them (``record_stream``). A CPU tensor
+    takes the plain version."""
+    k, n, idx = _check_rows(bitmats, parts, rows, w)
+    if bitmats.device.type == "cpu":
+        return matrix_encode_multi_rows_plain(bitmats, parts, idx, w)
+    if bitmats.device.type != "cuda":
+        raise ValueError("no kernel for device %s" % bitmats.device)
+    if not bitmats.is_contiguous():
+        raise ValueError("bitmats must be contiguous")
+    table, n, unaligned = row_table(parts, idx)
+    if unaligned is not None:
+        raise ValueError("row at 0x%x is not on 16 bytes, which the "
+                         "kernel's vector loads need" % unaligned)
+    return _multi_rows(bitmats, table, n, w)

@@ -24,8 +24,10 @@ The consumers run the port's kernels: :meth:`deep_scrub` the chunk digest
 (``ops/digest_kernel.py``, one launch per chunk shape over the objects
 where they lie), :meth:`reconstruct` the codec's decode (the GF bitmatrix
 kernel) and :meth:`reconstruct_batch` the per-lane GF kernel
-(``gf_kernel.matrix_encode_multi``, one launch for every object, each
-lane given only its lost shard's w rows of its decode bitmatrix).
+(``gf_kernel.matrix_encode_multi_rows``, one launch for every object,
+each lane given only its lost shard's w rows of its decode bitmatrix and
+reading its survivors where they lie, through a table of their
+addresses).
 
 Where the port differs from the reference:
 
@@ -308,32 +310,6 @@ class HbmChunkTier:
             self._update_gauges_locked()
         self.perf.inc("l_hbm_adopted")
 
-    def _gather(self, names: list, shards: list) -> torch.Tensor:
-        """The rows `shards[i]` (shard indices, one count r for every
-        name) of each named object, stacked [len, r, n] in name order for
-        reading on the current stream: one index_select per batch run,
-        its indices uploaded together. Called under the lock."""
-        ents = [self._objs[name] for name in names]
-        self._consume([(batch.arr, batch.ready) for batch, _ in ents])
-        nn, n = int(ents[0][0].arr.shape[1]), int(ents[0][0].arr.shape[2])
-        width = len(shards[0])
-        flat = np.asarray([row for _, row in ents])[:, None] * nn + \
-            np.asarray(shards)
-        idx = self._operand(torch.from_numpy(
-            flat.reshape(-1).astype(np.int64)))
-        out = torch.empty((len(names), width, n), dtype=torch.uint8,
-                          device=self.device)
-        i = 0
-        while i < len(ents):
-            j = i + 1
-            while j < len(ents) and ents[j][0] is ents[i][0]:
-                j += 1
-            torch.index_select(ents[i][0].arr.view(-1, n), 0,
-                               idx[i * width:j * width],
-                               out=out[i:j].view(-1, n))
-            i = j
-        return out
-
     def resident(self, name) -> bool:
         with self._lock:
             return name in self._objs
@@ -475,9 +451,12 @@ class HbmChunkTier:
     def _rebuild_operands(self, names: list, lost_per_name: list):
         """The per-lane kernel's operands of :meth:`reconstruct_batch`:
         (bitmats [P, w, k*w] on the device, each lane's lost shard's rows
-        of its decode bitmatrix; survivors [P, k, n], each object's first
-        k shards but its lost one, gathered from the resident batches;
-        w). Needs one codec and shape across names."""
+        of its decode bitmatrix; the upload batches holding the named
+        objects and, per batch, the rows of each object's first k shards
+        but its lost one, as ``gf_kernel.matrix_encode_multi_rows`` reads
+        them where they lie; w). The current stream is ordered after the
+        batches' writes and keeps them from reuse until it has read them.
+        Needs one codec and shape across names."""
         with self._lock:
             codec = self._objs[names[0]][0].codec or self.codec
             nn = codec.get_chunk_count()
@@ -489,20 +468,28 @@ class HbmChunkTier:
             bitmats = [codec._decode_entry(av)["bitmat"][lost * w:
                                                         (lost + 1) * w]
                        for av, lost in zip(avail, lost_per_name)]
-            survivors = self._gather(names, avail)
+            runs = self._runs(names)
+        self._consume([(arr, ready) for arr, ready, _ in runs])
+        parts, rows, at = [], [], 0
+        for arr, _, objs in runs:
+            shards = np.asarray(avail[at:at + len(objs)], dtype=np.int64)
+            rows.append((np.asarray(objs, dtype=np.int64)[:, None] * nn +
+                         shards).reshape(-1))
+            parts.append(arr)
+            at += len(objs)
         bm = host_tensor(np.ascontiguousarray(np.stack(bitmats)))
-        return self._operand(bm), survivors, w
+        return self._operand(bm), parts, rows, w
 
     def reconstruct_batch(self, names: list, lost_per_name: list):
         """One per-lane GF launch rebuilding one lost shard per named
-        object from the RESIDENT survivors, each lane with its own decode
+        object from the RESIDENT survivors, read where they lie in their
+        upload batches (no gathered copy), each lane with its own decode
         bitmatrix (the shape the OSD coalesces concurrent recovery ops
         into); a lane is given only its lost shard's w rows, which is the
         row the reference keeps of its full decode. Needs one codec and
         shape across names. Returns the device array [len(names), n]."""
-        bm, survivors, w = self._rebuild_operands(names, lost_per_name)
-        return gf_kernel.matrix_encode_multi(bm, survivors[:, None],
-                                             w)[:, 0, 0]
+        bm, parts, rows, w = self._rebuild_operands(names, lost_per_name)
+        return gf_kernel.matrix_encode_multi_rows(bm, parts, rows, w)[:, 0]
 
     def stats(self) -> dict:
         with self._lock:

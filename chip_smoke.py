@@ -100,11 +100,15 @@ the card. Phases, each printing one JSON line:
                  sweep one launch of the CUDA kernel (none on the scalar
                  path, counted from 0 just before), every seed equal to
                  the plain version on the card, 256 sampled seeds equal
-                 to the scalar mapper; kernel ms (CUDA events, seeds on
-                 the card, tables cached), PGs per second, the plain
-                 version's ms at 65,536 seeds, the bound from the draws
-                 the kernel counts, and the end-to-end split (compile_map,
-                 the tables' upload, h2d, kernel, d2h). Then
+                 to the scalar mapper; the lanes a seed each sweep took
+                 (G) and its clock split from a profiled launch (per warp
+                 its cycles, the draw steps it issued and the lanes active
+                 at them; the SM clock nvidia-smi reads during the 2^20 EC
+                 sweep); kernel ms (CUDA events, seeds on the card, tables
+                 cached), PGs per second, the plain version's ms at 65,536
+                 seeds, the bound from the draws the kernel counts, and
+                 the end-to-end split (compile_map, the tables' upload,
+                 h2d, kernel, d2h). Then
                  ``crushtool --test --batched --show-utilization`` on the
                  cluster at 8,192 PGs, its report at 512 PGs equal to the
                  scalar run's.
@@ -132,13 +136,18 @@ the card. Phases, each printing one JSON line:
                  batches of 16 ([16, 8, 524288]) into a tier of 1024 (5.5
                  GiB resident): one ``deep_scrub`` (one digest launch),
                  one ``reconstruct_batch`` of 1024 lost shards (one
-                 per-lane launch), every digest against the plain version
-                 on the card, every rebuilt shard against the resident
-                 original and 32 sampled against the host bytes. Launches
-                 per call, counted from before each call; then each
-                 kernel alone on each part's inputs (CUDA events), its
-                 plain version, bound and bound_by, and the digest on one
-                 batch array beside ``torch.sum`` of the same bytes.
+                 per-lane launch reading the survivors where they lie,
+                 through a table of their addresses; its peak memory
+                 above what was allocated before it), every digest
+                 against the plain version on the card, every rebuilt
+                 shard against the resident original and 32 sampled
+                 against the host bytes. Launches per call, counted from
+                 before each call; then each kernel alone on each part's
+                 inputs (CUDA events), its plain version, bound and
+                 bound_by, a rebuild's operands (bitmatrices and the row
+                 table) and the whole rebuild in device time and peak
+                 memory, and the digest on one batch array beside
+                 ``torch.sum`` of the same bytes.
   11. kernels    one JSON line per the port's kernel table: the design
                  the main path takes, launches on the main path (phases
                  3-4 for the GF bitmatrix kernel, phase 6 for the packet
@@ -201,6 +210,26 @@ def nvidia_smi() -> str:
         timeout=60)
     check(out.returncode == 0, "nvidia-smi answered")
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clocks(fn, seconds: float):
+    """[min, max] of the SM clock (MHz) that nvidia-smi reads every 20 ms
+    while fn runs in a loop for about `seconds`."""
+    import torch
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits", "-lms", "20"], stdout=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        text, _ = smi.communicate(timeout=30)
+    mhz = [int(v) for v in text.split() if v.strip().isdigit()]
+    check(bool(mhz), "nvidia-smi read the SM clock")
+    return [min(mhz), max(mhz)]
 
 
 def crush_bench_map(CrushMap, Rule, cm_mod, np):
@@ -352,10 +381,32 @@ def crush_phase(np, torch, dev, smi):
         bound_ms, bound_by = crush_bound(work, rmax)
         draws = work.to(torch.int64).sum(dim=0).tolist()
         placed = host != CRUSH_ITEM_NONE
+        # the clock split of a profiled launch: per warp its cycles, the
+        # draw steps it issued and the lanes active at them
+        clk = torch.zeros((crush_kernel.clock_rows(cm, plan, wvec.size, n),
+                           4), dtype=torch.int64, device=dev)
+        check(torch.equal(crush_kernel.crush_sweep(cm, plan, xs_dev, wvec,
+                                                   clocks=clk), out),
+              "%s: a profiled sweep maps as a plain one" % name)
+        c = clk[clk[:, 0] > 0].double()
+        steps, lanes = float(c[:, 1].sum()), float(c[:, 2].sum())
+        check(int(lanes) == draws[0], "%s: the lanes at draw steps are "
+              "the draws counted" % name)
+        split = dict(warps=int(c.shape[0]), draw_steps=steps,
+                     cycles_per_draw_step=float(c[:, 0].sum()) / steps,
+                     active_lane_share=lanes / (32 * steps),
+                     warp_cycles_mean=float(c[:, 0].mean()),
+                     warp_cycles_max=float(c[:, 0].max()),
+                     sms_used=int(c[:, 3].unique().numel()))
+        if name == "cluster_ec_1048576":
+            split["sm_clock_mhz"] = sm_clocks(lambda: crush_kernel.crush_sweep(
+                cm, plan, xs_dev, wvec), 2.0)
         records[name] = rec = dict(
             seeds=n, result_max=rmax, rule="indep" if not plan.firstn
             else "firstn", design=crush_kernel.kernel_design(
-                cm, plan, wvec.size), ms=ms, pgs_per_s=n / ms * 1e3,
+                cm, plan, wvec.size), group=crush_kernel.kernel_group(
+                cm, plan, wvec.size, n), clock_split=split,
+            ms=ms, pgs_per_s=n / ms * 1e3,
             plain_ms=plain_ms, plain_seeds=int(x65.shape[0]),
             plain_all_s=plain_all_s, bound_ms=bound_ms, bound_by=bound_by,
             share_of_bound=bound_ms / ms, draws=draws[0],
@@ -399,7 +450,8 @@ def crush_phase(np, torch, dev, smi):
         "name": "crush_straw2", "route": "cuda",
         "source": "ceph_tpu_torch/csrc/crush_straw2.cu",
         "replaces": "ceph_tpu/crush/batched.py:128",
-        "design": head["design"], "launches": launches,
+        "design": head["design"], "group": head["group"],
+        "launches": launches,
         "launches_by_design": by_design, "matched": worst == 0,
         "max_abs_err": worst, "ms": head["ms"], "kernel_ms": head["ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
@@ -407,7 +459,8 @@ def crush_phase(np, torch, dev, smi):
         "share_of_bound": head["share_of_bound"], "case": "bench_65536",
         "gpu": smi,
         "other_cases": {n: {f: r[f] for f in (
-            "seeds", "ms", "pgs_per_s", "plain_ms", "bound_ms", "bound_by")}
+            "seeds", "group", "ms", "pgs_per_s", "plain_ms", "bound_ms",
+            "bound_by")}
             for n, r in records.items() if n != "bench_65536"}}
 
 
@@ -421,6 +474,7 @@ def hbm_tier_phase(np, torch, dev, smi):
     from ceph_tpu_torch import registry
     from ceph_tpu_torch.ops import digest_kernel as dk
     from ceph_tpu_torch.ops import gf_kernel, gf_ref
+    from ceph_tpu_torch.ops.row_table import row_table
     from ceph_tpu_torch.osd import fused_transform as ft
     from ceph_tpu_torch.osd.gpu_dispatch import GpuDispatcher
     from ceph_tpu_torch.osd.hbm_tier import HbmChunkTier, host_digest
@@ -653,10 +707,16 @@ def hbm_tier_phase(np, torch, dev, smi):
     check(scrub_calls_c["chunk_digest"] == 1,
           "(c): one digest launch for the whole tier")
     lost_c = [(i * 7) % nn for i in range(nc)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before_c = torch.cuda.memory_allocated()
     out_c, rebuild_wall_c, rebuild_calls_c = per_call(
         lambda: tier_c.reconstruct_batch(names_c, lost_c))
+    rebuild_peak_c = torch.cuda.max_memory_allocated() - before_c
     check(rebuild_calls_c["gf_bitmatrix_multi"] == 1,
           "(c): one rebuild launch for 1024 lost shards")
+    check(rebuild_peak_c < 2 * out_c.numel(),
+          "(c): the rebuild allocates its result and no survivors' copy")
     main = n_launched()
     check(main["chunk_digest"] > 0 and main["gf_bitmatrix_multi"] > 0,
           "the tier's path launched both kernels")
@@ -690,6 +750,7 @@ def hbm_tier_phase(np, torch, dev, smi):
          deep_scrub_launches=scrub_calls_c,
          reconstruct_batch_wall_ms=rebuild_wall_c * 1e3,
          reconstruct_batch_launches=rebuild_calls_c,
+         reconstruct_batch_peak_bytes_above=rebuild_peak_c,
          memory_allocated=torch.cuda.memory_allocated(),
          sampled=len(sampled))
 
@@ -701,7 +762,7 @@ def hbm_tier_phase(np, torch, dev, smi):
         # the launch alone, over the row table deep_scrub builds (an
         # internal of the wrapper, reached here to time it apart)
         objs_ = [tier.get(nm) for nm in names]
-        table = dk._row_table(objs_)
+        table = row_table(objs_)
         (s, ws), _, calls = per_call(lambda: dk._rows_digest(*table))
         check(calls["chunk_digest"] == 1,
               "digest %s: one launch a call" % name)
@@ -721,36 +782,68 @@ def hbm_tier_phase(np, torch, dev, smi):
 
     def multi_case(name, tier, names, lost, lanes_per_plain=None):
         # reconstruct_batch in its two parts: the operands (the lanes'
-        # bitmatrices and the survivors' gather, an internal of the tier
-        # reached here to time it apart), then the kernel alone
+        # bitmatrices and the table of the survivors' addresses, internals
+        # of the tier and the wrapper reached here to time them apart),
+        # then the kernel alone over the table
         def operands():
-            return tier._rebuild_operands(names, lost)
-        (bm, surv, w), operands_wall, _ = per_call(operands)
+            bm_, parts_, rows_, w_ = tier._rebuild_operands(names, lost)
+            return bm_, parts_, rows_, w_, row_table(parts_, rows_)
+        (bm, parts_, rows_, w, (table, n, bad)), operands_wall, _ = \
+            per_call(operands)
+        check(bad is None, "per-lane product %s: rows on 16 bytes" % name)
         operands_ms = time_ms(lambda _: operands(), [None], 3)
-        data = surv[:, None]
         out, _, calls = per_call(
-            lambda: gf_kernel.matrix_encode_multi(bm, data, w))
+            lambda: gf_kernel._multi_rows(bm, table, n, w))
         check(calls["gf_bitmatrix_multi"] == 1,
               "per-lane product %s: one launch a call" % name)
-        step = lanes_per_plain or len(names)
+        lanes, k_ = len(names), bm.shape[2] // w
+        flat = [(t, int(r)) for t, rs in zip(parts_, rows_) for r in rs]
+        step = lanes_per_plain or lanes
 
-        def plain(x):
-            return torch.cat([gf_kernel.matrix_encode_multi_plain(
-                bm[p:p + step], x[p:p + step], w)
-                for p in range(0, len(names), step)])
-        ref = plain(data)
+        def plain(_):
+            outs = []
+            for p in range(0, lanes, step):
+                rows_p = flat[p * k_:(p + step) * k_]
+                data_p = torch.stack([t.reshape(-1, n)[r]
+                                      for t, r in rows_p])
+                outs.append(gf_kernel.matrix_encode_multi_plain(
+                    bm[p:p + step], data_p.view(-1, 1, k_, n), w)[:, 0])
+            return torch.cat(outs)
+        ref = plain(None)
         err = int((out.to(torch.int16) - ref.to(torch.int16)).abs().max())
         del ref
-        inputs = [data] if data.numel() > (64 << 20) else \
-            [data] + [data.clone() for _ in range(2)]
-        ms = time_ms(lambda x: gf_kernel.matrix_encode_multi(bm, x, w),
-                     inputs, 20)
-        plain_ms = time_ms(plain, [data], 1)
-        bound_ms, bound_by = gf_multi_bound(bm, data, out, w)
-        parts[name] = rec = dict(lanes=len(names), n=int(data.shape[-1]),
-                                 bitmats=list(bm.shape), ms=ms,
-                                 plain_ms=plain_ms, bound_ms=bound_ms,
-                                 bound_by=bound_by, max_abs_err=err,
+        # small parts: tables over copies of the batches as well, rotated
+        # so that a launch's rows are out of L2 when it reads them again
+        tables, copies = [table], []      # copies: kept alive while timed
+        if sum(t.numel() for t in {id(t): t for t in parts_}.values()) \
+                <= (64 << 20):
+            for _ in range(2):
+                copies.append({id(t): t.clone() for t in parts_})
+                tables.append(row_table([copies[-1][id(t)] for t in parts_],
+                                        rows_)[0])
+        ms = time_ms(lambda tb: gf_kernel._multi_rows(bm, tb, n, w), tables,
+                     20)
+        plain_ms = time_ms(plain, [None], 1)
+        bound_ms, bound_by = gf_multi_bound(
+            bm, torch.empty((lanes, 1, k_, n), device="meta"), out, w)
+        # the whole rebuild: device time, and its peak memory above what
+        # was allocated before it
+        rebuild_ms = time_ms(lambda _: tier.reconstruct_batch(names, lost),
+                             [None], 3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        again = tier.reconstruct_batch(names, lost)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+        check(torch.equal(again, out.view(lanes, -1)),
+              "per-lane product %s: reconstruct_batch is the kernel's"
+              % name)
+        del again
+        parts[name] = rec = dict(lanes=lanes, n=n, bitmats=list(bm.shape),
+                                 ms=ms, plain_ms=plain_ms,
+                                 bound_ms=bound_ms, bound_by=bound_by,
+                                 max_abs_err=err,
                                  share_of_bound=bound_ms / ms,
                                  design=gf_kernel.kernel_design(
                                      bm.shape[1], K, w, dev),
@@ -758,7 +851,9 @@ def hbm_tier_phase(np, torch, dev, smi):
                                      "gf_bitmatrix_multi"],
                                  operands_ms=operands_ms,
                                  operands_wall_ms=operands_wall * 1e3,
-                                 gathered_bytes=surv.numel())
+                                 upload_batches=len({id(t) for t in parts_}),
+                                 rebuild_ms=rebuild_ms,
+                                 rebuild_peak_bytes_above=peak)
         emit("hbm_tier", case="multi_" + name, **rec)
         return err
 

@@ -25,8 +25,13 @@ dynamic shared memory beside static shared memory. The device chunk
 tier's kernels: the chunk digest (the 65535 wrap, ragged n, rows not on
 16 bytes, a 17 MB row, no rows and rows of 0 bytes, one launch a call)
 and the per-lane GF product (both designs, 1, 3, 64 and 70,000 lanes,
-one launch a call); and the tier on the card: its consumers, adoption
-from the pipelined dispatcher with no upload, eviction.
+one launch a call), dense and with each lane's rows read where they lie
+through a table of addresses (rows of several upload batches, w = 8,
+16, 32, an unaligned row refused); and the tier on the card: its
+consumers, adoption from the pipelined dispatcher with no upload,
+eviction. The CRUSH kernel also at every group size (1 to 32 lanes a
+seed), on buckets of 1, 3, 17 and 33 items, with forced ties and a
+bucket of zero weights, and its profiled launch (the clock split).
 """
 
 import itertools
@@ -663,8 +668,9 @@ CRUSH_CASES = {
                                "shared", 72),
     "cluster_rep_weight_sets": (lambda: crush_cluster(3), 1, 3, 8192,
                                 "shared", 72),
-    # a scalar draw over 3,000 or 20,000 items takes the host 0.1-0.6 s
-    "flat_3000_past_48KiB": (lambda: crush_flat(3000), 0, 6, 2048, "shared",
+    # a scalar draw over 2,400 or 20,000 items takes the host 0.1-0.6 s
+    # 2,400 items: 61,720 bytes of tables with their reciprocals
+    "flat_2400_past_48KiB": (lambda: crush_flat(2400), 0, 6, 2048, "shared",
                              12),
     "flat_20000_global": (lambda: crush_flat(20000), 0, 6, 1024, "global",
                           3),
@@ -733,6 +739,126 @@ def test_crush_kernel_counts_its_work_on_card(cuda):
     draws = work[:, 0].cpu().numpy()
     # 12 slots of 8 + 8 + 16 draws at least (root, rack, host's OSDs)
     assert draws.min() >= 12 * 32 and work[:, 1].sum().item() > 0
+
+
+def crush_sweep_held(cuda, m, rw, cargs, rule, rmax, xs, groups):
+    """The kernel at each group size in `groups` (0: the map's) equal to
+    the plain version on the card, one launch each."""
+    args = m.choose_args_get_with_fallback(cargs) if cargs is not None \
+        else None
+    plan = batched.plan_rule(m, rule, rmax)
+    cm = batched.compile_map(m, args)
+    wvec = batched.reweight_vector(rw, cm.max_devices)
+    xs_dev = torch.from_numpy(np.asarray(xs, dtype=np.int64)).to(cuda)
+    plain = batched.map_plain(cm, plan, xs_dev,
+                              torch.from_numpy(wvec).to(cuda))
+    for g in groups:
+        crush_kernel.reset_launches()
+        out = crush_kernel.crush_sweep(cm, plan, xs_dev, wvec, group=g)
+        torch.cuda.synchronize()
+        assert crush_kernel.LAUNCHES == 1
+        assert torch.equal(out, plain), g
+    return cm, plan, wvec, plain
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["bench_indep", "bench_firstn",
+                                  "cluster_ec", "cluster_rep_weight_sets",
+                                  "flat_20000_global", "depth_4_osds"])
+def test_crush_kernel_at_every_group_size_on_card(cuda, name):
+    """G = 1 ... 32 lanes a seed: buckets larger than G loop, smaller
+    ones leave lanes idle; a seed count that is no multiple of the seeds
+    a block holds (128 / G), and the device-memory design."""
+    make, rule, rmax, n, design, _ = CRUSH_CASES[name]
+    m, rw, cargs = make()
+    cm, plan, wvec, _ = crush_sweep_held(cuda, m, rw, cargs, rule, rmax,
+                                         np.arange(n - 3),
+                                         [1, 2, 4, 8, 16, 32])
+    assert crush_kernel.kernel_design(cm, plan, wvec.size) == design
+
+
+def crush_flat_of(n, weights=None, ids=None):
+    """One straw2 bucket of n OSDs under the root, indep and firstn rules
+    of min(n, 4) and min(n, 3); choose_args ids / weights when given."""
+    m = CrushMap()
+    m.type_names = {"osd": 0, "root": 1}
+    w = [0x8000 + (i * 7919) % 0x20000 for i in range(n)]
+    m.add_bucket("straw2", 1, list(range(n)), w, id=-1, name="default")
+    for op, numrep in ((cmap_mod.RULE_CHOOSE_INDEP, min(n, 4)),
+                       (cmap_mod.RULE_CHOOSE_FIRSTN, min(n, 3))):
+        m.add_rule(Rule(steps=[(cmap_mod.RULE_TAKE, -1), (op, numrep, 0),
+                               (cmap_mod.RULE_EMIT,)]))
+    rw = np.full(n, 0x10000, dtype=np.int64)
+    rw[1::7] = 0x9000
+    cargs = None
+    if weights is not None or ids is not None:
+        m.create_choose_args(0, positions=1)
+        m.choose_args[0][-1] = {"weight_set": [weights or w], "ids": ids}
+        cargs = 0
+    return m, rw, cargs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [1, 3, 17, 33])
+def test_crush_kernel_on_bucket_sizes_on_card(cuda, size):
+    m, rw, cargs = crush_flat_of(size)
+    for rule, rmax in ((0, min(size, 4)), (1, min(size, 3))):
+        _, _, _, plain = crush_sweep_held(cuda, m, rw, cargs, rule, rmax,
+                                          np.arange(4093), [0, 1, 4, 32])
+        host = plain.cpu().numpy()
+        for x in range(0, 4093, 97):
+            ref = mapper_ref.crush_do_rule(m, rule, x, rmax, list(rw))
+            assert list(host[x]) == ref + [CRUSH_ITEM_NONE] * (rmax -
+                                                               len(ref))
+
+
+@pytest.mark.gpu
+def test_crush_kernel_on_forced_ties_on_card(cuda):
+    """Items of one hash id at equal weights draw the same, so the lowest
+    index wins: 24 items in 4 pairs of one id (items i and i + 12), and a
+    bucket of zero weights, whose every draw is S64_MIN: item 0."""
+    ids = [5000 + (i % 12) for i in range(24)]
+    m, rw, cargs = crush_flat_of(24, weights=[0x10000] * 24, ids=ids)
+    rw = np.full(24, 0x10000, dtype=np.int64)
+    _, _, _, plain = crush_sweep_held(cuda, m, rw, cargs, 1, 3,
+                                      np.arange(2048), [0, 1, 2, 8, 16])
+    host = plain.cpu().numpy()
+    assert (host < 12).all()            # item i + 12 never beats item i
+    args = m.choose_args_get_with_fallback(cargs)
+    for x in range(0, 2048, 61):
+        ref = mapper_ref.crush_do_rule(m, 1, x, 3, list(rw),
+                                       choose_args=args)
+        assert list(host[x]) == ref
+    m, rw, cargs = crush_flat_of(5, weights=[0] * 5)
+    _, _, _, plain = crush_sweep_held(cuda, m, rw, cargs, 0, 1,
+                                      np.arange(512), [0, 1, 4])
+    assert (plain == 0).all()
+
+
+@pytest.mark.gpu
+def test_crush_kernel_clock_split_on_card(cuda):
+    """A profiled launch fills one row a warp and maps as a plain one."""
+    m, rw, _ = crush_cluster()
+    plan = batched.plan_rule(m, 0, 12)
+    cm = batched.compile_map(m)
+    wvec = batched.reweight_vector(rw, cm.max_devices)
+    xs = torch.arange(1000, device=cuda)
+    rows = crush_kernel.clock_rows(cm, plan, wvec.size, 1000)
+    # 1000 seeds fill no card: G doubles from 4 to 16, all the cluster's
+    # buckets of 16 hold
+    assert crush_kernel.kernel_group(cm, plan, wvec.size, 1000) == 16
+    assert crush_kernel.kernel_group(cm, plan, wvec.size, 8192) == 8
+    assert crush_kernel.kernel_group(cm, plan, wvec.size, 1 << 20) == 4
+    assert rows == (1000 * 16 + 31) // 32
+    clk = torch.zeros((rows, 4), dtype=torch.int64, device=cuda)
+    work = torch.zeros((1000, 2), dtype=torch.int32, device=cuda)
+    out = crush_kernel.crush_sweep(cm, plan, xs, wvec, work=work,
+                                   clocks=clk)
+    assert torch.equal(out, crush_kernel.crush_sweep(cm, plan, xs, wvec))
+    c = clk.cpu()
+    assert (c[:, 0] > 0).all() and (c[:, 1] > 0).all()
+    # the lanes active at draw steps are the draws the kernel counted
+    assert int(c[:, 2].sum()) == int(work[:, 0].sum())
 
 
 @pytest.mark.gpu
@@ -888,6 +1014,74 @@ def test_matrix_encode_multi_past_the_grid_rows_on_card(cuda):
     data = torch.randint(0, 256, (70_000, 1, 4, 64), generator=g,
                          dtype=torch.uint8, device=cuda)
     multi_held_against_plain(bms, data, 8, "bitsliced")
+
+
+def rows_held(cuda, bms, parts, rows, w, design):
+    """One launch of the table entry point on `design`, equal to the dense
+    entry point and the plain version on the rows stacked."""
+    k = bms.shape[2] // w
+    before = gf_kernel.launches_by_design(multi=True)
+    out = gf_kernel.matrix_encode_multi_rows(bms, parts, rows, w)
+    torch.cuda.synchronize()
+    after = gf_kernel.launches_by_design(multi=True)
+    assert {d: after[d] - before[d] for d in after} == {
+        d: int(d == design) for d in gf_kernel.DESIGNS}
+    n = parts[0].shape[-1]
+    stacked = torch.cat([t.reshape(-1, n)[torch.from_numpy(
+        np.asarray(r, dtype=np.int64)).to(cuda)] for t, r in zip(parts, rows)])
+    data = stacked.reshape(bms.shape[0], 1, k, n)
+    assert torch.equal(out, gf_kernel.matrix_encode_multi(bms, data, w)[:, 0])
+    assert torch.equal(out, gf_kernel.matrix_encode_multi_rows_plain(
+        bms, parts, rows, w))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w,k,rows,n,design", [
+    (8, 8, 8, 4096, "bitsliced"),        # one lost shard's rows
+    (8, 8, 88, 16000, "bitsliced"),      # a ragged 32-column unit
+    (8, 4, 16, 1024, "bitsliced"),
+    (8, 40, 32, 1024, "popcount"),
+    (16, 8, 48, 2048, "popcount"),
+    (32, 4, 64, 4096, "popcount"),
+])
+def test_matrix_encode_multi_rows_on_card(cuda, w, k, rows, n, design):
+    """Survivors from several upload batches [B, k+3, n] in one call,
+    each lane's rows out of order within its object."""
+    rng = np.random.default_rng(k * w + rows)
+    g = torch.Generator(device=cuda).manual_seed(k + w)
+    batches = [torch.randint(0, 256, (b, k + 3, n), generator=g,
+                             dtype=torch.uint8, device=cuda)
+               for b in (3, 1, 2)]
+    lanes = 7
+    picks = [(i % 3, i % batches[i % 3].shape[0]) for i in range(lanes)]
+    parts = [batches[b] for b, _ in picks]
+    rows_ = [obj * (k + 3) + rng.permutation(k + 3)[:k] for _, obj in picks]
+    bms = torch.from_numpy(rng.integers(0, 2, (lanes, rows, k * w),
+                                        dtype=np.uint8)).to(cuda)
+    rows_held(cuda, bms, parts, rows_, w, design)
+
+
+@pytest.mark.gpu
+def test_matrix_encode_multi_rows_past_the_grid_rows_on_card(cuda):
+    """70,000 lanes of one part: more than gridDim.y holds."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    bms = torch.randint(0, 2, (70_000, 8, 32), generator=g,
+                        dtype=torch.uint8, device=cuda)
+    part = torch.randint(0, 256, (70_000, 6, 64), generator=g,
+                         dtype=torch.uint8, device=cuda)
+    rows = [(np.arange(70_000)[:, None] * 6 + [5, 0, 3, 1]).reshape(-1)]
+    rows_held(cuda, bms, [part], rows, 8, "bitsliced")
+
+
+@pytest.mark.gpu
+def test_matrix_encode_multi_rows_refuses_an_unaligned_row_on_card(cuda):
+    buf = torch.zeros(4 * 1024 + 1, dtype=torch.uint8, device=cuda)
+    part = buf[1:].view(4, 1024)
+    bms = torch.zeros((1, 8, 32), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="row at 0x%x is not on 16 bytes"
+                       % part.data_ptr()):
+        gf_kernel.matrix_encode_multi_rows(bms, [part], None, 8)
 
 
 # -- the device chunk tier on the card (osd/hbm_tier.py) ----------------------

@@ -163,3 +163,48 @@ def test_matrix_encode_multi_rejects_bad_shapes(bms_shape, data_shape):
         gf_kernel.matrix_encode_multi(
             torch.zeros(bms_shape, dtype=torch.uint8),
             torch.zeros(data_shape, dtype=torch.uint8), 8)
+
+
+@pytest.mark.parametrize("k,m,w,n", [(8, 3, 8, 4096), (4, 2, 16, 2048),
+                                     (4, 2, 32, 1024)])
+def test_matrix_encode_multi_rows_matches_reference(k, m, w, n):
+    """The survivors read where they lie: lane p's k rows picked from
+    three "upload batches" [B, k+m, n] out of order, against the JAX
+    package's matrix_encode_multi on the same rows stacked."""
+    lanes = 5
+    bms = decode_bitmats(k, m, w, lanes)
+    rng = np.random.default_rng(k * w + n)
+    batches = [rng.integers(0, 256, (b, k + m, n), dtype=np.uint8)
+               for b in (3, 2, 1)]
+    picks = [(1, 0), (0, 2), (2, 0), (1, 1), (0, 1)]   # (batch, object)
+    shards = [rng.permutation(k + m)[:k] for _ in range(lanes)]
+    parts, rows, stacked = [], [], []
+    for (b, obj), sh in zip(picks, shards):
+        parts.append(torch.from_numpy(batches[b]))
+        rows.append(obj * (k + m) + sh)
+        stacked.append(batches[b][obj][sh])
+    ref = np.asarray(jax.device_get(jxor.matrix_encode_multi(
+        bms, np.stack(stacked)[:, None], w)))[:, 0]
+    got = gf_kernel.matrix_encode_multi_rows(torch.from_numpy(bms), parts,
+                                             rows, w)
+    assert got.shape == ref.shape == (lanes, k + m, n)
+    assert np.array_equal(got.numpy(), ref)
+    dense = gf_kernel.matrix_encode_multi(
+        torch.from_numpy(bms), torch.from_numpy(np.stack(stacked)[:, None]),
+        w)[:, 0]
+    assert torch.equal(got, dense)
+
+
+@pytest.mark.parametrize("rows", [[np.arange(7)], [np.arange(9)],
+                                  [np.array([0, 1, 2, 99])]])
+def test_matrix_encode_multi_rows_rejects_bad_rows(rows):
+    """Two lanes of k=4 need 8 rows, each inside its part."""
+    bms = torch.zeros((2, 8, 32), dtype=torch.uint8)
+    part = torch.zeros((2, 11, 64), dtype=torch.uint8)
+    if rows[0].size == 4:
+        rows = [rows[0], np.arange(4)]
+        parts = [part, part]
+    else:
+        parts = [part]
+    with pytest.raises((ValueError, IndexError)):
+        gf_kernel.matrix_encode_multi_rows(bms, parts, rows, 8)
