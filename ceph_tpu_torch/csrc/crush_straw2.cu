@@ -446,8 +446,11 @@ __device__ __forceinline__ Done map_firstn(Tabs<SMEM> t, const Plan& p,
   return Done{outpos, draws, hashes};
 }
 
+// At least 4 blocks an SM, so at most 128 registers a thread: without a
+// minimum, ptxas held the device-memory instantiations at 40-48 registers
+// and spilled (PERF.md, PR 10, call 3).
 template <bool SMEM, bool PROF>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 4)
     crush_straw2_kernel(const int32_t* __restrict__ tables,
                         const __grid_constant__ Plan p,
                         const long long* __restrict__ xs, long long n,
