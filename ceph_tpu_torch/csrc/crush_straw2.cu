@@ -17,7 +17,7 @@
 // counts its draws per seed when asked (`work`). Seeds and results are the
 // only device-memory traffic of size.
 //
-// Design (PERF.md, PR 10):
+// Design (measured in PERF.md):
 //  * A group of G lanes a seed. In a bucket, lane l draws items l, l + G,
 //    ... (a larger bucket loops), and the group takes the maximum by
 //    (draw, lowest index) with __shfl_xor_sync: C's strict > in item
@@ -31,8 +31,8 @@
 //    whose square holds the largest bucket (4 for buckets of 16), doubled
 //    while the sweep's seeds would leave the card short of 8 warps an SM
 //    (8 at a pool's 8,192 PGs), at most the power of two that holds the
-//    bucket (make_plan). One thread a seed (the parent design) left half
-//    the SMs idle at 8,192 seeds, with 46% of its lanes active at a draw.
+//    bucket (make_plan). One thread a seed left half the SMs idle at
+//    8,192 seeds, with 46% of its lanes active at a draw.
 //  * The division by the weight is a multiply-high by the weight's
 //    reciprocal m = floor((2^64 - 1) / d), made with the tables
 //    (ops/crush_kernel.pack_tables), and one correction: the numerator is
@@ -448,7 +448,7 @@ __device__ __forceinline__ Done map_firstn(Tabs<SMEM> t, const Plan& p,
 
 // At least 4 blocks an SM, so at most 128 registers a thread: without a
 // minimum, ptxas held the device-memory instantiations at 40-48 registers
-// and spilled (PERF.md, PR 10, call 3).
+// and spilled.
 template <bool SMEM, bool PROF>
 __global__ void __launch_bounds__(kThreads, 4)
     crush_straw2_kernel(const int32_t* __restrict__ tables,
@@ -577,7 +577,7 @@ static cudaError_t fill_threads(long long* threads) {
 // geo: nb, s, npos, nw, max_devices; plan: root, firstn, chooseleaf,
 // target_type, numrep, out_size, result_max, tries, recurse_tries, vary_r.
 // The table offsets follow from geo as ops/crush_kernel.pack_tables lays
-// them out. The group (PERF.md, PR 10): the smallest power of two whose
+// them out. The group (PERF.md): the smallest power of two whose
 // square holds a bucket of s items, doubled while a sweep of n seeds
 // would leave the card short of `fill` threads (but not past the power
 // of two that holds s), and doubled while a block's slots exceed

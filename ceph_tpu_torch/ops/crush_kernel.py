@@ -6,9 +6,12 @@ Port of the XLA program of ``ceph_tpu/crush/batched.py`` (``_straw2_choose``
 runs :func:`ceph_tpu_torch.crush.batched.map_plain` only for seeds on the
 CPU; it never falls back.
 
-The kernel reads one int32 buffer of tables (:func:`pack_tables`); the
-device copy is cached per (table bytes, reweight vector, device), so a
-sweep uploads a map once (:func:`device_tables`, :func:`clear_tables`).
+The kernel maps a seed with a group of G lanes (:func:`kernel_group`:
+from the largest bucket and the number of seeds) and reads one int32
+buffer of tables (:func:`pack_tables`, with each weight's reciprocal for
+its division); the device copy is cached per (table bytes, reweight
+vector, device), so a sweep uploads a map once (:func:`device_tables`,
+:func:`clear_tables`).
 ``LAUNCHES`` counts the wrapper's launches; :func:`launches_by_design`
 reads the counts that the C entry point keeps per design ("shared": the
 tables staged in shared memory; "global": read from device memory), and

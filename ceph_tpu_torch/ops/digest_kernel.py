@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .row_table import row_table
+from .row_table import row_indices, row_table
 from .write_kernels import _scratch_for, _to_u32
 
 __all__ = ["chunk_digest", "chunk_digest_many", "chunk_digest_plain",
@@ -160,16 +160,13 @@ def chunk_digest(chunks: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def _rows_of(parts: list[torch.Tensor], picks) -> list[np.ndarray]:
     """Per part, the indices of its rows of n bytes that the call reads:
     all of them, or those of the sub-tensors parts[i][picks[i]]."""
-    out = []
+    out = row_indices(parts)
     for i, t in enumerate(parts):
-        n = t.shape[-1]
-        count = t.numel() // n if n else int(torch.Size(t.shape[:-1]).numel())
         if picks is None or picks[i] is None:
-            out.append(np.arange(count, dtype=np.int64))
             continue
-        per = count // t.shape[0] if t.dim() > 1 and t.shape[0] else 1
+        per = out[i].size // t.shape[0] if t.dim() > 1 and t.shape[0] else 1
         sel = np.asarray(picks[i], dtype=np.int64)
-        out.append((sel[:, None] * per + np.arange(per)).reshape(-1))
+        out[i] = (sel[:, None] * per + np.arange(per)).reshape(-1)
     return out
 
 

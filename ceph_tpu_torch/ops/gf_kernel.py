@@ -149,8 +149,6 @@ def _check(bitmat: torch.Tensor, data: torch.Tensor, w: int,
            lanes: int | None = None) -> None:
     """Checks a [R, k*w] bitmatrix and [..., k, N] data, or with `lanes`
     a [P, R, k*w] stack and [P, ..., k, N] data."""
-    if w not in (8, 16, 32):
-        raise ValueError("w=%d must be one of 8, 16, 32" % w)
     if bitmat.dtype != torch.uint8 or data.dtype != torch.uint8:
         raise TypeError("bitmat and data must be uint8, got %s and %s"
                         % (bitmat.dtype, data.dtype))

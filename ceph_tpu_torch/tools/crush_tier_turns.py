@@ -6,8 +6,8 @@
 Times, on one CUDA card, the port's two placement and recovery kernels at
 the sizes ``chip_smoke.py`` phases 9 and 10 drive them, for the tree at
 ``--tree`` (default: the checkout this file lies in), so that two trees
-unpacked side by side (``git archive``) are compared in one call, in
-turns (parent, this, this, parent):
+unpacked side by side (``git archive``) are compared on one card, in
+turns (A, B, B, A):
 
 ``--parts crush``: the six straw2 sweeps of phase 9 (the bench's map at
 65,536 seeds; the 1024-OSD cluster's EC rule, indep 12, and replicated
@@ -119,7 +119,7 @@ def _crush_cases(np):
     ]
 
 
-def _sm_clocks(fn, seconds: float) -> list[int]:
+def sm_clocks(fn, seconds: float) -> list[int]:
     """The SM clock (MHz) that nvidia-smi reads every 20 ms while fn runs
     in a loop for about `seconds`."""
     import torch
@@ -195,7 +195,7 @@ def crush_part(out: _Out, split: bool, groups: list[int]) -> None:
                 sms_used=int((per_sm > 0).sum()),
                 warps_per_sm_max=int(per_sm.max()))
             if name == "cluster_ec_1048576":
-                clocks = _sm_clocks(lambda: crush_kernel.crush_sweep(
+                clocks = sm_clocks(lambda: crush_kernel.crush_sweep(
                     cm, plan, xs, wvec), 3.0)
                 rec["sm_clock_mhz"] = [min(clocks), max(clocks)] \
                     if clocks else "not read"

@@ -107,12 +107,15 @@ def bitplane_bound(flat, cap2: int) -> tuple[float, str]:
 # SM's 4 partitions), 132 SMs, at SM_CLOCK_HZ
 INT32_OPS_PER_S = 132 * 64 * SM_CLOCK_HZ
 # integer instructions of one straw2 draw of csrc/crush_straw2.cu, counted
-# in its SASS (cuobjdump -sass of the sm_90a build, CUDA 12.8): the draw
-# loop's IADD3 59, LOP3 50, IMAD 43, SHF 35, ISETP 13, VIADD 4, SEL 3, FLO
-# and VIMNMX 1 each (the hash, crush_ln, the division's integer steps, the
-# comparison), beside 9 FP64 and conversion instructions of the division's
-# estimate and 26 loads, branches and uniform moves, which are not counted
-CRUSH_DRAW_OPS = 209
+# in its SASS (cuobjdump -sass of the sm_90a build, CUDA 12.8; the draw
+# loop of the shared-memory instantiation): IADD3 55, LOP3 50, IMAD 46,
+# SHF 35, ISETP 7, VIADD 4, SEL 4, FLO, VIMNMX and LEA 1 each (the hash,
+# crush_ln, the multiply-high by the weight's reciprocal and its
+# correction, the comparison), beside 17 loads, branches and uniform
+# moves, which are not counted; the group's shuffles after the loop are
+# the design's cost and are not counted either. The thread-a-seed draw
+# with a double estimate of the quotient counted 209.
+CRUSH_DRAW_OPS = 204
 # is_out's 2-word hash, counted from the code: 3 mixes of 9 steps (a
 # 3-input subtraction, a shift and an xor each), the seed's xor, the mask
 CRUSH_HASH2_OPS = 3 * 27 + 2

@@ -212,26 +212,6 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def sm_clocks(fn, seconds: float):
-    """[min, max] of the SM clock (MHz) that nvidia-smi reads every 20 ms
-    while fn runs in a loop for about `seconds`."""
-    import torch
-    smi = subprocess.Popen(
-        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
-         "nounits", "-lms", "20"], stdout=subprocess.PIPE, text=True)
-    try:
-        t0 = time.perf_counter()
-        while time.perf_counter() - t0 < seconds:
-            fn()
-            torch.cuda.synchronize()
-    finally:
-        smi.terminate()
-        text, _ = smi.communicate(timeout=30)
-    mhz = [int(v) for v in text.split() if v.strip().isdigit()]
-    check(bool(mhz), "nvidia-smi read the SM clock")
-    return [min(mhz), max(mhz)]
-
-
 def crush_bench_map(CrushMap, Rule, cm_mod, np):
     """bench.py:820 _crush_bench_map in the port's classes: 8 hosts of 4
     OSDs (straw2, weights from seed 7070), rule 0 chooseleaf indep 5 over
@@ -264,6 +244,7 @@ def crush_phase(np, torch, dev, smi):
     from ceph_tpu_torch.crush.map import CRUSH_ITEM_NONE, CrushMap, Rule
     from ceph_tpu_torch.ops import crush_kernel
     from ceph_tpu_torch.tools import crushtool
+    from ceph_tpu_torch.tools.crush_tier_turns import sm_clocks
     from ceph_tpu_torch.utils.cuda_timing import crush_bound, time_ms
 
     out_dir = ROOT / "chiprun_out"
@@ -399,8 +380,10 @@ def crush_phase(np, torch, dev, smi):
                      warp_cycles_max=float(c[:, 0].max()),
                      sms_used=int(c[:, 3].unique().numel()))
         if name == "cluster_ec_1048576":
-            split["sm_clock_mhz"] = sm_clocks(lambda: crush_kernel.crush_sweep(
+            mhz = sm_clocks(lambda: crush_kernel.crush_sweep(
                 cm, plan, xs_dev, wvec), 2.0)
+            check(bool(mhz), "nvidia-smi read the SM clock")
+            split["sm_clock_mhz"] = [min(mhz), max(mhz)]
         records[name] = rec = dict(
             seeds=n, result_max=rmax, rule="indep" if not plan.firstn
             else "firstn", design=crush_kernel.kernel_design(
