@@ -29,21 +29,25 @@
 //    that split against the bookkeeping that every lane repeats and the
 //    lanes a small bucket leaves idle: it is the smallest power of two
 //    whose square holds the largest bucket (4 for buckets of 16), doubled
-//    while the sweep's seeds would leave the card short of 8 warps an SM
-//    (8 at a pool's 8,192 PGs), at most the power of two that holds the
-//    bucket (make_plan). One thread a seed left half the SMs idle at
-//    8,192 seeds, with 46% of its lanes active at a draw.
+//    once where the sweep's seeds would leave the card short of 16 warps
+//    an SM (8 at 8,192 and 16,384 seeds, 4 from 32,768, on the phase-9
+//    maps), and widened up to 32 where n * G threads stay within 8 warps
+//    an SM (16 at 2,048 seeds, 32 at 1,024): a sweep that small is
+//    latency, and a warp of one seed does not diverge (make_plan). One
+//    thread a seed left half the SMs idle at 8,192 seeds, with 46% of its
+//    lanes active at a draw.
 //  * The division by the weight is a multiply-high by the weight's
 //    reciprocal m = floor((2^64 - 1) / d), made with the tables
 //    (ops/crush_kernel.pack_tables), and one correction: the numerator is
 //    at most 2^48, so the estimate is q or q - 1 (the CPU model in
 //    tests/test_torch_crush_model.py holds it to n // d).
 //  * A seed's working slots (out, out2 of the C) live in shared memory, two
-//    rows of result_max words a group; G doubles while a block's slots
-//    exceed kSlotBudget (a result_max past 1024 is refused). Every lane of
-//    a group writes each slot (the same value), so a lane reads only what
-//    it wrote; a collision test splits the slots over the group's lanes
-//    and votes.
+//    rows of out_size words a group; G doubles while a block's slots
+//    exceed kSlotBudget. Past that (out_size above 1024 at G = 32) they
+//    live in device memory, two rows a seed of a scratch the wrapper
+//    allocates. Every lane of a group writes each slot (the same value),
+//    so a lane reads only what it wrote; a collision test splits the slots
+//    over the group's lanes and votes.
 //
 // Tables: one int32 buffer laid out by ops/crush_kernel.pack_tables: the
 // ln tables (RH_LH [258] and LL [256] uint64), then items [NB, S], hash ids
@@ -72,7 +76,8 @@ constexpr int kLnWords = (258 + 256) * 2;   // the ln tables, as int32 words
 constexpr int kLlAt = 258;                  // LL's first uint64
 constexpr size_t kSmemBudget = 64 * 1024;   // tables staged up to this
 constexpr size_t kSlotBudget = 32 * 1024;   // a block's slots, at most
-constexpr int kFillWarps = 8;               // warps an SM that fill the card
+constexpr int kFillWarps = 16;              // warps an SM that fill the card
+constexpr int kWideWarps = 8;               // warps an SM up to which G widens
 constexpr int32_t kUndef = 0x7FFFFFFE;
 constexpr int32_t kNone = 0x7FFFFFFF;
 constexpr uint32_t kHashSeed = 1315423911u;
@@ -89,6 +94,7 @@ struct Plan {
   int tries, recurse_tries, vary_r;
   int items_at, ids_at, wsets_at, size_at, btype_at, w_at, recip_at, words;
   int group, group_log;   // G, lanes a seed, and log2(G)
+  int slots_global;       // the slots in the wrapper's scratch
 };
 
 // Reads table words from shared (SMEM) or device memory, one layout.
@@ -297,8 +303,9 @@ __device__ __forceinline__ Step descend(Tabs<SMEM> t, const Plan& p,
   return Step{kRetry, 0, draws};
 }
 
-// One seed's working slots in shared memory: out (o) and out2 (o2). Every
-// lane of the group writes each slot it sets, with the same value.
+// One seed's working slots, in shared or device memory: out (o) and out2
+// (o2). Every lane of the group writes each slot it sets, with the same
+// value.
 struct Slots {
   int32_t* o;
   int32_t* o2;
@@ -456,7 +463,8 @@ __global__ void __launch_bounds__(kThreads, 4)
                         const long long* __restrict__ xs, long long n,
                         long long* __restrict__ out,
                         int* __restrict__ work,
-                        long long* __restrict__ clk) {
+                        long long* __restrict__ clk,
+                        int32_t* __restrict__ scratch) {
   extern __shared__ __align__(16) int32_t sm[];
   __shared__ unsigned prof_steps[PROF ? kThreads / 32 : 1];
   __shared__ unsigned prof_lanes[PROF ? kThreads / 32 : 1];
@@ -482,11 +490,13 @@ __global__ void __launch_bounds__(kThreads, 4)
                     << (warp_lane & ~(G - 1))};
   const int per_block = kThreads >> p.group_log;   // seeds a block holds
   const int in_block = threadIdx.x >> p.group_log;
-  int32_t* const slots = sm + staged + in_block * 2 * p.result_max;
-  const Slots sl{slots, slots + p.result_max};
+  int32_t* const shared_slots = sm + staged + in_block * 2 * p.out_size;
   const long long stride = (long long)gridDim.x * per_block;
   for (long long seed = (long long)blockIdx.x * per_block + in_block;
        seed < n; seed += stride) {
+    int32_t* const slots =
+        p.slots_global ? scratch + seed * 2 * p.out_size : shared_slots;
+    const Slots sl{slots, slots + p.out_size};
     const uint32_t x = (uint32_t)xs[seed];
     const Done d = p.firstn ? map_firstn(t, p, ln, g, pf, x, sl)
                             : map_indep(t, p, ln, g, pf, x, sl);
@@ -529,16 +539,17 @@ __global__ void __launch_bounds__(kThreads, 4)
   }
 }
 
-// A block's slots: two rows of result_max words for each of its seeds.
-size_t slot_bytes(int group, int result_max) {
-  return (size_t)(kThreads / group) * 2 * result_max * sizeof(int32_t);
+// A block's slots: two rows of out_size words for each of its seeds.
+size_t slot_bytes(int group, int out_size) {
+  return (size_t)(kThreads / group) * 2 * (out_size > 0 ? out_size : 0) *
+         sizeof(int32_t);
 }
 
 // Dynamic shared memory of a launch: the ln tables, the map's tables when
-// staged, the slots.
+// staged, the slots unless they lie in the scratch.
 size_t smem_bytes(const Plan& p, bool tables) {
   return (kLnWords + (tables ? (size_t)p.words : 0)) * sizeof(int32_t) +
-         slot_bytes(p.group, p.result_max);
+         (p.slots_global ? 0 : slot_bytes(p.group, p.out_size));
 }
 
 bool tables_staged(const Plan& p) {
@@ -548,7 +559,7 @@ bool tables_staged(const Plan& p) {
 template <bool SMEM, bool PROF>
 cudaError_t launch(const int32_t* tables, const Plan& p, const long long* xs,
                    long long n, long long* out, int* work, long long* clk,
-                   cudaStream_t stream) {
+                   int32_t* scratch, cudaStream_t stream) {
   auto kernel = crush_straw2_kernel<SMEM, PROF>;
   const size_t smem = smem_bytes(p, SMEM);
   unsigned blocks = 0;
@@ -556,7 +567,7 @@ cudaError_t launch(const int32_t* tables, const Plan& p, const long long* xs,
       launch_common::grid_blocks(kernel, kThreads, smem, n * p.group, &blocks);
   if (err != cudaSuccess) return err;
   kernel<<<blocks, kThreads, smem, stream>>>(tables, p, xs, n, out, work,
-                                             clk);
+                                             clk, scratch);
   err = cudaGetLastError();
   if (err == cudaSuccess) g_launches[SMEM ? kShared : kGlobal].fetch_add(1);
   return err;
@@ -578,11 +589,13 @@ static cudaError_t fill_threads(long long* threads) {
 // target_type, numrep, out_size, result_max, tries, recurse_tries, vary_r.
 // The table offsets follow from geo as ops/crush_kernel.pack_tables lays
 // them out. The group (PERF.md): the smallest power of two whose
-// square holds a bucket of s items, doubled while a sweep of n seeds
-// would leave the card short of `fill` threads (but not past the power
-// of two that holds s), and doubled while a block's slots exceed
-// kSlotBudget; a power of two `group` up to 32 (for tests and timing)
-// names it instead. A group past 32 is refused.
+// square holds a bucket of s items, doubled once where a sweep of n seeds
+// would leave the card short of `fill` threads (kFillWarps an SM), or
+// more where the sweep's n * G threads stay within kWideWarps an SM (up
+// to 32 lanes, a warp a seed); then doubled while a block's slots exceed
+// kSlotBudget (where 32 lanes would still exceed it, the slots go to the
+// scratch instead). A power of two `group` up to 32 (for tests and
+// timing) names it instead. A group past 32 is refused.
 static bool make_plan(const int* geo, const int* rule, int group,
                       long long n, long long fill, Plan* p) {
   *p = Plan{geo[0],  geo[1],  geo[2],  geo[3],  geo[4],  rule[0],
@@ -605,15 +618,22 @@ static bool make_plan(const int* geo, const int* rule, int group,
   p->recip_at = (int)recip_at;
   p->words = (int)words;
   if (group < 0 || group > 32 || (group & (group - 1)) != 0) return false;
-  int g = 1, holds = 1;
-  while (holds < 32 && holds < p->s) holds *= 2;
+  int g = 1;
   while (g < 32 && g * g < p->s) g *= 2;
-  while (g < holds && n * g < fill) g *= 2;
-  if (group > 0) g = group;
-  while (g <= 32 && slot_bytes(g, p->result_max) > kSlotBudget) g *= 2;
-  if (g > 32 || (group > 0 && g != group)) return false;
+  if (g < 32 && n * g < fill) g *= 2;
+  int wide = 32;
+  while (wide > g && n * wide > fill / kFillWarps * kWideWarps) wide >>= 1;
+  g = wide;
+  if (group > 0) {
+    g = group;
+  } else {
+    int h = g;
+    while (h < 32 && slot_bytes(h, p->out_size) > kSlotBudget) h *= 2;
+    if (slot_bytes(h, p->out_size) <= kSlotBudget) g = h;
+  }
   p->group = g;
   p->group_log = __builtin_ctz(g);
+  p->slots_global = slot_bytes(g, p->out_size) > kSlotBudget;
   return true;
 }
 
@@ -635,31 +655,49 @@ extern "C" int crush_straw2_group(const int* geo, const int* rule,
   return make_plan(geo, rule, 0, n, fill, &p) ? p.group : -1;
 }
 
+// The int32 words of scratch a sweep of n seeds needs for its slots (0
+// where they fit shared memory: two rows of out_size words a seed);
+// -1 a geometry refused, -2 a failed device query.
+extern "C" long long crush_straw2_scratch(const int* geo, const int* rule,
+                                          int group, long long n) {
+  long long fill = 0;
+  if (fill_threads(&fill) != cudaSuccess) return -2;
+  Plan p;
+  if (!make_plan(geo, rule, group, n, fill, &p)) return -1;
+  return p.slots_global ? n * 2 * p.out_size : 0;
+}
+
 // Maps seeds xs [n] (int64, hashed as uint32) into out [n, result_max]
 // int64, `group` lanes a seed (0: as make_plan picks); work, when not
 // null, gets each seed's straw2 draws (items hashed) and is_out hashes
 // ([n, 2] int32); clk, when not null, makes a profiled launch that writes
 // each warp's clock split ([ceil(n * G / 32), 4] int64: cycles, draw
-// steps, lanes active at them, SM). Returns 0 or a cudaError_t, -1 for a
-// refused geometry.
+// steps, lanes active at them, SM); scratch holds the slots where
+// crush_straw2_scratch asks for it. Returns 0 or a cudaError_t, -1 for a
+// refused geometry, -3 for a missing scratch.
 extern "C" int crush_straw2_map(const int32_t* tables, const int* geo,
                                 const int* rule, int group,
                                 const long long* xs, long long n,
                                 long long* out, int* work, long long* clk,
-                                void* stream) {
+                                int32_t* scratch, void* stream) {
   long long fill = 0;
   const cudaError_t err = fill_threads(&fill);
   if (err != cudaSuccess) return (int)err;
   Plan p;
   if (!make_plan(geo, rule, group, n, fill, &p)) return -1;
   if (n == 0) return 0;
+  if (p.slots_global && scratch == nullptr) return -3;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool smem = tables_staged(p);
   if (clk != nullptr)
-    return smem ? launch<true, true>(tables, p, xs, n, out, work, clk, s)
-                : launch<false, true>(tables, p, xs, n, out, work, clk, s);
-  return smem ? launch<true, false>(tables, p, xs, n, out, work, clk, s)
-              : launch<false, false>(tables, p, xs, n, out, work, clk, s);
+    return smem ? launch<true, true>(tables, p, xs, n, out, work, clk,
+                                     scratch, s)
+                : launch<false, true>(tables, p, xs, n, out, work, clk,
+                                      scratch, s);
+  return smem ? launch<true, false>(tables, p, xs, n, out, work, clk,
+                                    scratch, s)
+              : launch<false, false>(tables, p, xs, n, out, work, clk,
+                                     scratch, s);
 }
 
 extern "C" long long crush_straw2_launches(int design) {

@@ -14,8 +14,11 @@ vector, device), so a sweep uploads a map once (:func:`device_tables`,
 :func:`clear_tables`).
 ``LAUNCHES`` counts the wrapper's launches; :func:`launches_by_design`
 reads the counts that the C entry point keeps per design ("shared": the
-tables staged in shared memory; "global": read from device memory), and
-:func:`reset_launches` sets all of them to 0.
+tables staged in shared memory, their reciprocals too where they fit;
+"global": read from device memory), and :func:`reset_launches` sets all
+of them to 0. A seed's working slots live in shared memory, or in a
+scratch of device memory the wrapper allocates where a rule's replicas
+(``out_size``) exceed what a block holds.
 """
 
 from __future__ import annotations
@@ -53,12 +56,15 @@ def _kernel() -> ctypes.CDLL:
         lib = _build.load(_SOURCE)
         p = ctypes.c_void_p
         lib.crush_straw2_map.argtypes = [p, p, p, ctypes.c_int, p,
-                                         ctypes.c_longlong, p, p, p, p]
+                                         ctypes.c_longlong, p, p, p, p, p]
         lib.crush_straw2_map.restype = ctypes.c_int
         lib.crush_straw2_design.argtypes = [p, p]
         lib.crush_straw2_design.restype = ctypes.c_int
         lib.crush_straw2_group.argtypes = [p, p, ctypes.c_longlong]
         lib.crush_straw2_group.restype = ctypes.c_int
+        lib.crush_straw2_scratch.argtypes = [p, p, ctypes.c_int,
+                                             ctypes.c_longlong]
+        lib.crush_straw2_scratch.restype = ctypes.c_longlong
         lib.crush_straw2_launches.argtypes = [ctypes.c_int]
         lib.crush_straw2_launches.restype = ctypes.c_longlong
         lib.crush_straw2_reset_launches.argtypes = []
@@ -225,10 +231,17 @@ def crush_sweep(cm: CompiledMap, plan: RulePlan, xs: torch.Tensor,
         out = torch.empty((n, plan.result_max), dtype=torch.int64,
                           device=xs.device)
         geo, rule = _geometry(cm, plan, nw)
+        words = lib.crush_straw2_scratch(geo, rule, group, n)
+        if words < 0:
+            raise ValueError("crush_straw2 refuses this geometry (%d)"
+                             % words)
+        scratch = torch.empty(words, dtype=torch.int32, device=xs.device) \
+            if words else None
         rc = lib.crush_straw2_map(
             tables.data_ptr(), geo, rule, group, xs.data_ptr(), n,
             out.data_ptr(), None if work is None else work.data_ptr(),
             None if clocks is None else clocks.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
             torch.cuda.current_stream(xs.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("crush_straw2_map failed with code %d%s"

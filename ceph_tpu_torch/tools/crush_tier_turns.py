@@ -1,7 +1,8 @@
 """Device time of the CRUSH sweeps and of the tier's rebuild, for turns.
 
     python3 ceph_tpu_torch/tools/crush_tier_turns.py [--tree DIR]
-        [--parts crush,tier] [--split] [--groups 1,2,...] [--tag NAME]
+        [--parts crush,crossing,crossover,tier] [--split]
+        [--groups 1,2,...] [--tag NAME]
 
 Times, on one CUDA card, the port's two placement and recovery kernels at
 the sizes ``chip_smoke.py`` phases 9 and 10 drive them, for the tree at
@@ -21,13 +22,24 @@ per-warp clock split (cycles, draw steps, the lanes active at them) and
 the SM clock that ``nvidia-smi`` reads during a loop of the 2^20 EC
 sweep; and the per-seed draw counts per warp of seeds. With
 ``--groups 1,2,4``, where the tree's kernel takes ``group``: each sweep
-timed at those lanes a seed as well.
+timed at those lanes a seed as well. ``chip_smoke.py`` phase 9 drives
+the same six cases (:func:`crush_cases`).
+
+``--parts crossing``: the same measurements on maps whose tables fit the
+kernel's 64 KiB of shared memory without the weights' reciprocals and
+not with them (:func:`crossing_cases`), with the design each tree takes.
+
+``--parts crossover`` (this tree's kernel only): the bench map and the
+cluster's two rules at 1,024 to 65,536 seeds (powers of two), each at
+the lanes a seed in ``--groups`` (default 4, 8, 16), beside the group
+the kernel picks.
 
 ``--parts tier``: the device chunk tier's batched rebuild
-(``HbmChunkTier.reconstruct_batch``, RS k=8, m=3) at (a) 3 upload
-batches of 16 objects of 1 MiB, (b) 48 objects of 4 MiB adopted one by
-one (48 upload batches) and (c) 1024 objects of 4 MiB in upload batches
-of 16: the rebuild's device time and wall time, its operands' device
+(``HbmChunkTier.reconstruct_batch``, RS k=8, m=3) at phase 10's sizes
+(``TIER_A``, ``TIER_B``, ``TIER_C``, which ``chip_smoke.py`` reads from
+here): (a) 3 upload batches of 16 objects of 1 MiB, (b) 48 objects of
+4 MiB adopted one by one (48 upload batches) and (c) 1024 objects of
+4 MiB in upload batches of 16: the rebuild's device time and wall time, its operands' device
 time (what the tree does before the per-lane kernel), the kernel's
 device time, and the rebuild's peak device memory above what was
 allocated before it (``torch.cuda.max_memory_allocated`` after
@@ -74,41 +86,73 @@ class _Out:
         self.file.flush()
 
 
-def _crush_cases(np):
+# phase 10's sizes (chip_smoke.py drives them; _tier_cases imitates them
+# here): (a) rounds, objects a round, object bytes (bench.py's resident
+# pipeline); (b) stripes and chunk of a 4 MiB write at stripe_unit 4096,
+# writer threads, writes a thread; (c) objects, objects an upload batch,
+# object bytes
+TIER_A = (3, 16, 1 << 20)
+TIER_B = (128, 4096, 8, 8)
+TIER_C = (1024, 16, 4 << 20)
+CLUSTER_LAYERS = [("host", "straw2", 16), ("rack", "straw2", 8),
+                  ("root", "straw2", 0)]
+
+
+def crush_bench_map(np):
+    """bench.py:820 _crush_bench_map in the port's classes: 8 hosts of 4
+    OSDs (straw2, weights from seed 7070), rule 0 chooseleaf indep 5 over
+    hosts, OSD 3 reweighted to 0. Returns the map and its reweights."""
     from ceph_tpu_torch.crush import map as cm_mod
     from ceph_tpu_torch.crush.map import CrushMap, Rule
-    from ceph_tpu_torch.tools import crushtool
 
-    layers = [("host", "straw2", 16), ("rack", "straw2", 8),
-              ("root", "straw2", 0)]
-    cluster = crushtool.build_map(1024, layers)
-    ec = cluster.add_simple_rule("ec", "default", "host", mode="indep")
-    rep = cluster.add_simple_rule("rep", "default", "host")
-    weighted = crushtool.build_map(1024, layers)
-    weighted.add_simple_rule("ec", "default", "host", mode="indep")
-    weighted.create_choose_args(0, positions=2)
-    for host in (3, 17, 29, 42, 58):
-        weighted.choose_args_adjust_item_weight(
-            0, -1 - host, host * 16 + 4, [0x4000, 0xC000])
-    c_rw = np.full(1024, 0x10000, dtype=np.int64)
-    c_rw[::97] = 0
-    c_rw[5::89] = 0x8000
     rng = np.random.default_rng(7070)
     weights = rng.integers(0x8000, 3 * 0x10000, size=32, dtype=np.uint32)
-    bench = CrushMap()
-    bench.type_names = {"osd": 0, "host": 1, "root": 2}
+    m = CrushMap()
+    m.type_names = {"osd": 0, "host": 1, "root": 2}
     hids, hw = [], []
     for h in range(8):
         items = [h * 4 + i for i in range(4)]
         w = [int(weights[i]) for i in items]
-        hids.append(bench.add_bucket("straw2", 1, items, w, id=-2 - h))
+        hids.append(m.add_bucket("straw2", 1, items, w, id=-2 - h))
         hw.append(sum(w))
-    bench.add_bucket("straw2", 2, hids, hw, id=-1, name="default")
-    bench.add_rule(Rule(steps=[(cm_mod.RULE_TAKE, -1),
-                               (cm_mod.RULE_CHOOSELEAF_INDEP, 5, 1),
-                               (cm_mod.RULE_EMIT,)]))
-    b_rw = np.full(32, 0x10000, dtype=np.int64)
-    b_rw[3] = 0
+    m.add_bucket("straw2", 2, hids, hw, id=-1, name="default")
+    m.add_rule(Rule(steps=[(cm_mod.RULE_TAKE, -1),
+                           (cm_mod.RULE_CHOOSELEAF_INDEP, 5, 1),
+                           (cm_mod.RULE_EMIT,)]))
+    reweight = np.full(32, 0x10000, dtype=np.int64)
+    reweight[3] = 0
+    return m, reweight
+
+
+def cluster_reweight(np, osds: int):
+    """A rebalance: every 97th OSD out, every 89th from OSD 5 at half
+    weight."""
+    rw = np.full(osds, 0x10000, dtype=np.int64)
+    rw[::97] = 0
+    rw[5::89] = 0x8000
+    return rw
+
+
+def crush_cases(np, cluster=None):
+    """Phase 9's six sweeps: [(name, map, rule, result_max, reweight,
+    choose_args, seeds)]. `cluster` is the 1024-OSD map of 16 OSDs a
+    host and 8 hosts a rack (``crushtool --build``; built here when
+    None); its EC rule (indep 12 over hosts) and replicated rule (firstn
+    3) are added to it. The weight-set map is its copy with a
+    two-position weight set on five hosts (the balancer's path)."""
+    from ceph_tpu_torch.tools import crushtool
+
+    if cluster is None:
+        cluster = crushtool.build_map(1024, CLUSTER_LAYERS)
+    ec = cluster.add_simple_rule("ec", "default", "host", mode="indep")
+    rep = cluster.add_simple_rule("rep", "default", "host")
+    weighted = crushtool.map_from_json(crushtool.map_to_json(cluster))
+    weighted.create_choose_args(0, positions=2)
+    for host in (3, 17, 29, 42, 58):
+        weighted.choose_args_adjust_item_weight(
+            0, -1 - host, host * 16 + 4, [0x4000, 0xC000])
+    c_rw = cluster_reweight(np, 1024)
+    bench, b_rw = crush_bench_map(np)
     return [  # name, map, rule, result_max, reweight, choose_args, seeds
         ("bench_65536", bench, 0, 5, b_rw, None, 65536),
         ("cluster_ec_8192", cluster, ec, 12, c_rw, None, 8192),
@@ -116,6 +160,40 @@ def _crush_cases(np):
         ("cluster_ec_weight_sets_65536", weighted, ec, 12, c_rw, 0, 65536),
         ("cluster_ec_1048576", cluster, ec, 12, c_rw, None, 1 << 20),
         ("cluster_rep_1048576", cluster, rep, 3, c_rw, None, 1 << 20),
+    ]
+
+
+def crossing_cases(np):
+    """Maps whose tables fit 64 KiB without the weights' reciprocals and
+    not with them: one straw2 bucket of 3,000 OSDs (the GPU tests' flat
+    map: weights 0x8000 + (7919 i mod 0x20000), every 13th OSD out,
+    every 17th from OSD 1 at 0x9000) under indep 6, and a 2,560-OSD
+    cluster of 16 OSDs a host and 8 hosts a rack under its EC and
+    replicated rules, at the PGs Ceph's (OSDs x 100) / size rule gives
+    a pool (16,384 for 12 shards, 65,536 for 3 replicas)."""
+    from ceph_tpu_torch.crush import map as cm_mod
+    from ceph_tpu_torch.crush.map import CrushMap, Rule
+    from ceph_tpu_torch.tools import crushtool
+
+    flat = CrushMap()
+    flat.type_names = {"osd": 0, "root": 1}
+    flat.add_bucket("straw2", 1, list(range(3000)),
+                    [0x8000 + (i * 7919) % 0x20000 for i in range(3000)],
+                    id=-1, name="default")
+    flat.add_rule(Rule(steps=[(cm_mod.RULE_TAKE, -1),
+                              (cm_mod.RULE_CHOOSE_INDEP, 6, 0),
+                              (cm_mod.RULE_EMIT,)]))
+    f_rw = np.full(3000, 0x10000, dtype=np.int64)
+    f_rw[::13] = 0
+    f_rw[1::17] = 0x9000
+    big = crushtool.build_map(2560, CLUSTER_LAYERS)
+    ec = big.add_simple_rule("ec", "default", "host", mode="indep")
+    rep = big.add_simple_rule("rep", "default", "host")
+    b_rw = cluster_reweight(np, 2560)
+    return [
+        ("flat_3000_65536", flat, 0, 6, f_rw, None, 65536),
+        ("cluster2560_ec_16384", big, ec, 12, b_rw, None, 16384),
+        ("cluster2560_rep_65536", big, rep, 3, b_rw, None, 65536),
     ]
 
 
@@ -137,7 +215,7 @@ def sm_clocks(fn, seconds: float) -> list[int]:
     return [int(v) for v in out.split() if v.strip().isdigit()]
 
 
-def crush_part(out: _Out, split: bool, groups: list[int]) -> None:
+def crush_part(out: _Out, cases, split: bool, groups: list[int]) -> None:
     import inspect
 
     import numpy as np
@@ -151,7 +229,7 @@ def crush_part(out: _Out, split: bool, groups: list[int]) -> None:
     params = inspect.signature(crush_kernel.crush_sweep).parameters
     profiled = "clocks" in params
     group = getattr(crush_kernel, "kernel_group", None)
-    for name, m, rule, rmax, rw, args, n in _crush_cases(np):
+    for name, m, rule, rmax, rw, args, n in cases(np):
         cargs = m.choose_args_get_with_fallback(args) \
             if args is not None else None
         cm = batched.compile_map(m, cargs)
@@ -169,6 +247,10 @@ def crush_part(out: _Out, split: bool, groups: list[int]) -> None:
                    bound_by=bound_by, share_of_bound=bound_ms / ms,
                    draws=int(draws.sum()), draws_per_seed=float(
                        draws.double().mean()),
+                   hashes=int(work[:, 1].to(torch.int64).sum()),
+                   design=crush_kernel.kernel_design(cm, plan, wvec.size),
+                   table_bytes=int(crush_kernel.pack_tables(
+                       cm, wvec).nbytes),
                    result_digest=int((res * torch.arange(
                        1, rmax + 1, device=dev)).sum() % (1 << 61)),
                    group=group(cm, plan, wvec.size, n) if group else 1)
@@ -207,8 +289,39 @@ def crush_part(out: _Out, split: bool, groups: list[int]) -> None:
         out("crush", **rec)
 
 
+def crossover_part(out: _Out, groups: list[int]) -> None:
+    """The bench map and the cluster's EC and replicated rules at 1,024
+    to 65,536 seeds, each at the lanes a seed in `groups`: where the G
+    that fills the card gives way to the smaller one."""
+    import numpy as np
+    import torch
+
+    from ceph_tpu_torch.crush import batched
+    from ceph_tpu_torch.ops import crush_kernel
+    from ceph_tpu_torch.utils.cuda_timing import time_ms
+
+    dev = torch.device("cuda")
+    cases = {c[0]: c for c in crush_cases(np)}
+    for base in ("bench_65536", "cluster_ec_8192", "cluster_rep_8192"):
+        _, m, rule, rmax, rw, _, _ = cases[base]
+        cm = batched.compile_map(m)
+        plan = batched.plan_rule(m, rule, rmax)
+        wvec = batched.reweight_vector(rw, cm.max_devices)
+        for n in (1024, 2048, 4096, 8192, 16384, 32768, 65536):
+            xs = torch.arange(n, dtype=torch.int64, device=dev)
+            out("crossover", case=base.rsplit("_", 1)[0], seeds=n,
+                group=crush_kernel.kernel_group(cm, plan, wvec.size, n),
+                ms_by_group={g: time_ms(
+                    lambda x, g=g: crush_kernel.crush_sweep(
+                        cm, plan, x, wvec, group=g), [xs], 20)
+                    for g in groups})
+
+
 def _tier_cases(torch, codec, dev):
-    """(name, tier, names, lost) of (a), (b) and (c), data on the card."""
+    """(name, tier, names, lost) of (a), (b) and (c) at phase 10's sizes,
+    data on the card: (a) put_encode a round, (b) the store-mode three
+    quarters of phase 10's writes adopted one by one, (c) put_encode an
+    upload batch."""
     from ceph_tpu_torch.osd.hbm_tier import HbmChunkTier
 
     g = torch.Generator(device=dev).manual_seed(20261017)
@@ -217,28 +330,33 @@ def _tier_cases(torch, codec, dev):
     def rand(*shape):
         return torch.randint(0, 256, shape, generator=g, dtype=torch.uint8,
                              device=dev)
-    tier_a = HbmChunkTier(codec, capacity_objects=49)
+    rounds, per_a, obj_a = TIER_A
+    tier_a = HbmChunkTier(codec, capacity_objects=rounds * per_a + 1)
     names_a = []
-    for r in range(3):
-        names = ["a%d-%d" % (r, i) for i in range(16)]
-        tier_a.put_encode(names, rand(16, k, 131072))
+    for r in range(rounds):
+        names = ["a%d-%d" % (r, i) for i in range(per_a)]
+        tier_a.put_encode(names, rand(per_a, k, obj_a // k))
         names_a += names
-    lost_a = [(i + r) % nn for r in range(3) for i in range(16)]
+    lost_a = [(i + r) % nn for r in range(rounds) for i in range(per_a)]
     yield "a_bench", tier_a, names_a, lost_a
     del tier_a
-    tier_b = HbmChunkTier(codec, capacity_objects=64)
-    names_b = ["b%d" % i for i in range(48)]
+    stripes, chunk_b, threads, per_thread = TIER_B
+    n_b = threads * per_thread * 3 // 4
+    tier_b = HbmChunkTier(codec, capacity_objects=threads * per_thread)
+    names_b = ["b%d" % i for i in range(n_b)]
     for nm in names_b:
-        data = rand(128, k, 4096)
+        data = rand(stripes, k, chunk_b)
         tier_b.adopt_encode(nm, data, codec.encode_batch(data), codec)
-    yield "b_store", tier_b, names_b, [i % nn for i in range(48)]
+    yield "b_store", tier_b, names_b, [i % nn for i in range(n_b)]
     del tier_b
-    tier_c = HbmChunkTier(codec, capacity_objects=1024)
-    names_c = ["c%d" % i for i in range(1024)]
-    for b in range(64):
-        tier_c.put_encode(names_c[b * 16:(b + 1) * 16], rand(16, k, 524288))
+    n_c, per_c, obj_c = TIER_C
+    tier_c = HbmChunkTier(codec, capacity_objects=n_c)
+    names_c = ["c%d" % i for i in range(n_c)]
+    for b in range(n_c // per_c):
+        tier_c.put_encode(names_c[b * per_c:(b + 1) * per_c],
+                          rand(per_c, k, obj_c // k))
     yield "c_osd_tier", tier_c, names_c, [(i * 7) % nn for i in
-                                          range(1024)]
+                                          range(n_c)]
 
 
 def tier_part(out: _Out) -> None:
@@ -311,7 +429,8 @@ def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--tree", default=str(_HERE),
                    help="checkout whose ceph_tpu_torch is timed")
-    p.add_argument("--parts", default="crush,tier")
+    p.add_argument("--parts", default="crush,tier",
+                   help="of crush, crossing, crossover, tier")
     p.add_argument("--split", action="store_true",
                    help="the CRUSH kernel's clock split, where it has one")
     p.add_argument("--groups", default="",
@@ -330,9 +449,13 @@ def main(argv: list[str] | None = None) -> int:
                            % ceph_tpu_torch.__file__)
     out = _Out(tree, a.tag)
     parts = a.parts.split(",")
+    groups = [int(g) for g in a.groups.split(",") if g]
     if "crush" in parts:
-        crush_part(out, a.split,
-                   [int(g) for g in a.groups.split(",") if g])
+        crush_part(out, crush_cases, a.split, groups)
+    if "crossing" in parts:
+        crush_part(out, crossing_cases, False, groups)
+    if "crossover" in parts:
+        crossover_part(out, groups or [4, 8, 16])
     if "tier" in parts:
         tier_part(out)
     return 0

@@ -102,10 +102,15 @@ def bitplane_bound(flat, cap2: int) -> tuple[float, str]:
     return _bound(flat.numel() + cap2, 8 * flat.numel())
 
 
-# the H100 SXM's 32-bit integer issue rate: 64 INT32 lanes an SM a clock
-# (NVIDIA Hopper architecture white paper: 16 INT32 units in each of an
-# SM's 4 partitions), 132 SMs, at SM_CLOCK_HZ
+# the H100 SXM's integer rates (CUDA C++ Programming Guide, arithmetic
+# instruction throughput, compute capability 9.0; NVIDIA Hopper
+# architecture white paper): 64 results an SM a clock for 32-bit adds,
+# logic, shifts and compares on the ALU pipe (16 INT32 lanes in each of an
+# SM's 4 partitions), 64 for IMAD on the FMA pipe beside it, and one warp
+# instruction issued a clock in each partition; 132 SMs at SM_CLOCK_HZ
 INT32_OPS_PER_S = 132 * 64 * SM_CLOCK_HZ
+IMAD_OPS_PER_S = 132 * 64 * SM_CLOCK_HZ
+ISSUE_PER_S = 132 * 4 * 32 * SM_CLOCK_HZ
 # integer instructions of one straw2 draw of csrc/crush_straw2.cu, counted
 # in its SASS (cuobjdump -sass of the sm_90a build, CUDA 12.8; the draw
 # loop of the shared-memory instantiation): IADD3 55, LOP3 50, IMAD 46,
@@ -116,21 +121,32 @@ INT32_OPS_PER_S = 132 * 64 * SM_CLOCK_HZ
 # the design's cost and are not counted either. The thread-a-seed draw
 # with a double estimate of the quotient counted 209.
 CRUSH_DRAW_OPS = 204
+# of them on the ALU pipe for certain: IADD3, LOP3, SHF, ISETP, SEL,
+# VIMNMX and LEA. IMAD runs on the FMA pipe; VIADD and FLO, whose pipe the
+# guide does not name, are counted off the ALU, which can only shorten
+# the bound
+CRUSH_DRAW_ALU_OPS = 55 + 50 + 35 + 7 + 4 + 1 + 1
 # is_out's 2-word hash, counted from the code: 3 mixes of 9 steps (a
-# 3-input subtraction, a shift and an xor each), the seed's xor, the mask
+# 3-input subtraction, a shift and an xor each), the seed's xor, the mask,
+# all on the ALU pipe
 CRUSH_HASH2_OPS = 3 * 27 + 2
 
 
 def crush_bound(work, result_max: int) -> tuple[float, str]:
-    """Least time (ms) of a CRUSH sweep: the integer operations of the
+    """Least time (ms) of a CRUSH sweep: the integer instructions of the
     draws and is_out hashes this run's seeds needed (`work`, [B, 2] as
-    the kernel counts them) at INT32_OPS_PER_S, or the seeds read and
-    the [B, result_max] int64 result written at the HBM rate, whichever
-    is larger, with the name of the bound."""
-    counts = work.to(torch.int64).sum(dim=0).tolist()
-    ops = counts[0] * CRUSH_DRAW_OPS + counts[1] * CRUSH_HASH2_OPS
+    the kernel counts them), on the busier of the ALU pipe
+    (INT32_OPS_PER_S) and the FMA pipe (IMAD_OPS_PER_S) or all of them at
+    the issue rate, or the seeds read and the [B, result_max] int64
+    result written at the HBM rate, whichever is larger, with the name of
+    the bound."""
+    draws, hashes = work.to(torch.int64).sum(dim=0).tolist()
+    alu = draws * CRUSH_DRAW_ALU_OPS + hashes * CRUSH_HASH2_OPS
+    fma = draws * (CRUSH_DRAW_OPS - CRUSH_DRAW_ALU_OPS)
+    issued = draws * CRUSH_DRAW_OPS + hashes * CRUSH_HASH2_OPS
+    t_ops = max(alu / INT32_OPS_PER_S, fma / IMAD_OPS_PER_S,
+                issued / ISSUE_PER_S) * 1e3
     nbytes = work.shape[0] * 8 * (1 + result_max)
-    t_ops = ops / INT32_OPS_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 

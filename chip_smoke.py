@@ -181,13 +181,6 @@ ROOT = Path(__file__).resolve().parent
 
 BATCH, K, M, W, N = 16, 8, 3, 8, 131072
 PROFILE = {"technique": "reed_sol_van", "k": str(K), "m": str(M), "w": str(W)}
-# phase 10's sizes: (a) rounds, objects a round, object bytes (bench.py's
-# resident pipeline); (b) stripes and chunk of a 4 MiB write at
-# stripe_unit 4096, writer threads, writes a thread; (c) objects, objects
-# an upload batch, object bytes
-TIER_A = (3, 16, 1 << 20)
-TIER_B = (128, 4096, 8, 8)
-TIER_C = (1024, 16, 4 << 20)
 
 _records: list[dict] = []
 
@@ -212,39 +205,15 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def crush_bench_map(CrushMap, Rule, cm_mod, np):
-    """bench.py:820 _crush_bench_map in the port's classes: 8 hosts of 4
-    OSDs (straw2, weights from seed 7070), rule 0 chooseleaf indep 5 over
-    hosts, OSD 3 reweighted to 0."""
-    rng = np.random.default_rng(7070)
-    weights = rng.integers(0x8000, 3 * 0x10000, size=32, dtype=np.uint32)
-    m = CrushMap()
-    m.type_names = {"osd": 0, "host": 1, "root": 2}
-    hids, hw = [], []
-    for h in range(8):
-        items = [h * 4 + i for i in range(4)]
-        w = [int(weights[i]) for i in items]
-        hids.append(m.add_bucket("straw2", 1, items, w, id=-2 - h))
-        hw.append(sum(w))
-    m.add_bucket("straw2", 2, hids, hw, id=-1, name="default")
-    m.add_rule(Rule(steps=[(cm_mod.RULE_TAKE, -1),
-                           (cm_mod.RULE_CHOOSELEAF_INDEP, 5, 1),
-                           (cm_mod.RULE_EMIT,)]))
-    reweight = np.full(32, 0x10000, dtype=np.int64)
-    reweight[3] = 0
-    return m, reweight
-
-
 def crush_phase(np, torch, dev, smi):
     """Phase 9: the batched CRUSH sweep (``crush.batched.batched_do_rule``
     and ``tools/crushtool.py --test --batched``) on the bench's map and on
     the 1024-OSD cluster. Returns the kernel's line."""
     from ceph_tpu_torch.crush import batched, mapper_ref
-    from ceph_tpu_torch.crush import map as cm_mod
-    from ceph_tpu_torch.crush.map import CRUSH_ITEM_NONE, CrushMap, Rule
+    from ceph_tpu_torch.crush.map import CRUSH_ITEM_NONE
     from ceph_tpu_torch.ops import crush_kernel
     from ceph_tpu_torch.tools import crushtool
-    from ceph_tpu_torch.tools.crush_tier_turns import sm_clocks
+    from ceph_tpu_torch.tools.crush_tier_turns import crush_cases, sm_clocks
     from ceph_tpu_torch.utils.cuda_timing import crush_bound, time_ms
 
     out_dir = ROOT / "chiprun_out"
@@ -256,27 +225,12 @@ def crush_phase(np, torch, dev, smi):
                           str(map_path), *layers]) == 0, "crushtool --build")
     cluster = crushtool.map_from_json(json.loads(map_path.read_text()))
     check(len(cluster.buckets) == 73, "73 buckets")
-    ec = cluster.add_simple_rule("ec", "default", "host", mode="indep")
-    rep = cluster.add_simple_rule("rep", "default", "host")
+    # the bench's map; the cluster's EC rule (indep 12) and replicated
+    # rule (firstn 3) under a rebalance's reweights, and its copy with a
+    # two-position weight set (the balancer's path)
+    cases = crush_cases(np, cluster)
+    ec = cases[1][2]
     map_path.write_text(json.dumps(crushtool.map_to_json(cluster)))
-    c_rw = np.full(1024, 0x10000, dtype=np.int64)
-    c_rw[::97] = 0                 # a rebalance: every 97th OSD out,
-    c_rw[5::89] = 0x8000           # every 89th from OSD 5 at half weight
-    weighted = crushtool.map_from_json(json.loads(map_path.read_text()))
-    weighted.create_choose_args(0, positions=2)
-    for host in (3, 17, 29, 42, 58):   # the balancer's weight-set path
-        weighted.choose_args_adjust_item_weight(
-            0, -1 - host, host * 16 + 4, [0x4000, 0xC000])
-    bench, b_rw = crush_bench_map(CrushMap, Rule, cm_mod, np)
-
-    cases = [  # name, map, rule, result_max, reweight, choose_args, seeds
-        ("bench_65536", bench, 0, 5, b_rw, None, 65536),
-        ("cluster_ec_8192", cluster, ec, 12, c_rw, None, 8192),
-        ("cluster_rep_8192", cluster, rep, 3, c_rw, None, 8192),
-        ("cluster_ec_weight_sets_65536", weighted, ec, 12, c_rw, 0, 65536),
-        ("cluster_ec_1048576", cluster, ec, 12, c_rw, None, 1 << 20),
-        ("cluster_rep_1048576", cluster, rep, 3, c_rw, None, 1 << 20),
-    ]
     seeds = {n: np.arange(n, dtype=np.int64) for n in (8192, 65536, 1 << 20)}
 
     # the main path: each case once, host seeds to host results, from
@@ -461,6 +415,7 @@ def hbm_tier_phase(np, torch, dev, smi):
     from ceph_tpu_torch.osd import fused_transform as ft
     from ceph_tpu_torch.osd.gpu_dispatch import GpuDispatcher
     from ceph_tpu_torch.osd.hbm_tier import HbmChunkTier, host_digest
+    from ceph_tpu_torch.tools.crush_tier_turns import TIER_A, TIER_B, TIER_C
     from ceph_tpu_torch.utils.cuda_timing import (digest_bound,
                                                   gf_multi_bound, time_ms)
 

@@ -47,24 +47,32 @@ def div_recip(n, m, d):
     return q
 
 
-H100_FILL = 132 * 8 * 32     # threads that fill an H100: 8 warps an SM
+H100_FILL = 132 * 16 * 32    # threads that fill an H100: 16 warps an SM
 
 
-def kernel_group(s, n=0, fill=0, result_max=1):
+def kernel_group(s, n=0, fill=0, out_size=1):
     """G of a sweep of n seeds of a map whose largest bucket has s items,
     as make_plan picks it: the smallest power of two whose square holds s,
-    doubled while n * G threads fall short of `fill` (up to the power of
-    two that holds s), doubled while a block's slots exceed 32 KiB."""
-    g, holds = 1, 1
-    while holds < 32 and holds < s:
-        holds *= 2
+    doubled once where n * G threads fall short of `fill` (16 warps an
+    SM), widened up to 32 while n * G stays within half of it (8 warps an
+    SM); then doubled while a block's slots (two rows of out_size words a
+    seed) exceed 32 KiB, unless they exceed it at 32 lanes too (then the
+    slots lie in device memory, at the G before)."""
+    def slot_bytes(g):
+        return (128 // g) * 2 * max(out_size, 0) * 4
+    g = 1
     while g < 32 and g * g < s:
         g *= 2
-    while g < holds and n * g < fill:
+    if g < 32 and n * g < fill:
         g *= 2
-    while g <= 32 and (128 // g) * 2 * result_max * 4 > 32 * 1024:
-        g *= 2
-    return g
+    wide = 32
+    while wide > g and n * wide > fill // 16 * 8:
+        wide //= 2
+    g = wide
+    h = g
+    while h < 32 and slot_bytes(h) > 32 * 1024:
+        h *= 2
+    return h if slot_bytes(h) <= 32 * 1024 else g
 
 
 def mix(a, b, c):
@@ -110,7 +118,7 @@ class Kernel:
         self.nb, self.s, self.npos = nb, s, cm.npos
         self.nw, self.max_devices = len(wvec), cm.max_devices
         self.p = plan
-        self.g = kernel_group(s, 0, 0, plan.result_max) if group is None \
+        self.g = kernel_group(s, 0, 0, plan.out_size) if group is None \
             else group
         cells = nb * s
         self.ids_at, self.wsets_at = cells, 2 * cells
@@ -541,7 +549,8 @@ def test_group_model_matches_scalar_and_reference(one_torch_thread,  # noqa: F81
     xs = np.concatenate([np.arange(40), [2**31 - 1, 2**31, 2**32 + 5]])
     plan = batched.plan_rule(m, rule, rmax)
     cm = batched.compile_map(m, cargs)
-    assert kernel_group(cm.items.shape[1], seeds, H100_FILL, rmax) == group
+    assert kernel_group(cm.items.shape[1], seeds, H100_FILL,
+                        plan.out_size) == group
     wvec = batched.reweight_vector(reweight, cm.max_devices)
     got = Kernel(cm, plan, wvec, group).run(xs)
     for i, x in enumerate(xs):
@@ -592,15 +601,25 @@ def held_to_scalar_and_plain(m, reweight, rule, rmax, cargs=None, xs=None,
 @pytest.mark.parametrize("rule", [0, 1], ids=["indep", "firstn"])
 def test_group_model_on_bucket_sizes(one_torch_thread, size,  # noqa: F811
                                      rule):
-    """G (the kernel's at 4,093 seeds) is 1, 4, 16 and 16: one lane, an
-    idle lane, loops of two and of three with one item on the last; and
-    G = 32 as well: lanes past every item."""
+    """G (the kernel's at 4,093 seeds) is 8, 8, 16 and 16: idle lanes,
+    loops of two and of three with one item on the last; and G = 1 and 32
+    as well: one lane, and lanes past every item."""
     m, reweight = flat_map(size)
     g = kernel_group(size, 4093, H100_FILL, min(size, 4))
-    assert g == {1: 1, 3: 4, 17: 16, 33: 16}[size]
-    for group in (g, 32):
+    assert g == {1: 8, 3: 8, 17: 16, 33: 16}[size]
+    for group in (1, g, 32):
         held_to_scalar_and_plain(m, reweight, rule, min(size, 4),
                                  group=group)
+
+
+@pytest.mark.parametrize("out_size,group", [(3, 4), (128, 4), (129, 8),
+                                            (1024, 32), (1025, 4)])
+def test_group_model_sizes_slots_by_replicas(out_size, group):
+    """A block holds 32 KiB of slots, two rows of out_size words a seed:
+    G doubles until they fit, and where even 32 lanes a seed do not fit,
+    G stays as the bucket and seeds pick it and the slots lie in device
+    memory (the cluster's buckets of 16 at 2^20 seeds: G = 4)."""
+    assert kernel_group(16, 1 << 20, H100_FILL, out_size) == group
 
 
 def test_group_model_on_forced_ties(one_torch_thread):  # noqa: F811

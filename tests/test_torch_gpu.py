@@ -836,6 +836,41 @@ def test_crush_kernel_on_forced_ties_on_card(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("op", ["indep", "firstn"])
+def test_crush_kernel_slots_past_shared_memory_on_card(cuda, op):
+    """A rule of as many replicas as result_max (numrep 0) at result_max
+    1,100 on a bucket of 8: two rows of 1,100 slots a seed exceed a
+    block's 32 KiB even at 32 lanes a seed, so the slots lie in the
+    wrapper's scratch; the same result_max under a rule of 3 keeps them
+    in shared memory (slots are sized by the replicas, not result_max)."""
+    m, rw, _ = crush_flat_of(8)
+    step = cmap_mod.RULE_CHOOSE_INDEP if op == "indep" \
+        else cmap_mod.RULE_CHOOSE_FIRSTN
+    for numrep, scratch in ((0, True), (3, False)):
+        rule = m.add_rule(Rule(steps=[(cmap_mod.RULE_TAKE, -1),
+                                      (step, numrep, 0),
+                                      (cmap_mod.RULE_EMIT,)]))
+        plan = batched.plan_rule(m, rule, 1100)
+        cm = batched.compile_map(m)
+        wvec = batched.reweight_vector(rw, cm.max_devices)
+        words = crush_kernel._kernel().crush_straw2_scratch(
+            *crush_kernel._geometry(cm, plan, wvec.size), 0, 33)
+        assert words == (33 * 2 * 1100 if scratch else 0)
+        batched.reset_paths()
+        crush_kernel.reset_launches()
+        xs = torch.arange(33, device=cuda)
+        out = batched.batched_do_rule(m, rule, xs, 1100, rw,
+                                      device_out=True)
+        torch.cuda.synchronize()
+        assert batched.paths()["kernel"] == 1 and crush_kernel.LAUNCHES == 1
+        plain = batched.map_plain(cm, plan, xs,
+                                  torch.from_numpy(wvec).to(cuda))
+        assert torch.equal(out, plain)
+        placed = (out != CRUSH_ITEM_NONE).sum(dim=1)
+        assert int(placed.min()) >= 1 and int(placed.max()) <= 8
+
+
+@pytest.mark.gpu
 def test_crush_kernel_clock_split_on_card(cuda):
     """A profiled launch fills one row a warp and maps as a plain one."""
     m, rw, _ = crush_cluster()
@@ -844,12 +879,16 @@ def test_crush_kernel_clock_split_on_card(cuda):
     wvec = batched.reweight_vector(rw, cm.max_devices)
     xs = torch.arange(1000, device=cuda)
     rows = crush_kernel.clock_rows(cm, plan, wvec.size, 1000)
-    # 1000 seeds fill no card: G doubles from 4 to 16, all the cluster's
-    # buckets of 16 hold
-    assert crush_kernel.kernel_group(cm, plan, wvec.size, 1000) == 16
+    # up to 16,384 seeds leave the card short of 16 warps an SM at G = 4
+    # (the largest bucket's square root): G doubles once, to 8; 1,000
+    # seeds at 32 lanes stay within 8 warps an SM: a warp a seed
+    assert crush_kernel.kernel_group(cm, plan, wvec.size, 1000) == 32
+    assert crush_kernel.kernel_group(cm, plan, wvec.size, 2048) == 16
     assert crush_kernel.kernel_group(cm, plan, wvec.size, 8192) == 8
+    assert crush_kernel.kernel_group(cm, plan, wvec.size, 16384) == 8
+    assert crush_kernel.kernel_group(cm, plan, wvec.size, 32768) == 4
     assert crush_kernel.kernel_group(cm, plan, wvec.size, 1 << 20) == 4
-    assert rows == (1000 * 16 + 31) // 32
+    assert rows == 1000
     clk = torch.zeros((rows, 4), dtype=torch.int64, device=cuda)
     work = torch.zeros((1000, 2), dtype=torch.int32, device=cuda)
     out = crush_kernel.crush_sweep(cm, plan, xs, wvec, work=work,
