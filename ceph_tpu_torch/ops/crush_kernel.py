@@ -14,9 +14,8 @@ vector, device), so a sweep uploads a map once (:func:`device_tables`,
 :func:`clear_tables`).
 ``LAUNCHES`` counts the wrapper's launches; :func:`launches_by_design`
 reads the counts that the C entry point keeps per design ("shared": the
-tables staged in shared memory, their reciprocals too where they fit;
-"global": read from device memory), and :func:`reset_launches` sets all
-of them to 0. A seed's working slots live in shared memory, or in a
+tables, reciprocals included, staged in shared memory; "global": read
+from device memory), and :func:`reset_launches` sets all of them to 0. A seed's working slots live in shared memory, or in a
 scratch of device memory the wrapper allocates where a rule's replicas
 (``out_size``) exceed what a block holds.
 """
