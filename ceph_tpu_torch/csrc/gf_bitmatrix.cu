@@ -69,8 +69,12 @@
 // Both take any N that is a multiple of w/8: the ragged edge (and any
 // pointer not 16-byte aligned) is loaded and stored byte by byte under a
 // bounds mask, bytes past N reading as zero. k*w <= 512; the popcount
-// design needs R * NW * 4 <= 48 KiB, and the entry point refuses a
-// geometry that neither design takes.
+// design needs R * NW * 4 bytes of masks within the card's opt-in shared
+// memory (232,448 bytes on an H100: 3,632 rows at 16 words), raising its
+// kernel's dynamic limit past 48 KiB through launch_common as the
+// bit-sliced design does, and the entry point refuses a geometry that
+// neither design takes. Wider products (the MSR code past k = 9) are split
+// into column blocks by the caller (ops/xor_mm.py matrix_encode).
 //
 // Per-lane bitmatrices (gf_bitmatrix_encode_multi). Replaces the XLA
 // program of ceph_tpu/ops/xor_mm.py:91 (matrix_encode_multi, the vmap of
@@ -282,7 +286,13 @@ cudaError_t launch_popcount(const uint8_t* bitmat, long long bm_stride,
                       reinterpret_cast<uintptr_t>(data) % G::VEC == 0 &&
                       reinterpret_cast<uintptr_t>(out) % G::VEC == 0;
   const size_t smem = (size_t)rows * NW * sizeof(uint32_t);
-  gf_bitmatrix_kernel<W, NW, TABLE><<<grid, kThreads, smem, stream>>>(
+  auto kernel = gf_bitmatrix_kernel<W, NW, TABLE>;
+  // masks past 48 KiB (an MSR decode's [840, 448] takes 53,760 bytes):
+  // the kernel's dynamic limit is raised first, up to the card's opt-in
+  int per_sm = 0;
+  err = launch_common::resident_blocks(kernel, kThreads, dev, smem, &per_sm);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, stream>>>(
       bitmat, bm_stride, rows, k, data, table, out, lanes, batch, n, vec_ok);
   return count_launch(kPopcount, multi);
 }
@@ -561,18 +571,19 @@ cudaError_t launch_bitsliced(const uint8_t* bitmat, long long bm_stride,
 // ---- design choice ---------------------------------------------------------
 
 // Validates the geometry and picks its design: bit-sliced for w = 8 with
-// k*8 <= 128 when its shared memory fits the card's per-block limit,
-// popcount otherwise. Returns 0 (design set), -1 for a geometry neither
-// design takes, or the cudaError_t of a failed device query.
+// k*8 <= 128 when its shared memory fits the card's per-block opt-in
+// limit, popcount otherwise, whose masks must fit the same limit. Returns
+// 0 (design set), -1 for a geometry neither design takes, or the
+// cudaError_t of a failed device query.
 int pick_design(int rows, int k, int w, int* design) {
   if (k < 1 || rows < 0) return -1;
   if (w != 8 && w != 16 && w != 32) return -1;
   const int bits = k * w;
   if (bits > kMaxBits || rows % w != 0) return -1;
+  size_t optin = 0;
+  const cudaError_t err = launch_common::smem_optin(&optin);
+  if (err != cudaSuccess) return (int)err;
   if (w == 8 && bits <= kBitslicedMaxBits) {
-    size_t optin = 0;
-    const cudaError_t err = launch_common::smem_optin(&optin);
-    if (err != cudaSuccess) return (int)err;
     const size_t smem = k <= 4   ? bitsliced_smem<4>(rows)
                         : k <= 8 ? bitsliced_smem<8>(rows)
                                  : bitsliced_smem<16>(rows);
@@ -581,9 +592,7 @@ int pick_design(int rows, int k, int w, int* design) {
       return 0;
     }
   }
-  if ((size_t)rows * mask_words(bits) * sizeof(uint32_t) >
-      launch_common::kDefaultSmem)
-    return -1;
+  if ((size_t)rows * mask_words(bits) * sizeof(uint32_t) > optin) return -1;
   *design = kPopcount;
   return 0;
 }

@@ -114,6 +114,32 @@ class ErasureCode(abc.ABC):
             raise ErasureCodeError(errno.EIO, "not enough chunks to decode")
         return set(sorted(available)[:k])
 
+    def minimum_to_decode_with_cost(self, want_to_read: set,
+                                    available: dict) -> set:
+        """The chunks to read given {chunk: cost} of the available ones
+        (ErasureCodeInterface.h minimum_to_decode_with_cost); the base
+        ignores the costs."""
+        return self.minimum_to_decode(want_to_read, set(available))
+
+    # -- repair capability (regenerating codes) ----------------------------
+
+    def supports_repair(self) -> bool:
+        """True when the codec can rebuild one chunk from sub-chunk
+        repair fractions (beta < chunk) instead of k full survivors.
+        Advertising codecs also provide repair_helper_count(),
+        minimum_to_repair(), repair_fraction_batch() and
+        repair_combine_batch() (see models/msr.py)."""
+        return False
+
+    def repair_fraction(self) -> float:
+        """Fraction of a chunk each helper ships on repair (beta/alpha);
+        1.0 for codecs whose repair is a full decode."""
+        return 1.0
+
+    def repair_helper_count(self) -> int:
+        """Helpers (d) a fraction repair needs; 0 when unsupported."""
+        return 0
+
     # -- single-object API (wraps the batched device path) -----------------
 
     def encode_prepare(self, raw: bytes | np.ndarray) -> np.ndarray:

@@ -13,7 +13,8 @@ ErasureCodeLrc.cc:295).
 
 Inner layers are real plugins resolved through the port's registry
 (recursive factory, like the reference's layers_init), each on the LRC
-codec's own device; the default inner plugin is ``torch_cuda``. When every
+codec's own device; the default inner plugin is ``torch_cuda`` on the
+torch backend and ``jerasure`` on the numpy one. When every
 layer is an element-layout matrix codec of one w, the whole layered
 encode and each erasure signature's decode cascade compose into ONE
 matrix, applied by one launch of the GF bitmatrix kernel.
@@ -63,11 +64,14 @@ class Lrc(ErasureCode):
     DEFAULT_KML = "-1"
 
     def __init__(self, backend: str = "torch", device=None,
-                 default_inner_plugin: str = "torch_cuda"):
+                 default_inner_plugin: str | None = None):
         super().__init__()
         self.backend = backend
-        self.device = resolve_device(device)
-        self.default_inner_plugin = default_inner_plugin
+        # the numpy backend runs on the host and never touches CUDA
+        self.device = resolve_device(device) if backend == "torch" \
+            else None
+        self.default_inner_plugin = default_inner_plugin or (
+            "torch_cuda" if backend == "torch" else "jerasure")
         self.layers: list[LrcLayer] = []
         self.mapping = ""
         self.chunk_count = 0

@@ -142,11 +142,16 @@ class GeneratorCodec(ErasureCode):
         self._bitmat_dev_by = {}
         self._decode_cache.clear()
         self.xor_fast_hits = 0
-        self._xor_rows = xor_parity_rows(self._bitmat, self.k, self.w)
+        self._xor_rows = self._xor_parity_rows()
         self._bank_state = None
         self._bank_index = None
         self._bank_host = None
         self._bank_dev = None
+
+    def _xor_parity_rows(self) -> list[int]:
+        """Parity rows that are plain XORs of the data chunks, the
+        region-XOR planner's input."""
+        return xor_parity_rows(self._bitmat, self.k, self.w)
 
     def _device_bitmat(self, device: torch.device) -> torch.Tensor:
         key = device_entry_key(device)
@@ -464,3 +469,25 @@ def load_numpy_state(codec: GeneratorCodec, coding: np.ndarray | None,
     codec.coding = None if coding is None else coding.copy()
     codec._bitmat = bitmat.copy()
     codec._reset_tables()
+
+
+def load_msr_state(codec, x, lam, psi, g_sys, coding, bitmat) -> None:
+    """Take a reference MSR codec's evaluation points ``_x``, their
+    powers ``_lam``, its ``_psi``, ``_g_sys``, ``coding`` and ``_bitmat``
+    as numpy arrays into a port MSR codec, so both packages hold one
+    generator. Raises ValueError where any of them differs from what the
+    port derived itself."""
+    for name, ours, theirs in (("x", codec._x, x), ("lam", codec._lam, lam)):
+        if [int(v) for v in theirs] != list(ours):
+            raise ValueError("%s differs from the port's" % name)
+    psi = np.asarray(psi).astype(codec._psi.dtype)
+    g_sys = np.asarray(g_sys).astype(codec._g_sys.dtype)
+    for name, ours, theirs in (("psi", codec._psi, psi),
+                               ("g_sys", codec._g_sys, g_sys)):
+        if theirs.shape != ours.shape or not np.array_equal(theirs, ours):
+            raise ValueError("%s differs from the port's" % name)
+    load_numpy_state(codec, coding, bitmat)
+    codec._x = [int(v) for v in x]
+    codec._lam = [int(v) for v in lam]
+    codec._psi = psi
+    codec._g_sys = g_sys

@@ -161,6 +161,12 @@ def gf_mult_bitmatrix(g: int, w: int) -> np.ndarray:
     return m
 
 
+@functools.lru_cache(maxsize=None)
+def gf8_bitmatrix_table() -> np.ndarray:
+    """[256, 8, 8]: gf_mult_bitmatrix(g, 8) of every element g."""
+    return np.stack([gf_mult_bitmatrix(g, 8) for g in range(256)])
+
+
 def generator_to_bitmatrix(gen: np.ndarray, w: int) -> np.ndarray:
     """Expand an [m, k] GF(2^w) generator into an [m*w, k*w] 0/1 matrix.
 
@@ -170,6 +176,10 @@ def generator_to_bitmatrix(gen: np.ndarray, w: int) -> np.ndarray:
     """
     gen = np.asarray(gen)
     m, k = gen.shape
+    if w == 8:      # by table: an MSR decode matrix is [105, 56]
+        blocks = gf8_bitmatrix_table()[gen.astype(np.int64)]
+        return np.ascontiguousarray(
+            blocks.transpose(0, 2, 1, 3).reshape(m * 8, k * 8))
     out = np.zeros((m * w, k * w), dtype=np.uint8)
     for i in range(m):
         for j in range(k):
@@ -179,7 +189,9 @@ def generator_to_bitmatrix(gen: np.ndarray, w: int) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# Small exact matrix algebra over GF(2^w) (host side; matrices are <= 32x32).
+# Small exact matrix algebra over GF(2^w) (host side). At w = 8 both run on
+# the multiplication table, whole rows at a time: the MSR code's matrices
+# are up to [n*alpha, k*alpha] = [105, 56] at k=8, m=7.
 
 
 def gf_matmul(a: np.ndarray, b: np.ndarray, w: int) -> np.ndarray:
@@ -188,6 +200,9 @@ def gf_matmul(a: np.ndarray, b: np.ndarray, w: int) -> np.ndarray:
     n, p = a.shape
     p2, q = b.shape
     assert p == p2
+    if w == 8:
+        prods = gf8_mul_table()[a[:, :, None], b[None, :, :]]
+        return np.bitwise_xor.reduce(prods, axis=1).astype(np.int64)
     out = np.zeros((n, q), dtype=np.int64)
     for i in range(n):
         for j in range(q):
@@ -212,6 +227,15 @@ def gf_invert_matrix(a: np.ndarray, w: int) -> np.ndarray:
             a[[col, pivot]] = a[[pivot, col]]
             inv[[col, pivot]] = inv[[pivot, col]]
         pv = gf_inv(int(a[col, col]), w)
+        if w == 8:
+            t = gf8_mul_table()
+            a[col] = t[a[col], pv]
+            inv[col] = t[inv[col], pv]
+            f = a[:, col].copy()
+            f[col] = 0
+            a ^= t[f[:, None], a[col][None, :]]
+            inv ^= t[f[:, None], inv[col][None, :]]
+            continue
         for j in range(n):
             a[col, j] = gf_mult(int(a[col, j]), pv, w)
             inv[col, j] = gf_mult(int(inv[col, j]), pv, w)

@@ -8,7 +8,11 @@ every decode bitmatrix of the Reed-Solomon codecs, at w = 8, 16 and 32.
 
 The source holds two designs, and its entry point picks one from the
 geometry alone: the bit-sliced kernel for w = 8 with k*8 <= 128 (the main
-path's), the popcount kernel for every other geometry.
+path's), the popcount kernel for every other geometry. Both take up to
+the card's opt-in shared memory (:func:`smem_limit`), which a CUDA
+tensor's bitmatrix is checked against; a CPU tensor's plain version has
+no such limit. k*w is at most ``MAX_BITS``: ``xor_mm.matrix_encode``
+splits a wider product into column blocks.
 
 :func:`matrix_encode_multi` is the per-lane form, a port of the XLA
 program of ``ceph_tpu/ops/xor_mm.py:91`` (``matrix_encode_multi``, the
@@ -43,11 +47,11 @@ from .xor_mm import pack_element_bits, unpack_element_bits, xor_matmul
 __all__ = ["matrix_encode", "matrix_encode_plain", "matrix_encode_multi",
            "matrix_encode_multi_plain", "matrix_encode_multi_rows",
            "matrix_encode_multi_rows_plain", "kernel_design",
-           "launches_by_design", "reset_launches", "DESIGNS", "LAUNCHES",
-           "MULTI_LAUNCHES", "MAX_BITS"]
+           "launches_by_design", "reset_launches", "smem_limit",
+           "mask_bytes", "DESIGNS", "LAUNCHES", "MULTI_LAUNCHES",
+           "MAX_BITS"]
 
 MAX_BITS = 512              # k*w the kernel takes
-_MAX_SMEM = 48 * 1024       # packed bitmatrix bytes of the popcount design
 _SOURCE = "gf_bitmatrix"
 
 DESIGNS = ("popcount", "bitsliced")  # by the C entry point's design number
@@ -128,8 +132,28 @@ def _mask_words(bits: int) -> int:
     return nw
 
 
-def _check_geometry(rows: int, cols: int, k: int, n: int, w: int) -> None:
-    """Checks an [R, cols] bitmatrix on k data rows of N bytes at w."""
+def mask_bytes(rows: int, cols: int) -> int:
+    """Shared memory of the popcount design's masks for a [rows, cols]
+    bitmatrix, the most either design needs where the kernel takes it
+    (the bit-sliced design is taken only where its expansion fits)."""
+    return rows * _mask_words(cols) * 4
+
+
+def smem_limit(device) -> int | None:
+    """Shared memory a block of the kernel may take on `device`: the
+    card's opt-in limit (232,448 bytes on an H100) for a CUDA device,
+    None for the CPU, whose plain version has no such limit."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
+
+
+def _check_geometry(rows: int, cols: int, k: int, n: int, w: int,
+                    device) -> None:
+    """Checks an [R, cols] bitmatrix on k data rows of N bytes at w, for
+    the kernel on `device`."""
     if w not in (8, 16, 32):
         raise ValueError("w=%d must be one of 8, 16, 32" % w)
     if cols != k * w:
@@ -140,9 +164,10 @@ def _check_geometry(rows: int, cols: int, k: int, n: int, w: int) -> None:
     if rows % w or n % (w // 8):
         raise ValueError("bitmat rows %d and N %d must be multiples of "
                          "w=%d and w/8" % (rows, n, w))
-    if rows * _mask_words(cols) * 4 > _MAX_SMEM:
-        raise ValueError("bitmatrix of %d rows exceeds the kernel's "
-                         "shared memory" % rows)
+    limit = smem_limit(device)
+    if limit is not None and mask_bytes(rows, cols) > limit:
+        raise ValueError("a [%d, %d] bitmatrix exceeds the kernel's %d "
+                         "bytes of shared memory" % (rows, cols, limit))
 
 
 def _check(bitmat: torch.Tensor, data: torch.Tensor, w: int,
@@ -163,10 +188,10 @@ def _check(bitmat: torch.Tensor, data: torch.Tensor, w: int,
                          % (bitmat.shape[0], data.shape[0]))
     rows, cols = bitmat.shape[-2:]
     k, n = data.shape[-2:]
-    _check_geometry(rows, cols, k, n, w)
     if bitmat.device != data.device:
         raise ValueError("bitmat on %s, data on %s"
                          % (bitmat.device, data.device))
+    _check_geometry(rows, cols, k, n, w, data.device)
     if not (bitmat.is_contiguous() and data.is_contiguous()):
         raise ValueError("bitmat and data must be contiguous")
 
@@ -282,7 +307,8 @@ def _check_rows(bitmats: torch.Tensor, parts: list[torch.Tensor], rows,
         raise ValueError("%d lanes of k=%d need %d rows, got %d"
                          % (bitmats.shape[0], k, bitmats.shape[0] * k,
                             count))
-    _check_geometry(bitmats.shape[1], bitmats.shape[2], k, n, w)
+    _check_geometry(bitmats.shape[1], bitmats.shape[2], k, n, w,
+                    bitmats.device)
     return k, n, idx
 
 

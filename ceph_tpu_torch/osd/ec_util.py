@@ -11,13 +11,18 @@ Port of ``ceph_tpu/osd/ec_util.py``, the role of the reference's ECUtil
   encode_fused   the whole-object write through the fused write transform
                  (osd/fused_transform.py): digests, compression decision
                  and encode on the device
+  repair_fraction / repair_combine
+                 a regenerating code's repair (models/msr.py): a helper's
+                 chunk stream to the fraction it ships, and the d
+                 fractions to the rebuilt shard, each one batched device
+                 call over the stripes
   HashInfo       cumulative per-shard crc xattr (ECUtil.h:105-163)
 
-All byte movement stays in numpy; the codec's encode_batch/decode_batch
-own the device. ``resident=(tier, key)`` on encode and encode_fused keeps
-the object in the device chunk tier (osd/hbm_tier.py). The cross-chip
-recovery and the repair helpers of the reference wait for the slice that
-ports repair.
+All byte movement stays in numpy; the codec's batched calls own the
+device. ``resident=(tier, key)`` on encode and encode_fused keeps the
+object in the device chunk tier (osd/hbm_tier.py). The reference's
+cross-chip recovery and repair (``recover_cross_chip``,
+``repair_cross_chip``) wait for the slice that ports the mesh.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ import numpy as np
 from ..errors import ErasureCodeError
 
 __all__ = ["StripeInfo", "encode", "encode_fused", "decode",
-           "decode_concat", "HashInfo"]
+           "decode_concat", "repair_fraction", "repair_combine", "HashInfo"]
 
 CHUNK_ALIGNMENT = 64
 
@@ -285,6 +290,66 @@ def decode_concat(sinfo: StripeInfo, codec, to_decode: dict,
         [np.asarray(shards[codec.chunk_index(i)]).reshape(
             stripes, sinfo.chunk_size) for i in range(k)], axis=1)
     return np.ascontiguousarray(stacked).reshape(-1).tobytes()
+
+
+def repair_fraction(sinfo: StripeInfo, codec, target_shard: int,
+                    chunk_stream, dispatcher=None, trace=None) -> bytes:
+    """Helper-side projection of a regenerating repair: one surviving
+    shard's chunk stream -> the fraction stream it ships to the primary
+    rebuilding `target_shard` (chunk/alpha bytes a chunk), batched across
+    stripes in one device call; with a dispatcher it rides the staged
+    pipeline."""
+    arr = _as_bytes(chunk_stream)
+    if arr.size == 0 or arr.size % sinfo.chunk_size != 0:
+        raise ErasureCodeError(
+            22, "chunk stream %d not chunk aligned (%d)"
+            % (arr.size, sinfo.chunk_size))
+    batch = arr.reshape(arr.size // sinfo.chunk_size, sinfo.chunk_size)
+    if dispatcher is not None:
+        frac = dispatcher.repair_fraction(codec, target_shard, batch,
+                                          trace=trace)
+    else:
+        frac = codec.repair_fraction_batch(target_shard, batch)
+    return np.ascontiguousarray(np.asarray(frac)).reshape(-1).tobytes()
+
+
+def _stack_fractions(sinfo: StripeInfo, codec, fractions: dict):
+    """{helper shard: fraction stream} -> (helpers tuple, [S, d, sub])."""
+    d = codec.repair_helper_count()
+    if len(fractions) != d:
+        raise ErasureCodeError(
+            5, "repair combine needs %d fractions, got %d"
+            % (d, len(fractions)))
+    helpers = tuple(sorted(fractions))
+    bufs = {h: _as_bytes(v) for h, v in fractions.items()}
+    lengths = {v.size for v in bufs.values()}
+    if len(lengths) != 1:
+        raise ErasureCodeError(
+            22, "fractions have unequal lengths %s" % lengths)
+    total = lengths.pop()
+    sub = codec.repair_sub_size(sinfo.chunk_size)
+    if total == 0 or total % sub != 0:
+        raise ErasureCodeError(
+            22, "fraction stream %d not sub-symbol aligned (%d)"
+            % (total, sub))
+    stripes = total // sub
+    stacked = np.stack([bufs[h].reshape(stripes, sub) for h in helpers],
+                       axis=1)  # [S, d, sub]
+    return helpers, stacked
+
+
+def repair_combine(sinfo: StripeInfo, codec, target_shard: int,
+                   fractions: dict, dispatcher=None, trace=None) -> bytes:
+    """Primary-side combine: the d helper fraction streams -> the rebuilt
+    target shard's chunk stream, one batched device call (through the
+    dispatcher where one is given)."""
+    helpers, stacked = _stack_fractions(sinfo, codec, fractions)
+    if dispatcher is not None:
+        out = dispatcher.repair_combine(codec, target_shard, helpers,
+                                        stacked, trace=trace)
+    else:
+        out = codec.repair_combine_batch(target_shard, helpers, stacked)
+    return np.ascontiguousarray(np.asarray(out)).reshape(-1).tobytes()
 
 
 class HashInfo:

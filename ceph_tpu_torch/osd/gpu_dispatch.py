@@ -30,7 +30,11 @@ same shape is copied into it (the reference donated it to the jitted
 program instead; ``l_gpu_reused`` counts the reuses).
 
 Facades: encode_async()/decode_async() return futures; encode()/decode()
-keep the blocking surface. Errors propagate strictly per batch: a failed
+keep the blocking surface. A regenerating code's repair rides the same
+pipeline: repair_fraction_async() (a helper's [B, chunk] streams to its
+[B, chunk/alpha] fractions) and repair_combine_async() (the d fractions
+stacked [B, d, sub] to the rebuilt [B, chunk]), each with its matrix
+pre-staged like a decode table, and their blocking forms. Errors propagate strictly per batch: a failed
 stage fails ONLY that fused batch's submitters; batches behind it keep
 flowing. pipeline_depth=1 runs the synchronous loop on the collector
 thread, with its legs timed by ``common.tracer.device_segments``.
@@ -51,8 +55,8 @@ staging buffer goes back to the pool only once the tier's copy of it is
 made (otherwise the next batch of the shape would be staged into the
 rows being adopted). At depth 1 the tier adopts the host arrays, as the
 reference's synchronous path does. An adoption failure never fails the
-submitter: the tier is a cache. Repair, telemetry and the stage profiler
-of the reference wait for later slices.
+submitter: the tier is a cache. Telemetry and the stage profiler of the
+reference wait for later slices.
 """
 
 from __future__ import annotations
@@ -381,6 +385,59 @@ class GpuDispatcher:
         return self._submit_async(
             key, lambda stacked: codec.decode_batch(avail_rows, stacked),
             chunks, trace, prefetch=prefetch)
+
+    def repair_fraction_async(self, codec, target: int, chunks: np.ndarray,
+                              trace=NULL_SPAN) -> _Pending:
+        """Async codec.repair_fraction_batch: the helper-side projection
+        of [B, chunk] survivor streams into [B, chunk/alpha] repair
+        fractions for rebuilding `target`. The [1, alpha] projection's
+        bitmatrix is pre-staged like a decode table; repair bytes count
+        as decode traffic."""
+        key = (self._codec_key(codec), "rfrac", target, chunks.shape[1:],
+               str(chunks.dtype))
+        self.perf.inc("l_gpu_dec_bytes", int(chunks.nbytes))
+        prefetch = None
+        entry_fn = getattr(codec, "_fraction_entry", None)
+        if entry_fn is not None:
+            def prefetch(target=target, entry_fn=entry_fn):
+                self._stage_entry(entry_fn(target))
+        return self._submit_async(
+            key, lambda stacked: codec.repair_fraction_batch(target, stacked),
+            chunks, trace, prefetch=prefetch)
+
+    def repair_combine_async(self, codec, target: int, helpers: tuple,
+                             fractions: np.ndarray,
+                             trace=NULL_SPAN) -> _Pending:
+        """Async codec.repair_combine_batch: [B, d, sub] stacked helper
+        fractions (rows in `helpers` order) -> rebuilt [B, chunk] target
+        chunks, the combine matrix of (target, helpers) pre-staged in the
+        h2d stage."""
+        helpers = tuple(helpers)
+        key = (self._codec_key(codec), "rcomb", target, helpers,
+               fractions.shape[1:], str(fractions.dtype))
+        self.perf.inc("l_gpu_dec_bytes", int(fractions.nbytes))
+        prefetch = None
+        entry_fn = getattr(codec, "_combine_entry", None)
+        if entry_fn is not None:
+            def prefetch(target=target, helpers=helpers, entry_fn=entry_fn):
+                self._stage_entry(entry_fn(target, helpers))
+        return self._submit_async(
+            key, lambda stacked: codec.repair_combine_batch(
+                target, helpers, stacked),
+            fractions, trace, prefetch=prefetch)
+
+    def repair_fraction(self, codec, target: int, chunks: np.ndarray,
+                        trace=NULL_SPAN) -> np.ndarray:
+        """Blocking facade over repair_fraction_async."""
+        return self.repair_fraction_async(codec, target, chunks,
+                                          trace).result()
+
+    def repair_combine(self, codec, target: int, helpers: tuple,
+                       fractions: np.ndarray,
+                       trace=NULL_SPAN) -> np.ndarray:
+        """Blocking facade over repair_combine_async."""
+        return self.repair_combine_async(codec, target, helpers, fractions,
+                                         trace).result()
 
     def _stage_entry(self, entry: dict) -> None:
         """Stage a TableCache entry's bitmatrix onto this dispatcher's

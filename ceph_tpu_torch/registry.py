@@ -7,8 +7,8 @@ duplicate registration (EEXIST), version-gates loaded plugins (EXDEV),
 and constructs codecs from profiles (factory, ErasureCodePlugin.cc:92-120)
 with a profile echo check (:114-118).
 
-Built-in plugins (the counterparts of ``jax_tpu``, ``shec_tpu`` and
-``lrc_tpu``):
+Built-in plugins on the card (the counterparts of ``jax_tpu``,
+``shec_tpu``, ``lrc_tpu`` and ``msr_tpu``):
   torch_cuda   the seven jerasure techniques: reed_sol_van (the default)
                and reed_sol_r6_op (element layout), cauchy_orig,
                cauchy_good, liberation, blaum_roth and liber8tion (packet
@@ -16,9 +16,17 @@ Built-in plugins (the counterparts of ``jax_tpu``, ``shec_tpu`` and
   shec_cuda    SHEC, techniques multiple (the default) and single
   lrc_cuda     LRC, its layers' inner codecs through this registry
                (``torch_cuda`` unless a layer names another plugin)
+  msr_cuda     the product-matrix MSR regenerating code (technique msr)
 
-``factory`` takes the device the codec runs on (default ``cuda``; it
-raises when CUDA is absent unless ``device="cpu"`` is passed).
+and the reference's host plugins under their own names, numpy on the
+CPU (the exact oracle of ``ops/gf_ref.py``): ``jerasure`` (the seven
+techniques), ``isa`` (reed_sol_van, cauchy), ``shec``, ``lrc`` (inner
+codecs ``jerasure``), ``msr`` and ``example`` (the k=2, m=1 XOR fixture).
+
+``factory`` takes the device a card plugin's codec runs on (default
+``cuda``; it raises when CUDA is absent unless ``device="cpu"`` is
+passed). The host plugins run on the CPU whatever device is named and
+never touch CUDA.
 """
 
 from __future__ import annotations
@@ -65,6 +73,14 @@ class _TechniquePlugin(ErasureCodePlugin):
         return codec
 
 
+class _ExamplePlugin(ErasureCodePlugin):
+    def factory(self, profile, errors=None, device=None):
+        from .models.xor_example import XorExample
+        codec = XorExample()
+        codec.init(profile, errors)
+        return codec
+
+
 class _LrcPlugin(ErasureCodePlugin):
     def __init__(self, backend: str):
         self.backend = backend
@@ -89,6 +105,21 @@ def _jerasure_techniques():
     }
 
 
+def _isa_techniques():
+    from .models import cauchy, rs
+    return {
+        "reed_sol_van": rs.ReedSolomonVandermonde,
+        "cauchy": cauchy.CauchyGood,
+    }
+
+
+def _msr_techniques():
+    from .models import msr
+    return {
+        "msr": msr.MsrProductMatrix,
+    }
+
+
 def _shec_techniques():
     from .models import shec
     return {
@@ -98,11 +129,22 @@ def _shec_techniques():
 
 
 _BUILTIN_LOADERS = {
+    "jerasure": lambda: _TechniquePlugin(_jerasure_techniques(), "numpy"),
+    "isa": lambda: _TechniquePlugin(_isa_techniques(), "numpy",
+                                    default_technique="reed_sol_van"),
     "torch_cuda": lambda: _TechniquePlugin(_jerasure_techniques(), "torch",
                                            default_technique="reed_sol_van"),
+    "shec": lambda: _TechniquePlugin(_shec_techniques(), "numpy",
+                                     default_technique="multiple"),
     "shec_cuda": lambda: _TechniquePlugin(_shec_techniques(), "torch",
                                           default_technique="multiple"),
+    "msr": lambda: _TechniquePlugin(_msr_techniques(), "numpy",
+                                    default_technique="msr"),
+    "msr_cuda": lambda: _TechniquePlugin(_msr_techniques(), "torch",
+                                         default_technique="msr"),
+    "lrc": lambda: _LrcPlugin("numpy"),
     "lrc_cuda": lambda: _LrcPlugin("torch"),
+    "example": lambda: _ExamplePlugin(),
 }
 
 
@@ -114,6 +156,7 @@ class ErasureCodePluginRegistry:
         self.lock = threading.RLock()
         self.plugins: dict[str, ErasureCodePlugin] = {}
         self.loaders = dict(_BUILTIN_LOADERS)
+        self.disable_dlclose = False
 
     @classmethod
     def instance(cls) -> "ErasureCodePluginRegistry":
@@ -155,6 +198,15 @@ class ErasureCodePluginRegistry:
                     % (name, plugin.version, __erasure_code_version__))
             self.plugins[name] = plugin
             return plugin
+
+    def preload(self, names) -> None:
+        """Load a comma list or an iterable of plugins
+        (ErasureCodePlugin.cc:186-202, the daemon's
+        global_init_preload_erasure_code)."""
+        if isinstance(names, str):
+            names = [n.strip() for n in names.split(",") if n.strip()]
+        for name in names:
+            self.load(name)
 
     def factory(self, name: str, profile: dict,
                 errors: list | None = None, device=None) -> ErasureCode:

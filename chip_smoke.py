@@ -6,8 +6,9 @@
 Drives the port's main path at the bench's real size — Reed-Solomon
 reed_sol_van k=8, m=3, w=8 on batches of 16 objects of 1 MiB
 ([16, 8, 131072] uint8) — the OSD's fused write of a 4 MiB object, the
-batched CRUSH placement of a 1024-OSD cluster and the device chunk tier
-fed by the dispatcher's writes, through the entry points a user calls,
+batched CRUSH placement of a 1024-OSD cluster, the device chunk tier
+fed by the dispatcher's writes and the MSR code's regenerating repair,
+through the entry points a user calls,
 and holds every kernel of the paths against its plain PyTorch version on
 the card. Phases, each printing one JSON line:
 
@@ -148,14 +149,38 @@ the card. Phases, each printing one JSON line:
                  table) and the whole rebuild in device time and peak
                  memory, and the digest on one batch array beside
                  ``torch.sum`` of the same bytes.
-  11. kernels    one JSON line per the port's kernel table: the design
+  11. msr_repair the product-matrix MSR regenerating code through
+                 ``registry.factory("msr_cuda", ...)``: (a) the reference
+                 bench's repair leg at its own size (bench.py:1845-1920):
+                 k=8, m=7 beside RS k=8, m=3, 8 stripes of 1 MiB, the
+                 encode, 14 ``repair_fraction_batch`` of chunk 2 and one
+                 ``repair_combine_batch``, every stripe equal to
+                 ``repair_oracle`` and the original, ``traffic_ratio``
+                 gated below 1, ``repair_MBps`` beside ``rs_decode_MBps``
+                 (wall time ended by a synchronise); (b) a recovery batch
+                 of 64 objects of 4 MiB (503 MB of chunks on the card):
+                 the encode, ``decode_batch`` over 8 signatures (each one
+                 popcount launch of a [840, 448] bitmatrix, past 48 KiB of
+                 masks), fractions and combines through
+                 ``GpuDispatcher.repair_fraction_async`` /
+                 ``repair_combine_async`` from 8 threads and through
+                 ``ec_util.repair_fraction`` / ``repair_combine``, every
+                 rebuilt chunk equal to the original; (c) msr k=10, m=9,
+                 whose [648, 720] encode and [1368, 720] decode go past
+                 the kernel's 512 columns: two launches each, byte-equal
+                 to the plain version. Launches by design per call,
+                 counted from 0 just before the phase; then each k=8
+                 matrix (encode, decode, fraction, combine) alone at
+                 (a)'s shapes: kernel ms, plain ms, bound.
+  12. kernels    one JSON line per the port's kernel table: the design
                  the main path takes, launches on the main path (phases
                  3-4 for the GF bitmatrix kernel, phase 6 for the packet
                  kernel, phase 8 for the write transform's kernels, phase
                  9 for the CRUSH kernel, phase 10 for the tier's two,
                  each counted from 0 just before its path), the GF
-                 kernel's launches on phases 6 and 8 as well, max_abs_err,
-                 ms, plain_ms, bound_ms, bound_by, library_ms.
+                 kernel's launches on phases 6, 8 and 11 as well,
+                 max_abs_err, ms, plain_ms, bound_ms, bound_by,
+                 library_ms.
 
 Then the card's name and power limit as nvidia-smi prints them, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -180,6 +205,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 BATCH, K, M, W, N = 16, 8, 3, 8, 131072
+# phase 11's sizes: (stripes or objects, object bytes) of the reference
+# bench's repair leg, the recovery batch and the k=10 column split
+MSR_BENCH, MSR_RECOVERY, MSR_SPLIT = (8, 1 << 20), (64, 4 << 20), (16, 1 << 20)
 PROFILE = {"technique": "reed_sol_van", "k": str(K), "m": str(M), "w": str(W)}
 
 _records: list[dict] = []
@@ -857,6 +885,294 @@ def hbm_tier_phase(np, torch, dev, smi):
         "other_cases": {n_: parts["digest_" + n_] for n_ in (
             "a_bench", "b_store", "c_osd_tier")}}]
     return lines
+
+def msr_repair_phase(np, torch, dev, smi):
+    """Phase 11: the product-matrix MSR code (``models/msr.py``) on the
+    card, through ``registry.factory("msr_cuda", ...)``: (a) the reference
+    bench's repair leg at its own size (bench.py:1845-1920), (b) a
+    recovery batch of 64 objects of 4 MiB through the dispatcher, ec_util
+    and decode_batch, (c) the column split at k=10, m=9; then each of the
+    four k=8 matrices alone. Every GF kernel launch of the phase is
+    counted by design, from 0 just before it. Returns the phase's part of
+    the GF kernel's line."""
+    from ceph_tpu_torch import registry
+    from ceph_tpu_torch.ops import gf_kernel, xor_mm
+    from ceph_tpu_torch.osd import ec_util
+    from ceph_tpu_torch.osd.gpu_dispatch import GpuDispatcher
+    from ceph_tpu_torch.utils.cuda_timing import gf_bound, time_ms
+
+    rng = np.random.default_rng(20261018)
+
+    def on_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def per_call(fn):
+        """fn()'s result, its wall seconds to a synchronise and the GF
+        kernel's launches by design it made."""
+        torch.cuda.synchronize()
+        before = gf_kernel.launches_by_design()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = gf_kernel.launches_by_design()
+        return out, wall, {d: after[d] - before[d] for d in after}
+
+    def one_launch(calls, design, what):
+        check(calls[design] == 1 and sum(calls.values()) == 1,
+              "%s is one %s launch (%s)" % (what, design, calls))
+
+    gf_kernel.reset_launches()
+    msr = registry.factory("msr_cuda", {"technique": "msr", "k": "8",
+                                        "m": "7", "w": "8"})
+    rs = registry.factory("torch_cuda", dict(PROFILE))
+    check(msr.device.type == "cuda" and msr.supports_repair(),
+          "msr_cuda on the card by default, with fraction repair")
+    k, m, alpha, d = msr.k, msr.m, msr.alpha, msr.repair_helper_count()
+    n = k + m
+    calls_by = {}
+
+    # (a) the reference bench's repair leg: 8 stripes of 1 MiB objects
+    stripes, obj = MSR_BENCH
+    chunk = msr.get_chunk_size(obj)
+    chunk_rs = rs.get_chunk_size(obj)
+    sub = msr.repair_sub_size(chunk)
+    ratio = (d * sub / obj) / (rs.k * chunk_rs / obj)
+    data = rng.integers(0, 256, (stripes, k, chunk), dtype=np.uint8)
+    parity, _, calls = per_call(lambda: msr.encode_batch(on_dev(data)))
+    one_launch(calls, "popcount", "the k=8 encode")
+    calls_by["encode"] = calls
+    full_a = np.concatenate([data, parity.cpu().numpy()], axis=1)
+    rows = {msr.chunk_index(i): full_a[:, i] for i in range(n)}
+    target = msr.chunk_index(2)
+    helpers = tuple(sorted(msr.minimum_to_repair(target,
+                                                 set(rows) - {target})))
+
+    def repair_leg():
+        fr = [msr.repair_fraction_batch(target, on_dev(rows[h]))
+              for h in helpers]
+        return msr.repair_combine_batch(target, helpers,
+                                        torch.stack(fr, dim=1))
+
+    rebuilt, _, calls = per_call(repair_leg)
+    check(calls == {"popcount": 0, "bitsliced": d + 1},
+          "a repair is d fraction launches and one combine (%s)" % calls)
+    calls_by["repair_leg"] = calls
+    rebuilt = rebuilt.cpu().numpy()
+    for st in range(stripes):
+        check(np.array_equal(rebuilt[st], msr.repair_oracle(
+            target, helpers, {h: rows[h][st] for h in helpers})),
+            "(a): stripe %d equals repair_oracle" % st)
+    check(np.array_equal(rebuilt, rows[target]),
+          "(a): the rebuilt chunk equals the original")
+    check(ratio < 1.0, "traffic ratio %.4f < 1" % ratio)
+    reps = 5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        repair_leg()
+    torch.cuda.synchronize()
+    repair_s = time.perf_counter() - t0
+    rs_data = rng.integers(0, 256, (stripes, rs.k, chunk_rs), dtype=np.uint8)
+    avail = tuple(range(rs.k))
+    rs.decode_batch(avail, on_dev(rs_data))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        rs.decode_batch(avail, on_dev(rs_data))
+    torch.cuda.synchronize()
+    rs_s = time.perf_counter() - t0
+    emit("msr_repair", case="a_bench_repair_leg",
+         msr={"k": k, "m": m, "alpha": alpha, "d": d, "chunk_bytes": chunk,
+              "fraction_bytes": sub, "moved_per_logical": d * sub / obj},
+         rs={"k": rs.k, "m": rs.m, "chunk_bytes": chunk_rs,
+             "moved_per_logical": rs.k * chunk_rs / obj},
+         traffic_ratio=ratio, stripes=stripes, target=target,
+         helpers=list(helpers), oracle_bit_identical=True,
+         repair_MBps=reps * stripes * chunk / repair_s / 1e6,
+         rs_decode_MBps=reps * stripes * chunk_rs / rs_s / 1e6,
+         launches=calls_by)
+    # (a)'s encode and decode inputs for timing, 67 MB: past the L2
+    sub_rows = [on_dev(rng.integers(0, 256, (stripes, k * alpha, sub),
+                                    dtype=np.uint8)) for _ in range(8)]
+
+    # (b) a recovery batch of Ceph's default 4 MiB objects: 64 (the tier's
+    # default capacity, osd_hbm_tier_capacity), every chunk on the card
+    nobj, obj_b = MSR_RECOVERY
+    chunk_b = msr.get_chunk_size(obj_b)
+    sub_b = msr.repair_sub_size(chunk_b)
+    data_b = on_dev(rng.integers(0, 256, (nobj, k, chunk_b),
+                                 dtype=np.uint8))
+    parity_b, enc_s, calls = per_call(lambda: msr.encode_batch(data_b))
+    one_launch(calls, "popcount", "(b)'s encode")
+    full_b = torch.cat([data_b, parity_b], dim=1)
+    del data_b, parity_b
+    host_b = full_b.cpu().numpy()
+    dec_runs = []
+    for sig in range(8):
+        avail = tuple(sorted(rng.choice(n, k, replace=False).tolist()))
+        surv = full_b[:, list(avail)].contiguous()
+        out, wall, calls = per_call(lambda: msr.decode_batch(avail, surv))
+        one_launch(calls, "popcount", "decode %s" % (avail,))
+        check(torch.equal(out, full_b), "(b): decode %s rebuilds every "
+              "chunk" % (avail,))
+        dec_runs.append({"avail": list(avail), "seconds": wall,
+                         "launches": calls})
+        del out, surv
+    calls_by["decode_b"] = [r["launches"] for r in dec_runs]
+    decode_bitmat = list(msr._decode_entry(
+        tuple(dec_runs[0]["avail"]))["bitmat"].shape)
+    check(decode_bitmat == [840, 448] and
+          gf_kernel.mask_bytes(840, 448) > 48 * 1024,
+          "a k=8 decode is [840, 448], past 48 KiB of masks")
+
+    disp = GpuDispatcher()
+    threads, per = 8, nobj // 8
+    errors: list[str] = []
+
+    def repairer(tid):
+        try:
+            tgt = tid % n
+            hl = tuple(sorted(msr.minimum_to_repair(tgt, set(range(n)))))
+            sl = slice(tid * per, (tid + 1) * per)
+            futs = [disp.repair_fraction_async(
+                msr, tgt, np.ascontiguousarray(host_b[sl, h]))
+                for h in hl]
+            fracs = np.stack([f.result(300) for f in futs], axis=1)
+            got = disp.repair_combine_async(msr, tgt, hl, fracs).result(300)
+            if not np.array_equal(got, host_b[sl, tgt]):
+                errors.append("thread %d's rebuild" % tid)
+        except Exception as e:  # reported below; the run then fails
+            errors.append(repr(e))
+
+    def run_repairers():
+        pool = [threading.Thread(target=repairer, args=(t,))
+                for t in range(threads)]
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join(600)
+        return any(t.is_alive() for t in pool)
+
+    _, disp_s, calls = per_call(run_repairers)
+    perf = disp.perf.dump()
+    ops, dispatches = disp.stats["ops"], disp.stats["dispatches"]
+    disp.shutdown()
+    check(not errors, "(b): every dispatcher rebuild equals the original "
+          "(%s)" % errors[:3])
+    check(calls["popcount"] == 0 and calls["bitsliced"] == dispatches,
+          "(b): one bit-sliced launch a dispatch (%s)" % calls)
+    calls_by["dispatcher_b"] = calls
+    sinfo = ec_util.StripeInfo(k, k * chunk_b)
+    ec_calls = []
+    for i in range(4):
+        tgt = (5 * i + 3) % n
+        hl = msr.minimum_to_repair(tgt, set(range(n)) - {tgt})
+        fr, _, c1 = per_call(lambda: {h: ec_util.repair_fraction(
+            sinfo, msr, tgt, host_b[i, h]) for h in hl})
+        check(all(len(v) == sub_b for v in fr.values()) and
+              c1 == {"popcount": 0, "bitsliced": d},
+              "(b): d fractions of chunk/alpha bytes, one launch each")
+        out, _, c2 = per_call(lambda: ec_util.repair_combine(
+            sinfo, msr, tgt, fr))
+        one_launch(c2, "bitsliced", "ec_util's combine")
+        check(out == host_b[i, tgt].tobytes(),
+              "(b): ec_util rebuilds object %d's chunk %d" % (i, tgt))
+        ec_calls.append({"fractions": c1, "combine": c2})
+    calls_by["ec_util_b"] = ec_calls
+    emit("msr_repair", case="b_recovery_64x4MiB", objects=nobj,
+         chunk_bytes=chunk_b, fraction_bytes=sub_b,
+         resident_bytes=int(full_b.numel()), encode_s=enc_s,
+         decode_bitmat=decode_bitmat,
+         decode_mask_bytes=gf_kernel.mask_bytes(840, 448),
+         decode_runs=dec_runs,
+         decode_MBps=[nobj * n * chunk_b / r["seconds"] / 1e6
+                      for r in dec_runs],
+         dispatcher={"threads": threads, "objects": nobj, "seconds": disp_s,
+                     "rebuilt_MBps": nobj * chunk_b / disp_s / 1e6,
+                     "ops": ops, "dispatches": dispatches,
+                     "dec_bytes": perf["l_gpu_dec_bytes"],
+                     "launches": calls},
+         ec_util=ec_calls)
+    del full_b, host_b
+    torch.cuda.empty_cache()
+
+    # (c) the column split: msr k=10, m=9 ([648, 720] and [1368, 720])
+    msr10 = registry.factory("msr_cuda", {"k": "10", "m": "9"})
+    n10, obj10 = MSR_SPLIT
+    chunk10 = msr10.get_chunk_size(obj10)
+    data10 = on_dev(rng.integers(0, 256, (n10, 10, chunk10),
+                                 dtype=np.uint8))
+    split = {}
+    par10, _, calls = per_call(lambda: msr10.encode_batch(data10))
+    full10 = torch.cat([data10, par10], dim=1)
+    avail10 = (0, 2, 4, 6, 8, 10, 12, 14, 16, 18)
+    out10, _, calls_d = per_call(lambda: msr10.decode_batch(
+        avail10, full10[:, list(avail10)].contiguous()))
+    check(torch.equal(out10, full10), "(c): the k=10 decode rebuilds")
+    # the phase's path ends here; the comparisons and timings follow
+    phase_launches = gf_kernel.launches_by_design()
+    for name, bm_np, x, launched in (
+            ("encode", msr10._bitmat, msr10._split(data10, 10), calls),
+            ("decode", msr10._decode_entry(avail10)["bitmat"],
+             msr10._split(full10[:, list(avail10)].contiguous(), 10),
+             calls_d)):
+        bm = on_dev(bm_np)
+        got = xor_mm.matrix_encode(bm, x, 8)
+        ref = gf_kernel.matrix_encode_plain(bm, x, 8)
+        err = int((got.to(torch.int16) - ref.to(torch.int16)).abs().max())
+        split[name] = {"bitmat": list(bm.shape), "data": list(x.shape),
+                       "blocks": xor_mm.split_blocks(
+                           bm.shape[0], bm.shape[1], 8,
+                           gf_kernel.smem_limit(dev)),
+                       "launches": launched, "max_abs_err": err}
+        check(err == 0, "(c): the split %s equals the plain version" % name)
+        check(launched == {"popcount": 2, "bitsliced": 0},
+              "(c): the k=10 %s is two popcount launches" % name)
+    emit("msr_repair", case="c_column_split_k10", split=split)
+    calls_by["k10"] = {n_: split[n_]["launches"] for n_ in split}
+    del data10, par10, full10, out10
+    torch.cuda.empty_cache()
+
+    # each k=8 matrix alone at (a)'s shapes, inputs rotated out of L2
+    frac_e = msr._fraction_entry(target)
+    comb_e = msr._combine_entry(target, helpers)
+    dec_bm = msr._decode_entry(tuple(range(1, 9)))["bitmat"]
+    mats = {"encode": (msr._bitmat, sub_rows),
+            "decode": (dec_bm, sub_rows),
+            "fraction": (frac_e["bitmat"], [on_dev(rng.integers(
+                0, 256, (stripes, alpha, sub), dtype=np.uint8))
+                for _ in range(64)]),
+            "combine": (comb_e["bitmat"], [on_dev(rng.integers(
+                0, 256, (stripes, d, sub), dtype=np.uint8))
+                for _ in range(32)])}
+    timed, worst = {}, 0
+    for name, (bm_np, inputs) in mats.items():
+        bm = on_dev(bm_np)
+        design = gf_kernel.kernel_design(bm.shape[0], inputs[0].shape[-2],
+                                         8, dev)
+        out = gf_kernel.matrix_encode(bm, inputs[0], 8)
+        ref = gf_kernel.matrix_encode_plain(bm, inputs[0], 8)
+        err = int((out.to(torch.int16) - ref.to(torch.int16)).abs().max())
+        worst = max(worst, err)
+        rec = {"bitmat": list(bm.shape), "data": list(inputs[0].shape),
+               "design": design, "max_abs_err": err,
+               "ms": time_ms(lambda x: gf_kernel.matrix_encode(bm, x, 8),
+                             inputs, 40),
+               "plain_ms": time_ms(
+                   lambda x: gf_kernel.matrix_encode_plain(bm, x, 8),
+                   inputs, 8)}
+        rec["bound_ms"], rec["bound_by"] = gf_bound(bm, inputs[0], out, 8)
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        timed[name] = rec
+        emit("msr_repair", case="kernel_" + name, gpu=smi, **rec)
+        check(err == 0, "the %s matrix equals the plain version" % name)
+    check([timed[x]["design"] for x in mats] ==
+          ["popcount", "popcount", "bitsliced", "bitsliced"],
+          "encode and decode popcount, fraction and combine bit-sliced")
+    return {"launches_by_design": phase_launches,
+            "launches_by_call": calls_by, "matrices": timed,
+            "max_abs_err": worst, "traffic_ratio": ratio}
 
 
 def main() -> int:
@@ -1963,7 +2279,10 @@ def main() -> int:
     # -- 10. the device chunk tier ----------------------------------------
     tier_lines = hbm_tier_phase(np, torch, dev, smi)
 
-    # -- 11. kernels line -------------------------------------------------
+    # -- 11. the MSR regenerating code ---------------------------------
+    msr_part = msr_repair_phase(np, torch, dev, smi)
+
+    # -- 12. kernels line -------------------------------------------------
     enc = timings["encode"]
     dec = timings["decode345678910"]
     kernels = [{
@@ -1973,7 +2292,8 @@ def main() -> int:
         "design": main_design, "launches": launches,
         "launches_by_design": launches_by_design,
         "phase2_launches_by_design": phase2_launches,
-        "matched": worst == 0, "max_abs_err": worst,
+        "matched": worst == 0 and msr_part["max_abs_err"] == 0,
+        "max_abs_err": max(worst, msr_part["max_abs_err"]),
         "ms": enc["ms"], "kernel_ms": enc["ms"],
         "plain_ms": enc["plain_ms"], "bound_ms": enc["bound_ms"],
         "bound_by": enc["bound_by"], "library_ms": None,
@@ -1983,6 +2303,10 @@ def main() -> int:
         "decode_share_of_bound": dec["share_of_bound"],
         "slice_launches": slice_gf_launches,
         "write_path_launches": write_gf_launches,
+        "msr_repair_launches_by_design": msr_part["launches_by_design"],
+        "msr_repair_launches_by_call": msr_part["launches_by_call"],
+        "msr_repair_matrices": msr_part["matrices"],
+        "msr_repair_max_abs_err": msr_part["max_abs_err"],
         "shape": {"bitmat": enc["bitmat"], "data": enc["data"],
                   "decode_bitmat": dec["bitmat"]}}, {
         "name": "gf_packet_encode", "route": "cuda",

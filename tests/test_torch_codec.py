@@ -152,7 +152,7 @@ def test_unknown_technique_and_plugin_are_enoent():
     assert "reed_sol_van" in str(e.value) and "reed_sol_r6_op" in str(e.value)
     assert "cauchy_good" in str(e.value) and "liber8tion" in str(e.value)
     with pytest.raises(ErasureCodeError) as e:
-        registry.factory("jerasure", dict(PROFILE), device="cpu")
+        registry.factory("bogus", dict(PROFILE), device="cpu")
     assert e.value.errno == errno.ENOENT
 
 

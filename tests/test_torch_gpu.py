@@ -31,7 +31,12 @@ through a table of addresses (rows of several upload batches, w = 8,
 consumers, adoption from the pipelined dispatcher with no upload,
 eviction. The CRUSH kernel also at every group size (1 to 32 lanes a
 seed), on buckets of 1, 3, 17 and 33 items, with forced ties and a
-bucket of zero weights, and its profiled launch (the clock split).
+bucket of zero weights, and its profiled launch (the clock split). The
+MSR code's geometries: the GF kernel's popcount design past 48 KiB of
+masks (an MSR decode's [840, 448], the tallest bitmatrix the opt-in limit
+holds, one row past it refused with no launch), the column split of
+k = 10 in two launches, and ``msr_cuda`` k=8, m=7 against the numpy
+``msr``.
 """
 
 import itertools
@@ -1204,3 +1209,95 @@ def test_tier_adopts_from_the_pipelined_dispatcher_on_card(cuda, kind):
             assert crcs == [zlib.crc32(want[s].tobytes()) for s in range(11)]
         got = tier.reconstruct(i, (2, 9)).cpu().numpy()
         assert np.array_equal(got, want[[2, 9]])
+
+
+# -- the MSR code's geometries ----------------------------------------------
+
+def _optin_rows(device, cols):
+    """The most element rows whose popcount masks fit the card's opt-in
+    shared memory at `cols` columns (3,632 at 448 on an H100)."""
+    limit = gf_kernel.smem_limit(device)
+    return limit // gf_kernel.mask_bytes(1, cols) // 8 * 8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", ["msr_decode", "optin_edge"])
+def test_popcount_past_48_kib_on_card(cuda, rows):
+    """The MSR decode's [840, 448] (53,760 bytes of masks) and the
+    tallest [R, 448] the opt-in limit holds: one popcount launch each,
+    byte-equal to the plain version."""
+    rows = 840 if rows == "msr_decode" else _optin_rows(cuda, 448)
+    assert gf_kernel.mask_bytes(rows, 448) > 48 * 1024
+    rng = np.random.default_rng(rows)
+    bm = torch.from_numpy(rng.integers(0, 2, (rows, 448),
+                                       dtype=np.uint8)).to(cuda)
+    data = torch.from_numpy(rng.integers(0, 256, (2, 56, 4 * 1000 + 4),
+                                         dtype=np.uint8)).to(cuda)
+    held_against_plain(bm, data, 8, "popcount")
+
+
+@pytest.mark.gpu
+def test_popcount_one_row_past_the_opt_in_raises_on_card(cuda):
+    rows = _optin_rows(cuda, 448) + 8
+    bm = torch.zeros((rows, 448), dtype=torch.uint8, device=cuda)
+    data = torch.zeros((1, 56, 64), dtype=torch.uint8, device=cuda)
+    before = gf_kernel.launches_by_design()
+    with pytest.raises(ValueError, match="shared memory"):
+        gf_kernel.matrix_encode(bm, data, 8)
+    torch.cuda.synchronize()
+    assert gf_kernel.launches_by_design() == before
+    # the codecs' entry point splits it into row blocks instead
+    out = xor_mm.matrix_encode(bm, data, 8)
+    assert out.shape == (1, rows // 8, 64) and not out.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["encode", "decode"])
+def test_msr_k10_column_split_on_card(cuda, which):
+    """msr k=10, m=9: [648, 720] and [1368, 720] past the kernel's 512
+    columns, two popcount launches each through xor_mm.matrix_encode,
+    byte-equal to the plain version of the whole product."""
+    codec = registry.factory("msr_cuda", {"k": "10", "m": "9"},
+                             device=cuda)
+    bm_np = codec._bitmat if which == "encode" else \
+        codec._decode_entry(tuple(range(0, 19, 2)))["bitmat"]
+    bm = torch.from_numpy(bm_np).to(cuda)
+    data = torch.from_numpy(np.random.default_rng(10).integers(
+        0, 256, (3, 90, 160 * 9), dtype=np.uint8)).to(cuda)
+    before = gf_kernel.launches_by_design()
+    out = xor_mm.matrix_encode(bm, data, 8)
+    torch.cuda.synchronize()
+    after = gf_kernel.launches_by_design()
+    assert {d: after[d] - before[d] for d in after} == {"popcount": 2,
+                                                       "bitsliced": 0}
+    assert torch.equal(out, gf_kernel.matrix_encode_plain(bm, data, 8))
+
+
+@pytest.mark.gpu
+def test_msr_codec_on_card_matches_host(cuda):
+    """msr_cuda k=8, m=7 on the card against the port's numpy msr:
+    encode, two decode signatures, a fraction repair; tensors stay on
+    the card."""
+    prof = {"k": "8", "m": "7"}
+    card = registry.factory("msr_cuda", dict(prof))
+    host = registry.factory("msr", dict(prof))
+    chunk = card.get_chunk_size(1 << 20)
+    data = np.random.default_rng(8).integers(0, 256, (2, 8, chunk),
+                                             dtype=np.uint8)
+    parity = card.encode_batch(torch.from_numpy(data).to(cuda))
+    assert parity.is_cuda
+    want = host.encode_batch(data)
+    assert np.array_equal(parity.cpu().numpy(), want)
+    full = np.concatenate([data, want], 1)
+    full_dev = torch.from_numpy(full).to(cuda)
+    for avail in [(7, 8, 9, 10, 11, 12, 13, 14), (0, 2, 4, 6, 8, 10, 12, 14)]:
+        out = card.decode_batch(avail, full_dev[:, list(avail)].contiguous())
+        assert torch.equal(out, full_dev)
+    target = 2
+    helpers = tuple(sorted(card.minimum_to_repair(target, set(range(15)))))
+    fracs = torch.stack([card.repair_fraction_batch(
+        target, full_dev[:, h].contiguous()) for h in helpers], 1)
+    rebuilt = card.repair_combine_batch(target, helpers, fracs)
+    assert torch.equal(rebuilt, full_dev[:, target])
+    assert np.array_equal(rebuilt.cpu().numpy()[0], host.repair_oracle(
+        target, helpers, {h: full[0, h] for h in helpers}))

@@ -56,7 +56,11 @@ def test_the_walk_covers_the_tier_and_its_kernels():
             "ceph_tpu_torch/compressor/__init__.py",
             "ceph_tpu_torch/compressor/base.py",
             "ceph_tpu_torch/compressor/plugins.py",
-            "ceph_tpu_torch/compressor/registry.py"} <= names
+            "ceph_tpu_torch/compressor/registry.py",
+            "ceph_tpu_torch/models/msr.py",
+            "ceph_tpu_torch/models/xor_example.py",
+            "ceph_tpu_torch/ops/xor_mm.py",
+            "ceph_tpu_torch/registry.py"} <= names
 
 
 def test_forbidden_names():
@@ -83,7 +87,8 @@ def test_factory_without_device_raises(no_cuda):
                     "packetsize": "2048"}),
     ("shec_cuda", {"k": "8", "m": "4", "c": "3"}),
     ("lrc_cuda", {"k": "4", "m": "2", "l": "3"}),
-], ids=["cauchy_good", "shec_cuda", "lrc_cuda"])
+    ("msr_cuda", {"k": "8", "m": "7"}),
+], ids=["cauchy_good", "shec_cuda", "lrc_cuda", "msr_cuda"])
 def test_new_codecs_without_device_raise(no_cuda, plugin, profile):
     with pytest.raises(RuntimeError, match="CUDA"):
         registry.factory(plugin, dict(profile))
