@@ -519,7 +519,7 @@ def _scalar(cmap, ruleno, xs, result_max, weight, choose_args):
 
 
 def batched_do_rule(cmap: CrushMap, ruleno: int, xs, result_max: int,
-                    weight=None, choose_args=None, device_out: bool = False,
+                    weight=None, *, choose_args=None, device_out: bool = False,
                     device=None):
     """Map a whole batch of seeds in one call.
 

@@ -4,7 +4,8 @@
 // by matrix_encode8 through pl.pallas_call), and also covers w=16 and w=32,
 // the element layout that ceph_tpu/ops/xor_mm.py:matrix_encode computes with
 // XLA. One entry point serves the encode bitmatrix ([m*w, k*w]) and every
-// decode bitmatrix ([(k+m)*w, k*w]) of the Reed-Solomon codecs.
+// decode bitmatrix ([(k+m)*w, k*w]) of the Reed-Solomon codecs, and the
+// MSR code's products on sub-symbol rows.
 //
 //   out[b, i, e] = element whose bit t is
 //                  XOR_c bitmat[i*w + t, c] & bit c of v(b, e)
@@ -12,20 +13,21 @@
 // where v(b, e) is the k*w-bit little-endian concatenation of the k input
 // elements in column e of batch lane b: bit j*w + t of v is bit t of
 // element e of data row j. That is row j*w + t of unpack_element_bits,
-// the layout contract of ceph_tpu/ops/xor_mm.py and pallas_gf.py.
+// the layout contract of ceph_tpu/ops/xor_mm.py and pallas_gf.py. In
+// bytes: bit c of v is bit c % 8 of byte c / 8 of the column, byte
+// j*(w/8) + s being byte s of element e of row j; output bitmatrix row
+// 8*r + t is bit t of output byte row r (byte r % (w/8) of element row
+// r / (w/8)).
 //
 // Bound. The function reads each input byte once and writes each output
 // byte once. At the bench shape (B=16, k=8, m=3, N=131072, w=8) that is
 // 16 MiB read + 6 MiB written = 23.07 MB, about 6.9 us at the H100 SXM's
 // 3.35 TB/s; counted as int8 multiply-adds ([24, 64] @ [64, 2^21]) it is
-// 6.4 GOP, 3.3 us at 1979 TOP/s, so bytes bound it. Neither design below
-// reaches memory's limit: on an H100 at that shape the bit-sliced kernel
-// runs at about 27% of its bound on the encode, and a single batch lane
-// (32 blocks) already takes about half the time of sixteen, so the
-// latency of one thread's 32 columns, not the card's throughput, sets
-// it (PERF.md).
+// 6.4 GOP, 3.3 us at 1979 TOP/s, so bytes bound it. An MSR k=8 decode
+// ([840, 448] on [8, 56, 18736]) is 113 GOP against 15.7 MB: operations
+// bound it (PERF.md).
 //
-// Two designs; the C entry point picks one from the geometry alone.
+// Three designs; the C entry point picks one from the geometry alone.
 //
 // Bit-sliced (gf_bitsliced_kernel), for w = 8 with k*8 <= 128 (the main
 // path's geometry) when the expanded bitmatrix fits in shared memory:
@@ -43,54 +45,100 @@
 //    block that has a one.
 //  * Out plane (i, t) = XOR over the masked blocks (i, j) and s < 8 of
 //    plane (j, s) & E[i*8+t][j*8+s]: one LOP3 per bitmatrix entry per 32
-//    columns, against 32 popcounts in the other design; an identity
-//    block is 8 XORs of plane (j, t). The E words are warp-uniform
-//    broadcast loads, 16 bytes at a time; the mask tests are warp-uniform
-//    too, so skipping a zero block (most of a decode bitmatrix) costs no
-//    divergence.
+//    columns; an identity block is 8 XORs of plane (j, t). The E words
+//    are warp-uniform broadcast loads, 16 bytes at a time; the mask tests
+//    are warp-uniform too, so skipping a zero block (most of a decode
+//    bitmatrix) costs no divergence.
 //  * The 8 out planes go back to 32 bytes through the same two transposes
 //    and two 16-byte streaming stores.
 //  * The grid is sized from the occupancy the kernel reaches; each thread
 //    issues its first loads before the block expands the bitmatrix.
 //
-// Popcount (gf_bitmatrix_kernel), for every other geometry (w = 16, 32,
-// or k*w > 128):
-//  * The bitmatrix is packed once per block into shared memory as
-//    NW = ceil(k*w/32) (rounded to a power of two) uint32 masks per row.
-//  * A thread takes VEC consecutive bytes of every one of the k rows of
-//    one batch lane (16-byte loads when NW <= 4, else 4-byte loads, so a
-//    warp reads neighbouring addresses) and transposes them in registers
-//    into the per-column vectors v.
-//  * Output bit (row r, column e) = popc(XOR_q mask[r][q] & v[e][q]) & 1,
-//    packed straight into the VEC output bytes of the element row and
-//    written with one 16-byte (or 4-byte) store. That is one population
-//    count per output bit per column, and the popcount pipe limits it.
+// Popcount (gf_bitmatrix_kernel), the first design, for w = 16 and 32
+// with k*w <= 128 (the RS w=16 profiles up to k = 8, w=32 up to k = 4),
+// where it runs faster than the mma design (w=16: 0.036 against
+// 0.046-0.050 ms at [16, 8, 131072] on an NVIDIA H100 80GB HBM3 at 700 W,
+// PERF.md): the bitmatrix packed
+// once per block into shared memory as NW = 1, 2 or 4 uint32 masks a
+// row; a thread loads 16 bytes of each of the k rows of one batch lane,
+// transposes them in registers into the per-column k*w-bit vectors, and
+// computes each output bit as popc(XOR_q mask[r][q] & v[e][q]) & 1,
+// stored 16 bytes at a time.
 //
-// Both take any N that is a multiple of w/8: the ragged edge (and any
-// pointer not 16-byte aligned) is loaded and stored byte by byte under a
-// bounds mask, bytes past N reading as zero. k*w <= 512; the popcount
-// design needs R * NW * 4 bytes of masks within the card's opt-in shared
-// memory (232,448 bytes on an H100: 3,632 rows at 16 words), raising its
-// kernel's dynamic limit past 48 KiB through launch_common as the
-// bit-sliced design does, and the entry point refuses a geometry that
-// neither design takes. Wider products (the MSR code past k = 9) are split
-// into column blocks by the caller (ops/xor_mm.py matrix_encode).
+// Mma (gf_mma_kernel), for every other geometry (k*w > 128, or a w=8
+// expansion past shared memory): the product on the int8 tensor cores,
+// mma.sync m16n8k32 (s8 x s8 -> s32), with M = 16 element columns,
+// N = 8 bitmatrix rows (one output byte row), K = 32 input bits. The sum
+// of 0/1 products is at most k*w; its low bit is the parity.
+//  * K order. Within a K-tile (input bytes 4*kt .. 4*kt+3 of a column) the
+//    PTX positions 4t'..4t'+3 and 16+4t'..16+4t'+3 of lane t' (= lane % 4)
+//    hold bits 0-3 and 4-7 of byte 4*kt + t'. So an A register is one
+//    nibble of one data byte, (nib * 0x00204081) & 0x01010101, and a B
+//    fragment (two registers) is the 8 consecutive 0/1 bytes of the
+//    bitmatrix row at columns 32*kt + 8t' .. 32*kt + 8t' + 7.
+//  * M order. A warp takes 32 consecutive element columns as two M-tiles;
+//    lane group g (= lane / 4) holds columns 4g .. 4g+3 as A-rows g, g+8
+//    of M-tile 0 and g, g+8 of M-tile 1. One 32-bit shared-memory load of
+//    byte row 4*kt + t' (w = 8; w = 16/32 load 8 or 16 bytes and pick
+//    byte s of each element with __byte_perm) gives all four columns'
+//    bytes, so a K-tile's 8 A registers cost one load and 24 integer
+//    instructions, and four lanes' loads of 8 groups are conflict-free.
+//  * Data. Each warp stages its unit (k rows x 32 elements of one batch
+//    lane) in its own shared-memory tile with 16-byte cp.async, two tiles
+//    in turn, so the next unit's copy overlaps this unit's products; a
+//    ragged unit or a data pointer off 16 bytes is copied byte by byte
+//    with bytes past N zero. No block barrier: a warp's tile is its own.
+//  * Bitmatrix. Each block stages a group of bitmatrix rows once in shared
+//    memory, 0/1 bytes (& 1) in fragment order ([N-tile][K-tile pair]
+//    [lane][16 bytes], zero past the rows and past k*w), so that a
+//    lane's B fragments of two K-tiles are one conflict-free 16-byte
+//    load. Groups are a multiple of 4 N-tiles (8 past 16 K-tiles), one
+//    group a gridDim.y row, as few and as even as the card's opt-in shared
+//    memory allows beside the warps' tiles, 256*(2*ceil(KT/2)*N-tiles +
+//    8*KT) bytes (mma_group_tiles; gf_bitmatrix_group_rows reads it).
+//  * Products. Up to 16 K-tiles (k*w <= 512) a warp builds its A once per
+//    unit (8 registers a K-tile) and runs every N-tile of the group
+//    against it, 4 N-tiles at a time: each B fragment feeds the two
+//    M-tiles, 8 independent accumulator chains. Past 16 K-tiles (the MSR
+//    code from k = 10) a warp takes 8 N-tiles at a time and rebuilds A
+//    4 K-tiles at a time from its tile for each of them. A lane's B
+//    fragments of two K-tiles lie side by side and come in one 16-byte
+//    load: what bounds the design is the bytes of B loaded a product
+//    (on an NVIDIA H100 80GB HBM3 at 700 W, mma.sync with B in registers
+//    reaches 63% of the dense int8 peak, with 8 bytes a lane loaded for
+//    every two products 38-42%, with 16 bytes for four 45-47%: PERF.md,
+//    tools/gf_kernel_sweep.py --kernel mma_rate). Up to 4 K-tiles two
+//    blocks share an SM.
+//  * Epilogue, once per 4 N-tiles after the K loop: a lane holds D for
+//    A-rows g, g+8 at N columns 2t', 2t'+1; (d & 1) << bit, then two
+//    __shfl_xor_sync over the four lanes of a group give every lane the
+//    output word of columns 4g..4g+3 for each of the 4 byte rows, and
+//    lane t' stores one 32-bit word (w = 8: byte row t'; w = 16/32: the
+//    words interleaved by __byte_perm into element bytes).
+//
+// Every design takes any N that is a multiple of w/8. k*w is limited only
+// by the mma design's shared memory: a group of 4 (8) N-tiles beside the
+// warps' tiles, k*w <= 1,792 bits on an H100 (the MSR code up to k = 15;
+// gf_bitmatrix_max_k). The codecs' entry point (ops/xor_mm.py
+// matrix_encode) runs a wider product as one launch per block of input
+// rows and XORs the partial products.
 //
 // Per-lane bitmatrices (gf_bitmatrix_encode_multi). Replaces the XLA
 // program of ceph_tpu/ops/xor_mm.py:91 (matrix_encode_multi, the vmap of
 // matrix_encode with a different bitmatrix per lane), which the HBM chunk
 // tier's reconstruct_batch runs with one decode bitmatrix per object.
 // bitmats [P, R, k*w], data [P, L, k, N], out [P, L, R/w, N], in ONE
-// launch whatever P is: both kernels loop over lanes lane = blockIdx.y,
-// blockIdx.y + gridDim.y, ... (gridDim.y <= 65535), stage that lane's
-// bitmatrix in shared memory (masks, or the 8x8 expansion) and stride
-// over its L*N/VEC units with the blockIdx.x threads, exactly as the
-// single-matrix launch does over its batch; a block synchronises before
-// it stages the next lane's bitmatrix. The single-matrix entry point is
-// the same kernel with P = 1 and a bitmatrix stride of 0. The grid takes
-// the blocks the card holds at once (as a single matrix does), split
-// over min(P, 65535) rows of blocks. Bound: gf_bound summed over the
-// lanes (utils/cuda_timing.py gf_multi_bound).
+// launch whatever P is: the kernels loop over lanes (bit-sliced and
+// popcount: lane = blockIdx.y, blockIdx.y + gridDim.y, ...; mma:
+// blockIdx.z, its row group being blockIdx.y), stage that lane's
+// bitmatrix in shared memory and stride over its L*N columns exactly as
+// the single-matrix launch does over its batch; a block synchronises
+// before it stages the next lane's
+// bitmatrix. The single-matrix entry point is the same kernel with P = 1
+// and a bitmatrix stride of 0. The grid takes the blocks the card holds
+// at once (as a single matrix does), split over min(P, 65535) lanes.
+// Bound: gf_bound summed over the lanes (utils/cuda_timing.py
+// gf_multi_bound).
 //
 // Survivors where they lie (gf_bitmatrix_encode_multi_rows): the same
 // kernels with lane p's k data rows named by a device table of row
@@ -113,13 +161,12 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kMaxBits = 512;
 
-enum Design { kPopcount = 0, kBitsliced = 1 };
+enum Design { kBitsliced = 0, kMma = 1, kPopcount = 2, kDesigns = 3 };
 
 // Kernel launches of each design, counted where the kernel is launched:
 // [0] from the single-matrix entry point, [1] from the per-lane one.
-std::atomic<long long> g_launches[2][2];
+std::atomic<long long> g_launches[2][kDesigns];
 
 cudaError_t count_launch(Design design, bool multi) {
   const cudaError_t err = cudaGetLastError();
@@ -141,12 +188,23 @@ __device__ __forceinline__ const uint8_t* data_row(
   else return data_all + ((lane * batch + b) * k + j) * n;
 }
 
-// ---- popcount design ------------------------------------------------------
+// Grid of a per-lane launch: `lanes` rows of blocks (at most 65535, the
+// kernels loop over the rest) and, in each, the blocks one lane's units
+// need, together at most `resident` blocks (at least one a row).
+dim3 lane_grid(long long lane_units, int lanes, long long resident) {
+  const unsigned gy = lanes < 65535 ? (unsigned)lanes : 65535u;
+  long long gx = (lane_units + kThreads - 1) / kThreads;
+  const long long share = (resident + gy - 1) / gy;
+  if (gx > share) gx = share;
+  return dim3((unsigned)(gx > 0 ? gx : 1), gy);
+}
+
+// ---- popcount design (w = 16 and 32, k*w <= 128) ----------------------------
 
 template <int W, int NW>
 struct Geometry {
   static constexpr int KMAX = NW * 32 / W;         // data rows NW words hold
-  static constexpr int VEC = NW <= 4 ? 16 : 4;     // bytes per row per thread
+  static constexpr int VEC = 16;                   // bytes per row per thread
   static constexpr int VW = VEC / 4;               // uint32 words per row
   static constexpr int COLS = VEC * 8 / W;         // element columns per thread
 };
@@ -193,15 +251,11 @@ gf_bitmatrix_kernel(const uint8_t* __restrict__ bitmats,
               data_row<TABLE>(data_all, table, lane, batch, k, n, b, j) + off;
           uint32_t d[G::VW];
           if (full) {
-            if constexpr (G::VEC == 16) {
-              const uint4 x = __ldcs(reinterpret_cast<const uint4*>(row));
-              d[0] = x.x;
-              d[1] = x.y;
-              d[2] = x.z;
-              d[3] = x.w;
-            } else {
-              d[0] = __ldcs(reinterpret_cast<const unsigned int*>(row));
-            }
+            const uint4 x = __ldcs(reinterpret_cast<const uint4*>(row));
+            d[0] = x.x;
+            d[1] = x.y;
+            d[2] = x.z;
+            d[3] = x.w;
           } else {
 #pragma unroll
             for (int t = 0; t < G::VW; ++t) d[t] = 0;
@@ -238,11 +292,8 @@ gf_bitmatrix_kernel(const uint8_t* __restrict__ bitmats,
           }
         }
         if (full) {
-          if constexpr (G::VEC == 16) {
-            __stcs(reinterpret_cast<uint4*>(orow), make_uint4(o[0], o[1], o[2], o[3]));
-          } else {
-            __stcs(reinterpret_cast<unsigned int*>(orow), o[0]);
-          }
+          __stcs(reinterpret_cast<uint4*>(orow),
+                 make_uint4(o[0], o[1], o[2], o[3]));
         } else {
 #pragma unroll
           for (int x = 0; x < G::VEC; ++x)
@@ -253,17 +304,6 @@ gf_bitmatrix_kernel(const uint8_t* __restrict__ bitmats,
     // every thread has read this lane's masks before the next lane's land
     if (lane + gridDim.y < lanes) __syncthreads();
   }
-}
-
-// Grid of a per-lane launch: `lanes` rows of blocks (at most 65535, the
-// kernels loop over the rest) and, in each, the blocks one lane's units
-// need, together at most `resident` blocks (at least one a row).
-dim3 lane_grid(long long lane_units, int lanes, long long resident) {
-  const unsigned gy = lanes < 65535 ? (unsigned)lanes : 65535u;
-  long long gx = (lane_units + kThreads - 1) / kThreads;
-  const long long share = (resident + gy - 1) / gy;
-  if (gx > share) gx = share;
-  return dim3((unsigned)(gx > 0 ? gx : 1), gy);
 }
 
 template <int W, int NW, bool TABLE>
@@ -287,8 +327,8 @@ cudaError_t launch_popcount(const uint8_t* bitmat, long long bm_stride,
                       reinterpret_cast<uintptr_t>(out) % G::VEC == 0;
   const size_t smem = (size_t)rows * NW * sizeof(uint32_t);
   auto kernel = gf_bitmatrix_kernel<W, NW, TABLE>;
-  // masks past 48 KiB (an MSR decode's [840, 448] takes 53,760 bytes):
-  // the kernel's dynamic limit is raised first, up to the card's opt-in
+  // masks past 48 KiB: the kernel's dynamic limit is raised first, up to
+  // the card's opt-in
   int per_sm = 0;
   err = launch_common::resident_blocks(kernel, kThreads, dev, smem, &per_sm);
   if (err != cudaSuccess) return err;
@@ -297,10 +337,9 @@ cudaError_t launch_popcount(const uint8_t* bitmat, long long bm_stride,
   return count_launch(kPopcount, multi);
 }
 
-int mask_words(int bits) {
-  return bits <= 32 ? 1 : bits <= 64 ? 2 : bits <= 128 ? 4 : bits <= 256 ? 8
-                                                                          : 16;
-}
+constexpr int kPopcountMaxBits = 128;  // k*w the popcount design takes
+
+int mask_words(int bits) { return bits <= 32 ? 1 : bits <= 64 ? 2 : 4; }
 
 // ---- bit-sliced design (w = 8, k <= 16) -----------------------------------
 
@@ -568,18 +607,418 @@ cudaError_t launch_bitsliced(const uint8_t* bitmat, long long bm_stride,
   return count_launch(kBitsliced, multi);
 }
 
+// ---- mma design (int8 tensor cores) ----------------------------------------
+
+constexpr int kMmaWarps = 8;                    // warps a block
+constexpr int kMmaThreads = kMmaWarps * 32;
+constexpr int kMmaCols = 32;                    // element columns a warp unit
+constexpr int kMmaRegTiles = 16;                // K-tiles held for a whole unit
+constexpr int kMmaChunk = 4;                    // K-tiles a chunk past that
+
+// N-tiles a warp accumulates at once, and the multiple a row group's
+// N-tiles are: 4 up to kMmaRegTiles K-tiles, 8 past them.
+int mma_step(int k_tiles) { return k_tiles <= kMmaRegTiles ? 4 : 8; }
+
+// Dynamic shared memory of a block: the bitmatrix group (256 bytes an
+// N-tile and K-tile, K-tiles in pairs) and two data tiles a warp (128
+// bytes a K-tile each).
+size_t mma_smem(int k_tiles, int group_tiles) {
+  return (size_t)256 * ((k_tiles + 1) / 2 * 2 * group_tiles +
+                        k_tiles * kMmaWarps);
+}
+
+// The row-group plan: the N-tiles (8 bitmatrix rows each) a group of an
+// [rows, k_tiles*32] product stages, as few groups as `optin` bytes of
+// shared memory allow beside the warps' data tiles, balanced, each a
+// multiple of mma_step; 0 where even one smallest group does not fit or
+// the groups would pass gridDim.y's 65535.
+int mma_group_tiles(int rows, int k_tiles, size_t optin) {
+  const int step = mma_step(k_tiles);
+  const size_t fixed = mma_smem(k_tiles, 0);
+  if (optin < fixed) return 0;
+  const long long most =
+      (long long)((optin - fixed) / (mma_smem(k_tiles, 1) - fixed)) / step *
+      step;
+  if (most < step) return 0;
+  const long long tiles = rows / 8 > 0 ? rows / 8 : 1;
+  const long long groups = (tiles + most - 1) / most;
+  if (groups > 65535) return 0;
+  const long long per_group = (tiles + groups - 1) / groups;
+  return (int)((per_group + step - 1) / step * step);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// d += popc(a & b) on the tensor cores' binary path: A 16x256 bits
+// (row), B 256x8 bits (col); timing only (mma_rate_kernel).
+__device__ __forceinline__ void mma_b1(int (&d)[4], const uint32_t (&a)[4],
+                                       uint2 b) {
+  asm("mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+// d += a * b on the int8 tensor cores: A 16x32 (row), B 32x8 (col).
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint2 b) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+// Four bits to four 0/1 bytes: bit q of x to byte q.
+__device__ __forceinline__ uint32_t spread_nibble(uint32_t x) {
+  return (x * 0x00204081u) & 0x01010101u;
+}
+
+// Byte 4*kt + t of the k*w-bit vectors of columns 4g .. 4g+3 of a warp's
+// tile (byte c of the result: column 4g + c). Tile row j holds the 32
+// elements of data row j, 32*w/8 bytes.
+template <int W>
+__device__ __forceinline__ uint32_t column_bytes(const uint8_t* tile, int kt,
+                                                 int g, int t) {
+  constexpr int WB = W / 8;
+  const int beta = 4 * kt + t;
+  const uint8_t* p = tile + (beta / WB) * (kMmaCols * WB) + g * 4 * WB;
+  const int s = beta % WB;
+  if constexpr (W == 8) {
+    return *reinterpret_cast<const uint32_t*>(p);
+  } else if constexpr (W == 16) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    return __byte_perm(v.x, v.y, 0x6420 + 0x1111 * s);
+  } else {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    const unsigned sel = s | (s + 4) << 4;
+    return __byte_perm(__byte_perm(v.x, v.y, sel),
+                       __byte_perm(v.z, v.w, sel), 0x5410);
+  }
+}
+
+// The 8 A registers of K-tile kt: a[mt] is M-tile mt's fragment.
+template <int W>
+__device__ __forceinline__ void build_a(const uint8_t* tile, int kt, int g,
+                                        int t, uint32_t (&a)[2][4]) {
+  const uint32_t p = column_bytes<W>(tile, kt, g, t);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const uint32_t byte = p >> (8 * c);
+    a[c / 2][c % 2] = spread_nibble(byte & 0xfu);
+    a[c / 2][2 + c % 2] = spread_nibble((byte >> 4) & 0xfu);
+  }
+}
+
+// Packs the low bits of 4 N-tiles' accumulators acc[q0 .. q0+3] into
+// output words and stores lane t's word: byte row rho0 + q holds N-tile
+// q0 + q. obase: the batch lane's first output row; e0: the unit's first
+// element column.
+template <int W, int NB>
+__device__ __forceinline__ void store_tiles(const int (&acc)[NB][2][4],
+                                            int q0, uint8_t* obase,
+                                            int rho0, int out_rows,
+                                            long long n, long long e0, int g,
+                                            int t, bool out_vec) {
+  constexpr int WB = W / 8;
+  uint32_t v[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    uint32_t x = 0;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int* d = acc[q0 + q][mt];
+      x |= ((uint32_t)d[0] & 1u) << (16 * mt) |
+           ((uint32_t)d[1] & 1u) << (16 * mt + 1) |
+           ((uint32_t)d[2] & 1u) << (16 * mt + 8) |
+           ((uint32_t)d[3] & 1u) << (16 * mt + 9);
+    }
+    x <<= 2 * t;
+    x |= __shfl_xor_sync(0xffffffffu, x, 1);
+    x |= __shfl_xor_sync(0xffffffffu, x, 2);
+    v[q] = x;  // byte c: output byte row rho0 + q of column 4g + c
+  }
+  uint32_t word;
+  if constexpr (W == 8) {
+    word = t == 0 ? v[0] : t == 1 ? v[1] : t == 2 ? v[2] : v[3];
+  } else if constexpr (W == 16) {
+    const uint32_t lo = t < 2 ? v[0] : v[2];
+    const uint32_t hi = t < 2 ? v[1] : v[3];
+    word = __byte_perm(lo, hi, (t & 1) ? 0x7362 : 0x5140);
+  } else {
+    const unsigned sel = t | (t + 4) << 4;
+    word = __byte_perm(__byte_perm(v[0], v[1], sel),
+                       __byte_perm(v[2], v[3], sel), 0x5410);
+  }
+  const int i = rho0 / WB + t / WB;  // element row
+  if (i >= out_rows) return;         // a group's padding
+  const long long ob = e0 * WB + 4LL * g * WB + 4 * (t % WB);
+  uint8_t* dst = obase + (long long)i * n + ob;
+  if (out_vec && ob + 4 <= n) {
+    __stcs(reinterpret_cast<unsigned int*>(dst), word);
+  } else {
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+      if (ob + x < n) dst[x] = (uint8_t)(word >> (8 * x));
+  }
+}
+
+// Copies unit u (batch lane b, elements e0 .. e0+31) of data rows 0 .. k-1
+// into a warp's tile, 16-byte cp.async where the unit is whole and
+// aligned, else byte by byte with bytes past N zero.
+template <int W, bool TABLE>
+__device__ __forceinline__ void load_tile(
+    const uint8_t* __restrict__ data_all, const uint8_t* const* table,
+    int lane, long long batch, int k, long long n, long long chunks,
+    long long u, bool in_vec, uint8_t* tile, int l) {
+  constexpr int RB = kMmaCols * (W / 8);  // bytes of a tile row
+  const long long b = u / chunks;
+  const long long off = (u - b * chunks) * RB;
+  if (in_vec && off + RB <= n) {
+    for (int idx = l; idx < k * (RB / 16); idx += 32) {
+      const int j = idx / (RB / 16);
+      const int p = idx - j * (RB / 16);
+      cp_async16(tile + j * RB + 16 * p,
+                 data_row<TABLE>(data_all, table, lane, batch, k, n, b, j) +
+                     off + 16 * p);
+    }
+  } else {
+    for (int idx = l; idx < k * RB; idx += 32) {
+      const int j = idx / RB;
+      const int x = idx - j * RB;
+      tile[idx] =
+          off + x < n
+              ? data_row<TABLE>(data_all, table, lane, batch, k, n, b, j)
+                    [off + x]
+              : (uint8_t)0;
+    }
+  }
+}
+
+// KC: K-tiles of A held in registers; CHUNKED: KC at a time for each 8
+// N-tiles (k*w past KC*32), else all of them once per unit. Up to 4
+// K-tiles two blocks an SM (at most 128 registers), else one.
+template <int W, int KC, bool CHUNKED, bool TABLE>
+__global__ void __launch_bounds__(kMmaThreads, !CHUNKED && KC <= 4 ? 2 : 1)
+gf_mma_kernel(const uint8_t* __restrict__ bitmats, long long bm_stride,
+              int rows, int k, const uint8_t* __restrict__ data_all,
+              const uint8_t* const* __restrict__ table,
+              uint8_t* __restrict__ out_all, int lanes, long long batch,
+              long long n, int group_tiles, bool in_vec, bool out_vec,
+              bool bm_vec) {
+  constexpr int WB = W / 8;
+  constexpr int NB = CHUNKED ? 8 : 4;  // N-tiles accumulated at once
+  extern __shared__ uint4 mma_smem_buf[];
+  const int kw = k * W;
+  const int KT = (kw + 31) / 32;
+  const int KP = (KT + 1) / 2;                   // K-tile pairs
+  uint8_t* bs = reinterpret_cast<uint8_t*>(mma_smem_buf);
+  const int warp = threadIdx.x / 32, l = threadIdx.x % 32;
+  const int g = l / 4, t = l % 4;
+  const int tile_bytes = 128 * KT;
+  uint8_t* tiles = bs + (size_t)group_tiles * KP * 512 +
+                   (size_t)warp * 2 * tile_bytes;
+
+  const int out_rows = rows / W;
+  const int row_tiles = rows / 8;               // output byte rows
+  const int tile0 = blockIdx.y * group_tiles;   // the group's first N-tile
+  int here = row_tiles - tile0;                 // its N-tiles, padded to NB
+  here = (here + NB - 1) / NB * NB;
+  if (here > group_tiles) here = group_tiles;
+  const long long ne = n / WB;
+  const long long chunks = (ne + kMmaCols - 1) / kMmaCols;
+  const long long units = batch * chunks;
+  const long long ustep = (long long)gridDim.x * kMmaWarps;
+
+  for (int lane = blockIdx.z; lane < lanes; lane += gridDim.z) {
+    // the group's rows in fragment order, 8 bytes a lane and K-tile, the
+    // two K-tiles of a pair side by side ([N-tile][pair][lane][16 bytes])
+    const uint8_t* bm = bitmats + lane * bm_stride;
+    const int words = group_tiles * KP * 2 * 32;
+    for (int idx = threadIdx.x; idx < words; idx += blockDim.x) {
+      const int nt = idx / (KP * 64);
+      const int rem = idx - nt * KP * 64;
+      const int kt = rem / 32, ll = rem % 32;
+      const int row = (tile0 + nt) * 8 + ll / 4;
+      const int col = kt * 32 + (ll % 4) * 8;
+      uint2 v = make_uint2(0u, 0u);
+      if (row < rows && col < kw) {
+        const uint8_t* src = bm + (long long)row * kw + col;
+        if (bm_vec) {
+          v = __ldg(reinterpret_cast<const uint2*>(src));
+        } else {
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            v.x |= (uint32_t)src[x] << (8 * x);
+            v.y |= (uint32_t)src[4 + x] << (8 * x);
+          }
+        }
+        v.x &= 0x01010101u;
+        v.y &= 0x01010101u;
+      }
+      reinterpret_cast<uint2*>(bs)[((nt * KP + kt / 2) * 32 + ll) * 2 +
+                                   (kt & 1)] = v;
+    }
+    __syncthreads();
+
+    uint8_t* out = out_all + lane * batch * out_rows * n;
+    const uint8_t* bl = bs + (size_t)l * 16;  // this lane's B bytes
+    long long u = (long long)blockIdx.x * kMmaWarps + warp;
+    int buf = 0;
+    if (u < units)
+      load_tile<W, TABLE>(data_all, table, lane, batch, k, n, chunks, u,
+                          in_vec, tiles, l);
+    cp_async_commit();
+    for (; u < units; u += ustep) {
+      if (u + ustep < units)
+        load_tile<W, TABLE>(data_all, table, lane, batch, k, n, chunks,
+                            u + ustep, in_vec, tiles + (buf ^ 1) * tile_bytes,
+                            l);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncwarp();
+      const uint8_t* tile = tiles + buf * tile_bytes;
+      const long long b = u / chunks;
+      const long long e0 = (u - b * chunks) * kMmaCols;
+      uint8_t* obase = out + b * out_rows * n;
+
+      if constexpr (!CHUNKED) {
+        uint32_t a[KC][2][4];
+#pragma unroll
+        for (int kt = 0; kt < KC; ++kt)
+          if (kt < KT) build_a<W>(tile, kt, g, t, a[kt]);
+        for (int nt0 = 0; nt0 < here; nt0 += NB) {
+          int acc[NB][2][4] = {};
+          const uint8_t* bp = bl + (size_t)nt0 * KP * 512;
+#pragma unroll
+          for (int kp = 0; kp < KC / 2; ++kp) {
+            if (2 * kp < KT) {
+#pragma unroll
+              for (int q = 0; q < NB; ++q) {
+                // one 16-byte load: the fragments of K-tiles 2kp, 2kp + 1
+                const uint4 v = *reinterpret_cast<const uint4*>(
+                    bp + ((size_t)q * KP + kp) * 512);
+                mma_s8(acc[q][0], a[2 * kp][0], make_uint2(v.x, v.y));
+                mma_s8(acc[q][1], a[2 * kp][1], make_uint2(v.x, v.y));
+                if (2 * kp + 1 < KT) {
+                  mma_s8(acc[q][0], a[2 * kp + 1][0], make_uint2(v.z, v.w));
+                  mma_s8(acc[q][1], a[2 * kp + 1][1], make_uint2(v.z, v.w));
+                }
+              }
+            }
+          }
+          store_tiles<W, NB>(acc, 0, obase, tile0 + nt0, out_rows, n, e0, g,
+                             t, out_vec);
+        }
+      } else {
+        for (int nt0 = 0; nt0 < here; nt0 += NB) {
+          int acc[NB][2][4] = {};
+          const uint8_t* bp = bl + (size_t)nt0 * KP * 512;
+          for (int c0 = 0; c0 < KT; c0 += KC) {
+            uint32_t a[KC][2][4];
+#pragma unroll
+            for (int i = 0; i < KC; ++i)
+              if (c0 + i < KT) build_a<W>(tile, c0 + i, g, t, a[i]);
+#pragma unroll
+            for (int i = 0; i < KC; i += 2) {
+              if (c0 + i < KT) {
+#pragma unroll
+                for (int q = 0; q < NB; ++q) {
+                  const uint4 v = *reinterpret_cast<const uint4*>(
+                      bp + ((size_t)q * KP + (c0 + i) / 2) * 512);
+                  mma_s8(acc[q][0], a[i][0], make_uint2(v.x, v.y));
+                  mma_s8(acc[q][1], a[i][1], make_uint2(v.x, v.y));
+                  if (c0 + i + 1 < KT) {
+                    mma_s8(acc[q][0], a[i + 1][0], make_uint2(v.z, v.w));
+                    mma_s8(acc[q][1], a[i + 1][1], make_uint2(v.z, v.w));
+                  }
+                }
+              }
+            }
+          }
+#pragma unroll
+          for (int h = 0; h < NB; h += 4)
+            store_tiles<W, NB>(acc, h, obase, tile0 + nt0 + h, out_rows, n,
+                               e0, g, t, out_vec);
+        }
+      }
+      // every lane has read this tile before the next copy into it
+      __syncwarp();
+      buf ^= 1;
+    }
+    // every thread has read this lane's group before the next lane's lands
+    if (lane + gridDim.z < lanes) __syncthreads();
+  }
+}
+
+template <int W, int KC, bool CHUNKED, bool TABLE>
+cudaError_t launch_mma(const uint8_t* bitmat, long long bm_stride, int rows,
+                       int k, const uint8_t* data,
+                       const uint8_t* const* table, uint8_t* out, int lanes,
+                       long long batch, long long n, int group_tiles,
+                       bool multi, cudaStream_t stream) {
+  const long long ne = n / (W / 8);
+  const long long units = batch * ((ne + kMmaCols - 1) / kMmaCols);
+  if (units == 0 || rows == 0 || lanes == 0) return cudaSuccess;
+  const int k_tiles = (k * W + 31) / 32;
+  const long long groups = (rows / 8 + group_tiles - 1) / group_tiles;
+  auto kernel = gf_mma_kernel<W, KC, CHUNKED, TABLE>;
+  const size_t smem = mma_smem(k_tiles, group_tiles);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = launch_common::resident_blocks(kernel, kMmaThreads, dev, smem,
+                                       &per_sm);
+  if (err != cudaSuccess) return err;
+  // the blocks the card holds at once, over the groups and lanes
+  const unsigned gz = lanes < 65535 ? (unsigned)lanes : 65535u;
+  const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  const long long share = (resident + groups * gz - 1) / (groups * gz);
+  long long gx = (units + kMmaWarps - 1) / kMmaWarps;
+  if (gx > share) gx = share;
+  const dim3 grid((unsigned)(gx > 0 ? gx : 1), (unsigned)groups, gz);
+  // a table's rows start on 16 bytes (the wrapper checks)
+  const bool in_vec = TABLE || (n % 16 == 0 &&
+                                reinterpret_cast<uintptr_t>(data) % 16 == 0);
+  const bool out_vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 4 == 0;
+  const bool bm_vec = reinterpret_cast<uintptr_t>(bitmat) % 8 == 0;
+  kernel<<<grid, kMmaThreads, smem, stream>>>(
+      bitmat, bm_stride, rows, k, data, table, out, lanes, batch, n,
+      group_tiles, in_vec, out_vec, bm_vec);
+  return count_launch(kMma, multi);
+}
+
 // ---- design choice ---------------------------------------------------------
 
 // Validates the geometry and picks its design: bit-sliced for w = 8 with
 // k*8 <= 128 when its shared memory fits the card's per-block opt-in
-// limit, popcount otherwise, whose masks must fit the same limit. Returns
-// 0 (design set), -1 for a geometry neither design takes, or the
-// cudaError_t of a failed device query.
-int pick_design(int rows, int k, int w, int* design) {
+// limit, popcount for w = 16 and 32 with k*w <= 128 when its masks fit
+// it, mma otherwise, whose row-group plan (mma_group_tiles, set in
+// `group_tiles`) must fit the same limit. Returns 0 (design set), -1 for
+// a geometry no design takes, or the cudaError_t of a failed device
+// query.
+int pick_design(int rows, int k, int w, int* design, int* group_tiles) {
   if (k < 1 || rows < 0) return -1;
   if (w != 8 && w != 16 && w != 32) return -1;
   const int bits = k * w;
-  if (bits > kMaxBits || rows % w != 0) return -1;
+  if (rows % w != 0) return -1;
   size_t optin = 0;
   const cudaError_t err = launch_common::smem_optin(&optin);
   if (err != cudaSuccess) return (int)err;
@@ -592,28 +1031,57 @@ int pick_design(int rows, int k, int w, int* design) {
       return 0;
     }
   }
-  if ((size_t)rows * mask_words(bits) * sizeof(uint32_t) > optin) return -1;
-  *design = kPopcount;
+  if (w != 8 && bits <= kPopcountMaxBits &&
+      (size_t)rows * mask_words(bits) * sizeof(uint32_t) <= optin) {
+    *design = kPopcount;
+    return 0;
+  }
+  const int tiles = mma_group_tiles(rows, (bits + 31) / 32, optin);
+  if (tiles == 0) return -1;
+  *design = kMma;
+  *group_tiles = tiles;
   return 0;
 }
 
 }  // namespace
 
 // The design gf_bitmatrix_encode takes for this geometry on the current
-// device: 1 bit-sliced, 0 popcount, -1 a geometry it refuses, -2 a failed
-// device query.
+// device: 0 bit-sliced, 1 mma, 2 popcount, -1 a geometry it refuses, -2 a
+// failed device query.
 extern "C" int gf_bitmatrix_design(int rows, int k, int w) {
-  int design = kPopcount;
-  const int rc = pick_design(rows, k, w, &design);
+  int design = kMma, group_tiles = 0;
+  const int rc = pick_design(rows, k, w, &design, &group_tiles);
   return rc == 0 ? design : rc < 0 ? -1 : -2;
 }
 
-// Launches of `design` (0 popcount, 1 bit-sliced) since the last reset:
-// from gf_bitmatrix_encode with multi = 0, from gf_bitmatrix_encode_multi
-// with multi = 1.
+// The bitmatrix rows a row group of the mma design spans for this
+// geometry on the current device (a group of the last may hold fewer), 0
+// for another design, -1 a geometry it refuses, -2 a failed device query.
+extern "C" int gf_bitmatrix_group_rows(int rows, int k, int w) {
+  int design = kMma, group_tiles = 0;
+  const int rc = pick_design(rows, k, w, &design, &group_tiles);
+  if (rc != 0) return rc < 0 ? -1 : -2;
+  return design == kMma ? 8 * group_tiles : 0;
+}
+
+// The largest k one launch takes at this w on the current device (the
+// mma design's smallest row group beside its data tiles within the
+// opt-in shared memory), -1 for a w it refuses, -2 a failed device query.
+extern "C" int gf_bitmatrix_max_k(int w) {
+  if (w != 8 && w != 16 && w != 32) return -1;
+  size_t optin = 0;
+  if (launch_common::smem_optin(&optin) != cudaSuccess) return -2;
+  int k = 0;
+  while (mma_group_tiles(8, ((k + 1) * w + 31) / 32, optin) != 0) ++k;
+  return k;
+}
+
+// Launches of `design` (0 bit-sliced, 1 mma, 2 popcount) since the last
+// reset: from
+// gf_bitmatrix_encode with multi = 0, from gf_bitmatrix_encode_multi and
+// _multi_rows with multi = 1.
 extern "C" long long gf_bitmatrix_launches(int design, int multi) {
-  return (design == kPopcount || design == kBitsliced) &&
-                 (multi == 0 || multi == 1)
+  return design >= 0 && design < kDesigns && (multi == 0 || multi == 1)
              ? g_launches[multi][design].load()
              : -1;
 }
@@ -625,14 +1093,57 @@ extern "C" void gf_bitmatrix_reset_launches() {
 
 namespace {
 
+template <int W, bool TABLE>
+cudaError_t launch_popcount_w(const uint8_t* bm, long long bm_stride,
+                              int rows, int k, const uint8_t* in,
+                              const uint8_t* const* table, uint8_t* o,
+                              int lanes, long long batch, long long n,
+                              bool multi, cudaStream_t s) {
+  switch (mask_words(k * W)) {
+    case 1:
+      return launch_popcount<W, 1, TABLE>(bm, bm_stride, rows, k, in, table,
+                                          o, lanes, batch, n, multi, s);
+    case 2:
+      return launch_popcount<W, 2, TABLE>(bm, bm_stride, rows, k, in, table,
+                                          o, lanes, batch, n, multi, s);
+    default:
+      return launch_popcount<W, 4, TABLE>(bm, bm_stride, rows, k, in, table,
+                                          o, lanes, batch, n, multi, s);
+  }
+}
+
+template <int W, bool TABLE>
+cudaError_t launch_mma_w(const uint8_t* bm, long long bm_stride, int rows,
+                         int k, const uint8_t* in,
+                         const uint8_t* const* table, uint8_t* o, int lanes,
+                         long long batch, long long n, int group_tiles,
+                         bool multi, cudaStream_t s) {
+  const int k_tiles = (k * W + 31) / 32;
+  if (k_tiles <= 4)
+    return launch_mma<W, 4, false, TABLE>(bm, bm_stride, rows, k, in, table,
+                                          o, lanes, batch, n, group_tiles,
+                                          multi, s);
+  if (k_tiles <= 8)
+    return launch_mma<W, 8, false, TABLE>(bm, bm_stride, rows, k, in, table,
+                                          o, lanes, batch, n, group_tiles,
+                                          multi, s);
+  if (k_tiles <= kMmaRegTiles)
+    return launch_mma<W, kMmaRegTiles, false, TABLE>(
+        bm, bm_stride, rows, k, in, table, o, lanes, batch, n, group_tiles,
+        multi, s);
+  return launch_mma<W, kMmaChunk, true, TABLE>(bm, bm_stride, rows, k, in,
+                                               table, o, lanes, batch, n,
+                                               group_tiles, multi, s);
+}
+
 template <bool TABLE>
 int encode_lanes(const void* bitmats, long long bm_stride, int lanes,
                  int rows, int k, int w, const void* data,
                  const uint8_t* const* table, void* out, long long batch,
                  long long n, bool multi, void* stream) {
   if (batch < 0 || n < 0 || lanes < 0) return -1;
-  int design = kPopcount;
-  const int rc = pick_design(rows, k, w, &design);
+  int design = kMma, group_tiles = 0;
+  const int rc = pick_design(rows, k, w, &design, &group_tiles);
   if (rc != 0) return rc;
   if (n % (w / 8) != 0) return -1;
   const auto* bm = static_cast<const uint8_t*>(bitmats);
@@ -652,20 +1163,24 @@ int encode_lanes(const void* bitmats, long long bm_stride, int lanes,
                                         lanes, batch, n, multi, s);
     return (int)err;
   }
-#define GF_CASE(W_, NW_)                                                  \
-  case W_ * 100 + NW_:                                                    \
-    err = launch_popcount<W_, NW_, TABLE>(bm, bm_stride, rows, k, in,     \
-                                          table, o, lanes, batch, n,      \
-                                          multi, s);                      \
-    break;
-  switch (w * 100 + mask_words(k * w)) {
-    GF_CASE(8, 1) GF_CASE(8, 2) GF_CASE(8, 4) GF_CASE(8, 8) GF_CASE(8, 16)
-    GF_CASE(16, 1) GF_CASE(16, 2) GF_CASE(16, 4) GF_CASE(16, 8) GF_CASE(16, 16)
-    GF_CASE(32, 1) GF_CASE(32, 2) GF_CASE(32, 4) GF_CASE(32, 8) GF_CASE(32, 16)
-    default:
-      return -1;
+  if (design == kPopcount) {
+    if (w == 16)
+      return (int)launch_popcount_w<16, TABLE>(bm, bm_stride, rows, k, in,
+                                               table, o, lanes, batch, n,
+                                               multi, s);
+    return (int)launch_popcount_w<32, TABLE>(bm, bm_stride, rows, k, in,
+                                             table, o, lanes, batch, n, multi,
+                                             s);
   }
-#undef GF_CASE
+  if (w == 8)
+    err = launch_mma_w<8, TABLE>(bm, bm_stride, rows, k, in, table, o, lanes,
+                                 batch, n, group_tiles, multi, s);
+  else if (w == 16)
+    err = launch_mma_w<16, TABLE>(bm, bm_stride, rows, k, in, table, o,
+                                  lanes, batch, n, group_tiles, multi, s);
+  else
+    err = launch_mma_w<32, TABLE>(bm, bm_stride, rows, k, in, table, o,
+                                  lanes, batch, n, group_tiles, multi, s);
   return (int)err;
 }
 
@@ -709,4 +1224,65 @@ extern "C" int gf_bitmatrix_encode_multi_rows(const void* bitmats, int lanes,
                             w, nullptr,
                             static_cast<const uint8_t* const*>(table), out,
                             1, n, true, stream);
+}
+
+// ---- timing only ---------------------------------------------------------
+
+namespace {
+
+// The tensor cores' instruction rate as the mma design issues it: each warp
+// runs `iters` steps of 8 independent accumulator chains (4 N-tiles x 2
+// M-tiles) on constant A and B registers. B1 false: mma.sync m16n8k32 s8
+// (the design's product); true: m16n8k256 b1 with AND and POPC, the binary
+// path, which computes the same GF(2) sums with 8 times the K a product.
+template <bool B1>
+__global__ void mma_rate_kernel(int iters, int* sink) {
+  const int l = threadIdx.x % 32;
+  uint32_t a[2][4];
+  uint2 b[4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[mt][r] = (uint32_t)(l + mt + r) & 0x01010101u;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    b[q] = make_uint2((uint32_t)(l + q) & 0x01010101u,
+                      (uint32_t)(l >> q) & 0x01010101u);
+  int acc[4][2][4] = {};
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        if constexpr (B1) mma_b1(acc[q][mt], a[mt], b[q]);
+        else mma_s8(acc[q][mt], a[mt], b[q]);
+      }
+  }
+  int s = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s += acc[q][mt][i];
+  sink[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+
+}  // namespace
+
+// Timing only: `blocks` blocks of `threads` threads (a multiple of 32)
+// each run mma_rate_kernel for `iters` steps of 8 mma.sync a warp: mode 0
+// m16n8k32 s8, mode 1 m16n8k256 b1 AND-POPC; sink: blocks * threads int32.
+extern "C" int gf_timing_mma_rate(int mode, int blocks, int threads,
+                                  int iters, void* sink, void* stream) {
+  if (blocks < 1 || threads < 32 || threads > 1024 || threads % 32 ||
+      iters < 1 || mode < 0 || mode > 1)
+    return -1;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto* out = static_cast<int*>(sink);
+  if (mode == 0)
+    mma_rate_kernel<false><<<blocks, threads, 0, s>>>(iters, out);
+  else
+    mma_rate_kernel<true><<<blocks, threads, 0, s>>>(iters, out);
+  return (int)cudaGetLastError();
 }

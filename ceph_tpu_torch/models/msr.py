@@ -29,10 +29,10 @@ Encode, decode, the fraction and the combine are all element-layout GF
 products on sub-symbol rows (``[B, rows*alpha, N/alpha]``), so on the
 torch backend each is a launch of the GF bitmatrix kernel
 (``ops/gf_kernel.py``) through ``xor_mm.matrix_encode``: at k=8, m=7 the
-encode ``[392, 448]`` and every decode ``[840, 448]`` take the popcount
-design, the fraction ``[8, 56]`` and the combine ``[56, 112]`` the
-bit-sliced one; past 512 columns (k >= 10) the product is split into
-column blocks, one launch each.
+encode ``[392, 448]`` and every decode ``[840, 448]`` take the mma
+design (int8 tensor cores), the fraction ``[8, 56]`` and the combine
+``[56, 112]`` the bit-sliced one; k = 10's ``[648, 720]`` and
+``[1368, 720]`` are one mma launch each too.
 """
 
 from __future__ import annotations

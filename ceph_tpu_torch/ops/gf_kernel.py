@@ -4,15 +4,21 @@ Port of ``ceph_tpu/ops/pallas_gf.py`` (``matrix_encode8`` and its Pallas
 ``_encode_kernel``). On Hopper the single pass that reads the k data bytes
 of a column and writes its parity bytes, staging nothing in device memory,
 is the natural kernel, so here it carries the main path: every encode and
-every decode bitmatrix of the Reed-Solomon codecs, at w = 8, 16 and 32.
+every decode bitmatrix of the Reed-Solomon codecs, at w = 8, 16 and 32,
+and the MSR code's products.
 
-The source holds two designs, and its entry point picks one from the
-geometry alone: the bit-sliced kernel for w = 8 with k*8 <= 128 (the main
-path's), the popcount kernel for every other geometry. Both take up to
-the card's opt-in shared memory (:func:`smem_limit`), which a CUDA
-tensor's bitmatrix is checked against; a CPU tensor's plain version has
-no such limit. k*w is at most ``MAX_BITS``: ``xor_mm.matrix_encode``
-splits a wider product into column blocks.
+The source holds three designs, and its entry point picks one from the
+geometry alone: the bit-sliced kernel for w = 8 with k*8 <= 128 where its
+expanded bitmatrix fits in shared memory (the main path's), the popcount
+kernel for w = 16 and 32 with k*w <= 128 (where it is faster), and the
+mma kernel, on the int8 tensor cores, for every other geometry. The mma
+kernel stages the bitmatrix a row group at a time, as many rows as the
+card's opt-in shared memory holds beside its data tiles; the C entry
+point plans the groups (:func:`row_groups` reads the plan), so any
+number of rows is one launch, and k*w is limited by what one smallest
+group takes (:func:`max_k`; ``xor_mm.matrix_encode`` splits a wider
+product). A geometry the kernel refuses raises ValueError before any
+launch; a CPU tensor's plain version has no such limit.
 
 :func:`matrix_encode_multi` is the per-lane form, a port of the XLA
 program of ``ceph_tpu/ops/xor_mm.py:91`` (``matrix_encode_multi``, the
@@ -47,14 +53,12 @@ from .xor_mm import pack_element_bits, unpack_element_bits, xor_matmul
 __all__ = ["matrix_encode", "matrix_encode_plain", "matrix_encode_multi",
            "matrix_encode_multi_plain", "matrix_encode_multi_rows",
            "matrix_encode_multi_rows_plain", "kernel_design",
-           "launches_by_design", "reset_launches", "smem_limit",
-           "mask_bytes", "DESIGNS", "LAUNCHES", "MULTI_LAUNCHES",
-           "MAX_BITS"]
+           "launches_by_design", "reset_launches", "row_groups",
+           "max_k", "DESIGNS", "LAUNCHES", "MULTI_LAUNCHES"]
 
-MAX_BITS = 512              # k*w the kernel takes
 _SOURCE = "gf_bitmatrix"
 
-DESIGNS = ("popcount", "bitsliced")  # by the C entry point's design number
+DESIGNS = ("bitsliced", "mma", "popcount")  # by the C entry point's number
 
 LAUNCHES = 0
 MULTI_LAUNCHES = 0
@@ -81,8 +85,11 @@ def _kernel() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_void_p]
         lib.gf_bitmatrix_encode_multi_rows.restype = ctypes.c_int
-        lib.gf_bitmatrix_design.argtypes = [ctypes.c_int] * 3
-        lib.gf_bitmatrix_design.restype = ctypes.c_int
+        for fn in (lib.gf_bitmatrix_design, lib.gf_bitmatrix_group_rows):
+            fn.argtypes = [ctypes.c_int] * 3
+            fn.restype = ctypes.c_int
+        lib.gf_bitmatrix_max_k.argtypes = [ctypes.c_int]
+        lib.gf_bitmatrix_max_k.restype = ctypes.c_int
         lib.gf_bitmatrix_launches.argtypes = [ctypes.c_int] * 2
         lib.gf_bitmatrix_launches.restype = ctypes.c_longlong
         lib.gf_bitmatrix_reset_launches.argtypes = []
@@ -91,16 +98,45 @@ def _kernel() -> ctypes.CDLL:
     return _lib
 
 
+def _ask(fn: str, device, *args) -> int:
+    """C query `fn`(*args) on CUDA `device`: ValueError where it refuses
+    the geometry (-1), RuntimeError where the device query fails."""
+    with torch.cuda.device(torch.device(device)):
+        rc = getattr(_kernel(), fn)(*args)
+    if rc == -1:
+        raise ValueError("%s%s: a geometry the kernel does not take (k*w "
+                         "past what one row group of the mma design and its "
+                         "data tiles hold in shared memory, or a w, k or "
+                         "row count it refuses)" % (fn, args))
+    if rc < 0:
+        raise RuntimeError("%s%s failed with code %d" % (fn, args, rc))
+    return rc
+
+
 def kernel_design(rows: int, k: int, w: int, device) -> str:
     """The design the kernel's entry point takes for a [rows, k*w]
-    bitmatrix on a CUDA device: "bitsliced" or "popcount"."""
-    lib = _kernel()
-    with torch.cuda.device(torch.device(device)):
-        rc = lib.gf_bitmatrix_design(rows, k, w)
-    if rc < 0:
-        raise RuntimeError("gf_bitmatrix_design(%d, %d, %d) failed with "
-                           "code %d" % (rows, k, w, rc))
-    return DESIGNS[rc]
+    bitmatrix on a CUDA device: one of ``DESIGNS``."""
+    return DESIGNS[_ask("gf_bitmatrix_design", device, rows, k, w)]
+
+
+def row_groups(rows: int, k: int, w: int, device) -> list[tuple[int, int]]:
+    """The (start, stop) bitmatrix rows of each row group that the mma
+    design stages for a [rows, k*w] bitmatrix on `device`, one group a
+    row of blocks of the one launch, as the C entry point plans them;
+    one group for another design or the CPU."""
+    if torch.device(device).type != "cuda" or rows == 0:
+        return [(0, rows)]
+    span = _ask("gf_bitmatrix_group_rows", device, rows, k, w) or rows
+    return [(r, min(r + span, rows)) for r in range(0, rows, span)]
+
+
+def max_k(w: int, device) -> int | None:
+    """The most data rows at `w` that one launch takes on `device` (k*w =
+    1,792 bits on an H100), None for the CPU, whose plain version takes
+    any."""
+    if torch.device(device).type != "cuda":
+        return None
+    return _ask("gf_bitmatrix_max_k", device, w)
 
 
 def launches_by_design(multi: bool = False) -> dict[str, int]:
@@ -124,50 +160,20 @@ def reset_launches() -> None:
             _lib.gf_bitmatrix_reset_launches()
 
 
-def _mask_words(bits: int) -> int:
-    """uint32 masks per bitmatrix row in the kernel (power of two)."""
-    nw = 1
-    while nw * 32 < bits:
-        nw *= 2
-    return nw
-
-
-def mask_bytes(rows: int, cols: int) -> int:
-    """Shared memory of the popcount design's masks for a [rows, cols]
-    bitmatrix, the most either design needs where the kernel takes it
-    (the bit-sliced design is taken only where its expansion fits)."""
-    return rows * _mask_words(cols) * 4
-
-
-def smem_limit(device) -> int | None:
-    """Shared memory a block of the kernel may take on `device`: the
-    card's opt-in limit (232,448 bytes on an H100) for a CUDA device,
-    None for the CPU, whose plain version has no such limit."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        return None
-    return torch.cuda.get_device_properties(
-        device).shared_memory_per_block_optin
-
-
 def _check_geometry(rows: int, cols: int, k: int, n: int, w: int,
                     device) -> None:
-    """Checks an [R, cols] bitmatrix on k data rows of N bytes at w, for
-    the kernel on `device`."""
+    """Checks an [R, cols] bitmatrix on k data rows of N bytes at w, and
+    on a CUDA `device` that the kernel takes it."""
     if w not in (8, 16, 32):
         raise ValueError("w=%d must be one of 8, 16, 32" % w)
     if cols != k * w:
         raise ValueError("bitmat has %d columns, data k*w is %d"
                          % (cols, k * w))
-    if cols > MAX_BITS:
-        raise ValueError("k*w=%d exceeds %d" % (cols, MAX_BITS))
     if rows % w or n % (w // 8):
         raise ValueError("bitmat rows %d and N %d must be multiples of "
                          "w=%d and w/8" % (rows, n, w))
-    limit = smem_limit(device)
-    if limit is not None and mask_bytes(rows, cols) > limit:
-        raise ValueError("a [%d, %d] bitmatrix exceeds the kernel's %d "
-                         "bytes of shared memory" % (rows, cols, limit))
+    if torch.device(device).type == "cuda":
+        kernel_design(rows, k, w, device)
 
 
 def _check(bitmat: torch.Tensor, data: torch.Tensor, w: int,
@@ -226,9 +232,9 @@ def matrix_encode(bitmat: torch.Tensor, data: torch.Tensor,
     lib = _kernel()
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
-        rc = lib.gf_bitmatrix_encode(bitmat.data_ptr(), rows, k, w,
-                                     data.data_ptr(), out.data_ptr(), batch,
-                                     n, stream)
+        rc = lib.gf_bitmatrix_encode(
+            bitmat.data_ptr(), rows, k, w, data.data_ptr(), out.data_ptr(),
+            batch, n, stream)
     if rc != 0:
         raise RuntimeError("gf_bitmatrix_encode failed with code %d%s"
                            % (rc, _build.launch_failure(lib)))

@@ -64,63 +64,28 @@ def matrix_encode(bitmat: torch.Tensor, data: torch.Tensor,
 
     bitmat is the [R, k*w] bitplane expansion of a generator or decode
     matrix (gf.generator_to_bitmatrix). Runs the hand-written GPU kernel
-    on a CUDA tensor and its plain version on a CPU tensor. A product
-    wider than the kernel's ``MAX_BITS`` columns (the MSR code from
-    k = 10) is split by :func:`split_encode`, on either device."""
-    from .gf_kernel import smem_limit
-    return split_encode(bitmat, data, w, smem_limit(data.device))
-
-
-def split_blocks(rows: int, cols: int, w: int,
-                 smem_limit: int | None) -> tuple[list, list]:
-    """The (start, stop) row and column blocks of an [rows, cols]
-    bitmatrix that one kernel launch each takes: columns in blocks of at
-    most ``MAX_BITS`` (whole elements, since MAX_BITS is a multiple of
-    w), and rows in blocks of whole elements whose popcount masks fit
-    `smem_limit` bytes (None: no limit, one row block)."""
-    from .gf_kernel import MAX_BITS, mask_bytes
-    col_blocks = [(c, min(c + MAX_BITS, cols))
-                  for c in range(0, cols, MAX_BITS)] or [(0, cols)]
-    step = rows or 1
-    if smem_limit is not None and rows:
-        per_row = mask_bytes(1, min(cols, MAX_BITS))
-        step = smem_limit // per_row // w * w
-        if step < w:
-            raise ValueError("one element row of a [%d, %d] bitmatrix "
-                             "exceeds %d bytes of shared memory"
-                             % (rows, cols, smem_limit))
-    row_blocks = [(r, min(r + step, rows))
-                  for r in range(0, rows, step)] or [(0, rows)]
-    return row_blocks, col_blocks
-
-
-def split_encode(bitmat: torch.Tensor, data: torch.Tensor, w: int,
-                 smem_limit: int | None) -> torch.Tensor:
-    """:func:`matrix_encode` in blocks (:func:`split_blocks`): each
-    column block is one kernel launch on its slice of the data rows, and
-    the partial products of a row block are XORed (glue around the
-    launches: GF(2) sums are XORs); row blocks are concatenated. One
-    block is one plain launch."""
-    from .gf_kernel import matrix_encode as kernel_encode
+    on a CUDA tensor and its plain version on a CPU tensor. One launch
+    takes up to ``gf_kernel.max_k`` data rows (k*w = 1,792 bits on an
+    H100: the MSR code up to k = 15); a wider product is one launch per
+    even block of data rows, and the partial products are XORed (GF(2)
+    sums are XORs)."""
+    from .gf_kernel import matrix_encode as kernel_encode, max_k
     if bitmat.dim() != 2 or data.dim() < 2:
         return kernel_encode(bitmat, data, w)   # refused with its shapes
-    rows, cols = bitmat.shape
-    row_blocks, col_blocks = split_blocks(rows, cols, w, smem_limit)
-    if len(row_blocks) == 1 and len(col_blocks) == 1:
+    k = data.shape[-2]
+    step = max_k(w, data.device)
+    if step is None or k <= step:
         return kernel_encode(bitmat, data, w)
-    if cols != data.shape[-2] * w:
+    if bitmat.shape[1] != k * w:
         raise ValueError("bitmat has %d columns, data k*w is %d"
-                         % (cols, data.shape[-2] * w))
-    parts = []
-    for r0, r1 in row_blocks:
-        acc = None
-        for c0, c1 in col_blocks:
-            part = kernel_encode(bitmat[r0:r1, c0:c1].contiguous(),
-                                 data[..., c0 // w:c1 // w, :].contiguous(),
-                                 w)
-            acc = part if acc is None else acc.bitwise_xor_(part)
-        parts.append(acc)
-    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-2)
+                         % (bitmat.shape[1], k * w))
+    step = -(-k // -(-k // step))           # even blocks of at most step
+    acc = None
+    for j in range(0, k, step):
+        part = kernel_encode(bitmat[:, j * w:(j + step) * w].contiguous(),
+                             data[..., j:j + step, :].contiguous(), w)
+        acc = part if acc is None else acc.bitwise_xor_(part)
+    return acc
 
 
 def bitmatrix_encode_plain(bitmat: torch.Tensor, data: torch.Tensor, w: int,

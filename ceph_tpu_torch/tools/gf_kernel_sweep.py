@@ -1,7 +1,8 @@
 """Device time of the GF bitmatrix, packet or write kernels against the batch size.
 
     python -m ceph_tpu_torch.tools.gf_kernel_sweep [--batches 1,2,4]
-        [--kernel gf|packet|crc|xxh32|bitplane] [--split]
+        [--kernel gf|designs|mma_rate|packet|crc|xxh32|bitplane] [--split]
+        [--parent DIR]
 
 ``--kernel gf`` (the default): for the Reed-Solomon k=8, m=3, w=8 encode
 bitmatrix ([24, 64]) and the decode bitmatrix of signature (3..10)
@@ -9,6 +10,36 @@ bitmatrix ([24, 64]) and the decode bitmatrix of signature (3..10)
 for each batch size B: the kernel's median device time over 40
 launches, its bound, the design the geometry takes and the threads it
 needs (one per 32 columns in the bit-sliced design).
+
+``--kernel designs``: the GF bitmatrix kernel through the codecs' entry
+point (``xor_mm.matrix_encode``) on every geometry outside the
+bit-sliced design (the design each takes is printed), and on the main
+path's bit-sliced encode and decode: ``chip_smoke.py`` phase 2's w=8
+k=40 (aligned and a data pointer one byte off), its random [512, 128],
+[1024, 64] and [2048, 32], the RS k=8, m=3 w=16 and w=32 encodes on
+[16, 8, 131072], the RS encode and decode bitmatrices at w=16 with k = 4
+and 8 and at w=32 with k = 2, 3, 4 and 8 (k*w <= 128 but one, on
+[16, k, 131072]), the MSR k=8, m=7 encode and decode at phase 11's (a)
+([8, 56, 18736]) and (b) ([64, 56, 74912]) and the k=10, m=9 encode and
+decode on [16, 90, 11664]; ``--only`` keeps the geometries whose names
+start with one of its comma-separated prefixes. With ``--parent DIR``
+(a checkout whose ``ceph_tpu_torch/`` is
+another version of the port) each geometry is timed on both trees in
+turns, parent / this / this / parent, on the same inputs, after a
+byte-equality check of the two; the launches of this tree's call are
+counted by design. Then ``torch._int_mm`` of the (a) decode's unpacked
+0/1 operands ([840, 448] int8 times [448, 149888] int8), the rate
+cuBLAS gets from the same multiply-adds without the unpacking and
+packing (key ``int_mm``; the port never calls it).
+
+``--kernel mma_rate``: the tensor cores' rate through ``mma.sync``
+(``gf_timing_mma_rate``): warps of 8 independent accumulator chains on
+constant A and B registers, m16n8k32 s8 (the mma design's product) and
+the binary path, m16n8k256 b1 with AND and POPC (its multiply-adds are
+GF(2) ones, counted as int8 ones are), at 8, 16 and 32 warps an SM;
+TOP/s and the share of the H100's dense int8 peak (the binary path's
+ratio to the int8 path is what ``utils/cuda_timing.GF2_OPS_PER_S``
+rests on).
 
 ``--kernel packet``: the packet kernel, every aligned design that takes
 a geometry (staged, vector) timed on it in turns (A, B, B, A), the
@@ -64,18 +95,22 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib
+import importlib.util
 import json
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from .. import registry
-from ..ops import gf, gf_kernel, packet_kernel, write_kernels
+from ..ops import gf, gf_kernel, packet_kernel, write_kernels, xor_mm
 from ..osd import fused_transform
-from ..utils.cuda_timing import (bitplane_bound, crc_bound, gf_bound,
-                                 packet_bound, time_ms, xxh32_bound)
+from ..utils.cuda_timing import (INT8_OPS_PER_S, bitplane_bound, crc_bound,
+                                 gf_bound, packet_bound, time_ms,
+                                 xxh32_bound)
 
 K, M, W, N = 8, 3, 8, 131072
 PACKET_K, PACKET_M, PACKETSIZE = 10, 4, 2048
@@ -86,13 +121,16 @@ LIBERATION_FAMILY = ({"technique": "liberation", "k": "7", "w": "7"},
                      {"technique": "liber8tion", "k": "8"})
 
 
-def bitmatrices() -> dict[str, np.ndarray]:
-    coding = gf.rs_vandermonde_generator(K, M, W)
-    avail = (3, 4, 5, 6, 7, 8, 9, 10)
-    dec = gf.decode_matrix(coding, K, avail, W)
-    full = np.concatenate([dec, gf.gf_matmul(coding, dec, W)])
-    return {"encode": gf.generator_to_bitmatrix(coding, W),
-            "decode345678910": gf.generator_to_bitmatrix(full, W)}
+def bitmatrices(k: int = K, m: int = M, w: int = W) -> dict[str, np.ndarray]:
+    """The RS encode bitmatrix and the decode bitmatrix of the first m
+    data chunks lost (K=8, M=3: signature 3..10)."""
+    coding = gf.rs_vandermonde_generator(k, m, w)
+    avail = tuple(range(m, k + m))
+    dec = gf.decode_matrix(coding, k, avail, w)
+    full = np.concatenate([dec, gf.gf_matmul(coding, dec, w)])
+    return {"encode": gf.generator_to_bitmatrix(coding, w),
+            "decode" + "".join(map(str, avail)):
+            gf.generator_to_bitmatrix(full, w)}
 
 
 def packet_bitmatrices() -> dict[str, np.ndarray]:
@@ -128,6 +166,156 @@ def gf_sweep(pool: torch.Tensor, batches: list[int], dev) -> None:
                 "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
                 "share_of_bound": bound_ms / ms, "design": design,
                 "threads": b * -(-N // 32)}), flush=True)
+
+
+def design_geometries():
+    """(name, bitmatrix, w, data shape, byte offset of the data) of every
+    point of ``--kernel designs``."""
+    prng = np.random.default_rng(12)
+    coding40 = gf.rs_vandermonde_generator(40, 4, W)
+    yield ("encode_k40_m4", gf.generator_to_bitmatrix(coding40, W), W,
+           (2, 40, N // 8), 0)
+    yield ("encode_k40_offset1", gf.generator_to_bitmatrix(coding40, W), W,
+           (2, 40, N // 8 - 3), 1)
+    for rows, k in ((512, 16), (1024, 8), (2048, 4)):
+        yield ("random_%dx%d" % (rows, k * W),
+               prng.integers(0, 2, (rows, k * W), dtype=np.uint8), W,
+               (2, k, N // 8), 0)
+    for w in (16, 32):
+        yield ("encode_w%d" % w, gf.generator_to_bitmatrix(
+            gf.rs_vandermonde_generator(K, M, w), w), w, (16, K, N), 0)
+    # k*w <= 128 past w=8 (the popcount design's), and 256 at w=32
+    for w, k, m in ((16, 4, 2), (16, 8, 3), (32, 2, 2), (32, 3, 2),
+                    (32, 4, 2), (32, 8, 3)):
+        for part, bm in bitmatrices(k, m, w).items():
+            yield ("rs_w%d_k%d_%s" % (w, k, part[:6]), bm, w, (16, k, N),
+                   0)
+    for k, m, cases in ((8, 7, (("a", 8, 1 << 20), ("b", 64, 4 << 20))),
+                        (10, 9, (("c", 16, 1 << 20),))):
+        msr = registry.factory("msr_cuda", {"k": str(k), "m": str(m)},
+                               device="cpu")
+        avail = tuple(range(1, k + 1))
+        dec = np.ascontiguousarray(msr._decode_entry(avail)["bitmat"])
+        for part, objs, size in cases:
+            sub = msr.repair_sub_size(msr.get_chunk_size(size))
+            shape = (objs, k * msr.alpha, sub)
+            tag = "msr_k%d_%s" % (k, part)
+            yield (tag + "_encode", np.ascontiguousarray(msr._bitmat), 8,
+                   shape, 0)
+            yield (tag + "_decode", dec, 8, shape, 0)
+    for name, bm in bitmatrices().items():
+        yield ("rs_" + name, bm, W, (16, K, N), 0)
+
+
+def load_tree(root: str):
+    """The ``ops.xor_mm`` module of the port in checkout `root`, imported
+    as a package of another name beside this one (its kernels build into
+    its own ``build/``)."""
+    pkg = Path(root).resolve() / "ceph_tpu_torch"
+    name = "parent_ceph_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module(name + ".ops.xor_mm")
+
+
+def designs_sweep(pool: torch.Tensor, batches: list[int], dev,
+                  parent: str | None = None,
+                  only: str | None = None) -> None:
+    trees = {"this": xor_mm}
+    if parent:
+        trees["parent"] = load_tree(parent)
+    order = ["parent", "this", "this", "parent"] if parent else ["this"]
+    for name, bm_np, w, shape, offset in design_geometries():
+        if only and not name.startswith(tuple(only.split(","))):
+            continue
+        bm = torch.from_numpy(bm_np).to(dev)
+        size = int(np.prod(shape))
+        step = -(-size // 16) * 16
+        inputs = [pool[o + offset:o + offset + size].view(shape)
+                  for o in range(0, ROTATE_BYTES - step - 16 + 1, step)]
+        if not inputs:          # (b): one input of its own, past the L2
+            inputs = [torch.randint(0, 256, shape, dtype=torch.uint8,
+                                    device=dev)]
+        before = gf_kernel.launches_by_design()
+        out = xor_mm.matrix_encode(bm, inputs[0], w)
+        torch.cuda.synchronize()
+        after = gf_kernel.launches_by_design()
+        for tree, mod in trees.items():
+            if not torch.equal(mod.matrix_encode(bm, inputs[0], w), out):
+                raise RuntimeError("%s: the %s tree disagrees" % (name, tree))
+        if not torch.equal(out[:2], gf_kernel.matrix_encode_plain(
+                bm, inputs[0][:2], w)):
+            raise RuntimeError("%s: the kernel disagrees with the plain "
+                               "version" % name)
+        times = {t: [] for t in trees}
+        for tree in order:
+            mod = trees[tree]
+            times[tree].append(time_ms(
+                lambda x: mod.matrix_encode(bm, x, w), inputs, 40))
+        bound_ms, bound_by = gf_bound(bm, inputs[0], out, w)
+        rec = {"kernel": "gf", "geometry": name, "bitmat": list(bm.shape),
+               "shape": list(shape), "w": w, "offset": offset,
+               "design": gf_kernel.kernel_design(bm.shape[0], shape[-2], w,
+                                                 dev),
+               "launches": {d: after[d] - before[d] for d in after},
+               "row_groups": len(gf_kernel.row_groups(
+                   bm.shape[0], shape[-2], w, dev)),
+               "ms": times, "bound_ms": bound_ms, "bound_by": bound_by,
+               "share_of_bound": {t: bound_ms / min(v)
+                                  for t, v in times.items()}}
+        if parent:
+            rec["this_over_parent"] = (sum(times["this"]) /
+                                       sum(times["parent"]))
+        print(json.dumps(rec), flush=True)
+    # cuBLAS's int8 product on the (a) decode's unpacked 0/1 operands
+    msr = registry.factory("msr_cuda", {"k": "8", "m": "7"}, device="cpu")
+    dec = torch.from_numpy(np.ascontiguousarray(
+        msr._decode_entry(tuple(range(1, 9)))["bitmat"])).to(dev)
+    sub = msr.repair_sub_size(msr.get_chunk_size(1 << 20))
+    data = rotated(pool, (8, 56, sub))[:3]
+    lhs = dec.to(torch.int8)
+    rhs = [xor_mm.unpack_element_bits(x, 8).permute(1, 0, 2).reshape(
+        448, -1).to(torch.int8).contiguous() for x in data]
+    ms = time_ms(lambda x: torch._int_mm(lhs, x), rhs, 40)
+    bound_ms, bound_by = gf_bound(dec, data[0], torch.empty(
+        (8, 105, sub), dtype=torch.uint8), 8)
+    print(json.dumps({"kernel": "int_mm", "geometry": "msr_k8_a_decode",
+                      "operands": [list(lhs.shape), list(rhs[0].shape)],
+                      "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                      "share_of_bound": bound_ms / ms}), flush=True)
+
+
+MMA_RATE_MODES = ("s8_m16n8k32", "b1_and_popc_m16n8k256")
+
+
+def mma_rate_sweep(pool: torch.Tensor, batches: list[int], dev) -> None:
+    lib = gf_kernel._kernel()
+    lib.gf_timing_mma_rate.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p,
+                                                            ctypes.c_void_p]
+    lib.gf_timing_mma_rate.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    threads, iters = 256, 4096
+    for per_sm in (1, 2, 4):
+        blocks = sms * per_sm
+        sink = torch.empty(blocks * threads, dtype=torch.int32, device=dev)
+        for mode, name in enumerate(MMA_RATE_MODES):
+            def run(_):
+                _rc("gf_timing_mma_rate", lib.gf_timing_mma_rate(
+                    mode, blocks, threads, iters, sink.data_ptr(), stream))
+            ms = time_ms(run, [None], 10)
+            depth = 256 if mode == 1 else 32        # K of one mma
+            ops = blocks * threads // 32 * iters * 8 * 16 * 8 * depth * 2
+            print(json.dumps({
+                "kernel": "mma_rate", "mode": name,
+                "warps_per_sm": per_sm * threads // 32, "ms": ms,
+                "tops": ops / ms / 1e9,
+                "share_of_int8_peak": ops / ms / 1e9 / (INT8_OPS_PER_S /
+                                                        1e12)}),
+                  flush=True)
 
 
 def packet_geometries(batches: list[int]):
@@ -377,7 +565,8 @@ def bitplane_split(pools: dict, dev) -> None:
                               "block0_cycles": phases[-1]}), flush=True)
 
 
-SWEEPS = {"gf": gf_sweep, "packet": packet_sweep, "crc": crc_sweep,
+SWEEPS = {"gf": gf_sweep, "designs": designs_sweep,
+          "mma_rate": mma_rate_sweep, "packet": packet_sweep, "crc": crc_sweep,
           "xxh32": xxh32_sweep, "bitplane": bitplane_sweep}
 SPLITS = ("xxh32", "bitplane")
 DEFAULT_BATCHES = {"xxh32": "1,2,4,8,16,32,64,128,256,512,1024"}
@@ -391,9 +580,17 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--kernel", choices=tuple(SWEEPS), default="gf")
     p.add_argument("--split", action="store_true",
                    help="xxh32 and bitplane: time the parts of a call")
+    p.add_argument("--parent", default=None,
+                   help="designs: a checkout of another version of the "
+                   "port, timed in turns with this one")
+    p.add_argument("--only", default=None,
+                   help="designs: the geometries whose names start with "
+                   "one of these comma-separated prefixes")
     args = p.parse_args(argv)
     if args.split and args.kernel not in SPLITS:
         p.error("--split is for --kernel %s" % " or ".join(SPLITS))
+    if (args.parent or args.only) and args.kernel != "designs":
+        p.error("--parent and --only are for --kernel designs")
     batches = args.batches or DEFAULT_BATCHES.get(
         args.kernel, "1,2,4,6,8,10,11,12,13,14,16")
     if not torch.cuda.is_available():
@@ -410,6 +607,8 @@ def main(argv: list[str] | None = None) -> int:
     run = [int(x) for x in batches.split(",")]
     if args.kernel in SPLITS:
         SWEEPS[args.kernel](pool, run, dev, split=args.split)
+    elif args.kernel == "designs":
+        designs_sweep(pool, run, dev, parent=args.parent, only=args.only)
     else:
         SWEEPS[args.kernel](pool, run, dev)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

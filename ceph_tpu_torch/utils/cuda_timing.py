@@ -13,6 +13,14 @@ import torch
 # H100 SXM published peaks (NVIDIA data sheet), used for the bounds
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+# GF(2) multiply-adds (AND, then XOR or the low bit of a sum), counted as
+# two operations each: the tensor cores' binary path (mma.sync m16n8k256
+# b1 with AND and POPC) computes them, and the H100's data sheet gives it
+# no rate. The A100's gave it 8 times the dense int8 rate (4,992 against
+# 624 TOP/s), and on an H100 m16n8k256 b1 issues at the instruction rate
+# of m16n8k32 s8 (PERF.md, tools/gf_kernel_sweep.py --kernel mma_rate),
+# 8 times its multiply-adds: 8 times the int8 peak
+GF2_OPS_PER_S = 8 * INT8_OPS_PER_S
 # an xxh32 round's dependent chain on one lane: a funnel-shift rotate and
 # one multiply-add (the multiply by P1 fused with the next product's add),
 # 10.25 cycles a round on an H100 as measured by csrc/write_transform.cu's
@@ -44,22 +52,24 @@ def time_ms(fn, inputs, reps: int) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in marks)
 
 
-def _bound(nbytes: int, ops: int) -> tuple[float, str]:
-    """The larger of `nbytes` at the HBM rate and `ops` at the int8 rate
-    (ms), with the name of the bound."""
+def _bound(nbytes: int, ops: int,
+           rate: float = INT8_OPS_PER_S) -> tuple[float, str]:
+    """The larger of `nbytes` at the HBM rate and `ops` at `rate` (the
+    int8 rate unless given), in ms, with the name of the bound."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT8_OPS_PER_S * 1e3
+    t_ops = ops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def gf_bound(bitmat, data, out, w: int) -> tuple[float, str]:
     """Least time (ms) of a GF bitmatrix product: each input byte read once
     and each output byte written once at the HBM rate, or the GF(2)
-    product counted as int8 multiply-adds at the int8 rate, whichever is
-    larger, with the name of the bound."""
+    product's multiply-adds at GF2_OPS_PER_S, whichever is larger, with
+    the name of the bound."""
     nbytes = bitmat.numel() + data.numel() + out.numel()
     columns = data.numel() * 8 // (data.shape[-2] * w)
-    return _bound(nbytes, 2 * bitmat.shape[0] * bitmat.shape[1] * columns)
+    return _bound(nbytes, 2 * bitmat.shape[0] * bitmat.shape[1] * columns,
+                  GF2_OPS_PER_S)
 
 
 def packet_bound(bitmat, data, out) -> tuple[float, str]:
@@ -155,10 +165,11 @@ def gf_multi_bound(bitmats, data, out, w: int) -> tuple[float, str]:
     """Least time (ms) of a per-lane GF bitmatrix product (bitmats
     [P, R, k*w], data [P, ..., k, N]): gf_bound summed over the lanes,
     every lane's bitmatrix, data and output bytes once at the HBM rate, or
-    every lane's GF(2) product as int8 multiply-adds at the int8 rate."""
+    every lane's GF(2) product at GF2_OPS_PER_S."""
     nbytes = bitmats.numel() + data.numel() + out.numel()
     columns = data.numel() * 8 // (data.shape[-2] * w)
-    return _bound(nbytes, 2 * bitmats.shape[1] * bitmats.shape[2] * columns)
+    return _bound(nbytes, 2 * bitmats.shape[1] * bitmats.shape[2] * columns,
+                  GF2_OPS_PER_S)
 
 
 # integer instructions of one 16-byte step of csrc/hbm_digest.cu's fast

@@ -20,15 +20,18 @@ the card. Phases, each printing one JSON line:
                  static shared memory (``ops/launch_check.py``), which
                  must run.
   2. kernel      the GF bitmatrix kernel against ``matrix_encode_plain``
-                 on CUDA tensors, on both of its designs: bit-sliced
+                 on CUDA tensors, on its three designs: bit-sliced
                  (w=8 k=8 encode and three decode bitmatrices, w=8 k=16
                  m=4 encode and decode, a ragged N, a data pointer one
                  byte off, a [448, 128] bitmatrix whose expansion just
-                 fits in shared memory) and popcount (w=8 k=40, w=16,
-                 w=32, and w=8 bitmatrices of k = 4, 8, 16 whose
-                 expansion does not fit): byte equality, the design each
-                 case took and its one launch, as the entry point counts
-                 them, kernel / plain times.
+                 fits in shared memory), popcount (the w=16 encode) and
+                 mma, on the int8 tensor cores (w=8 k=40, w=32, w=8
+                 bitmatrices of k = 4, 8, 16 whose expansion does not
+                 fit, and a [1368, 720] one past 512 columns in eight row
+                 groups), then the per-lane and row-table entry points on
+                 the mma design past 512 columns: byte equality, the
+                 design each case took and its one launch, as the entry
+                 point counts them, kernel / plain times.
   3. main_path   ``registry.factory("torch_cuda", ...)``: encode_batch,
                  then decode_batch for all C(11,8)=165 erasure signatures
                  (reconstruction must equal the original rows; one object
@@ -160,15 +163,15 @@ the card. Phases, each printing one JSON line:
                  (wall time ended by a synchronise); (b) a recovery batch
                  of 64 objects of 4 MiB (503 MB of chunks on the card):
                  the encode, ``decode_batch`` over 8 signatures (each one
-                 popcount launch of a [840, 448] bitmatrix, past 48 KiB of
-                 masks), fractions and combines through
+                 mma launch of a [840, 448] bitmatrix in two row groups),
+                 fractions and combines through
                  ``GpuDispatcher.repair_fraction_async`` /
                  ``repair_combine_async`` from 8 threads and through
                  ``ec_util.repair_fraction`` / ``repair_combine``, every
                  rebuilt chunk equal to the original; (c) msr k=10, m=9,
                  whose [648, 720] encode and [1368, 720] decode go past
-                 the kernel's 512 columns: two launches each, byte-equal
-                 to the plain version. Launches by design per call,
+                 512 columns: one mma launch each, byte-equal to the
+                 plain version. Launches by design per call,
                  counted from 0 just before the phase; then each k=8
                  matrix (encode, decode, fraction, combine) alone at
                  (a)'s shapes: kernel ms, plain ms, bound.
@@ -206,7 +209,7 @@ ROOT = Path(__file__).resolve().parent
 
 BATCH, K, M, W, N = 16, 8, 3, 8, 131072
 # phase 11's sizes: (stripes or objects, object bytes) of the reference
-# bench's repair leg, the recovery batch and the k=10 column split
+# bench's repair leg, the recovery batch and k=10 past 512 columns
 MSR_BENCH, MSR_RECOVERY, MSR_SPLIT = (8, 1 << 20), (64, 4 << 20), (16, 1 << 20)
 PROFILE = {"technique": "reed_sol_van", "k": str(K), "m": str(M), "w": str(W)}
 
@@ -891,7 +894,7 @@ def msr_repair_phase(np, torch, dev, smi):
     card, through ``registry.factory("msr_cuda", ...)``: (a) the reference
     bench's repair leg at its own size (bench.py:1845-1920), (b) a
     recovery batch of 64 objects of 4 MiB through the dispatcher, ec_util
-    and decode_batch, (c) the column split at k=10, m=9; then each of the
+    and decode_batch, (c) k=10, m=9 past 512 columns; then each of the
     four k=8 matrices alone. Every GF kernel launch of the phase is
     counted by design, from 0 just before it. Returns the phase's part of
     the GF kernel's line."""
@@ -940,7 +943,7 @@ def msr_repair_phase(np, torch, dev, smi):
     ratio = (d * sub / obj) / (rs.k * chunk_rs / obj)
     data = rng.integers(0, 256, (stripes, k, chunk), dtype=np.uint8)
     parity, _, calls = per_call(lambda: msr.encode_batch(on_dev(data)))
-    one_launch(calls, "popcount", "the k=8 encode")
+    one_launch(calls, "mma", "the k=8 encode")
     calls_by["encode"] = calls
     full_a = np.concatenate([data, parity.cpu().numpy()], axis=1)
     rows = {msr.chunk_index(i): full_a[:, i] for i in range(n)}
@@ -955,7 +958,7 @@ def msr_repair_phase(np, torch, dev, smi):
                                         torch.stack(fr, dim=1))
 
     rebuilt, _, calls = per_call(repair_leg)
-    check(calls == {"popcount": 0, "bitsliced": d + 1},
+    check(calls == {"bitsliced": d + 1, "mma": 0, "popcount": 0},
           "a repair is d fraction launches and one combine (%s)" % calls)
     calls_by["repair_leg"] = calls
     rebuilt = rebuilt.cpu().numpy()
@@ -1004,7 +1007,7 @@ def msr_repair_phase(np, torch, dev, smi):
     data_b = on_dev(rng.integers(0, 256, (nobj, k, chunk_b),
                                  dtype=np.uint8))
     parity_b, enc_s, calls = per_call(lambda: msr.encode_batch(data_b))
-    one_launch(calls, "popcount", "(b)'s encode")
+    one_launch(calls, "mma", "(b)'s encode")
     full_b = torch.cat([data_b, parity_b], dim=1)
     del data_b, parity_b
     host_b = full_b.cpu().numpy()
@@ -1013,7 +1016,7 @@ def msr_repair_phase(np, torch, dev, smi):
         avail = tuple(sorted(rng.choice(n, k, replace=False).tolist()))
         surv = full_b[:, list(avail)].contiguous()
         out, wall, calls = per_call(lambda: msr.decode_batch(avail, surv))
-        one_launch(calls, "popcount", "decode %s" % (avail,))
+        one_launch(calls, "mma", "decode %s" % (avail,))
         check(torch.equal(out, full_b), "(b): decode %s rebuilds every "
               "chunk" % (avail,))
         dec_runs.append({"avail": list(avail), "seconds": wall,
@@ -1022,9 +1025,9 @@ def msr_repair_phase(np, torch, dev, smi):
     calls_by["decode_b"] = [r["launches"] for r in dec_runs]
     decode_bitmat = list(msr._decode_entry(
         tuple(dec_runs[0]["avail"]))["bitmat"].shape)
-    check(decode_bitmat == [840, 448] and
-          gf_kernel.mask_bytes(840, 448) > 48 * 1024,
-          "a k=8 decode is [840, 448], past 48 KiB of masks")
+    decode_groups = gf_kernel.row_groups(840, 56, 8, dev)
+    check(decode_bitmat == [840, 448] and len(decode_groups) == 2,
+          "a k=8 decode is [840, 448], in two row groups")
 
     disp = GpuDispatcher()
     threads, per = 8, nobj // 8
@@ -1060,7 +1063,8 @@ def msr_repair_phase(np, torch, dev, smi):
     disp.shutdown()
     check(not errors, "(b): every dispatcher rebuild equals the original "
           "(%s)" % errors[:3])
-    check(calls["popcount"] == 0 and calls["bitsliced"] == dispatches,
+    check(calls["bitsliced"] == dispatches and
+          sum(calls.values()) == dispatches,
           "(b): one bit-sliced launch a dispatch (%s)" % calls)
     calls_by["dispatcher_b"] = calls
     sinfo = ec_util.StripeInfo(k, k * chunk_b)
@@ -1071,7 +1075,7 @@ def msr_repair_phase(np, torch, dev, smi):
         fr, _, c1 = per_call(lambda: {h: ec_util.repair_fraction(
             sinfo, msr, tgt, host_b[i, h]) for h in hl})
         check(all(len(v) == sub_b for v in fr.values()) and
-              c1 == {"popcount": 0, "bitsliced": d},
+              c1 == {"bitsliced": d, "mma": 0, "popcount": 0},
               "(b): d fractions of chunk/alpha bytes, one launch each")
         out, _, c2 = per_call(lambda: ec_util.repair_combine(
             sinfo, msr, tgt, fr))
@@ -1084,7 +1088,7 @@ def msr_repair_phase(np, torch, dev, smi):
          chunk_bytes=chunk_b, fraction_bytes=sub_b,
          resident_bytes=int(full_b.numel()), encode_s=enc_s,
          decode_bitmat=decode_bitmat,
-         decode_mask_bytes=gf_kernel.mask_bytes(840, 448),
+         decode_row_groups=decode_groups,
          decode_runs=dec_runs,
          decode_MBps=[nobj * n * chunk_b / r["seconds"] / 1e6
                       for r in dec_runs],
@@ -1097,7 +1101,7 @@ def msr_repair_phase(np, torch, dev, smi):
     del full_b, host_b
     torch.cuda.empty_cache()
 
-    # (c) the column split: msr k=10, m=9 ([648, 720] and [1368, 720])
+    # (c) past 512 columns: msr k=10, m=9 ([648, 720] and [1368, 720])
     msr10 = registry.factory("msr_cuda", {"k": "10", "m": "9"})
     n10, obj10 = MSR_SPLIT
     chunk10 = msr10.get_chunk_size(obj10)
@@ -1122,14 +1126,13 @@ def msr_repair_phase(np, torch, dev, smi):
         ref = gf_kernel.matrix_encode_plain(bm, x, 8)
         err = int((got.to(torch.int16) - ref.to(torch.int16)).abs().max())
         split[name] = {"bitmat": list(bm.shape), "data": list(x.shape),
-                       "blocks": xor_mm.split_blocks(
-                           bm.shape[0], bm.shape[1], 8,
-                           gf_kernel.smem_limit(dev)),
+                       "row_groups": gf_kernel.row_groups(
+                           bm.shape[0], bm.shape[1] // 8, 8, dev),
                        "launches": launched, "max_abs_err": err}
-        check(err == 0, "(c): the split %s equals the plain version" % name)
-        check(launched == {"popcount": 2, "bitsliced": 0},
-              "(c): the k=10 %s is two popcount launches" % name)
-    emit("msr_repair", case="c_column_split_k10", split=split)
+        check(err == 0, "(c): the k=10 %s equals the plain version" % name)
+        check(launched == {"bitsliced": 0, "mma": 1, "popcount": 0},
+              "(c): the k=10 %s is one mma launch" % name)
+    emit("msr_repair", case="c_k10_one_launch", k10=split)
     calls_by["k10"] = {n_: split[n_]["launches"] for n_ in split}
     del data10, par10, full10, out10
     torch.cuda.empty_cache()
@@ -1168,8 +1171,8 @@ def msr_repair_phase(np, torch, dev, smi):
         emit("msr_repair", case="kernel_" + name, gpu=smi, **rec)
         check(err == 0, "the %s matrix equals the plain version" % name)
     check([timed[x]["design"] for x in mats] ==
-          ["popcount", "popcount", "bitsliced", "bitsliced"],
-          "encode and decode popcount, fraction and combine bit-sliced")
+          ["mma", "mma", "bitsliced", "bitsliced"],
+          "encode and decode mma, fraction and combine bit-sliced")
     return {"launches_by_design": phase_launches,
             "launches_by_call": calls_by, "matrices": timed,
             "max_abs_err": worst, "traffic_ratio": ratio}
@@ -1274,19 +1277,22 @@ def main() -> int:
         ("encode_offset1", W, gf.generator_to_bitmatrix(coding, W),
          [off_by_one(4, K, N)], "bitsliced"),
         ("encode_k40_m4", W, gf.generator_to_bitmatrix(coding40, W),
-         [rand_dev(2, 40, N // 8)], "popcount"),
+         [rand_dev(2, 40, N // 8)], "mma"),
         ("encode_k40_offset1", W, gf.generator_to_bitmatrix(coding40, W),
-         [off_by_one(2, 40, N // 8 - 3)], "popcount"),
+         [off_by_one(2, 40, N // 8 - 3)], "mma"),
         # E = rows * KMAX*8 words: 224 KiB fits the card's opt-in shared
-        # memory, 256 KiB (KMAX = 16, 8, 4) sends w=8 to the popcount kernel
+        # memory, 256 KiB (KMAX = 16, 8, 4) sends w=8 to the mma kernel
         ("random_448x128", W, rand_bitmat(448, 16),
          [rand_dev(2, 16, N // 8)], "bitsliced"),
         ("random_512x128", W, rand_bitmat(512, 16),
-         [rand_dev(2, 16, N // 8)], "popcount"),
+         [rand_dev(2, 16, N // 8)], "mma"),
         ("random_1024x64", W, rand_bitmat(1024, 8),
-         [rand_dev(2, 8, N // 8)], "popcount"),
+         [rand_dev(2, 8, N // 8)], "mma"),
         ("random_2048x32", W, rand_bitmat(2048, 4),
-         [rand_dev(2, 4, N // 8)], "popcount"),
+         [rand_dev(2, 4, N // 8)], "mma"),
+        # past 512 columns: the chunked mma kernel, eight row groups
+        ("random_1368x720", W, rand_bitmat(1368, 90),
+         [rand_dev(2, 90, N // 8)], "mma"),
         # the slice's geometries: SHEC k=8, m=4 decode from 11 survivors,
         # LRC k=4, m=2, l=3 decode from 6 survivors and its fused encode
         ("shec_decode_96x88", W, rand_bitmat(96, 11),
@@ -1298,7 +1304,7 @@ def main() -> int:
     for w in (16, 32):
         cases.append(("encode_w%d" % w, w, gf.generator_to_bitmatrix(
             gf.rs_vandermonde_generator(K, M, w), w), data_sets[:1],
-            "popcount"))
+            "popcount" if w == 16 else "mma"))
 
     timings = {}
     worst = 0
@@ -1335,7 +1341,40 @@ def main() -> int:
         check(err == 0, "kernel equals plain version for " + name)
     phase2_launches = {d: n - phase2_start[d]
                        for d, n in gf_kernel.launches_by_design().items()}
-    check(all(phase2_launches.values()), "both designs launched")
+    check(all(phase2_launches.values()), "every design launched")
+    # the per-lane and row-table entry points on the mma design past 512
+    # columns (the chunked kernel, three row groups of [400, 720])
+    bms = on_dev(rng.integers(0, 2, (3, 400, 720), dtype=np.uint8))
+    lane_data = rand_dev(3, 2, 90, N // 16)
+    part = rand_dev(3, 93, N // 16)
+    picks = np.concatenate([p * 93 + rng.permutation(93)[:90]
+                            for p in range(3)])
+    for entry, run, plain in (
+            ("multi",
+             lambda: gf_kernel.matrix_encode_multi(bms, lane_data, W),
+             lambda: gf_kernel.matrix_encode_multi_plain(bms, lane_data,
+                                                         W)),
+            ("multi_rows",
+             lambda: gf_kernel.matrix_encode_multi_rows(bms, [part],
+                                                        [picks], W),
+             lambda: gf_kernel.matrix_encode_multi_rows_plain(
+                 bms, [part], [picks], W))):
+        before = gf_kernel.launches_by_design(multi=True)
+        out = run()
+        torch.cuda.synchronize()
+        after = gf_kernel.launches_by_design(multi=True)
+        launched = {d: after[d] - before[d] for d in after}
+        err = int((out.to(torch.int16) - plain().to(torch.int16)).abs().max())
+        worst = max(worst, err)
+        emit("kernel", case="mma_" + entry, w=W, bitmat=list(bms.shape),
+             data=list(lane_data.shape) if entry == "multi" else
+             [3, 90, N // 16], design="mma", launches=launched,
+             equal=err == 0, max_abs_err=err)
+        check(launched == {"bitsliced": 0, "mma": 1, "popcount": 0},
+              "the %s entry point launched the mma design once" % entry)
+        check(err == 0, "kernel equals plain version for the %s entry "
+              "point" % entry)
+    del bms, lane_data, part
     del cases, k16
 
     # -- 3. main path: registry -> RS codec -> bank -> kernel -------------
@@ -2289,7 +2328,8 @@ def main() -> int:
         "name": "gf_bitmatrix_encode", "route": "cuda",
         "source": "ceph_tpu_torch/csrc/gf_bitmatrix.cu",
         "replaces": "ceph_tpu/ops/pallas_gf.py:58",
-        "design": main_design, "launches": launches,
+        "design": main_design, "designs": list(gf_kernel.DESIGNS),
+        "launches": launches,
         "launches_by_design": launches_by_design,
         "phase2_launches_by_design": phase2_launches,
         "matched": worst == 0 and msr_part["max_abs_err"] == 0,

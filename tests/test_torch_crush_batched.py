@@ -10,7 +10,8 @@ of 4 OSDs, OSD 3 out) with its indep rule and a firstn one. Cases:
 reweights at 0, 0x8000 and a short vector, seeds below 0 and at 2^31
 and above, the plain version's chunks, and the scalar fallbacks (a
 malformed map, a legacy bucket alg, firstn under exotic tunables), which
-:func:`batched.paths` counts. The choose_args cases are in
+:func:`batched.paths` counts, and the extras (``choose_args``,
+``device_out``, ``device``) keyword-only. The choose_args cases are in
 tests/test_torch_crush_weight_sets.py, the 1024-OSD cluster and the rule
 shapes in tests/test_torch_crush_rules.py. The reference compiles once per
 map, rule and shape (seconds on one core), so each reference output is
@@ -110,3 +111,19 @@ def test_plain_chunks_give_the_same_sweep(one_torch_thread, monkeypatch):  # noq
                                   device="cpu")
     np.testing.assert_array_equal(cut, whole)
     np.testing.assert_array_equal(whole, bench_ref("firstn"))
+
+
+def test_extras_are_keyword_only():
+    """The reference's sixth parameter is ``xs_sharding`` and its seventh
+    ``choose_args`` (``ceph_tpu/crush/batched.py:509-511``); the port's
+    extras are keyword-only, so a positional call in the reference's form
+    fails loudly instead of mapping with the wrong weight set."""
+    m = bench_map(tmap)
+    with pytest.raises(TypeError):
+        batched.batched_do_rule(m, 0, SEEDS[:8], 5, bench_reweight("plain"),
+                                None, None, device="cpu")
+    with pytest.raises(TypeError):
+        batched.batched_do_rule(m, 0, SEEDS[:8], 5, None, 0)
+    out = batched.batched_do_rule(m, 0, SEEDS[:8], 5, None, choose_args=0,
+                                  device="cpu")
+    assert out.shape == (8, 5)

@@ -9,6 +9,8 @@ tests/test_pallas.py, plus w=16 and w=32. The CUDA kernel itself is held
 against the same plain version on the card by tests/test_torch_gpu.py.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +23,7 @@ from ceph_tpu.ops import pallas_gf
 from ceph_tpu.ops import xor_mm as jxor_mm
 from ceph_tpu_torch.ops import gf, gf_kernel, xor_mm
 
+from . import torch_mma_plan as plan
 from .torch_util import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -113,7 +116,7 @@ def test_wide_words_match_xla(w, decode):
 @pytest.mark.parametrize("rows,k", [(512, 16), (1024, 8), (2048, 4)])
 def test_tall_random_bitmatrix_matches_xla(rows, k):
     """w=8 bitmatrices too tall for the bit-sliced design's shared memory,
-    which the card runs on the popcount kernel, are taken by the wrapper."""
+    which the card runs on the mma kernel, are taken by the wrapper."""
     rng = np.random.default_rng(rows)
     bm = rng.integers(0, 2, (rows, k * 8), dtype=np.uint8)
     data = rng.integers(0, 256, size=(2, k, 96), dtype=np.uint8)
@@ -127,7 +130,8 @@ def test_launch_counts_are_zero_before_a_build(monkeypatch):
     monkeypatch.setattr(gf_kernel, "LAUNCHES", 5)
     gf_kernel.reset_launches()
     assert gf_kernel.LAUNCHES == 0
-    assert gf_kernel.launches_by_design() == {"popcount": 0, "bitsliced": 0}
+    assert gf_kernel.launches_by_design() == {"bitsliced": 0, "mma": 0,
+                                              "popcount": 0}
 
 
 def test_xor_mm_routes_to_the_wrapper():
@@ -152,7 +156,7 @@ def test_cpu_tensor_takes_plain_version_without_launch():
     "dtype", "bitmat_dtype", "columns", "too_wide", "rows", "ragged_w",
     "noncontiguous", "w",
 ])
-def test_wrapper_rejects(case):
+def test_wrapper_rejects(case, monkeypatch):
     _, bm = make_bitmat(8, 3)
     bm = torch.from_numpy(bm)
     data = torch.zeros((1, 8, 64), dtype=torch.uint8)
@@ -163,10 +167,23 @@ def test_wrapper_rejects(case):
         bm = bm.to(torch.int32)
     elif case == "columns":
         data = torch.zeros((1, 7, 64), dtype=torch.uint8)
-    elif case == "too_wide":        # k*w = 17*32 = 544 > 512
-        w = 32
-        bm = torch.zeros((32, 17 * 32), dtype=torch.uint8)
-        data = torch.zeros((1, 17, 64), dtype=torch.uint8)
+    elif case == "too_wide":        # k*w = 57*32 = 1824 > 1792 on an H100
+        # the card's entry point as tests/torch_mma_plan.py restates it:
+        # -1 (refused) where no row group fits, so the wrapper raises
+        # before any launch; 56 rows pass
+        class Card:
+            @staticmethod
+            def gf_bitmatrix_design(rows, k, w):
+                return 1 if plan.group_tiles(rows, k * w,
+                                             plan.H100_OPTIN) else -1
+
+        monkeypatch.setattr(gf_kernel, "_kernel", Card)
+        monkeypatch.setattr(torch.cuda, "device",
+                            lambda device: contextlib.nullcontext())
+        gf_kernel._check_geometry(32, 56 * 32, 56, 64, 32, "cuda")
+        with pytest.raises(ValueError, match="does not take"):
+            gf_kernel._check_geometry(32, 57 * 32, 57, 64, 32, "cuda")
+        return
     elif case == "rows":
         bm = bm[:20].contiguous()
     elif case == "ragged_w":        # N must be a multiple of w/8
@@ -244,7 +261,7 @@ def test_sweep_fails_without_a_card(monkeypatch, capsys):
 
 @pytest.mark.parametrize("rows,out_rows,want_ms,want_by", [
     (24, 3, 0.006886629253731343, "bytes"),        # encode [16, 8, 2^17]
-    (88, 11, 0.011936493243052047, "operations"),  # decode
+    (88, 11, 0.011895976119402985, "bytes"),       # decode
 ])
 def test_gf_bound_of_the_main_path(rows, out_rows, want_ms, want_by):
     from ceph_tpu_torch.utils.cuda_timing import gf_bound

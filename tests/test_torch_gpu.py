@@ -8,12 +8,14 @@ without the reference installed:
 
 The CUDA kernels have no CPU mode; each test holds one against its plain
 PyTorch version on the card (tolerance: none, bit-exact). The GF
-bitmatrix kernel on both of its designs: bit-sliced for w=8 with k <= 16
-when the expanded bitmatrix fits in shared memory, popcount for every
-other geometry. The packet kernel on its three designs: staged through
-shared memory where k*w tiles fit, 16-byte columns loaded per set bit
-past that, byte columns for other packetsizes or unaligned pointers. The write transform's kernels (CRC rows, xxh32
-rows, the bit-plane stage) on their aligned and byte paths, and one
+bitmatrix kernel on its three designs: bit-sliced for w=8 with k <= 16
+when the expanded bitmatrix fits in shared memory, popcount for w=16 with
+k <= 8, mma (int8 tensor cores) for every other geometry. The packet
+kernel on its three designs: staged through shared memory where k*w
+tiles fit, 16-byte columns loaded per set bit past that, byte columns
+for other packetsizes or unaligned pointers. The write transform's
+kernels (CRC rows, xxh32 rows, the bit-plane stage) on their aligned and
+byte paths, and one
 ``ec_util.encode_fused`` on the card in each mode against the CPU path.
 The CRUSH straw2 kernel on both of its designs (tables staged in shared
 memory, past 48 KiB too, or read from device memory) on the bench's map,
@@ -32,10 +34,11 @@ consumers, adoption from the pipelined dispatcher with no upload,
 eviction. The CRUSH kernel also at every group size (1 to 32 lanes a
 seed), on buckets of 1, 3, 17 and 33 items, with forced ties and a
 bucket of zero weights, and its profiled launch (the clock split). The
-MSR code's geometries: the GF kernel's popcount design past 48 KiB of
-masks (an MSR decode's [840, 448], the tallest bitmatrix the opt-in limit
-holds, one row past it refused with no launch), the column split of
-k = 10 in two launches, and ``msr_cuda`` k=8, m=7 against the numpy
+MSR code's geometries: the GF kernel's mma design in row groups (an MSR
+decode's [840, 448] in two, a bitmatrix of 3,640 rows, the widest k*w
+the opt-in limit holds, one K-tile past it refused with no launch),
+k = 10's products past 512 columns in one launch each, dense, per lane
+and through a row table, and ``msr_cuda`` k=8, m=7 against the numpy
 ``msr``.
 """
 
@@ -58,6 +61,8 @@ from ceph_tpu_torch.osd import ec_util
 from ceph_tpu_torch.osd import fused_transform as ft
 from ceph_tpu_torch.osd.gpu_dispatch import GpuDispatcher
 from ceph_tpu_torch.osd.hbm_tier import HbmChunkTier, host_digest
+
+from . import torch_mma_plan as plan
 
 PROFILE = {"technique": "reed_sol_van", "k": "8", "m": "3", "w": "8"}
 
@@ -83,7 +88,9 @@ def bitmats(k, m, w):
 
 
 def expected_design(k, w):
-    return "bitsliced" if w == 8 and k * w <= 128 else "popcount"
+    if k * w <= 128:
+        return "bitsliced" if w == 8 else "popcount"
+    return "mma"
 
 
 def held_against_plain(bm, data, w, design=None):
@@ -105,7 +112,8 @@ def held_against_plain(bm, data, w, design=None):
 @pytest.mark.parametrize("w,k,m,n", [
     (8, 8, 3, 4096), (8, 12, 4, 1000), (8, 2, 1, 512), (8, 16, 4, 4096),
     (8, 16, 4, 32 * 40 + 7), (8, 40, 4, 1024), (8, 1, 2, 7),
-    (16, 8, 3, 2050), (32, 8, 3, 4100), (32, 16, 2, 2052),
+    (16, 8, 3, 2050), (16, 9, 3, 2050), (32, 8, 3, 4100), (32, 16, 2, 2052),
+    (32, 4, 2, 4100), (32, 1, 1, 260),
 ])
 def test_kernel_matches_plain_on_card(cuda, w, k, m, n):
     rng = np.random.default_rng(w * 1000 + k)
@@ -136,13 +144,13 @@ def test_data_pointer_off_by_one_on_card(cuda, w, k, m):
 @pytest.mark.gpu
 @pytest.mark.parametrize("rows,k,design", [
     (448, 16, "bitsliced"),   # E of 224 KiB fits the opt-in shared memory
-    (512, 16, "popcount"),    # 256 KiB does not, at KMAX = 16, 8 and 4
-    (1024, 8, "popcount"),
-    (2048, 4, "popcount"),
+    (512, 16, "mma"),         # 256 KiB does not, at KMAX = 16, 8 and 4
+    (1024, 8, "mma"),
+    (2048, 4, "mma"),
 ])
 def test_shared_memory_limit_picks_the_design_on_card(cuda, rows, k, design):
     """A w=8 bitmatrix whose expansion does not fit in shared memory takes
-    the popcount kernel."""
+    the mma kernel."""
     rng = np.random.default_rng(rows)
     bm = torch.from_numpy(rng.integers(0, 2, (rows, k * 8),
                                        dtype=np.uint8)).to(cuda)
@@ -1028,9 +1036,10 @@ def multi_held_against_plain(bms, data, w, design):
     (8, 8, 88, (2,), 32 * 40 + 7, "bitsliced"),   # decode bitmatrices
     (8, 8, 8, (1,), 4096, "bitsliced"),           # one lost shard's rows
     (8, 4, 16, (2, 3), 1000, "bitsliced"),
-    (8, 40, 32, (2,), 1024 + 5, "popcount"),
+    (8, 40, 32, (2,), 1024 + 5, "mma"),
     (16, 8, 48, (2,), 2050, "popcount"),
     (32, 4, 64, (1,), 4100, "popcount"),
+    (32, 8, 96, (1,), 4100, "mma"),
 ])
 def test_matrix_encode_multi_matches_plain_on_card(cuda, lanes, w, k, rows,
                                                    lead, n, design):
@@ -1085,9 +1094,10 @@ def rows_held(cuda, bms, parts, rows, w, design):
     (8, 8, 8, 4096, "bitsliced"),        # one lost shard's rows
     (8, 8, 88, 16000, "bitsliced"),      # a ragged 32-column unit
     (8, 4, 16, 1024, "bitsliced"),
-    (8, 40, 32, 1024, "popcount"),
+    (8, 40, 32, 1024, "mma"),
     (16, 8, 48, 2048, "popcount"),
     (32, 4, 64, 4096, "popcount"),
+    (32, 8, 96, 4096, "mma"),
 ])
 def test_matrix_encode_multi_rows_on_card(cuda, w, k, rows, n, design):
     """Survivors from several upload batches [B, k+3, n] in one call,
@@ -1213,50 +1223,95 @@ def test_tier_adopts_from_the_pipelined_dispatcher_on_card(cuda, kind):
 
 # -- the MSR code's geometries ----------------------------------------------
 
-def _optin_rows(device, cols):
-    """The most element rows whose popcount masks fit the card's opt-in
-    shared memory at `cols` columns (3,632 at 448 on an H100)."""
-    limit = gf_kernel.smem_limit(device)
-    return limit // gf_kernel.mask_bytes(1, cols) // 8 * 8
-
-
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows", ["msr_decode", "optin_edge"])
-def test_popcount_past_48_kib_on_card(cuda, rows):
-    """The MSR decode's [840, 448] (53,760 bytes of masks) and the
-    tallest [R, 448] the opt-in limit holds: one popcount launch each,
+@pytest.mark.parametrize("rows,cols", [(840, 448), (3640, 448), (16, 1792)],
+                         ids=["msr_decode", "tall", "widest"])
+def test_mma_row_groups_on_card(cuda, rows, cols):
+    """The MSR decode's [840, 448] (two row groups), a bitmatrix of 3,640
+    rows (past what one block's shared memory holds) and the widest k*w
+    the opt-in limit takes: the C entry point's plan is the one
+    tests/torch_mma_plan.py restates, and each product is one mma launch,
     byte-equal to the plain version."""
-    rows = 840 if rows == "msr_decode" else _optin_rows(cuda, 448)
-    assert gf_kernel.mask_bytes(rows, 448) > 48 * 1024
+    groups = gf_kernel.row_groups(rows, cols // 8, 8, cuda)
+    optin = torch.cuda.get_device_properties(
+        cuda).shared_memory_per_block_optin
+    assert groups == plan.row_groups(rows, cols, optin)
+    assert gf_kernel.max_k(8, cuda) == plan.max_k(8, optin)
+    if optin == plan.H100_OPTIN:
+        assert len(groups) == {840: 2, 3640: 9, 16: 1}[rows]
     rng = np.random.default_rng(rows)
-    bm = torch.from_numpy(rng.integers(0, 2, (rows, 448),
+    bm = torch.from_numpy(rng.integers(0, 2, (rows, cols),
                                        dtype=np.uint8)).to(cuda)
-    data = torch.from_numpy(rng.integers(0, 256, (2, 56, 4 * 1000 + 4),
+    data = torch.from_numpy(rng.integers(0, 256, (2, cols // 8, 4 * 1000 + 4),
                                          dtype=np.uint8)).to(cuda)
-    held_against_plain(bm, data, 8, "popcount")
+    held_against_plain(bm, data, 8, "mma")
 
 
 @pytest.mark.gpu
-def test_popcount_one_row_past_the_opt_in_raises_on_card(cuda):
-    rows = _optin_rows(cuda, 448) + 8
-    bm = torch.zeros((rows, 448), dtype=torch.uint8, device=cuda)
-    data = torch.zeros((1, 56, 64), dtype=torch.uint8, device=cuda)
+def test_mma_past_the_widest_launch_on_card(cuda):
+    """k*w = 1800: even the smallest row group does not fit beside the
+    warps' data tiles, so the wrapper refuses it before any launch, and
+    the codecs' entry point runs it as two launches of 113 and 112 data
+    rows, byte-equal to the plain version."""
+    rng = np.random.default_rng(1800)
+    bm = torch.from_numpy(rng.integers(0, 2, (16, 1800),
+                                       dtype=np.uint8)).to(cuda)
+    data = torch.from_numpy(rng.integers(0, 256, (2, 225, 1000),
+                                         dtype=np.uint8)).to(cuda)
     before = gf_kernel.launches_by_design()
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="does not take"):
         gf_kernel.matrix_encode(bm, data, 8)
     torch.cuda.synchronize()
     assert gf_kernel.launches_by_design() == before
-    # the codecs' entry point splits it into row blocks instead
     out = xor_mm.matrix_encode(bm, data, 8)
-    assert out.shape == (1, rows // 8, 64) and not out.any()
+    torch.cuda.synchronize()
+    after = gf_kernel.launches_by_design()
+    assert {d: after[d] - before[d] for d in after} == {
+        "bitsliced": 0, "mma": 2, "popcount": 0}
+    assert torch.equal(out, gf_kernel.matrix_encode_plain(bm, data, 8))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("which", ["encode", "decode"])
-def test_msr_k10_column_split_on_card(cuda, which):
-    """msr k=10, m=9: [648, 720] and [1368, 720] past the kernel's 512
-    columns, two popcount launches each through xor_mm.matrix_encode,
-    byte-equal to the plain version of the whole product."""
+def test_msr_k17_two_launches_on_card(cuda, which):
+    """msr k=17, m=16: [2048, 2176] and [4224, 2176], 272 sub-symbol rows
+    past the 224 of one launch: two mma launches of 136 rows each
+    through the codec, byte-equal to the plain version."""
+    codec = registry.factory("msr_cuda", {"k": "17", "m": "16"},
+                             device=cuda)
+    rng = np.random.default_rng(17)
+    chunk = codec.get_chunk_size(17 * 16 * 64)
+    data = torch.from_numpy(rng.integers(0, 256, (2, 17, chunk),
+                                         dtype=np.uint8)).to(cuda)
+    before = gf_kernel.launches_by_design()
+    parity = codec.encode_batch(data)
+    avail = tuple(range(0, 33, 2))
+    full = torch.cat([data, parity], dim=1)
+    if which == "decode":
+        before = gf_kernel.launches_by_design()
+        got = codec.decode_batch(avail, full[:, list(avail)].contiguous())
+        assert torch.equal(got, full)
+        bm = torch.from_numpy(codec._decode_entry(avail)["bitmat"]).to(cuda)
+        sub = full[:, list(avail)].reshape(2, 272, -1)
+    else:
+        got = parity
+        bm = torch.from_numpy(codec._bitmat).to(cuda)
+        sub = data.reshape(2, 272, -1)
+    torch.cuda.synchronize()
+    after = gf_kernel.launches_by_design()
+    assert {d: after[d] - before[d] for d in after} == {
+        "bitsliced": 0, "mma": 2, "popcount": 0}
+    plain = gf_kernel.matrix_encode_plain(bm, sub, 8)
+    assert torch.equal(got.reshape(plain.shape) if which == "encode"
+                       else got.reshape(2, -1, plain.shape[-1]), plain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["encode", "decode"])
+def test_msr_k10_one_launch_on_card(cuda, which):
+    """msr k=10, m=9: [648, 720] and [1368, 720], past 512 columns, one
+    mma launch each through xor_mm.matrix_encode, byte-equal to the
+    plain version."""
     codec = registry.factory("msr_cuda", {"k": "10", "m": "9"},
                              device=cuda)
     bm_np = codec._bitmat if which == "encode" else \
@@ -1268,9 +1323,31 @@ def test_msr_k10_column_split_on_card(cuda, which):
     out = xor_mm.matrix_encode(bm, data, 8)
     torch.cuda.synchronize()
     after = gf_kernel.launches_by_design()
-    assert {d: after[d] - before[d] for d in after} == {"popcount": 2,
-                                                       "bitsliced": 0}
+    assert {d: after[d] - before[d] for d in after} == {
+        "bitsliced": 0, "mma": 1, "popcount": 0}
     assert torch.equal(out, gf_kernel.matrix_encode_plain(bm, data, 8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w,k", [(8, 90), (16, 45), (32, 20)])
+def test_mma_past_512_columns_per_lane_and_row_table_on_card(cuda, w, k):
+    """k*w = 720 and 640 (the chunked kernels, 8 N-tiles a step) through
+    the per-lane and row-table entry points: one mma launch each, 5 lanes
+    of [400, 720] or [416, 640] bitmatrices (3 and 2 row groups on an
+    H100), byte-equal to the plain versions."""
+    rng = np.random.default_rng(w + k)
+    lanes, rows, n = 5, 400 if w < 32 else 416, 1008 * w // 8
+    assert len(gf_kernel.row_groups(rows, k, w, cuda)) == (3 if w < 32
+                                                           else 2)
+    bms = torch.from_numpy(rng.integers(0, 2, (lanes, rows, k * w),
+                                        dtype=np.uint8)).to(cuda)
+    data = torch.from_numpy(rng.integers(0, 256, (lanes, 2, k, n),
+                                         dtype=np.uint8)).to(cuda)
+    multi_held_against_plain(bms, data, w, "mma")
+    part = torch.from_numpy(rng.integers(0, 256, (lanes, k + 3, n),
+                                         dtype=np.uint8)).to(cuda)
+    picks = [p * (k + 3) + rng.permutation(k + 3)[:k] for p in range(lanes)]
+    rows_held(cuda, bms, [part], [np.concatenate(picks)], w, "mma")
 
 
 @pytest.mark.gpu

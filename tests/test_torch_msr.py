@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from ceph_tpu import registry as jregistry
+from ceph_tpu.ops import gf_ref as jgf_ref
 from ceph_tpu_torch import registry
 from ceph_tpu_torch.errors import ErasureCodeError
 from ceph_tpu_torch.models.matrix_base import load_msr_state
@@ -25,11 +26,12 @@ from ceph_tpu_torch.ops import gf, gf_kernel, gf_ref, xor_mm
 from ceph_tpu_torch.osd import ec_util
 from ceph_tpu_torch.osd.gpu_dispatch import GpuDispatcher
 
+from . import torch_mma_plan as plan
+from .torch_mma_plan import H100_OPTIN
 from .torch_util import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
-H100_OPTIN = 232448       # shared_memory_per_block_optin of an H100
 GEOMETRIES = [(4, 3), (8, 7)]
 
 
@@ -320,29 +322,11 @@ def test_chunk_mapping_repair_equals_reference():
                           phys[target])
 
 
-# -- the GF kernel's geometries: the column and row splits ---------------------
-
-@pytest.mark.parametrize("rows,cols,limit,want_rows,want_cols", [
-    (392, 448, H100_OPTIN, [(0, 392)], [(0, 448)]),
-    (840, 448, H100_OPTIN, [(0, 840)], [(0, 448)]),
-    (3632, 448, H100_OPTIN, [(0, 3632)], [(0, 448)]),
-    (3640, 448, H100_OPTIN, [(0, 3632), (3632, 3640)], [(0, 448)]),
-    (648, 720, H100_OPTIN, [(0, 648)], [(0, 512), (512, 720)]),
-    (1368, 720, H100_OPTIN, [(0, 1368)], [(0, 512), (512, 720)]),
-    (1368, 720, None, [(0, 1368)], [(0, 512), (512, 720)]),
-    (840, 448, 48 * 1024, [(0, 768), (768, 840)], [(0, 448)]),
-], ids=["msr_encode", "msr_decode", "optin_edge", "optin_edge+1",
-        "k10_encode", "k10_decode", "cpu", "default_48KiB"])
-def test_split_blocks(rows, cols, limit, want_rows, want_cols):
-    assert xor_mm.split_blocks(rows, cols, 8, limit) == (want_rows,
-                                                         want_cols)
-    if limit is not None:
-        assert all(gf_kernel.mask_bytes(r1 - r0, min(cols, 512)) <= limit
-                   for r0, r1 in want_rows)
-
+# -- the GF kernel's geometries: row groups and blocks of data rows ---------
 
 def test_cpu_has_no_shared_memory_limit():
-    assert gf_kernel.smem_limit("cpu") is None
+    assert gf_kernel.max_k(8, "cpu") is None
+    assert gf_kernel.row_groups(3640, 56, 8, "cpu") == [(0, 3640)]
     bm = torch.zeros((3640, 448), dtype=torch.uint8)
     out = gf_kernel.matrix_encode(bm, torch.zeros((1, 56, 16),
                                                   dtype=torch.uint8), 8)
@@ -351,7 +335,7 @@ def test_cpu_has_no_shared_memory_limit():
 
 @pytest.fixture
 def counted(monkeypatch):
-    """Kernel wrapper calls (one launch each on a card) by the split."""
+    """Kernel wrapper calls (one launch each on a card)."""
     calls = []
     real = gf_kernel.matrix_encode
 
@@ -363,18 +347,17 @@ def counted(monkeypatch):
     return calls
 
 
-def test_k10_encode_and_decode_split_in_two(counted):
-    """msr k=10, m=9: encode [648, 720] and decode [1368, 720] go past
-    the kernel's 512 columns, so each is two launches, byte-equal to
-    gf_ref."""
+def test_k10_encode_and_decode_one_call_each(counted):
+    """msr k=10, m=9: encode [648, 720] and decode [1368, 720], past 512
+    columns, are one call of the kernel's wrapper each (one launch on a
+    card), byte-equal to gf_ref."""
     codec = port(10, 9)
     assert codec._bitmat.shape == (648, 720)
     chunk = codec.get_chunk_size(10 * 1440)
     data = np.random.default_rng(10).integers(0, 256, (2, 10, chunk),
                                               dtype=np.uint8)
     parity = codec.encode_batch(data)
-    assert counted == [((648, 512), (2, 64, chunk // 9)),
-                       ((648, 208), (2, 26, chunk // 9))]
+    assert counted == [((648, 720), (2, 90, chunk // 9))]
     for b in range(2):
         sub = data[b].reshape(90, chunk // 9)
         assert np.array_equal(
@@ -384,7 +367,7 @@ def test_k10_encode_and_decode_split_in_two(counted):
     avail = (0, 2, 4, 6, 8, 10, 12, 14, 16, 18)
     del counted[:]
     out = codec.decode_batch(avail, np.ascontiguousarray(full[:, avail]))
-    assert [c[0] for c in counted] == [(1368, 512), (1368, 208)]
+    assert [c[0] for c in counted] == [(1368, 720)]
     assert np.array_equal(out, full)
     entry = codec._decode_entry(avail)
     for b in range(2):
@@ -393,21 +376,88 @@ def test_k10_encode_and_decode_split_in_two(counted):
                               gf_ref.matrix_encode_ref(entry["gf"], sub, 8))
 
 
-def test_split_encode_rows_and_columns_against_gf_ref():
-    """A row split forced by a small limit, beside the column split, on
-    the plain version: the same bytes as one product."""
+def h100_max_k(monkeypatch, most=None):
+    """The codecs' entry point sees a card's one-launch limit: `most`
+    data rows, or an H100's (k*w = 1,792 bits)."""
+    monkeypatch.setattr(gf_kernel, "max_k", lambda w, device: (
+        plan.max_k(w, H100_OPTIN) if most is None else most))
+
+
+def test_k17_encode_and_decode_in_two_blocks_against_gf_ref(counted,
+                                                             monkeypatch):
+    """msr k=17, m=16: 17*16 = 272 sub-symbol rows, 2,176 bits, past the
+    1,792 of one launch on an H100: the encode [2048, 2176] and a decode
+    [4224, 2176] are two calls each on 136 data rows, their partial
+    products XORed: the parity byte-equal to the JAX package's gf_ref
+    (its msr codec takes minutes to build at k=17), the decode to the
+    object."""
+    h100_max_k(monkeypatch)
+    codec = port(17, 16)
+    assert codec._bitmat.shape == (2048, 2176)
+    chunk = codec.get_chunk_size(17 * 16 * 16)
+    sub = chunk // 16
+    data = np.random.default_rng(17).integers(0, 256, (1, 17, chunk),
+                                              dtype=np.uint8)
+    parity = codec.encode_batch(data)
+    assert counted == [((2048, 1088), (1, 136, sub))] * 2
+    assert np.array_equal(parity[0].reshape(256, -1),
+                          jgf_ref.matrix_encode_ref(
+                              codec.coding, data[0].reshape(272, sub), 8))
+    full = np.concatenate([data, parity], axis=1)
+    avail = tuple(range(0, 33, 2))
+    del counted[:]
+    out = codec.decode_batch(avail, np.ascontiguousarray(full[:, avail]))
+    assert [c[0] for c in counted] == [(4224, 1088)] * 2
+    assert np.array_equal(out, full)
+
+
+@pytest.mark.parametrize("most,blocks", [
+    (70, [70]), (69, [35, 35]), (30, [24, 24, 22]),
+    (8, [8] * 8 + [6]), (1, [1] * 70),
+], ids=["one_launch", "two", "three", "nine", "a_row_each"])
+def test_blocks_of_data_rows_against_gf_ref(counted, monkeypatch, most,
+                                            blocks):
+    """A product of more data rows than one launch takes: even blocks of
+    at most `most` rows, one wrapper call each, XORed to the product."""
+    h100_max_k(monkeypatch, most)
+    rng = np.random.default_rng(most)
+    gen = rng.integers(0, 256, (40, 70), dtype=np.uint8)
+    bm = torch.from_numpy(gf.generator_to_bitmatrix(gen, 8))
+    data = rng.integers(0, 256, (2, 70, 48), dtype=np.uint8)
+    out = xor_mm.matrix_encode(bm, torch.from_numpy(data), 8)
+    assert counted == [((320, 8 * b), (2, b, 48)) for b in blocks]
+    for b in range(2):
+        assert np.array_equal(out[b].numpy(),
+                              gf_ref.matrix_encode_ref(gen, data[b], 8))
+    with pytest.raises(ValueError, match="columns"):
+        xor_mm.matrix_encode(bm[:, :-8].contiguous(),
+                             torch.from_numpy(data), 8)
+
+
+@pytest.mark.parametrize("limit", [None, H100_OPTIN, 100_000, 64 * 8 * 16])
+def test_row_groups_cover_the_product_against_gf_ref(limit):
+    """Each row group of the plan computed on its own rows and stacked is
+    the whole product: the groups partition the rows in order, at the
+    plan of a card (a [320, 560] product, 18 K-tiles, so 8 N-tiles a
+    step; tests/torch_mma_plan.py restates the C entry point's plan) and
+    of the CPU."""
     rng = np.random.default_rng(11)
     gen = rng.integers(0, 256, (40, 70), dtype=np.uint8)
     bm = torch.from_numpy(gf.generator_to_bitmatrix(gen, 8))
-    data = rng.integers(0, 256, (2, 70, 96), dtype=np.uint8)
-    for limit in (None, 64 * 8 * 16, 64 * 8 * 3):
-        rows, cols = xor_mm.split_blocks(320, 560, 8, limit)
-        assert len(cols) == 2 and len(rows) == {None: 1, 8192: 3,
-                                                1536: 14}[limit]
-        out = xor_mm.split_encode(bm, torch.from_numpy(data), 8, limit)
-        for b in range(2):
-            assert np.array_equal(out[b].numpy(),
-                                  gf_ref.matrix_encode_ref(gen, data[b], 8))
+    data = torch.from_numpy(rng.integers(0, 256, (2, 70, 96),
+                                         dtype=np.uint8))
+    if limit == 64 * 8 * 16:
+        with pytest.raises(ValueError, match="shared memory"):
+            plan.row_groups(320, 560, limit)
+        return
+    groups = (gf_kernel.row_groups(320, 70, 8, "cpu") if limit is None
+              else plan.row_groups(320, 560, limit))
+    assert len(groups) == {None: 1, H100_OPTIN: 1, 100_000: 5}[limit]
+    out = torch.cat([gf_kernel.matrix_encode(bm[r0:r1].contiguous(), data, 8)
+                     for r0, r1 in groups], dim=-2)
+    for b in range(2):
+        assert np.array_equal(out[b].numpy(), gf_ref.matrix_encode_ref(
+            gen, data[b].numpy(), 8))
 
 
 # -- the dispatcher's and ec_util's repair legs ----------------------------------
