@@ -15,7 +15,11 @@ firstn under the jewel tunables, with choose_args weight sets and ids
 and a reweight vector. Legacy bucket algs, multi-step rules, chooseleaf
 to type 0, firstn under other tunables and malformed maps take the
 port's scalar interpreter (``crush/mapper_ref.py``) on the host, as in
-the reference; :func:`paths` counts which path each call took.
+the reference; :func:`paths` counts which path each call took. A sweep,
+kernel or plain, is counted in the device profiler's kernel registry
+(``common/profiler.py``) as ``crush.indep`` or ``crush.firstn``, the
+reference's names; its signature keys on the map's item table, the seeds
+and the reweight vector.
 
 The plain version ports the reference's vectorised XLA program to int64
 torch tensors (``take_along_axis`` becomes ``gather``, the while and
@@ -35,6 +39,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..common.profiler import PROFILER
 from ..device import resolve_device
 from .hashing import hash32_2_t, hash32_3_t
 from .ln import LN_MIN_OFFSET, crush_ln_t, straw2_draw_divide_t
@@ -507,6 +512,19 @@ def map_plain(cm: CompiledMap, plan: RulePlan, xs: torch.Tensor,
 
 # -- the entry point -----------------------------------------------------------
 
+def _sweep(items, xs, wvec, *, cm, plan):
+    """One sweep of the CUDA kernel or, for seeds on the CPU, the plain
+    version; `items` is ``cm.items``, passed for the profiler's
+    signature, as the reference passes its tables."""
+    from ..ops import crush_kernel  # it imports this module's plain version
+    return crush_kernel.crush_sweep(cm, plan, xs, wvec)
+
+
+# ref batched.py:301-302 and :442-443
+_SWEEPS = {False: PROFILER.wrap_kernel("crush.indep", _sweep),
+           True: PROFILER.wrap_kernel("crush.firstn", _sweep)}
+
+
 def _scalar(cmap, ruleno, xs, result_max, weight, choose_args):
     if isinstance(weight, torch.Tensor):
         weight = weight.cpu().numpy()
@@ -561,12 +579,11 @@ def batched_do_rule(cmap: CrushMap, ruleno: int, xs, result_max: int,
         return _scalar(cmap, ruleno, xs_host, result_max, weight,
                        choose_args)
 
-    from ..ops import crush_kernel  # it imports this module's plain version
     if isinstance(xs, torch.Tensor):
         xs_t = xs.to(device=dev, dtype=torch.int64)
     else:
         xs_t = torch.from_numpy(np.asarray(xs, dtype=np.int64)).to(dev)
     wvec = reweight_vector(weight, cm.max_devices)
-    out = crush_kernel.crush_sweep(cm, plan, xs_t, wvec)
+    out = _SWEEPS[plan.firstn](cm.items, xs_t, wvec, cm=cm, plan=plan)
     _count("kernel" if dev.type == "cuda" else "plain")
     return out if device_out else out.cpu().numpy()

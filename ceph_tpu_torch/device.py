@@ -28,6 +28,16 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def device_label(device) -> str:
+    """Stable short label of a torch device ("cuda:0", "cpu:0"), or
+    "default" when unpinned (None); the telemetry's and the chunk tier's
+    `device` field (ref ``ceph_tpu/parallel/placement.py:34``)."""
+    if device is None:
+        return "default"
+    device = torch.device(device)
+    return "%s:%d" % (device.type, device.index or 0)
+
+
 def pinned_copy(out):
     """Pinned host copies of a device result (a tensor, or a dict of
     them), queued on the current stream: the caller synchronises before

@@ -31,6 +31,7 @@ import threading
 import numpy as np
 import torch
 
+from ..common.profiler import PROFILER
 from ..device import host_tensor, resolve_device
 from ..ops import gf, gf_ref, xor_mm
 from ..utils import profile as profile_util
@@ -41,6 +42,18 @@ from .table_cache import (TableCache, device_entry_key, xor_parity_rows,
 LARGEST_VECTOR_WORDSIZE = 16  # reference SIMD word (ErasureCodeJerasure.cc:31)
 
 BACKENDS = ("torch", "numpy")
+
+
+def _bank_pick(bank: torch.Tensor, i: np.int64) -> torch.Tensor:
+    """Row i of a device-resident decode bank: a view, no copy. Counted
+    as ``matrix_base.bank_pick`` (ref ``ceph_tpu/models/matrix_base.py:39``,
+    where the row select is a jitted gather with the index traced). The
+    index is a numpy integer, so that one profiler signature serves every
+    erasure signature, as the traced index does there."""
+    return bank[i]
+
+
+_bank_pick = PROFILER.wrap_kernel("matrix_base.bank_pick", _bank_pick)
 
 
 def _roundup(x: int, align: int) -> int:
@@ -241,7 +254,8 @@ class GeneratorCodec(ErasureCode):
                 entry = self._decode_cache.put(
                     avail_rows,
                     {"gf": gfs[i], "bitmat": bms[i],
-                     device_entry_key(self.device): self._bank_dev[i]})
+                     device_entry_key(self.device):
+                         _bank_pick(self._bank_dev, np.int64(i))})
             else:
                 full = self._full_decode_matrix(avail_rows)
                 entry = self._decode_cache.put(
@@ -442,7 +456,7 @@ class BitmatrixErasureCode(GeneratorCodec):
 
     def _device_apply(self, bitmat, data, host_bitmat):
         return xor_mm.bitmatrix_encode(bitmat, data, self.w, self.packetsize,
-                                       set_bits=int(host_bitmat.sum()))
+                                       set_bits=host_bitmat.sum())
 
 
 def load_numpy_state(codec: GeneratorCodec, coding: np.ndarray | None,

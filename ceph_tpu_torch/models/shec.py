@@ -38,7 +38,7 @@ import numpy as np
 from ..ops import gf
 from ..utils import profile as profile_util
 from .base import ErasureCodeError
-from .matrix_base import MatrixErasureCode, _constant
+from .matrix_base import MatrixErasureCode, _bank_pick, _constant
 from .table_cache import TableCache, device_entry_key
 
 
@@ -439,7 +439,8 @@ class Shec(MatrixErasureCode):
                 idx, gfs, bms, dev = bank
                 i = idx[key]
                 entry = {"gf": gfs[i], "bitmat": bms[i],
-                         device_entry_key(self.device): dev[i]}
+                         device_entry_key(self.device):
+                             _bank_pick(dev, np.int64(i))}
             else:
                 D = self._fused_decode_matrix(want, frozenset(avail_rows))
                 Dc = D[:, list(avail_rows)]

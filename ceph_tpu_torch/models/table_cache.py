@@ -5,7 +5,9 @@ plugin's table cache (src/erasure-code/isa/ErasureCodeIsaTableCache.{h,cc}):
 the reference keeps an LRU of per-erasure-pattern decode tables so
 repeated degraded reads skip the matrix inversion. Here each cached entry
 also carries the bitplane expansion of the decode matrix and, once used on
-a device, the device-resident copy keyed by that ``torch.device``.
+a device, the device-resident copy keyed by that ``torch.device``. Every
+insert and clear publishes the cached tables' bytes to the device-memory
+ledger (``decode_tables``, ``common/profiler.py``).
 
 The companion fast path (`xor_parity_rows` / `xor_recover`) is the analog
 of the reference's single-erasure region-XOR shortcut
@@ -21,6 +23,8 @@ from collections import OrderedDict
 
 import numpy as np
 import torch
+
+from ..common.profiler import PROFILER
 
 __all__ = ["TableCache", "device_entry_key", "xor_parity_rows",
            "xor_recover"]
@@ -42,6 +46,17 @@ def device_entry_key(device: torch.device) -> str:
     return "bitmat_dev@%s" % device
 
 
+def _table_bytes(entry) -> int:
+    """An entry's footprint on the device-memory ledger: bitmatrix +
+    decode matrix bytes (the device copy mirrors the bitmatrix, so this
+    tracks the device cost too; ref ``table_cache.py:96-107``, which
+    recounts every entry at each insert)."""
+    if not isinstance(entry, dict):
+        return 0
+    return sum(int(getattr(entry.get(field), "nbytes", 0) or 0)
+               for field in ("bitmat", "mat"))
+
+
 class TableCache:
     """Thread-safe bounded LRU of decode-table entries.
 
@@ -59,6 +74,7 @@ class TableCache:
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        self._bytes = 0    # the entries' table bytes, on the ledger
 
     def get(self, signature: tuple):
         with self._lock:
@@ -77,9 +93,12 @@ class TableCache:
             if existing is not None:
                 return existing
             self._entries[signature] = entry
+            self._bytes += _table_bytes(entry)
             while len(self._entries) > self.capacity:
-                self._entries.popitem(last=False)
+                self._bytes -= _table_bytes(
+                    self._entries.popitem(last=False)[1])
                 self.evictions += 1
+            PROFILER.mem_set("decode_tables", self._bytes)
             return entry
 
     def clear(self) -> None:
@@ -87,6 +106,8 @@ class TableCache:
         with self._lock:
             self._entries.clear()
             self.hits = self.misses = self.evictions = 0
+            self._bytes = 0
+            PROFILER.mem_set("decode_tables", 0)
 
     def stats(self) -> dict:
         with self._lock:

@@ -10,11 +10,21 @@ path runs and the GPU kernel is held against.
 Layout (matching :mod:`ceph_tpu_torch.ops.gf_ref`): element layout, a
 chunk is a flat array of little-endian w-bit elements; bit c of element j
 of a column sits on row ``j*w + c``.
+
+The codecs' entry points (:func:`matrix_encode`, :func:`matrix_encode_multi`
+and its row-table form, :func:`bitmatrix_encode`) are counted in the
+device profiler's kernel registry under the reference's names
+(``xor_mm.matrix_encode`` etc., ``common/profiler.py``); the row-table
+form of the per-lane product is the same function as
+``matrix_encode_multi`` read through a table, so it counts under that
+name. The unwrapped function stays reachable as ``.__wrapped__``.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..common.profiler import PROFILER
 
 
 def xor_matmul(bitmat: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
@@ -88,6 +98,36 @@ def matrix_encode(bitmat: torch.Tensor, data: torch.Tensor,
     return acc
 
 
+matrix_encode = PROFILER.wrap_kernel("xor_mm.matrix_encode", matrix_encode)
+
+
+def matrix_encode_multi(bitmats: torch.Tensor, data: torch.Tensor,
+                        w: int) -> torch.Tensor:
+    """Many independent encodes/decodes in ONE launch: [P, R, k*w]
+    bitmatrices, a different one per lane, on [P, ..., k, N] data ->
+    [P, ..., R/w, N] (``gf_kernel.matrix_encode_multi``; ref
+    ``ceph_tpu/ops/xor_mm.py:91``)."""
+    from .gf_kernel import matrix_encode_multi as kernel_multi
+    return kernel_multi(bitmats, data, w)
+
+
+matrix_encode_multi = PROFILER.wrap_kernel("xor_mm.matrix_encode_multi",
+                                           matrix_encode_multi)
+
+
+def matrix_encode_multi_rows(bitmats: torch.Tensor, parts: list, rows,
+                             w: int) -> torch.Tensor:
+    """:func:`matrix_encode_multi` with lane p's k data rows read where
+    they lie in `parts`, through a table of their addresses
+    (``gf_kernel.matrix_encode_multi_rows``): [P, R/w, n]."""
+    from .gf_kernel import matrix_encode_multi_rows as kernel_rows
+    return kernel_rows(bitmats, parts, rows, w)
+
+
+matrix_encode_multi_rows = PROFILER.wrap_kernel(
+    "xor_mm.matrix_encode_multi", matrix_encode_multi_rows)
+
+
 def bitmatrix_encode_plain(bitmat: torch.Tensor, data: torch.Tensor, w: int,
                            packetsize: int) -> torch.Tensor:
     """Packet-layout bitmatrix encode in plain PyTorch: [..., k, N] uint8
@@ -116,6 +156,13 @@ def bitmatrix_encode(bitmat: torch.Tensor, data: torch.Tensor, w: int,
     (the Cauchy and Liberation techniques). Runs the hand-written GPU
     kernel on a CUDA tensor and :func:`bitmatrix_encode_plain` on a CPU
     tensor; `set_bits`, the count of set entries of `bitmat` where the
-    caller knows it, steers the kernel's design."""
+    caller knows it, steers the kernel's design. A codec passes it as a
+    numpy integer, so that the profiler's signature keys on its type and
+    not on its value: a count is no new shape."""
     from .packet_kernel import bitmatrix_encode as kernel_encode
-    return kernel_encode(bitmat, data, w, packetsize, set_bits=set_bits)
+    return kernel_encode(bitmat, data, w, packetsize,
+                         set_bits=None if set_bits is None else int(set_bits))
+
+
+bitmatrix_encode = PROFILER.wrap_kernel("xor_mm.bitmatrix_encode",
+                                        bitmatrix_encode)

@@ -19,6 +19,13 @@ One h2d of raw data, the launches, one d2h of parity + digests + the
 stored stream. On a codec made with ``device="cpu"`` every step runs its
 plain PyTorch version (``ceph_tpu_torch.ops.write_kernels``).
 
+The device profiler (``common/profiler.py``) counts a write's launch
+sequence as ``fused_transform.program`` (the reference's one jitted
+program) and :func:`device_crc32` as ``fused_transform.scrub_crc``. The
+write's EC encode is counted under the program alone: the reference
+inlines the product into its program, so its ``xor_mm.matrix_encode``
+count leaves fused writes out, and so does the port's.
+
 Compressed container layout (``alg=jax_device``, the reference's name, so
 that the two packages read each other's objects; block B=64 bytes):
   [2*nb header bytes: (flags, consts) per block][stored planes, 8B each]
@@ -39,6 +46,7 @@ import threading
 import numpy as np
 import torch
 
+from ..common.profiler import PROFILER
 from ..device import host_tensor, pinned_copy, to_numpy
 from ..models.table_cache import device_entry_key
 from ..ops import write_kernels, xor_mm
@@ -387,27 +395,36 @@ def run_fused(codec, batch, mode: str = "store",
         raise ValueError("batch has %d data chunks, codec k=%d"
                          % (k, codec.get_data_chunk_count()))
     device = data.device
-    consts = dev_consts(device)
-    bitmat = codec._device_bitmat(device)
+    return _program(data, codec._device_bitmat(device), dev_consts(device),
+                    w=codec.w, mode=mode,
+                    required_milli=int(required_ratio * 1000),
+                    entropy_max_milli=int(entropy_max_bits * 1000))
+
+
+def _program(data, bitmat, consts, *, w: int, mode: str,
+             required_milli: int, entropy_max_milli: int) -> dict:
+    """The fused write's launch sequence on [S, k, chunk] `data` (see
+    :func:`run_fused`)."""
+    S, k, chunk = data.shape
     sw = k * chunk
     N = S * sw
     # (a) per-chunk digests of the RAW chunks
     chunk_crc32c = write_kernels.crc32_rows(
         data.view(S * k, 1, chunk), consts[POLY_C]).view(S, k)
     chunk_xxh32 = write_kernels.xxh32_rows(data.view(S * k, chunk)).view(S, k)
+    encode = xor_mm.matrix_encode.__wrapped__    # counted as the program
     if mode == "store":
-        parity = xor_mm.matrix_encode(bitmat, data, codec.w)
+        parity = encode(bitmat, data, w)
         return {"parity": parity,
                 "shard_crcs": _shard_crcs(consts[POLY_ZLIB], data, parity),
                 "chunk_crc32c": chunk_crc32c, "chunk_xxh32": chunk_xxh32}
     # (b) probe + bit-plane container + decision, on the device
     cap2 = plan_capacity(N, sw)
     stored_flat, dec = write_kernels.bitplane_stage(
-        data.view(N), cap2, sw, chunk, int(required_ratio * 1000),
-        int(entropy_max_bits * 1000))
+        data.view(N), cap2, sw, chunk, required_milli, entropy_max_milli)
     stored = stored_flat.view(cap2 // sw, k, chunk)
     # (c) EC encode of the stored stream (a zero tail encodes to zero)
-    parity = xor_mm.matrix_encode(bitmat, stored, codec.w)
+    parity = encode(bitmat, stored, w)
     # (d) per-shard crc32 of the stored prefix: the capacity's crc, then
     # the zero tail un-shifted by the pad the decision left on the device
     out = {"parity": parity, "stored": stored,
@@ -417,6 +434,10 @@ def run_fused(codec, batch, mode: str = "store",
     for i, name in enumerate(write_kernels.DEC_FIELDS[:5]):
         out[name] = dec[i]
     return out
+
+
+# one registry entry for every write (ref fused_transform.py:572-575)
+_program = PROFILER.wrap_kernel("fused_transform.program", _program)
 
 
 def to_host(out: dict) -> dict:
@@ -481,6 +502,10 @@ def device_crc32(data, device=None) -> int:
     dev = resolve_device(device)
     buf = np.frombuffer(bytes(data), dtype=np.uint8)
     stream = host_tensor(buf).to(dev)
-    crc = write_kernels.crc32_rows(stream.view(1, 1, buf.size),
-                                   dev_consts(dev)[POLY_ZLIB])
+    crc = _scrub_crc(stream.view(1, 1, buf.size), dev_consts(dev)[POLY_ZLIB])
     return int(to_host({"crc": crc})["crc"][0])
+
+
+# ref fused_transform.py:613-615
+_scrub_crc = PROFILER.wrap_kernel("fused_transform.scrub_crc",
+                                  write_kernels.crc32_rows)

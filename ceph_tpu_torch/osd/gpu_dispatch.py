@@ -55,8 +55,43 @@ staging buffer goes back to the pool only once the tier's copy of it is
 made (otherwise the next batch of the shape would be staged into the
 rows being adopted). At depth 1 the tier adopts the host arrays, as the
 reference's synchronous path does. An adoption failure never fails the
-submitter: the tier is a cache. Telemetry and the stage profiler of the
-reference wait for later slices.
+submitter: the tier is a cache.
+
+Telemetry, as in the reference: ``telemetry()`` (queue depth, coalescing
+ratio, the fused-write ledger and rolling per-codec MB/s under a label of
+class name and k, m), ``dispatch_status()`` (pipeline shape, ring
+occupancy, segment averages) and ``dispatch_profile()``, the stall
+attribution: every stage thread (collector, h2d, compute, d2h) is at each
+instant busy, idle (waiting on its upstream ring) or blocked (waiting to
+push downstream), its seconds in each state are the
+``l_gpu_stage_<stage>_<state>`` counters, each ring integrates its
+occupancy over time, and the verdict names the device stage with the
+highest busy share ("h2d-bound 71%") unless no stage is busy half the
+window and the collector idles more ("collector-starved 88%").
+``profile_reset()`` restarts the window. On CUDA a leg synchronises its
+own stream, so a stage's busy interval brackets its device work and its
+host work (the h2d leg's stacking and pinning copy included); on the CPU
+the legs are plain calls. The ``l_gpu_*`` counters keep the reference's
+``l_tpu_*`` names with ``gpu`` for ``tpu``, and ``l_gpu_reused`` stands
+for ``l_tpu_donated`` (``dispatch_status()["donated_dispatches"]`` reads
+it); ``l_gpu_h2d_bytes``, ``l_gpu_adopted`` and ``l_gpu_adopt_failed`` are
+the port's own.
+
+With a ``tracer`` (``common/tracer.SpanCollector``) whose collection is
+enabled, the depth-1 path credits its measured legs to the stage
+machines, as the reference's instrumented synchronous path does; a
+submitter's span gets its ``gpu_queue`` and ``gpu_device`` children (h2d,
+compute and d2h under the latter) at any depth whenever it is valid.
+
+Device-memory ledger (``common/profiler.PROFILER``): the h2d leg adds the
+staged bytes to ``staging_ring`` and they leave it when the staging
+buffer is released (after compute, after the tier's copy, or on a
+failure). The reference donates its staged input to the jitted program
+and accounts it under ``donated_buffers`` while the program runs; the
+port reuses the buffer instead (``_CudaDevOps._take`` / ``release``), so
+``donated_buffers`` holds the bytes of the staging buffers kept for
+reuse. On the CPU nothing is staged on a device and neither category is
+touched.
 """
 
 from __future__ import annotations
@@ -65,16 +100,24 @@ import hashlib
 import queue
 import threading
 import time
+from collections import deque
 
 import numpy as np
 import torch
 
 from ..common.perf_counters import PerfCountersBuilder
+from ..common.profiler import PROFILER
 from ..common.tracer import NULL_SPAN, device_segments
-from ..device import host_tensor, pinned_copy, resolve_device, to_numpy
+from ..device import (device_label, host_tensor, pinned_copy,
+                      resolve_device, to_numpy)
 from ..models.table_cache import device_entry_key
 
 __all__ = ["GpuDispatcher"]
+
+# pipeline stages in flow order; the three device stages carry the
+# bound-stage verdict, the collector carries the starvation verdict
+_STAGES = ("collector", "h2d", "compute", "d2h")
+_STATES = ("busy", "idle", "blocked")
 
 
 class _Pending:
@@ -113,7 +156,7 @@ class _Dispatch:
     """One fused kernel launch moving through the pipeline stages."""
 
     __slots__ = ("key", "fn", "pend", "prefetch", "kind", "dev", "ready",
-                 "out_dev", "done", "t_take", "seg")
+                 "out_dev", "done", "t_take", "seg", "mem_bytes")
 
     def __init__(self, key, fn, pend, prefetch=None, kind="codec"):
         self.key = key
@@ -127,6 +170,7 @@ class _Dispatch:
         self.done = None             # event: compute finished
         self.t_take = time.monotonic()
         self.seg = {}                # stage -> (t_start, t_end)
+        self.mem_bytes = 0           # staged bytes on the mem ledger
 
 
 class _CudaDevOps:
@@ -137,6 +181,8 @@ class _CudaDevOps:
 
     #: free staging buffers kept per (shape, dtype)
     POOL_DEPTH = 4
+    #: h2d stages into device memory (the staging_ring ledger)
+    stages = True
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -150,7 +196,9 @@ class _CudaDevOps:
         with self._lock:
             free = self._free.get((shape, dtype))
             if free:
-                return free.pop(), True
+                buf = free.pop()
+                PROFILER.mem_sub("donated_buffers", buf.nbytes)
+                return buf, True
         return torch.empty(shape, dtype=dtype, device=self.device), False
 
     def release(self, buf: torch.Tensor) -> None:
@@ -159,6 +207,15 @@ class _CudaDevOps:
             free = self._free.setdefault((tuple(buf.shape), buf.dtype), [])
             if len(free) < self.POOL_DEPTH:
                 free.append(buf)
+                PROFILER.mem_add("donated_buffers", buf.nbytes)
+
+    def close(self) -> None:
+        """Drop the kept staging buffers, and their bytes off the ledger."""
+        with self._lock:
+            for free in self._free.values():
+                for buf in free:
+                    PROFILER.mem_sub("donated_buffers", buf.nbytes)
+            self._free.clear()
 
     def h2d(self, host: np.ndarray):
         pinned = host_tensor(host).pin_memory()
@@ -206,6 +263,8 @@ class _CudaDevOps:
 class _HostDevOps:
     """The legs on the CPU device: the stages degenerate to plain calls."""
 
+    stages = False
+
     def h2d(self, host: np.ndarray):
         return host_tensor(host), None, False
 
@@ -221,6 +280,90 @@ class _HostDevOps:
     def release(self, buf) -> None:
         pass
 
+    def close(self) -> None:
+        pass
+
+
+class _StageProf:
+    """Per-stage wall-clock state machine: every instant a stage thread
+    is in exactly one of busy (doing its leg's work) / idle (waiting on
+    its upstream ring) / blocked (waiting to push downstream).  enter()
+    folds the elapsed interval into the outgoing state's bucket;
+    snapshot() is non-destructive and folds the in-progress interval
+    in, so attribution is exact even mid-long-op."""
+
+    __slots__ = ("lock", "acc", "state", "since")
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.acc = {s: 0.0 for s in _STATES}
+        self.state = "idle"
+        self.since = time.monotonic()
+
+    def enter(self, state: str, now: float | None = None) -> None:
+        now = time.monotonic() if now is None else now
+        with self.lock:
+            self.acc[self.state] += max(0.0, now - self.since)
+            self.state = state
+            self.since = now
+
+    def credit(self, state: str, seconds: float) -> None:
+        """Direct accrual without a state switch (the depth-1 inline
+        path, which runs every leg on the collector thread)."""
+        with self.lock:
+            self.acc[state] += max(0.0, seconds)
+
+    def snapshot(self, now: float | None = None) -> dict:
+        now = time.monotonic() if now is None else now
+        with self.lock:
+            acc = dict(self.acc)
+            acc[self.state] += max(0.0, now - self.since)
+        return acc
+
+    def reset(self, now: float | None = None) -> None:
+        now = time.monotonic() if now is None else now
+        with self.lock:
+            for s in self.acc:
+                self.acc[s] = 0.0
+            self.since = now
+
+
+class _RingQueue(queue.Queue):
+    """Bounded stage ring with an occupancy time-integral: each mutation
+    advances integral(qsize dt), so integral/wall is the ring's average
+    occupancy over the profile window — the queue-theory complement to
+    the stage state machine (a persistently full staging ring + an idle
+    compute stage reads 'h2d-bound' before anyone eyeballs thread
+    stacks).  _put/_get run under queue.Queue's own mutex."""
+
+    def __init__(self, maxsize: int):
+        super().__init__(maxsize)
+        self._occ_integral = 0.0
+        self._occ_t_last = time.monotonic()
+
+    def _advance_locked(self, now: float) -> None:
+        self._occ_integral += len(self.queue) \
+            * max(0.0, now - self._occ_t_last)
+        self._occ_t_last = now
+
+    def _put(self, item) -> None:
+        self._advance_locked(time.monotonic())
+        super()._put(item)
+
+    def _get(self):
+        self._advance_locked(time.monotonic())
+        return super()._get()
+
+    def occupancy_integral(self) -> float:
+        with self.mutex:
+            self._advance_locked(time.monotonic())
+            return self._occ_integral
+
+    def occupancy_reset(self) -> None:
+        with self.mutex:
+            self._occ_integral = 0.0
+            self._occ_t_last = time.monotonic()
+
 
 class GpuDispatcher:
     """Coalesces same-key codec calls into single kernel launches and
@@ -232,67 +375,78 @@ class GpuDispatcher:
     Observability: a submitter's span (``trace``) grows a queue-delay
     child plus a device span split into h2d / compute / d2h segments,
     the measured stage intervals; the l_gpu_* PerfCounters aggregate the
-    same segments.
+    same segments, and the stage machines feed ``dispatch_profile()``.
     """
 
     def __init__(self, max_batch: int = 8, max_delay: float = 0.002,
-                 pipeline_depth: int = 2, device=None):
+                 tracer=None, pipeline_depth: int = 2, device=None):
         self.device = resolve_device(device)
         self.max_batch = max_batch
         self.max_delay = max_delay
+        self.tracer = tracer
         self.pipeline_depth = max(1, int(pipeline_depth))
         self.lock = threading.Lock()
         self.cv = threading.Condition(self.lock)
         self.queues: dict = {}     # key -> (fn, [_Pending], prefetch)
         self.stats = {"ops": 0, "dispatches": 0, "coalesced": 0}
-        self.perf = (PerfCountersBuilder("osd_gpu")
-                     .add_time_avg("l_gpu_h2d",
-                                   "host->device transfer time")
-                     .add_time_avg("l_gpu_compute",
-                                   "device compute (stream synchronised)")
-                     .add_time_avg("l_gpu_d2h",
-                                   "device->host transfer time")
-                     .add_time_avg("l_gpu_dispatch_queue",
-                                   "op wait in the coalescing queue")
-                     .add_u64_counter("l_gpu_ops", "codec ops submitted")
-                     .add_u64_counter("l_gpu_dispatches",
-                                      "kernel launches dispatched")
-                     .add_u64_counter("l_gpu_coalesced",
-                                      "ops that shared a dispatch")
-                     .add_u64("l_gpu_queue_depth",
-                              "ops waiting in the coalescing queues")
-                     .add_u64_counter("l_gpu_enc_bytes",
-                                      "bytes through device encode")
-                     .add_u64_counter("l_gpu_dec_bytes",
-                                      "bytes through device decode")
-                     .add_u64_counter("l_gpu_reused",
-                                      "dispatches staged into a reused "
-                                      "device buffer")
-                     .add_u64_counter("l_gpu_h2d_bytes",
-                                      "bytes the h2d leg staged")
-                     .add_u64_counter("l_gpu_adopted",
-                                      "results adopted into a device "
-                                      "chunk tier")
-                     .add_u64_counter("l_gpu_adopt_failed",
-                                      "adoptions the tier refused (the "
-                                      "write itself succeeds)")
-                     .add_u64_counter("l_gpu_fused_dispatches",
-                                      "fused write transforms dispatched")
-                     .add_u64_counter("l_gpu_fused_bytes_in",
-                                      "raw bytes into the fused write "
-                                      "transform")
-                     .add_u64_counter("l_gpu_fused_bytes_out",
-                                      "stored+parity bytes out of the "
-                                      "fused transform")
-                     .add_u64_counter("l_gpu_fused_compressed",
-                                      "fused writes stored compressed")
-                     .add_u64_counter("l_gpu_fused_probe_rejects",
-                                      "fused writes whose entropy probe "
-                                      "rejected compression")
-                     .add_u64_avg("l_gpu_fused_ratio_milli",
-                                  "stored/raw size ratio per fused "
-                                  "write (x1000)")
-                     .create_perf_counters())
+        # per-codec throughput ledger: label -> {enc/dec bytes + a
+        # bounded (t, kind, bytes) window for the rolling MB/s gauges}
+        self.codec_stats: dict = {}
+        self._telemetry_window = 10.0
+        perf = (PerfCountersBuilder("osd_gpu")
+                .add_time_avg("l_gpu_h2d",
+                              "host->device transfer time")
+                .add_time_avg("l_gpu_compute",
+                              "device compute (stream synchronised)")
+                .add_time_avg("l_gpu_d2h",
+                              "device->host transfer time")
+                .add_time_avg("l_gpu_dispatch_queue",
+                              "op wait in the coalescing queue")
+                .add_u64_counter("l_gpu_ops", "codec ops submitted")
+                .add_u64_counter("l_gpu_dispatches",
+                                 "kernel launches dispatched")
+                .add_u64_counter("l_gpu_coalesced",
+                                 "ops that shared a dispatch")
+                .add_u64("l_gpu_queue_depth",
+                         "ops waiting in the coalescing queues")
+                .add_u64_counter("l_gpu_enc_bytes",
+                                 "bytes through device encode")
+                .add_u64_counter("l_gpu_dec_bytes",
+                                 "bytes through device decode")
+                .add_u64_counter("l_gpu_reused",
+                                 "dispatches staged into a reused "
+                                 "device buffer")
+                .add_u64_counter("l_gpu_h2d_bytes",
+                                 "bytes the h2d leg staged")
+                .add_u64_counter("l_gpu_adopted",
+                                 "results adopted into a device "
+                                 "chunk tier")
+                .add_u64_counter("l_gpu_adopt_failed",
+                                 "adoptions the tier refused (the "
+                                 "write itself succeeds)")
+                .add_u64_counter("l_gpu_fused_dispatches",
+                                 "fused write transforms dispatched")
+                .add_u64_counter("l_gpu_fused_bytes_in",
+                                 "raw bytes into the fused write "
+                                 "transform")
+                .add_u64_counter("l_gpu_fused_bytes_out",
+                                 "stored+parity bytes out of the "
+                                 "fused transform")
+                .add_u64_counter("l_gpu_fused_compressed",
+                                 "fused writes stored compressed")
+                .add_u64_counter("l_gpu_fused_probe_rejects",
+                                 "fused writes whose entropy probe "
+                                 "rejected compression")
+                .add_u64_avg("l_gpu_fused_ratio_milli",
+                             "stored/raw size ratio per fused "
+                             "write (x1000)"))
+        # stall attribution: cumulative per-stage wall seconds in each
+        # state, synced from the _StageProf machines by dispatch_profile
+        for stage in _STAGES:
+            for state in _STATES:
+                perf.add_time("l_gpu_stage_%s_%s" % (stage, state),
+                              "%s stage wall seconds %s" % (stage, state))
+        self.perf = perf.create_perf_counters()
         # rolling dispatch-wall EWMA (submit -> results landed): the
         # straggler wait in _take_group scales its coalesce window from
         # this instead of always burning the full max_delay
@@ -305,14 +459,18 @@ class GpuDispatcher:
         self.fused_stats = {"dispatches": 0, "bytes_in": 0,
                             "bytes_out": 0, "compressed": 0,
                             "probe_rejects": 0, "ratio_milli_sum": 0}
+        # one state machine per pipeline stage plus the profile window's
+        # anchor (profile_reset() restarts both)
+        self._stage_prof = {s: _StageProf() for s in _STAGES}
+        self._profile_t0 = time.monotonic()
         self._stop = False
         self._threads: list = []
         if self.pipeline_depth > 1:
             # the staging ring: bounded hand-off queues between stages;
             # the collector blocks when the ring is full.
-            self._q_h2d: queue.Queue = queue.Queue(self.pipeline_depth)
-            self._q_compute: queue.Queue = queue.Queue(self.pipeline_depth)
-            self._q_d2h: queue.Queue = queue.Queue(self.pipeline_depth)
+            self._q_h2d: queue.Queue = _RingQueue(self.pipeline_depth)
+            self._q_compute: queue.Queue = _RingQueue(self.pipeline_depth)
+            self._q_d2h: queue.Queue = _RingQueue(self.pipeline_depth)
             for name, fn in (("gpu-h2d", self._h2d_loop),
                              ("gpu-compute", self._compute_loop),
                              ("gpu-d2h", self._d2h_loop)):
@@ -353,6 +511,40 @@ class GpuDispatcher:
             pass
         return key
 
+    @staticmethod
+    def _codec_label(codec):
+        """Stable human label for per-codec telemetry series: class name
+        and layout params ("ReedSolomonVandermonde_k8m3")."""
+        cached = getattr(codec, "_dispatch_label", None)
+        if cached is not None:
+            return cached
+        label = type(codec).__name__
+        try:
+            k = codec.get_data_chunk_count()
+            m = codec.get_chunk_count() - k
+            label = "%s_k%dm%d" % (label, k, m)
+        except Exception:
+            pass
+        try:
+            codec._dispatch_label = label
+        except AttributeError:
+            pass
+        return label
+
+    def _account_codec(self, codec, kind: str, nbytes: int) -> None:
+        now = time.monotonic()
+        with self.lock:
+            row = self.codec_stats.setdefault(
+                self._codec_label(codec),
+                {"enc_bytes": 0, "dec_bytes": 0, "window": deque()})
+            row[kind + "_bytes"] += nbytes
+            w = row["window"]
+            w.append((now, kind, nbytes))
+            cutoff = now - self._telemetry_window
+            while w and w[0][0] < cutoff:
+                w.popleft()
+        self.perf.inc("l_gpu_%s_bytes" % kind, nbytes)
+
     def encode_async(self, codec, batch: np.ndarray, trace=NULL_SPAN,
                      resident=None) -> _Pending:
         """Async codec.encode_batch(batch): returns a future whose
@@ -361,7 +553,7 @@ class GpuDispatcher:
         device chunk tier."""
         key = (self._codec_key(codec), "enc", batch.shape[1:],
                str(batch.dtype))
-        self.perf.inc("l_gpu_enc_bytes", int(batch.nbytes))
+        self._account_codec(codec, "enc", int(batch.nbytes))
         if resident is not None:
             resident = (resident[0], resident[1], codec)
         return self._submit_async(key, codec.encode_batch, batch, trace,
@@ -376,7 +568,7 @@ class GpuDispatcher:
         avail_rows = tuple(avail_rows)
         key = (self._codec_key(codec), "dec", avail_rows,
                chunks.shape[1:], str(chunks.dtype))
-        self.perf.inc("l_gpu_dec_bytes", int(chunks.nbytes))
+        self._account_codec(codec, "dec", int(chunks.nbytes))
         prefetch = None
         entry_fn = getattr(codec, "_decode_entry", None)
         if entry_fn is not None:
@@ -395,7 +587,7 @@ class GpuDispatcher:
         as decode traffic."""
         key = (self._codec_key(codec), "rfrac", target, chunks.shape[1:],
                str(chunks.dtype))
-        self.perf.inc("l_gpu_dec_bytes", int(chunks.nbytes))
+        self._account_codec(codec, "dec", int(chunks.nbytes))
         prefetch = None
         entry_fn = getattr(codec, "_fraction_entry", None)
         if entry_fn is not None:
@@ -415,7 +607,7 @@ class GpuDispatcher:
         helpers = tuple(helpers)
         key = (self._codec_key(codec), "rcomb", target, helpers,
                fractions.shape[1:], str(fractions.dtype))
-        self.perf.inc("l_gpu_dec_bytes", int(fractions.nbytes))
+        self._account_codec(codec, "dec", int(fractions.nbytes))
         prefetch = None
         entry_fn = getattr(codec, "_combine_entry", None)
         if entry_fn is not None:
@@ -488,7 +680,7 @@ class GpuDispatcher:
         (fused_transform.result_from_host builds a FusedResult)."""
         from . import fused_transform
         batch = np.asarray(batch)
-        self.perf.inc("l_gpu_enc_bytes", int(batch.nbytes))
+        self._account_codec(codec, "enc", int(batch.nbytes))
 
         def fn(dev, _codec=codec, _mode=mode, _rr=required_ratio,
                _em=entropy_max_bits):
@@ -519,6 +711,150 @@ class GpuDispatcher:
             resident=resident).result()
         return fused_transform.result_from_host(host, S, k, chunk, mode)
 
+    def telemetry(self) -> dict:
+        """The device-utilization gauge bag: live queue depth, lifetime
+        coalescing ratio, the fused-write ledger and rolling per-codec
+        encode/decode MB/s (bytes through the dispatcher over the last
+        telemetry window)."""
+        now = time.monotonic()
+        with self.lock:
+            depth = sum(len(e[1]) for e in self.queues.values())
+            ops = self.stats["ops"]
+            disp = self.stats["dispatches"]
+            codecs = {}
+            cutoff = now - self._telemetry_window
+            for label, row in self.codec_stats.items():
+                enc_b = dec_b = 0
+                for t, kind, nb in row["window"]:
+                    if t < cutoff:
+                        continue
+                    if kind == "enc":
+                        enc_b += nb
+                    else:
+                        dec_b += nb
+                codecs[label] = {
+                    "enc_bytes": row["enc_bytes"],
+                    "dec_bytes": row["dec_bytes"],
+                    "enc_MBps": round(
+                        enc_b / self._telemetry_window / 1e6, 3),
+                    "dec_MBps": round(
+                        dec_b / self._telemetry_window / 1e6, 3)}
+        self.perf.set("l_gpu_queue_depth", depth)
+        return {"queue_depth": depth,
+                "device": device_label(self.device),
+                "ops": ops, "dispatches": disp,
+                "coalesce_ratio": round(disp / ops, 3) if ops else 1.0,
+                "fused": self._fused_summary(),
+                "codecs": codecs}
+
+    def _fused_summary(self) -> dict:
+        """The fused-write ledger: dispatch count, bytes through the
+        fused program, compress decisions and the mean stored/raw
+        ratio. Rides telemetry() and dispatch_status()."""
+        with self.lock:
+            st = dict(self.fused_stats)
+        ratio_sum = st.pop("ratio_milli_sum")
+        n = st["dispatches"]
+        st["ratio_avg"] = round(ratio_sum / n / 1000.0, 4) if n else 1.0
+        return st
+
+    def dispatch_status(self) -> dict:
+        """The `dispatch status` payload: pipeline shape, ring occupancy
+        per stage, and the coalescing ledger. `donated_dispatches` reads
+        ``l_gpu_reused``, the port's counterpart of the reference's
+        donations."""
+        ring = {"staging": 0, "computing": 0, "draining": 0}
+        if self.pipeline_depth > 1:
+            ring = {"staging": self._q_h2d.qsize(),
+                    "computing": self._q_compute.qsize(),
+                    "draining": self._q_d2h.qsize()}
+        tel = self.telemetry()
+        return {"pipeline_depth": self.pipeline_depth,
+                "overlapped": self.pipeline_depth > 1,
+                "device": tel["device"],
+                "ring": ring,
+                "queue_depth": tel["queue_depth"],
+                "ops": tel["ops"],
+                "dispatches": tel["dispatches"],
+                "coalesce_ratio": tel["coalesce_ratio"],
+                "lat_ewma_ms": round(self._lat_ewma * 1e3, 3)
+                if self._lat_ewma is not None else None,
+                "coalesce_wait_ms": round(
+                    self._coalesce_wait() * 1e3, 3),
+                "donated_dispatches": self.perf.get("l_gpu_reused"),
+                "fused": tel["fused"],
+                "segments_s": {
+                    "h2d_avg": self.perf.avg("l_gpu_h2d"),
+                    "compute_avg": self.perf.avg("l_gpu_compute"),
+                    "d2h_avg": self.perf.avg("l_gpu_d2h"),
+                    "queue_avg": self.perf.avg("l_gpu_dispatch_queue")},
+                "profile": self.dispatch_profile()}
+
+    def dispatch_profile(self) -> dict:
+        """Stall attribution over the current profile window: per-stage
+        busy/idle/blocked wall seconds and fractions, ring occupancy
+        time-averages, and a one-line verdict.
+
+        The verdict logic: the device stage with the highest busy
+        fraction is the wall ("h2d-bound 71%") — unless no stage is
+        busy even half the window AND the collector out-idles it, in
+        which case the device isn't the problem, the feed is
+        ("collector-starved 88%": submitters aren't producing work)."""
+        now = time.monotonic()
+        wall = max(1e-9, now - self._profile_t0)
+        stages = {}
+        for name, prof in self._stage_prof.items():
+            acc = prof.snapshot(now)
+            row = {}
+            for state in _STATES:
+                row[state + "_s"] = round(acc[state], 6)
+                row[state + "_frac"] = round(
+                    min(1.0, acc[state] / wall), 4)
+            stages[name] = row
+            # the cumulative counters follow each read of the profile
+            for state in _STATES:
+                self.perf.set("l_gpu_stage_%s_%s" % (name, state),
+                              acc[state])
+        occupancy = {"staging": 0.0, "computing": 0.0, "draining": 0.0}
+        if self.pipeline_depth > 1:
+            occupancy = {
+                "staging": round(
+                    self._q_h2d.occupancy_integral() / wall, 4),
+                "computing": round(
+                    self._q_compute.occupancy_integral() / wall, 4),
+                "draining": round(
+                    self._q_d2h.occupancy_integral() / wall, 4)}
+        device = ("h2d", "compute", "d2h")
+        bound = max(device, key=lambda s: stages[s]["busy_frac"])
+        attribution = stages[bound]["busy_frac"]
+        collector_idle = stages["collector"]["idle_frac"]
+        if attribution < 0.5 and collector_idle > attribution:
+            bound = "collector"
+            attribution = collector_idle
+            verdict = "collector-starved %d%%" \
+                % round(collector_idle * 100)
+        else:
+            verdict = "%s-bound %d%%" % (bound,
+                                         round(attribution * 100))
+        return {"window_s": round(wall, 6),
+                "verdict": verdict,
+                "bound": bound,
+                "attribution": attribution,
+                "stages": stages,
+                "queue_occupancy_avg": occupancy}
+
+    def profile_reset(self) -> None:
+        """Restart the attribution window (the `profile reset`
+        surface)."""
+        now = time.monotonic()
+        for prof in self._stage_prof.values():
+            prof.reset(now)
+        self._profile_t0 = now
+        if self.pipeline_depth > 1:
+            self._q_h2d.occupancy_reset()
+            self._q_compute.occupancy_reset()
+            self._q_d2h.occupancy_reset()
+
     def shutdown(self) -> None:
         with self.cv:
             self._stop = True
@@ -528,6 +864,7 @@ class GpuDispatcher:
             self._q_h2d.put(None)
         for t in self._threads:
             t.join(timeout=5)
+        self._devops.close()
 
     # -- internals -----------------------------------------------------
 
@@ -597,13 +934,21 @@ class GpuDispatcher:
                     deadline = time.monotonic() + wait
                 self.cv.wait(wait)
 
+    def _instrumenting(self) -> bool:
+        return self.tracer is not None and self.tracer.enabled
+
     def _run(self):
         """Collector: group submitters into fused dispatches and feed
         the pipeline (or, depth 1, run the synchronous loop)."""
+        prof = self._stage_prof["collector"]
         while True:
+            # idle = waiting for submitters (or stragglers): a starved
+            # collector is the "upstream can't feed the device" verdict
+            prof.enter("idle")
             d = self._take_group()
             if d is None:
                 return
+            prof.enter("busy")
             self.stats["dispatches"] += 1
             self.perf.inc("l_gpu_dispatches")
             self.perf.inc("l_gpu_ops", len(d.pend))
@@ -613,6 +958,7 @@ class GpuDispatcher:
             if self.pipeline_depth > 1:
                 # blocks when the staging ring is full: that back-
                 # pressure IS the depth-N bound
+                prof.enter("blocked")
                 self._q_h2d.put(d)
             else:
                 self._dispatch_inline(d)
@@ -642,6 +988,14 @@ class GpuDispatcher:
             self._account(d)
             if d.kind == "fused":
                 self._account_fused(d)
+            if self._instrumenting():
+                # depth 1 runs every leg on the collector thread; the
+                # per-stage machines never switch state, so credit the
+                # measured legs directly, as the reference's
+                # instrumented synchronous path does
+                for stage in ("h2d", "compute", "d2h"):
+                    a, b = d.seg[stage]
+                    self._stage_prof[stage].credit("busy", b - a)
         except Exception as e:   # deliver, don't kill the loop
             for p in d.pend:
                 p.error = e
@@ -652,26 +1006,40 @@ class GpuDispatcher:
 
     # -- pipelined stages ----------------------------------------------
 
-    def _fail(self, d: _Dispatch, e: BaseException) -> None:
-        """Strict per-batch error propagation: the failed stage fails
-        ONLY this fused batch's submitters; later batches proceed."""
+    def _release(self, d: _Dispatch) -> None:
+        """Hand the staging buffer back to the pool, and its bytes off
+        the staging_ring ledger."""
         if d.dev is not None:
             self._devops.release(d.dev)
             d.dev = None
+        if d.mem_bytes:
+            PROFILER.mem_sub("staging_ring", d.mem_bytes)
+            d.mem_bytes = 0
+
+    def _fail(self, d: _Dispatch, e: BaseException) -> None:
+        """Strict per-batch error propagation: the failed stage fails
+        ONLY this fused batch's submitters; later batches proceed."""
+        self._release(d)
         for p in d.pend:
             p.error = e
             p.event.set()
 
     def _h2d_loop(self) -> None:
+        prof = self._stage_prof["h2d"]
         while True:
+            prof.enter("idle")
             d = self._q_h2d.get()
             if d is None:
                 self._q_compute.put(None)
                 return
+            prof.enter("busy")
             try:
                 t0 = time.monotonic()
                 stacked = self._stack(d)
                 d.dev, d.ready, reused = self._devops.h2d(stacked)
+                if self._devops.stages:
+                    d.mem_bytes = int(stacked.nbytes)
+                    PROFILER.mem_add("staging_ring", d.mem_bytes)
                 self.perf.inc("l_gpu_h2d_bytes", int(stacked.nbytes))
                 if reused:
                     self.perf.inc("l_gpu_reused")
@@ -684,14 +1052,18 @@ class GpuDispatcher:
             except Exception as e:
                 self._fail(d, e)
                 continue
+            prof.enter("blocked")
             self._q_compute.put(d)
 
     def _compute_loop(self) -> None:
+        prof = self._stage_prof["compute"]
         while True:
+            prof.enter("idle")
             d = self._q_compute.get()
             if d is None:
                 self._q_d2h.put(None)
                 return
+            prof.enter("busy")
             try:
                 t0 = time.monotonic()
                 d.out_dev, d.done = self._devops.run(d.fn, d.dev, d.ready)
@@ -703,15 +1075,18 @@ class GpuDispatcher:
             # this shape is staged into it, unless the tier is still to
             # copy it (the d2h stage releases it then)
             if not any(p.resident is not None for p in d.pend):
-                self._devops.release(d.dev)
-                d.dev = None
+                self._release(d)
+            prof.enter("blocked")
             self._q_d2h.put(d)
 
     def _d2h_loop(self) -> None:
+        prof = self._stage_prof["d2h"]
         while True:
+            prof.enter("idle")
             d = self._q_d2h.get()
             if d is None:
                 return
+            prof.enter("busy")
             try:
                 t0 = time.monotonic()
                 out = self._devops.d2h(d.out_dev, d.done)
@@ -722,8 +1097,7 @@ class GpuDispatcher:
                     # the device; then the staging buffer is free
                     self._devops.adopt(lambda: self._adopt_residents(
                         d, d.dev, d.out_dev))
-                    self._devops.release(d.dev)
-                    d.dev = None
+                    self._release(d)
                 d.out_dev = None
                 self._account(d)
                 if d.kind == "fused":

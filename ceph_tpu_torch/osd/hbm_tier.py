@@ -24,7 +24,7 @@ The consumers run the port's kernels: :meth:`deep_scrub` the chunk digest
 (``ops/digest_kernel.py``, one launch per chunk shape over the objects
 where they lie), :meth:`reconstruct` the codec's decode (the GF bitmatrix
 kernel) and :meth:`reconstruct_batch` the per-lane GF kernel
-(``gf_kernel.matrix_encode_multi_rows``, one launch for every object,
+(``xor_mm.matrix_encode_multi_rows``, one launch for every object,
 each lane given only its lost shard's w rows of its decode bitmatrix and
 reading its survivors where they lie, through a table of their
 addresses).
@@ -38,8 +38,13 @@ Where the port differs from the reference:
   count those uploads (a tensor elsewhere is refused, never copied
   through the host).
 * ``stats()["device"]`` is the tier's torch device ("cuda:0", "cpu:0").
-* The reference's device-memory ledger (``PROFILER.mem_set``) has no port
-  yet; ``stats()["resident_bytes"]`` carries the figure.
+* The device-memory ledger (``common/profiler.PROFILER``) carries the
+  resident bytes under ``hbm_tier`` when the caller passed no device,
+  else ``hbm_tier[<label>]`` ("hbm_tier[cuda:0]"), as the reference keys
+  it on its home device; every gauge refresh sets it. The digest counts
+  as ``hbm_tier.digest`` in the profiler's kernel registry, the
+  rebuild's per-lane product as ``xor_mm.matrix_encode_multi`` (the
+  reference's rebuild calls that entry point).
 * Streams: a batch written on one stream records an event, and every
   consumer's stream waits on it before reading; a consumer marks the
   arrays it reads with ``record_stream``, so an entry dropped while a
@@ -60,10 +65,15 @@ import numpy as np
 import torch
 
 from ..common.perf_counters import PerfCountersBuilder
-from ..device import host_tensor, resolve_device
-from ..ops import digest_kernel, gf_kernel
+from ..common.profiler import PROFILER
+from ..device import device_label, host_tensor, resolve_device
+from ..ops import digest_kernel, xor_mm
 
-__all__ = ["HbmChunkTier", "host_digest", "device_label"]
+__all__ = ["HbmChunkTier", "host_digest"]
+
+# one registry entry however many tiers exist (ref hbm_tier.py:78)
+_device_digest = PROFILER.wrap_kernel("hbm_tier.digest",
+                                      digest_kernel.chunk_digest_many)
 
 
 def host_digest(chunks: np.ndarray) -> np.ndarray:
@@ -75,11 +85,6 @@ def host_digest(chunks: np.ndarray) -> np.ndarray:
     s = x.sum(axis=-1) & 0xFFFFFFFF
     ws = (x * w).sum(axis=-1) & 0xFFFFFFFF
     return (ws << np.uint64(32)) | s
-
-
-def device_label(device: torch.device) -> str:
-    """Stable short label of a torch device: "cuda:0", "cpu:0"."""
-    return "%s:%d" % (device.type, device.index or 0)
 
 
 def _u32_numpy(x) -> np.ndarray:
@@ -120,6 +125,11 @@ class HbmChunkTier:
     def __init__(self, codec=None, capacity_objects: int = 64,
                  device=None):
         self.device = resolve_device(device)
+        # residency is accounted under a per-device ledger category when
+        # the caller pinned a device, so tiers on two devices never fight
+        # over one gauge
+        self._mem_category = "hbm_tier" if device is None \
+            else "hbm_tier[%s]" % device_label(self.device)
         self.codec = codec
         if codec is not None:
             self._check_codec(codec)
@@ -238,6 +248,9 @@ class HbmChunkTier:
     def _update_gauges_locked(self) -> None:
         self.perf.set("l_hbm_resident_objects", len(self._objs))
         self.perf.set("l_hbm_resident_bytes", self._resident_bytes)
+        # device-memory ledger: tier residency is the dominant category,
+        # so every gauge refresh updates the profiler too
+        PROFILER.mem_set(self._mem_category, self._resident_bytes)
 
     def _insert_locked(self, name, batch: _Batch, row: int) -> None:
         if name in self._objs:
@@ -387,7 +400,7 @@ class HbmChunkTier:
         """(s, ws) uint32 [objects, k+m] of the runs' objects (one chunk
         shape), in one digest launch over the objects where they lie."""
         self._consume([(arr, ready) for arr, ready, _ in runs])
-        s, ws = digest_kernel.chunk_digest_many(
+        s, ws = _device_digest(
             [arr for arr, _, _ in runs], [rows for _, _, rows in runs])
         shape = (sum(len(rows) for _, _, rows in runs), runs[0][0].shape[1])
         return s.view(shape), ws.view(shape)
@@ -489,7 +502,7 @@ class HbmChunkTier:
         row the reference keeps of its full decode. Needs one codec and
         shape across names. Returns the device array [len(names), n]."""
         bm, parts, rows, w = self._rebuild_operands(names, lost_per_name)
-        return gf_kernel.matrix_encode_multi_rows(bm, parts, rows, w)[:, 0]
+        return xor_mm.matrix_encode_multi_rows(bm, parts, rows, w)[:, 0]
 
     def stats(self) -> dict:
         with self._lock:

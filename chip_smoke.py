@@ -8,7 +8,8 @@ reed_sol_van k=8, m=3, w=8 on batches of 16 objects of 1 MiB
 ([16, 8, 131072] uint8) — the OSD's fused write of a 4 MiB object, the
 batched CRUSH placement of a 1024-OSD cluster, the device chunk tier
 fed by the dispatcher's writes and the MSR code's regenerating repair,
-through the entry points a user calls,
+and reads the port's telemetry, stage profiler, span collector and
+device-memory ledger, through the entry points a user calls,
 and holds every kernel of the paths against its plain PyTorch version on
 the card. Phases, each printing one JSON line:
 
@@ -175,7 +176,30 @@ the card. Phases, each printing one JSON line:
                  counted from 0 just before the phase; then each k=8
                  matrix (encode, decode, fraction, combine) alone at
                  (a)'s shapes: kernel ms, plain ms, bound.
-  12. kernels    one JSON line per the port's kernel table: the design
+  12. telemetry  the observability layer (``common/profiler.py``,
+                 ``common/tracer.py``, the dispatcher's stage profiler)
+                 with a SpanCollector, the profiler reset before the
+                 phase and a PerfCountersCollection of the dispatcher's
+                 and the tier's counters: (a) phase 4's streaming load (8
+                 threads, 2 objects of 1 MiB an op, encode and decode over
+                 6 signatures) with every op traced: each op's span has
+                 gpu_queue and gpu_device with h2d, compute and d2h
+                 nested in it, render_tree renders one trace (printed),
+                 dispatch_profile()'s fractions lie in [0, 1] and its
+                 verdict is printed, ``xor_mm.matrix_encode``'s calls
+                 (compiles + cache hits) equal the GF kernel's launches
+                 (counted from 0 just before the load), staging_ring reads
+                 0 after the last op; the pinning copy of one op's batch
+                 timed apart; (b) 16 fused 4 MiB store writes through
+                 ``fused_write_async(resident=)``: fused_transform.program
+                 counted once a write, the writes' stage profile, the
+                 tier's ledger category equal to its resident bytes
+                 (``torch.cuda.memory_allocated`` beside it), then one
+                 deep_scrub and one reconstruct_batch of the 16 objects,
+                 each one call of its kernel's entry point, and their wall
+                 times; (c) load (a) with the profiler and the tracer on and
+                 off in turns (on, off, off, on): MB/s of each, no gate.
+  13. kernels    one JSON line per the port's kernel table: the design
                  the main path takes, launches on the main path (phases
                  3-4 for the GF bitmatrix kernel, phase 6 for the packet
                  kernel, phase 8 for the write transform's kernels, phase
@@ -1176,6 +1200,206 @@ def msr_repair_phase(np, torch, dev, smi):
     return {"launches_by_design": phase_launches,
             "launches_by_call": calls_by, "matrices": timed,
             "max_abs_err": worst, "traffic_ratio": ratio}
+
+
+def telemetry_phase(np, torch, dev, host_data, host_full, sig_pool):
+    """Phase 12: the observability layer on the card. A SpanCollector, the
+    profiler reset before the phase, and a PerfCountersCollection holding
+    the dispatcher's and the tier's counters; (a) phase 4's streaming load
+    with every op traced, (b) 16 fused 4 MiB store writes adopted into a
+    tier, (c) load (a) with the profiler and the tracer on and off in
+    turns. Returns the phase's summary."""
+    from ceph_tpu_torch import registry
+    from ceph_tpu_torch.common.perf_counters import PerfCountersCollection
+    from ceph_tpu_torch.common.profiler import PROFILER
+    from ceph_tpu_torch.common.tracer import SpanCollector, render_tree
+    from ceph_tpu_torch.device import host_tensor
+    from ceph_tpu_torch.ops import gf_kernel
+    from ceph_tpu_torch.osd.gpu_dispatch import GpuDispatcher
+    from ceph_tpu_torch.osd.hbm_tier import HbmChunkTier
+
+    t_phase = time.perf_counter()
+    threads, iters, per_op = 8, 8, 2
+    tracer = SpanCollector(capacity=1 << 16)
+    tracer.enabled = True
+    PROFILER.enabled = True
+    PROFILER.reset()
+    codec = registry.factory("torch_cuda", dict(PROFILE))
+    disp = GpuDispatcher(tracer=tracer)
+    tier = HbmChunkTier(codec)
+    coll = PerfCountersCollection()
+    coll.add(disp.perf)
+    coll.add(tier.perf)
+    errors: list[str] = []
+    roots: list = []
+    lock = threading.Lock()
+
+    def submitter(tid: int) -> None:
+        r = random.Random(100 + tid)
+        try:
+            for _ in range(iters):
+                i = r.randrange(BATCH - per_op + 1)
+                sl = slice(i, i + per_op)
+                avail = sig_pool[r.randrange(len(sig_pool))]
+                enc = tracer.start_trace("encode")
+                dec = tracer.start_trace("decode")
+                f_enc = disp.encode_async(codec, host_data[sl], trace=enc)
+                f_dec = disp.decode_async(
+                    codec, avail, host_full[sl][:, list(avail)], trace=dec)
+                if not np.array_equal(f_enc.result(300), host_full[sl, K:]):
+                    errors.append("encode mismatch")
+                if not np.array_equal(f_dec.result(300), host_full[sl]):
+                    errors.append("decode mismatch %s" % (avail,))
+                enc.finish()
+                dec.finish()
+                if enc.valid():
+                    with lock:
+                        roots.extend([enc.trace_id, dec.trace_id])
+        except Exception as e:  # reported below; the run then fails
+            errors.append(repr(e))
+
+    def load() -> float:
+        """Load (a) once; its MB/s of input bytes over the wall time."""
+        pool = [threading.Thread(target=submitter, args=(t,))
+                for t in range(threads)]
+        t0 = time.perf_counter()
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join(600)
+        wall = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in pool), "submitters finished")
+        return threads * iters * 2 * per_op * K * N / wall / 1e6
+
+    # (a) the main path's streaming load, every op traced
+    gf_kernel.reset_launches()
+    disp.profile_reset()
+    mbps = load()
+    check(not errors, "telemetry load's results verified: %s" % errors[:3])
+    gf_launches = sum(gf_kernel.launches_by_design().values())
+    profile = disp.dispatch_profile()
+    status = disp.dispatch_status()
+    kernels = PROFILER.dump()["kernels"]
+    enc = kernels.get("xor_mm.matrix_encode", {})
+    enc_calls = enc.get("compiles", 0) + enc.get("cache_hits", 0)
+    staging = PROFILER.mem_dump().get("staging_ring", {"bytes": 0})
+    spans = tracer.dump()
+    by_trace: dict = {}
+    for sp in spans:
+        by_trace.setdefault(sp["trace_id"], []).append(sp)
+    nested = 0
+    for tid in roots:
+        names = {sp["name"]: sp for sp in by_trace.get(tid, [])}
+        devs = names.get("gpu_device")
+        if "gpu_queue" in names and devs is not None and all(
+                names.get(leg, {}).get("parent_id") == devs["span_id"]
+                for leg in ("h2d", "compute", "d2h")):
+            nested += 1
+    tree = render_tree(spans, roots[0]) if roots else ""
+    fracs = [row[st + "_frac"] for row in profile["stages"].values()
+             for st in ("busy", "idle", "blocked")]
+    # the h2d leg's host work apart: the pinning copy of one op's batch
+    one = host_tensor(host_data[:per_op])
+    pin_s = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        one.pin_memory()
+        pin_s.append(time.perf_counter() - t0)
+    emit("telemetry", case="streaming", threads=threads,
+         ops=len(roots), streaming_MBps=mbps, verdict=profile["verdict"],
+         window_s=profile["window_s"], stages=profile["stages"],
+         queue_occupancy_avg=profile["queue_occupancy_avg"],
+         segments_s=status["segments_s"],
+         traced_ops=len(roots), nested_ops=nested,
+         xor_mm_matrix_encode_calls=enc_calls,
+         gf_bitmatrix_launches=gf_launches,
+         staging_ring=staging, pin_2MiB_ms=statistics.median(pin_s) * 1e3,
+         memory=PROFILER.mem_dump(), errors=errors[:5])
+    print(tree, flush=True)
+    check(len(roots) == threads * iters * 2 and nested == len(roots),
+          "every op's span has gpu_queue and gpu_device with h2d, compute "
+          "and d2h nested in it")
+    check("gpu_device" in tree and tree.startswith("trace "),
+          "render_tree renders one trace")
+    check(all(0.0 <= f <= 1.0 for f in fracs) and
+          0.0 <= profile["attribution"] <= 1.0,
+          "dispatch_profile's fractions lie in [0, 1]")
+    check(enc_calls == gf_launches > 0,
+          "xor_mm.matrix_encode's calls equal the GF kernel's launches")
+    check(staging["bytes"] == 0, "staging_ring reads 0 after the last op")
+
+    # (b) 16 fused 4 MiB store writes adopted into the tier
+    wstripes, wchunk, nwrites = 128, 4096, 16
+    rng = np.random.default_rng(20261018)
+    objects = [rng.integers(0, 256, (wstripes, K, wchunk), dtype=np.uint8)
+               for _ in range(nwrites)]
+    def calls(name):
+        k = PROFILER.dump()["kernels"].get(name, {})
+        return k.get("compiles", 0) + k.get("cache_hits", 0)
+
+    prog0 = calls("fused_transform.program")
+    disp.profile_reset()
+    disp.perf.reset()
+    futs = [disp.fused_write_async(codec, o, resident=(tier, "w%d" % i))
+            for i, o in enumerate(objects)]
+    for f in futs:
+        f.result(300)
+    torch.cuda.synchronize()
+    wprofile = disp.dispatch_profile()
+    wsegments = disp.dispatch_status()["segments_s"]
+    programs = calls("fused_transform.program") - prog0
+    ledger = PROFILER.mem_dump()["hbm_tier"]
+    resident = tier.stats()["resident_bytes"]
+    dump = coll.perf_dump()
+    # the tier's consumers on the adopted writes: one scrub and one rebuild
+    # of a lost shard each, their wall time to a synchronise beside the
+    # kernels' entry points they call
+    names = ["w%d" % i for i in range(nwrites)]
+    before = (calls("hbm_tier.digest"), calls("xor_mm.matrix_encode_multi"))
+    t0 = time.perf_counter()
+    tier.deep_scrub(names)
+    scrub_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    tier.reconstruct_batch(names, [i % (K + M) for i in range(nwrites)])
+    torch.cuda.synchronize()
+    rebuild_ms = (time.perf_counter() - t0) * 1e3
+    consumer_calls = (calls("hbm_tier.digest") - before[0],
+                      calls("xor_mm.matrix_encode_multi") - before[1])
+    emit("telemetry", case="fused_writes", writes=nwrites,
+         programs=programs, verdict=wprofile["verdict"],
+         stages=wprofile["stages"], window_s=wprofile["window_s"],
+         segments_s=wsegments, hbm_tier_ledger=ledger,
+         resident_bytes=resident, resident_objects=tier.stats()[
+             "resident_objects"],
+         memory_allocated=torch.cuda.memory_allocated(dev),
+         adopted=dump["osd_gpu"]["l_gpu_adopted"],
+         fused=disp.telemetry()["fused"], scrub_ms=scrub_ms,
+         rebuild_ms=rebuild_ms, digest_calls=consumer_calls[0],
+         multi_calls=consumer_calls[1])
+    check(programs == nwrites,
+          "fused_transform.program counted once per write")
+    check(ledger["bytes"] == resident > 0 and
+          dump["osd_hbm"]["l_hbm_resident_bytes"] == resident,
+          "the tier's ledger category equals its resident bytes")
+    check(consumer_calls == (1, 1),
+          "a scrub is one digest call and a rebuild one per-lane call")
+    del objects, futs
+
+    # (c) the profiler's and the tracer's cost, in turns: on/off/off/on
+    rates = {"on": [], "off": []}
+    for mode in ("on", "off", "off", "on"):
+        PROFILER.enabled = tracer.enabled = mode == "on"
+        rates[mode].append(load())
+    PROFILER.enabled = True
+    tracer.enabled = True
+    disp.shutdown()
+    check(not errors, "on/off loads' results verified")
+    emit("telemetry", case="overhead", on_MBps=rates["on"],
+         off_MBps=rates["off"],
+         on_over_off=statistics.mean(rates["on"]) /
+         statistics.mean(rates["off"]),
+         phase_s=time.perf_counter() - t_phase)
+    return {"verdict": profile["verdict"], "rates": rates}
 
 
 def main() -> int:
@@ -2321,7 +2545,10 @@ def main() -> int:
     # -- 11. the MSR regenerating code ---------------------------------
     msr_part = msr_repair_phase(np, torch, dev, smi)
 
-    # -- 12. kernels line -------------------------------------------------
+    # -- 12. telemetry: the dispatcher's stage profiler, spans, ledger -----
+    telemetry_phase(np, torch, dev, host_data, host_full, sig_pool)
+
+    # -- 13. kernels line -------------------------------------------------
     enc = timings["encode"]
     dec = timings["decode345678910"]
     kernels = [{

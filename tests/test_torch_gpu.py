@@ -39,7 +39,10 @@ decode's [840, 448] in two, a bitmatrix of 3,640 rows, the widest k*w
 the opt-in limit holds, one K-tile past it refused with no launch),
 k = 10's products past 512 columns in one launch each, dense, per lane
 and through a row table, and ``msr_cuda`` k=8, m=7 against the numpy
-``msr``.
+``msr``. And the observability layer on the card: the dispatcher's stage
+fractions and span nesting, the profiler's call counts against each
+kernel module's launch counters for one call of every wrapped entry
+point, and the chunk tier's ledger category against its resident bytes.
 """
 
 import itertools
@@ -50,6 +53,8 @@ import pytest
 import torch
 
 from ceph_tpu_torch import registry
+from ceph_tpu_torch.common.profiler import PROFILER
+from ceph_tpu_torch.common.tracer import SpanCollector
 from ceph_tpu_torch.crush import batched, mapper_ref
 from ceph_tpu_torch.crush.map import CRUSH_ITEM_NONE, CrushMap, Rule
 from ceph_tpu_torch.crush import map as cmap_mod
@@ -1378,3 +1383,136 @@ def test_msr_codec_on_card_matches_host(cuda):
     assert torch.equal(rebuilt, full_dev[:, target])
     assert np.array_equal(rebuilt.cpu().numpy()[0], host.repair_oracle(
         target, helpers, {h: full[0, h] for h in helpers}))
+
+
+@pytest.mark.gpu
+def test_stage_fractions_and_spans_on_card(cuda):
+    """A traced encode and decode per thread through the pipelined
+    dispatcher: every fraction of dispatch_profile() lies in [0, 1], each
+    op's span has gpu_queue and gpu_device with the three legs nested in
+    the latter, and the staging ring is empty once every op is back."""
+    codec = registry.factory("torch_cuda", dict(PROFILE))
+    rng = np.random.default_rng(21)
+    data = rng.integers(0, 256, (2, 8, 65536), dtype=np.uint8)
+    full = np.concatenate([data, codec.encode_batch(data)], axis=1)
+    avail = (0, 1, 2, 4, 5, 6, 8, 10)
+    tracer = SpanCollector()
+    tracer.enabled = True
+    PROFILER.mem_set("staging_ring", 0)
+    disp = GpuDispatcher(tracer=tracer)
+    try:
+        roots, futs = [], []
+        for _ in range(6):
+            r = tracer.start_trace("op")
+            futs.append((disp.encode_async(codec, data, trace=r), r))
+            r2 = tracer.start_trace("op")
+            futs.append((disp.decode_async(
+                codec, avail, np.ascontiguousarray(full[:, list(avail)]),
+                trace=r2), r2))
+        for f, r in futs:
+            f.result(120)
+            r.finish()
+            roots.append(r.trace_id)
+        prof = disp.dispatch_profile()
+    finally:
+        disp.shutdown()
+    for row in prof["stages"].values():
+        for state in ("busy", "idle", "blocked"):
+            assert 0.0 <= row[state + "_frac"] <= 1.0
+    assert prof["stages"]["compute"]["busy_s"] > 0
+    assert prof["verdict"].startswith(prof["bound"])
+    spans = tracer.dump()
+    for tid in roots:
+        mine = [s for s in spans if s["trace_id"] == tid]
+        names = {s["name"]: s for s in mine}
+        assert {"op", "gpu_queue", "gpu_device", "h2d", "compute",
+                "d2h"} <= set(names)
+        dev = names["gpu_device"]
+        for leg in ("h2d", "compute", "d2h"):
+            assert names[leg]["parent_id"] == dev["span_id"]
+            assert names[leg]["duration"] <= dev["duration"] + 1e-6
+    assert PROFILER.mem_dump()["staging_ring"]["bytes"] == 0
+
+
+@pytest.mark.gpu
+def test_profiler_counts_equal_launch_counters_on_card(cuda):
+    """One call of every wrapped entry point: each is counted once in the
+    profiler's registry, and each kernel module counts its launches."""
+    rng = np.random.default_rng(22)
+    coding = gf.rs_vandermonde_generator(8, 3, 8)
+    bm = torch.from_numpy(gf.generator_to_bitmatrix(coding, 8)).to(cuda)
+    data = torch.from_numpy(rng.integers(0, 256, (4, 8, 8192),
+                                         dtype=np.uint8)).to(cuda)
+    cauchy = registry.factory("torch_cuda", {
+        "technique": "cauchy_good", "k": "4", "m": "2", "packetsize": "64"})
+    pdata = torch.from_numpy(rng.integers(
+        0, 256, (2, 4, cauchy.get_chunk_size(4 * 4096)),
+        dtype=np.uint8)).to(cuda)
+    cmap = crushtool.build_map(64, [("host", "straw2", 4),
+                                    ("root", "straw2", 0)])
+    cmap.add_simple_rule("ec", "default", "host", mode="indep")
+    cmap.add_simple_rule("rep", "default", "host")
+    codec = registry.factory("torch_cuda", dict(PROFILE))
+    PROFILER.reset()
+    gf_kernel.reset_launches()
+    packet_kernel.reset_launches()
+    digest_kernel.reset_launches()
+    crush_kernel.reset_launches()
+    write_kernels.reset_launches()
+    xor_mm.matrix_encode(bm, data, 8)
+    xor_mm.matrix_encode_multi(torch.stack([bm, bm]), data[:2, None], 8)
+    xor_mm.matrix_encode_multi_rows(torch.stack([bm, bm]), [data],
+                                    [np.arange(16)], 8)
+    cauchy.encode_batch(pdata)
+    tier = HbmChunkTier(codec, capacity_objects=4)
+    tier.put_encode(["a", "b"], rng.integers(0, 256, (2, 8, 4096),
+                                             dtype=np.uint8))
+    tier.deep_scrub(["a", "b"])
+    seeds = np.arange(1024)
+    batched.batched_do_rule(cmap, 0, seeds, 4)
+    batched.batched_do_rule(cmap, 1, seeds, 3)
+    ft.run_fused(codec, data[:, :, :4096].contiguous())
+    ft.device_crc32(b"x" * 1000)
+    torch.cuda.synchronize()
+    calls = {name: k["compiles"] + k["cache_hits"]
+             for name, k in PROFILER.dump()["kernels"].items()}
+    assert calls == {"xor_mm.matrix_encode": 2,       # + put_encode's
+                     "xor_mm.matrix_encode_multi": 2,
+                     "xor_mm.bitmatrix_encode": 1, "hbm_tier.digest": 1,
+                     "crush.indep": 1, "crush.firstn": 1,
+                     "fused_transform.program": 1,
+                     "fused_transform.scrub_crc": 1}
+    gf_single = sum(gf_kernel.launches_by_design().values())
+    assert gf_single == calls["xor_mm.matrix_encode"] + \
+        calls["fused_transform.program"]            # the write's encode
+    assert sum(gf_kernel.launches_by_design(multi=True).values()) == \
+        calls["xor_mm.matrix_encode_multi"]
+    assert sum(packet_kernel.launches_by_design().values()) == \
+        calls["xor_mm.bitmatrix_encode"]
+    assert digest_kernel.cuda_launches() == calls["hbm_tier.digest"]
+    assert sum(crush_kernel.launches_by_design().values()) == \
+        calls["crush.indep"] + calls["crush.firstn"]
+    # a store write: K1 for the chunks and the shards (3 wrapper calls),
+    # K2 once; the scrub's crc is one more K1 call
+    assert write_kernels.LAUNCHES == {"crc32_rows": 4, "xxh32_rows": 1,
+                                      "bitplane_stage": 0}
+
+
+@pytest.mark.gpu
+def test_tier_ledger_equals_resident_bytes_on_card(cuda):
+    codec = registry.factory("torch_cuda", dict(PROFILE))
+    rng = np.random.default_rng(23)
+    for device, cat in ((None, "hbm_tier"), ("cuda", "hbm_tier[cuda:0]")):
+        tier = HbmChunkTier(codec, capacity_objects=6, device=device)
+        for i in range(4):
+            tier.put_encode([(cat, 2 * i), (cat, 2 * i + 1)],
+                            rng.integers(0, 256, (2, 8, 16384),
+                                         dtype=np.uint8))
+            assert PROFILER.mem_dump()[cat]["bytes"] == \
+                tier.stats()["resident_bytes"]
+        assert tier.stats()["resident_objects"] == 6       # two evicted
+        assert PROFILER.mem_dump()[cat]["high_watermark"] >= \
+            tier.stats()["resident_bytes"]
+        assert tier.drop_prefix(cat) == 6
+        assert PROFILER.mem_dump()[cat]["bytes"] == 0
+
