@@ -41,6 +41,8 @@ import torch
 
 from ..common.profiler import PROFILER
 from ..device import resolve_device
+from ..parallel import rateless
+from ..parallel.mesh import Mesh, mesh_devices
 from .hashing import hash32_2_t, hash32_3_t
 from .ln import LN_MIN_OFFSET, crush_ln_t, straw2_draw_divide_t
 from .map import (CRUSH_ITEM_NONE, CRUSH_ITEM_UNDEF, CrushMap,
@@ -538,7 +540,7 @@ def _scalar(cmap, ruleno, xs, result_max, weight, choose_args):
 
 def batched_do_rule(cmap: CrushMap, ruleno: int, xs, result_max: int,
                     weight=None, *, choose_args=None, device_out: bool = False,
-                    device=None):
+                    device=None, xs_sharding=None, tables_sharding=None):
     """Map a whole batch of seeds in one call.
 
     xs: [B] int seeds (PG seeds), a numpy array, a list or a tensor; they
@@ -557,10 +559,25 @@ def batched_do_rule(cmap: CrushMap, ruleno: int, xs, result_max: int,
     choose_args: a weight-set/ids map (bucket_id -> {"ids",
     "weight_set"}) or an int selecting one of cmap.choose_args' sets,
     with the default set as its fallback.
+
+    xs_sharding: a flat mesh (:func:`make_batch_mesh`) over which the
+    seeds split into equal contiguous shares, device i mapping share i
+    with one sweep there (each seed maps independently, so the result is
+    the single-device sweep's); `device` is then unused, the seed count
+    must divide by the mesh's size (:func:`mesh_do_rule` pads), and
+    `device_out` gathers the result on the mesh's first device.
+
+    tables_sharding: a mesh to whose every card the packed tables and
+    reweight vector go up front (``crush_kernel.device_tables``, one
+    cached copy a card), so each card sweeps against its own copy.
     """
-    if device is None and isinstance(xs, torch.Tensor) and xs.is_cuda:
-        device = xs.device
-    dev = resolve_device(device)
+    if xs_sharding is not None:
+        shard_devs = list(xs_sharding.devices.reshape(-1))
+        dev = shard_devs[0]
+    else:
+        if device is None and isinstance(xs, torch.Tensor) and xs.is_cuda:
+            device = xs.device
+        dev = resolve_device(device)
     if isinstance(choose_args, int):
         choose_args = cmap.choose_args_get_with_fallback(choose_args)
     plan = plan_rule(cmap, ruleno, result_max)
@@ -579,11 +596,82 @@ def batched_do_rule(cmap: CrushMap, ruleno: int, xs, result_max: int,
         return _scalar(cmap, ruleno, xs_host, result_max, weight,
                        choose_args)
 
-    if isinstance(xs, torch.Tensor):
-        xs_t = xs.to(device=dev, dtype=torch.int64)
-    else:
-        xs_t = torch.from_numpy(np.asarray(xs, dtype=np.int64)).to(dev)
     wvec = reweight_vector(weight, cm.max_devices)
+    if tables_sharding is not None:
+        from ..ops import crush_kernel
+        for d in set(tables_sharding.devices.reshape(-1)):
+            if d.type == "cuda":
+                crush_kernel.device_tables(cm, wvec, d)
+    if xs_sharding is None:
+        if isinstance(xs, torch.Tensor):
+            xs_t = xs.to(device=dev, dtype=torch.int64)
+        else:
+            xs_t = torch.from_numpy(np.asarray(xs, dtype=np.int64)).to(dev)
+        out = _sweep_on(cm, plan, xs_t, wvec)
+        return out if device_out else out.cpu().numpy()
+    seeds = xs.cpu() if isinstance(xs, torch.Tensor) else \
+        torch.from_numpy(np.asarray(xs, dtype=np.int64))
+    if seeds.shape[0] % len(shard_devs):
+        raise ValueError("%d seeds do not split over a mesh of %d"
+                         % (seeds.shape[0], len(shard_devs)))
+    outs = [_sweep_on(cm, plan, part.to(device=d, dtype=torch.int64), wvec)
+            for d, part in zip(shard_devs,
+                               seeds.chunk(len(shard_devs)))]
+    if device_out:
+        return torch.cat([o.to(dev) for o in outs])
+    return np.concatenate([o.cpu().numpy() for o in outs])
+
+
+def _sweep_on(cm, plan, xs_t, wvec):
+    """One counted sweep of the seeds xs_t where they lie."""
     out = _SWEEPS[plan.firstn](cm.items, xs_t, wvec, cm=cm, plan=plan)
-    _count("kernel" if dev.type == "cuda" else "plain")
-    return out if device_out else out.cpu().numpy()
+    _count("kernel" if xs_t.device.type == "cuda" else "plain")
+    return out
+
+
+def make_batch_mesh(n_devices: int | None = None, devices=None) -> Mesh:
+    """Flat 1-axis ('batch',) mesh over the first n of `devices`
+    (default: the visible CUDA devices; an explicit list may repeat a
+    device): the cluster-sweep shape, one share of the seeds a device."""
+    return Mesh(mesh_devices(n_devices, devices), ("batch",))
+
+
+def mesh_do_rule(cmap: CrushMap, ruleno: int, xs, result_max: int,
+                 weight=None, *, mesh=None, choose_args=None):
+    """Mesh-sharded bulk mapping: the seeds split along a flat ('batch',)
+    mesh while the packed tables and the reweight vector go to every
+    card, each device mapping its share with one sweep against its own
+    copy. Each seed maps independently, so the result is the
+    single-device sweep's, bit for bit. Seeds are padded (by repeating
+    the last seed) to a multiple of the mesh's size, and the pad rows
+    trimmed.
+
+    With no mesh and the rateless dispatcher up
+    (``parallel/rateless.get_dispatcher``), the sweep rides its queue
+    instead: idle devices pull seed micro-batches, each mapped by one
+    sweep on the worker's device. Without either, the mesh is every
+    visible CUDA device (raising where there is none)."""
+    xs = xs.cpu().numpy() if isinstance(xs, torch.Tensor) else np.asarray(xs)
+    if mesh is None:
+        disp = rateless.get_dispatcher()
+        if disp is not None and len(xs) > 1:
+            return disp.map_batch(
+                lambda sub: batched_do_rule(
+                    cmap, ruleno, sub, result_max, weight,
+                    choose_args=choose_args, device=sub.device), xs)
+        mesh = make_batch_mesh()
+    if len(mesh.axis_names) != 1:
+        raise ValueError("mesh_do_rule wants a flat 1-axis mesh, got "
+                         "axes %r" % (mesh.axis_names,))
+    n, n_shards = len(xs), mesh.size
+    if n == 0 or n_shards <= 1:
+        return batched_do_rule(cmap, ruleno, xs, result_max, weight,
+                               choose_args=choose_args,
+                               device=mesh.devices.reshape(-1)[0])
+    pad = (-n) % n_shards
+    if pad:
+        xs = np.concatenate([xs, np.repeat(xs[-1:], pad)])
+    out = batched_do_rule(cmap, ruleno, xs, result_max, weight,
+                          choose_args=choose_args, xs_sharding=mesh,
+                          tables_sharding=mesh)
+    return out[:n]

@@ -20,9 +20,16 @@ Port of ``ceph_tpu/osd/ec_util.py``, the role of the reference's ECUtil
 
 All byte movement stays in numpy; the codec's batched calls own the
 device. ``resident=(tier, key)`` on encode and encode_fused keeps the
-object in the device chunk tier (osd/hbm_tier.py). The reference's
-cross-chip recovery and repair (``recover_cross_chip``,
-``repair_cross_chip``) wait for the slice that ports the mesh.
+object in the device chunk tier (osd/hbm_tier.py).
+
+  recover_cross_chip / repair_cross_chip
+                 one missing shard rebuilt, or an MSR combine run, with
+                 the survivors (fractions) spread over several devices:
+                 through the rateless dispatcher's queue where one is up
+                 (parallel/rateless.py), else sharded over a device mesh
+                 (parallel/mesh.py), each checksummed against the host
+                 sum first. On one card they run only through a mesh or
+                 a dispatcher the caller set.
 """
 
 from __future__ import annotations
@@ -32,9 +39,13 @@ import zlib
 import numpy as np
 
 from ..errors import ErasureCodeError
+from ..parallel import rateless
+from ..parallel.mesh import MeshChecksumError, recover_sharded, repair_sharded
+from ..parallel.placement import local_device_count
 
 __all__ = ["StripeInfo", "encode", "encode_fused", "decode",
-           "decode_concat", "repair_fraction", "repair_combine", "HashInfo"]
+           "decode_concat", "recover_cross_chip", "repair_fraction",
+           "repair_combine", "repair_cross_chip", "HashInfo"]
 
 CHUNK_ALIGNMENT = 64
 
@@ -276,6 +287,80 @@ def decode(sinfo: StripeInfo, codec, to_decode: dict,
     return out
 
 
+def _no_devices(mesh) -> bool:
+    """True where the cross-chip path does not apply for want of devices:
+    no mesh given, no rateless dispatcher set, and under two cards."""
+    return mesh is None and rateless.get_dispatcher(create=False) is None \
+        and local_device_count() < 2
+
+
+def _check_sum(stacked: np.ndarray, expected_sum, what: str) -> None:
+    """The rateless path's trust boundary: the bytes about to ride the
+    queue against the host sum taken when they were received."""
+    if expected_sum is None:
+        return
+    got = int(stacked.astype(np.uint64).sum()) % (1 << 32)
+    if got != expected_sum % (1 << 32):
+        raise MeshChecksumError(
+            "rateless %s checksum mismatch: sum %d != expected %d"
+            % (what, got, expected_sum % (1 << 32)))
+
+
+def recover_cross_chip(sinfo: StripeInfo, codec, to_decode: dict,
+                       target_shard: int, mesh=None, expected_sum=None):
+    """Reconstruct ONE missing shard with the survivor chunk streams
+    spread over several devices instead of gathered on one (ref
+    ``ceph_tpu/osd/ec_util.py:294``): with no mesh and the rateless
+    dispatcher up, the survivor batch rides its queue in micro-batches;
+    else it is sharded over `mesh` (default: every visible card) by
+    ``parallel.mesh.recover_sharded``, whose checksum over the blocks is
+    compared with the survivors' host sum (`expected_sum`, taken here
+    when None) and raises MeshChecksumError on mismatch. The rateless
+    path compares the host sum only when `expected_sum` is given, as
+    the reference does.
+
+    Returns the target shard's bytes, or None where the path does not
+    apply: a locality codec or one without matrix entries, a sub-symbol
+    codec (msr: its cross-chip leg is repair_cross_chip), no mesh with
+    no dispatcher set and under two cards, or a stream that is empty or
+    not chunk aligned. The caller then falls back to decode()."""
+    if getattr(codec, "DECODE_BATCH_ANY", False) or \
+            not hasattr(codec, "_decode_entry"):
+        return None
+    if getattr(codec, "alpha", 1) > 1 or _no_devices(mesh):
+        return None
+    to_decode = {shard: _as_bytes(v) for shard, v in to_decode.items()}
+    lengths = {v.size for v in to_decode.values()}
+    if len(lengths) != 1:
+        raise ErasureCodeError(22,
+                               "chunks have unequal lengths %s" % lengths)
+    total = lengths.pop()
+    if total == 0 or total % sinfo.chunk_size != 0:
+        return None
+    k = codec.get_data_chunk_count()
+    n = codec.get_chunk_count()
+    if target_shard in to_decode:
+        return np.ascontiguousarray(to_decode[target_shard]).tobytes()
+    stripes = total // sinfo.chunk_size
+    inv = {codec.chunk_index(i): i for i in range(n)}
+    logical = {inv[shard]: buf.reshape(stripes, sinfo.chunk_size)
+               for shard, buf in to_decode.items()}
+    use = tuple(sorted(logical))[:k]
+    if len(use) < k:
+        raise ErasureCodeError(
+            5, "not enough chunks to decode (%d < %d)" % (len(use), k))
+    stacked = np.stack([logical[i] for i in use], axis=1)  # [S,k,chunk]
+    disp = rateless.get_dispatcher() if mesh is None else None
+    if disp is not None:
+        _check_sum(stacked, expected_sum, "recovery")
+        full = disp.decode(codec, use, stacked)
+        return np.ascontiguousarray(
+            full[:, inv[target_shard], :]).reshape(-1).tobytes()
+    row = recover_sharded(codec, use, stacked, inv[target_shard],
+                          mesh=mesh, expected_sum=expected_sum)
+    return np.ascontiguousarray(row).reshape(-1).tobytes()
+
+
 def decode_concat(sinfo: StripeInfo, codec, to_decode: dict,
                   dispatcher=None, trace=None) -> bytes:
     """Reconstruct and concatenate the data shards back into the logical
@@ -350,6 +435,33 @@ def repair_combine(sinfo: StripeInfo, codec, target_shard: int,
     else:
         out = codec.repair_combine_batch(target_shard, helpers, stacked)
     return np.ascontiguousarray(np.asarray(out)).reshape(-1).tobytes()
+
+
+def repair_cross_chip(sinfo: StripeInfo, codec, target_shard: int,
+                      fractions: dict, mesh=None, expected_sum=None):
+    """The repair analog of recover_cross_chip (ref
+    ``ceph_tpu/osd/ec_util.py:449``): the stacked helper fractions ride
+    the rateless dispatcher's queue where one is up and no mesh is
+    given, else are sharded over `mesh` and combined there
+    (``parallel.mesh.repair_sharded``) after the same checksum, so a
+    rebuild never gathers whole survivors anywhere.
+
+    Returns the rebuilt shard's bytes, or None where the path does not
+    apply (a codec without fraction repair, no mesh with no dispatcher
+    set and under two cards); the caller then falls back to
+    repair_combine()."""
+    if not getattr(codec, "supports_repair", lambda: False)() or \
+            not hasattr(codec, "_combine_entry") or _no_devices(mesh):
+        return None
+    helpers, stacked = _stack_fractions(sinfo, codec, fractions)
+    disp = rateless.get_dispatcher() if mesh is None else None
+    if disp is not None:
+        _check_sum(stacked, expected_sum, "repair")
+        out = disp.repair_combine(codec, target_shard, helpers, stacked)
+        return np.ascontiguousarray(out).reshape(-1).tobytes()
+    out = repair_sharded(codec, target_shard, helpers, stacked,
+                         mesh=mesh, expected_sum=expected_sum)
+    return np.ascontiguousarray(out).reshape(-1).tobytes()
 
 
 class HashInfo:

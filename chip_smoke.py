@@ -8,8 +8,10 @@ reed_sol_van k=8, m=3, w=8 on batches of 16 objects of 1 MiB
 ([16, 8, 131072] uint8) — the OSD's fused write of a 4 MiB object, the
 batched CRUSH placement of a 1024-OSD cluster, the device chunk tier
 fed by the dispatcher's writes and the MSR code's regenerating repair,
-and reads the port's telemetry, stage profiler, span collector and
-device-memory ledger, through the entry points a user calls,
+reads the port's telemetry, stage profiler, span collector and
+device-memory ledger, and runs the multi-device paths (the device mesh,
+the mesh-sharded CRUSH sweep, rateless dispatch) over one card repeated,
+through the entry points a user calls,
 and holds every kernel of the paths against its plain PyTorch version on
 the card. Phases, each printing one JSON line:
 
@@ -199,15 +201,40 @@ the card. Phases, each printing one JSON line:
                  each one call of its kernel's entry point, and their wall
                  times; (c) load (a) with the profiler and the tracer on and
                  off in turns (on, off, off, on): MB/s of each, no gate.
-  13. kernels    one JSON line per the port's kernel table: the design
+  13. mesh       the multi-device paths on ``["cuda:0"] * 4``, the GF,
+                 digest and CRUSH kernels counted from 0 just before: (a)
+                 over a 2 x 2 mesh, ``encode_sharded`` and
+                 ``decode_sharded`` of RS k=8, m=3 at [16, 8, 131072],
+                 ``ec_util.recover_cross_chip`` of a 4 MiB object and
+                 ``repair_cross_chip`` of MSR k=8, m=7 (8 stripes of 1
+                 MiB, phase 11's size), each equal to the single-device
+                 call and the lost bytes, one GF launch a block and one
+                 digest launch a block for the checksum, and a survivor
+                 corrupted by one byte raising MeshChecksumError; (b)
+                 ``mesh_do_rule`` of the 1024-OSD cluster's EC rule at
+                 2^20 seeds over a flat mesh of 4 (one launch a share)
+                 and through the rateless queue, equal to
+                 ``batched_do_rule`` and 64 seeds to the scalar mapper;
+                 (c) a ``RatelessDispatcher`` of 4 workers: encode and
+                 LT-coded decode of 64 objects of 1 MiB under random
+                 stalls of 1-15 ms (stolen > 0), worker 0 killed
+                 mid-batch and re-admitted on probation, every worker
+                 killed (the caller's thread finishes), the
+                 speculative-buffer ledger back to 0. The wall ms of each
+                 leg beside the single-device call's, launches per leg,
+                 per-worker completed and stolen counts, and the
+                 checksum's digest against ``torch.sum`` (CUDA events);
+                 the sharded encode and decode equal the plain version.
+  14. kernels    one JSON line per the port's kernel table: the design
                  the main path takes, launches on the main path (phases
                  3-4 for the GF bitmatrix kernel, phase 6 for the packet
                  kernel, phase 8 for the write transform's kernels, phase
                  9 for the CRUSH kernel, phase 10 for the tier's two,
                  each counted from 0 just before its path), the GF
-                 kernel's launches on phases 6, 8 and 11 as well,
-                 max_abs_err, ms, plain_ms, bound_ms, bound_by,
-                 library_ms.
+                 kernel's launches on phases 6, 8 and 11 as well, and the
+                 GF, CRUSH and digest kernels' on phase 13
+                 (``mesh_launches``), max_abs_err, ms, plain_ms,
+                 bound_ms, bound_by, library_ms.
 
 Then the card's name and power limit as nvidia-smi prints them, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -1402,6 +1429,358 @@ def telemetry_phase(np, torch, dev, host_data, host_full, sig_pool):
     return {"verdict": profile["verdict"], "rates": rates}
 
 
+def mesh_phase(np, torch, dev, smi):
+    """Phase 13: multi-device placement on one card: (a) the mesh legs
+    over a 2 x 2 mesh of ``["cuda:0"] * 4`` (RS k=8, m=3 encode and
+    decode at [16, 8, 131072], ``ec_util.recover_cross_chip`` of a 4 MiB
+    object, ``repair_cross_chip`` of MSR k=8, m=7 on phase 11's sizes,
+    a corrupted survivor raising MeshChecksumError), (b) ``mesh_do_rule``
+    of the 1024-OSD cluster's EC rule at 2^20 seeds over a flat mesh of 4
+    and through the rateless queue, (c) a ``RatelessDispatcher`` of 4
+    workers on the card: encode and LT-coded decode of 64 objects of
+    1 MiB under random stalls, with one worker killed mid-batch and with
+    every worker killed. The GF, digest and CRUSH kernels' counts are set
+    to 0 just before the path and read just after it. Returns the
+    phase's launches per kernel."""
+    from ceph_tpu_torch import registry
+    from ceph_tpu_torch.common.profiler import PROFILER
+    from ceph_tpu_torch.crush import batched, mapper_ref
+    from ceph_tpu_torch.crush.map import CRUSH_ITEM_NONE
+    from ceph_tpu_torch.ops import crush_kernel, digest_kernel, gf_kernel
+    from ceph_tpu_torch.osd import ec_util
+    from ceph_tpu_torch.parallel import mesh as pmesh, rateless
+    from ceph_tpu_torch.tools.crush_tier_turns import crush_cases
+    from ceph_tpu_torch.utils.cuda_timing import (crush_bound, digest_bound,
+                                                  gf_bound, time_ms)
+
+    t_phase = time.perf_counter()
+    sections = {}
+    rng = np.random.default_rng(20261018 + 13)
+    devices = [str(dev)] * 4
+    mesh = pmesh.make_mesh(devices=devices)
+    check(mesh.shape == {"stripe": 2, "block": 2}, "a 2 x 2 mesh")
+    codec = registry.factory("torch_cuda", dict(PROFILE))
+    msr = registry.factory("msr_cuda", {"technique": "msr", "k": "8",
+                                        "m": "7", "w": "8"})
+    data = rng.integers(0, 256, (BATCH, K, N), dtype=np.uint8)
+    avail = (0, 2, 3, 4, 6, 7, 8, 10)
+
+    def counts():
+        torch.cuda.synchronize()
+        return {"gf": gf_kernel.LAUNCHES, "digest": digest_kernel.LAUNCHES,
+                "crush": crush_kernel.LAUNCHES}
+
+    def timed(fn, reps=3):
+        """fn()'s result, the launches its first call made, and the
+        median wall ms of `reps` more calls, each to a synchronise."""
+        before = counts()
+        out = fn()
+        after = counts()
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return out, {k_: after[k_] - before[k_] for k_ in after}, \
+            statistics.median(walls) if walls else None
+
+    # -- the path: counts from 0 just before ---------------------------
+    gf_kernel.reset_launches()
+    digest_kernel.reset_launches()
+    crush_kernel.reset_launches()
+    batched.reset_paths()
+    legs = {}
+    # (a) the mesh legs against the single-device calls
+    parity, launched, ms = timed(
+        lambda: pmesh.encode_sharded(codec, data, mesh))
+    single, _, single_ms = timed(lambda: codec.encode_batch(data))
+    check(np.array_equal(parity, single), "(a): encode_sharded equals the "
+          "single-device encode")
+    check(launched == {"gf": 4, "digest": 0, "crush": 0},
+          "(a): one GF launch a block (%s)" % launched)
+    legs["encode_sharded"] = {"ms": ms, "single_ms": single_ms,
+                              "launches": launched}
+    full = np.concatenate([data, parity], axis=1)
+    chunks = np.ascontiguousarray(full[:, list(avail)])
+    dec, launched, ms = timed(
+        lambda: pmesh.decode_sharded(codec, avail, chunks, mesh))
+    _, _, single_ms = timed(lambda: codec.decode_batch(avail, chunks))
+    check(np.array_equal(dec, full), "(a): decode_sharded rebuilds rows "
+          "1, 5 and 9")
+    check(launched["gf"] == 4, "(a): one GF launch a block of the decode")
+    legs["decode_sharded"] = {"ms": ms, "single_ms": single_ms,
+                              "launches": launched}
+
+    chunk = 4096
+    sinfo = ec_util.StripeInfo(K, K * chunk)
+    obj = rng.integers(0, 256, 4 << 20, dtype=np.uint8).tobytes()
+    shards = ec_util.encode(sinfo, codec, obj)
+    target = 5
+    # shard 8, the XOR parity, lost too: the decode takes the GF product
+    surv = {s: shards[s] for s in sorted(shards) if s not in (target, 8,
+                                                               10)}
+    host_sum = sum(int(np.asarray(v, dtype=np.uint64).sum())
+                   for v in surv.values()) % (1 << 32)
+    got, launched, ms = timed(lambda: ec_util.recover_cross_chip(
+        sinfo, codec, surv, target, mesh=mesh, expected_sum=host_sum))
+    want, _, single_ms = timed(lambda: ec_util.decode(
+        sinfo, codec, surv, want={target})[target])
+    check(got == np.asarray(want).tobytes() == shards[target].tobytes(),
+          "(a): recover_cross_chip of a 4 MiB object equals the "
+          "single-device decode and the lost shard")
+    check(launched["gf"] == 4 and launched["digest"] == 4,
+          "(a): recovery is 4 GF and 4 digest launches (%s)" % launched)
+    legs["recover_cross_chip"] = {"ms": ms, "single_ms": single_ms,
+                                  "launches": launched,
+                                  "survivors": [128, K, chunk]}
+    bad = dict(surv)
+    bad[0] = np.asarray(surv[0]).copy()
+    bad[0][12345] ^= 0x10
+    try:
+        ec_util.recover_cross_chip(sinfo, codec, bad, target, mesh=mesh,
+                                   expected_sum=host_sum)
+        tripped = False
+    except pmesh.MeshChecksumError:
+        tripped = True
+    check(tripped, "(a): a survivor corrupted by one byte raises "
+          "MeshChecksumError")
+
+    m_stripes, m_obj = MSR_BENCH
+    m_chunk = msr.get_chunk_size(m_obj)
+    m_sinfo = ec_util.StripeInfo(msr.k, msr.k * m_chunk)
+    m_payload = rng.integers(0, 256, m_stripes * msr.k * m_chunk,
+                             dtype=np.uint8).tobytes()
+    m_shards = ec_util.encode(m_sinfo, msr, m_payload)
+    m_target = msr.chunk_index(2)
+    helpers = sorted(msr.minimum_to_repair(m_target,
+                                           set(m_shards) - {m_target}))
+    fractions = {h: ec_util.repair_fraction(m_sinfo, msr, m_target,
+                                            m_shards[h]) for h in helpers}
+    rebuilt, launched, ms = timed(lambda: ec_util.repair_cross_chip(
+        m_sinfo, msr, m_target, fractions, mesh=mesh))
+    single, _, single_ms = timed(lambda: ec_util.repair_combine(
+        m_sinfo, msr, m_target, fractions))
+    check(rebuilt == single == m_shards[m_target].tobytes(),
+          "(a): repair_cross_chip equals the single-device combine and "
+          "the lost chunk")
+    check(launched["gf"] == 4 and launched["digest"] == 4,
+          "(a): the combine is 4 GF and 4 digest launches (%s)" % launched)
+    legs["repair_cross_chip"] = {"ms": ms, "single_ms": single_ms,
+                                 "launches": launched,
+                                 "fractions": [m_stripes, len(helpers),
+                                               msr.repair_sub_size(m_chunk)]}
+
+    sections["a_mesh_legs"] = time.perf_counter() - t_phase
+    # (b) the mesh-sharded CRUSH sweep and the queue's
+    case = {c[0]: c for c in crush_cases(np)}["cluster_ec_1048576"]
+    _, cluster, ec_rule, rmax, c_rw, _, n_seeds = case
+    xs = np.arange(n_seeds, dtype=np.int64)
+    one, launched_one, one_ms = timed(lambda: batched.batched_do_rule(
+        cluster, ec_rule, xs, rmax, c_rw))
+    flat = batched.make_batch_mesh(devices=devices)
+    swept, launched, ms = timed(lambda: batched.mesh_do_rule(
+        cluster, ec_rule, xs, rmax, c_rw, mesh=flat))
+    check(np.array_equal(swept, one), "(b): mesh_do_rule equals "
+          "batched_do_rule at 2^20 seeds")
+    check(launched["crush"] == 4, "(b): one CRUSH launch a share")
+    legs["mesh_do_rule"] = {"ms": ms, "single_ms": one_ms,
+                            "launches": launched, "seeds": n_seeds}
+    crush_rl = rateless.RatelessDispatcher(devices=devices,
+                                           name="smoke-crush")
+    rateless.set_dispatcher(crush_rl)
+    try:
+        queued, launched, ms = timed(lambda: batched.mesh_do_rule(
+            cluster, ec_rule, xs, rmax, c_rw))
+        check(np.array_equal(queued, one), "(b): the queue's sweep equals "
+              "batched_do_rule")
+        check(launched["crush"] >= 16, "(b): one CRUSH launch a seed "
+              "micro-batch (%s)" % launched)
+        legs["mesh_do_rule_rateless"] = {
+            "ms": ms, "single_ms": one_ms, "launches": launched,
+            "workers": crush_rl.device_status()}
+    finally:
+        rateless.reset_dispatcher()
+    for x in rng.choice(n_seeds, 64, replace=False):
+        res = mapper_ref.crush_do_rule(cluster, ec_rule, int(x), rmax,
+                                       list(c_rw))
+        check(list(swept[x]) == res + [CRUSH_ITEM_NONE] * (rmax - len(res)),
+              "(b): seed %d equals the scalar mapper" % x)
+
+    sections["b_crush"] = time.perf_counter() - t_phase
+    # (c) the rateless dispatcher: 64 objects of 1 MiB
+    r_data = rng.integers(0, 256, (64, K, N), dtype=np.uint8)
+    r_want = codec.encode_batch(r_data)
+    r_full = np.concatenate([r_data, r_want], axis=1)
+    r_chunks = np.ascontiguousarray(r_full[:, list(avail)])
+    PROFILER.enabled = True
+    PROFILER.mem_set("speculative_buffers", 0)
+    inj = rateless.DeviceFaultSet(seed=13)
+    rl = rateless.RatelessDispatcher(devices=devices, injector=inj,
+                                     name="smoke-rl")
+
+    def idle():
+        end = time.monotonic() + 30
+        while time.monotonic() < end:
+            if rl.status()["queue_depth"] == 0 and all(
+                    d["inflight"] == 0 for d in rl.device_status()):
+                return True
+            time.sleep(0.005)
+        return False
+
+    rl_cases = {}
+    try:
+        for idx in range(4):
+            inj.stall_ms(idx, float(rng.integers(1, 16)))
+        got, launched, ms = timed(lambda: rl.encode(codec, r_data), 1)
+        check(np.array_equal(got, r_want), "(c): encode under stalls")
+        check(rl.status()["stolen_total"] > 0, "(c): idle workers stole")
+        rl_cases["stalls_encode"] = {"ms": ms, "launches": launched}
+        got, launched, ms = timed(lambda: rl.decode(
+            codec, avail, r_chunks, lt=True, seed=1), 1)
+        check(np.array_equal(got, r_full), "(c): LT-coded decode")
+        rl_cases["stalls_lt_decode"] = {"ms": ms, "launches": launched}
+        inj.clear_all()
+        _, _, single_ms = timed(lambda: codec.encode_batch(r_data), 1)
+        _, _, plain_ms = timed(lambda: rl.encode(codec, r_data), 1)
+        rl_cases["encode_no_faults"] = {"ms": plain_ms,
+                                        "single_ms": single_ms}
+        # one worker killed mid-batch, then re-admitted on probation; it
+        # stalls inside its micro-batch so that it holds one at the kill,
+        # and an encode the others finish before it pulls is run again
+        check(rl.degraded() == 0, "(c): every worker healthy before the kill")
+        inj.stall_ms(0, 200.0)
+        for _ in range(5):
+            box = {}
+            t = threading.Thread(target=lambda: box.update(
+                out=rl.encode(codec, r_data)), daemon=True)
+            t.start()
+            end = time.monotonic() + 30
+            while rl.health[0].inflight < 1 and t.is_alive() and \
+                    time.monotonic() < end:
+                time.sleep(0.001)
+            held = rl.health[0].inflight >= 1
+            if held:
+                inj.kill(0)
+            t.join(timeout=60)
+            check(not t.is_alive(), "(c): the encode ended")
+            check(np.array_equal(box.get("out"), r_want), "(c): encode with "
+                  "worker 0 killed mid-batch")
+            if held:
+                break
+        # the job may seal on a speculative copy while worker 0 still
+        # sleeps in its stall; it drains when it wakes
+        end = time.monotonic() + 10
+        while rl.health[0].state != "blacklisted" and \
+                time.monotonic() < end:
+            time.sleep(0.005)
+        degraded = rl.degraded()
+        check(held and rl.health[0].state == "blacklisted",
+              "(c): the killed worker held work and is blacklisted")
+        inj.clear_all()
+        time.sleep(2 * rl.probation_base_s)
+        for _ in range(20):
+            check(np.array_equal(rl.encode(codec, r_data), r_want),
+                  "(c): encode during probation")
+            if rl.health[0].state == "healthy":
+                break
+        check(rl.health[0].state == "healthy" and rl.degraded() == 0,
+              "(c): probation re-admitted worker 0")
+        rl_cases["kill_one"] = {"degraded": degraded, "readmitted": True}
+        for idx in range(4):
+            inj.kill(idx)
+        got, launched, ms = timed(lambda: rl.encode(codec, r_data), 0)
+        check(np.array_equal(got, r_want), "(c): every worker killed, the "
+              "caller's thread finished")
+        rl_cases["kill_all"] = {"launches": launched}
+        inj.clear_all()
+        check(idle(), "(c): the workers went idle")
+        spec = PROFILER.mem_dump().get("speculative_buffers",
+                                       {"bytes": 0, "high_watermark": 0})
+        check(spec["bytes"] == 0 and rl._spec_bytes == 0,
+              "(c): speculative_buffers is back to 0")
+        status = rl.status()
+    finally:
+        inj.clear_all()
+        rl.shutdown()
+    phase = counts()
+    sections["c_rateless"] = time.perf_counter() - t_phase
+    # the phase's path ends here; the comparisons and timings follow
+    check(all(phase.values()), "the phase launched the GF, digest and "
+          "CRUSH kernels (%s)" % phase)
+
+    # each leg's kernels against their plain versions on the card
+    x = torch.from_numpy(data).to(dev)
+    bm = codec._device_bitmat(dev)
+    check(np.array_equal(parity, gf_kernel.matrix_encode_plain(
+        bm, x, W).cpu().numpy()), "(a): the sharded encode equals the plain "
+        "version")
+    dec_bm = torch.from_numpy(codec._decode_entry(avail)["bitmat"]).to(dev)
+    check(np.array_equal(dec, gf_kernel.matrix_encode_plain(
+        dec_bm, torch.from_numpy(chunks).to(dev), W).cpu().numpy()),
+        "(a): the sharded decode equals the plain version")
+    del x
+    blocks = pmesh._place(chunks, mesh, 1)
+    sums = [digest_kernel.chunk_digest(b.data.reshape(-1, N // 2))[0]
+            for b in blocks]
+    plain = [int(torch.sum(b.data, dtype=torch.int64)) % (1 << 32)
+             for b in blocks]
+    got = [int((s.view(torch.int32).to(torch.int64) & 0xFFFFFFFF).sum())
+           % (1 << 32) for s in sums]
+    check(got == plain, "the checksum's digest sums equal torch.sum")
+    # one block's kernels alone at the phase's block shape, 16 inputs
+    # rotated out of the 50 MB L2 (CUDA events)
+    g = torch.Generator(device=dev).manual_seed(13)
+    ins = list(torch.randint(0, 256, (16,) + tuple(blocks[0].data.shape),
+                             generator=g, dtype=torch.uint8, device=dev))
+    rows = [x_.reshape(-1, N // 2) for x_ in ins]
+    checksum = {"block": list(blocks[0].data.shape),
+                "ms": time_ms(lambda r: digest_kernel.chunk_digest(r), rows,
+                              40),
+                "plain_ms": time_ms(lambda r: digest_kernel.chunk_digest_plain(
+                    r), rows, 8),
+                "library_ms": time_ms(lambda r: torch.sum(
+                    r, dim=-1, dtype=torch.int64), rows, 40)}
+    checksum["bound_ms"], checksum["bound_by"] = digest_bound(
+        rows[0].numel(), rows[0].shape[0])
+    out0 = gf_kernel.matrix_encode(bm, ins[0], W)
+    block_gf = {"block": list(ins[0].shape), "bitmat": list(bm.shape),
+                "ms": time_ms(lambda x_: gf_kernel.matrix_encode(bm, x_, W),
+                              ins, 40),
+                "plain_ms": time_ms(lambda x_: gf_kernel.matrix_encode_plain(
+                    bm, x_, W), ins, 8)}
+    block_gf["bound_ms"], block_gf["bound_by"] = gf_bound(bm, ins[0], out0, W)
+    cm = batched.compile_map(cluster, None)
+    plan = batched.plan_rule(cluster, ec_rule, rmax)
+    wvec = batched.reweight_vector(c_rw, cm.max_devices)
+    share = torch.arange(n_seeds // 4, dtype=torch.int64, device=dev)
+    work = torch.zeros((share.shape[0], 2), dtype=torch.int32, device=dev)
+    crush_kernel.crush_sweep(cm, plan, share, wvec, work=work)
+    crush_share = {"seeds": int(share.shape[0]),
+                   "ms": time_ms(lambda x_: crush_kernel.crush_sweep(
+                       cm, plan, x_, wvec), [share], 10)}
+    crush_share["bound_ms"], crush_share["bound_by"] = crush_bound(work, rmax)
+    del blocks, sums, rows, ins, out0, share, work
+    torch.cuda.empty_cache()
+    sections["timings"] = time.perf_counter() - t_phase
+    emit("mesh", case="legs", gpu=smi, mesh=dict(mesh.shape), legs=legs,
+         checksum=checksum, block_gf=block_gf, crush_share=crush_share,
+         sections_s=sections)
+    emit("mesh", case="rateless", gpu=smi, cases=rl_cases,
+         workers=[{f: d[f] for f in ("device", "state", "completed",
+                                     "stolen", "redispatched", "timeouts",
+                                     "errors", "blacklist_total")}
+                  for d in status["devices"]],
+         stolen_total=status["stolen_total"],
+         redispatch_total=status["redispatch_total"],
+         duplicate_total=status["duplicate_total"],
+         speculative_buffers=spec, launches=phase,
+         phase_s=time.perf_counter() - t_phase)
+    return {"launches": phase, "checksum": checksum, "legs": legs,
+            "block_gf": block_gf, "crush_share": crush_share}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2548,7 +2927,10 @@ def main() -> int:
     # -- 12. telemetry: the dispatcher's stage profiler, spans, ledger -----
     telemetry_phase(np, torch, dev, host_data, host_full, sig_pool)
 
-    # -- 13. kernels line -------------------------------------------------
+    # -- 13. the mesh legs, the sharded CRUSH sweep, rateless dispatch -----
+    mesh_part = mesh_phase(np, torch, dev, smi)
+
+    # -- 14. kernels line -------------------------------------------------
     enc = timings["encode"]
     dec = timings["decode345678910"]
     kernels = [{
@@ -2574,6 +2956,8 @@ def main() -> int:
         "msr_repair_launches_by_call": msr_part["launches_by_call"],
         "msr_repair_matrices": msr_part["matrices"],
         "msr_repair_max_abs_err": msr_part["max_abs_err"],
+        "mesh_launches": mesh_part["launches"]["gf"],
+        "mesh_block": mesh_part["block_gf"], "mesh_legs": mesh_part["legs"],
         "shape": {"bitmat": enc["bitmat"], "data": enc["data"],
                   "decode_bitmat": dec["bitmat"]}}, {
         "name": "gf_packet_encode", "route": "cuda",
@@ -2630,7 +3014,13 @@ def main() -> int:
                "ceph_tpu/osd/fused_transform.py:442",
                "bitplane_low_%d" % obj_bytes,
                ["bitplane_low_%d" % (BSTRIPES * K * BCHUNK)])
+    crush_line["mesh_launches"] = mesh_part["launches"]["crush"]
+    crush_line["mesh_share"] = mesh_part["crush_share"]
     kernels.append(crush_line)
+    for line in tier_lines:
+        if line["name"] == "chunk_digest":
+            line["mesh_launches"] = mesh_part["launches"]["digest"]
+            line["mesh_checksum"] = mesh_part["checksum"]
     kernels.extend(tier_lines)
     _records.append({"kernels": kernels})
     print(json.dumps({"kernels": kernels}), flush=True)

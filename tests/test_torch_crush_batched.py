@@ -11,7 +11,10 @@ reweights at 0, 0x8000 and a short vector, seeds below 0 and at 2^31
 and above, the plain version's chunks, and the scalar fallbacks (a
 malformed map, a legacy bucket alg, firstn under exotic tunables), which
 :func:`batched.paths` counts, and the extras (``choose_args``,
-``device_out``, ``device``) keyword-only. The choose_args cases are in
+``device_out``, ``device``, ``xs_sharding``, ``tables_sharding``)
+keyword-only; and ``mesh_do_rule`` over flat meshes of ``["cpu"] * n``
+and through the rateless queue against the JAX package's over its
+virtual devices. The choose_args cases are in
 tests/test_torch_crush_weight_sets.py, the 1024-OSD cluster and the rule
 shapes in tests/test_torch_crush_rules.py. The reference compiles once per
 map, rule and shape (seconds on one core), so each reference output is
@@ -22,11 +25,13 @@ import functools
 
 import numpy as np
 import pytest
+import torch
 
 from ceph_tpu.crush import batched as jbatched
 from ceph_tpu.crush import map as jmap
-from ceph_tpu_torch.crush import batched
+from ceph_tpu_torch.crush import batched, mapper_ref
 from ceph_tpu_torch.crush import map as tmap
+from ceph_tpu_torch.parallel import mesh as pmesh
 
 from .torch_crush_maps import SEEDS, bench_map, bench_reweight
 from .torch_util import one_torch_thread  # noqa: F401
@@ -127,3 +132,76 @@ def test_extras_are_keyword_only():
     out = batched.batched_do_rule(m, 0, SEEDS[:8], 5, None, choose_args=0,
                                   device="cpu")
     assert out.shape == (8, 5)
+
+
+# -- the mesh-sharded sweep (mesh_do_rule) -------------------------------------
+
+MESH_SEEDS = SEEDS[:250]      # pads at every mesh size below but 1 and 2
+
+
+@functools.lru_cache(maxsize=None)
+def mesh_ref():
+    """The JAX package's mesh_do_rule over its 8 virtual devices (its
+    sweep at any mesh size and through its queue is this one, which its
+    own tests hold against the scalar mapper)."""
+    return jbatched.mesh_do_rule(bench_map(jmap), 0, MESH_SEEDS, 5,
+                                 bench_reweight("half"),
+                                 mesh=jbatched.make_batch_mesh(8))
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 8])
+def test_mesh_do_rule_matches_jax(one_torch_thread, n):  # noqa: F811
+    """Seeds padded to the mesh, one sweep a device against its own
+    tables, the pad trimmed: the JAX package's sharded sweep and the
+    port's single-device one, seed for seed."""
+    m = bench_map(tmap)
+    batched.reset_paths()
+    got = batched.mesh_do_rule(
+        m, 0, MESH_SEEDS, 5, bench_reweight("half"),
+        mesh=batched.make_batch_mesh(devices=["cpu"] * n))
+    assert batched.paths() == {"kernel": 0, "plain": n, "scalar": 0}
+    np.testing.assert_array_equal(got, mesh_ref())
+    np.testing.assert_array_equal(got, batched.batched_do_rule(
+        m, 0, MESH_SEEDS, 5, bench_reweight("half"), device="cpu"))
+    for x in MESH_SEEDS[::25]:
+        assert list(got[x]) == mapper_ref.crush_do_rule(
+            m, 0, int(x), 5, list(bench_reweight("half"))), x
+
+
+def test_mesh_do_rule_rides_the_rateless_queue(one_torch_thread):  # noqa: F811
+    """With no mesh and a dispatcher set, the seeds ride its queue: one
+    sweep a micro-batch (a deadline of 10 minutes keeps a loaded host
+    from speculating), equal to the JAX package's sweep."""
+    from ceph_tpu_torch.parallel import rateless
+    rl = rateless.RatelessDispatcher(devices=["cpu"] * 2, factor=2,
+                                     timeout_ms=600e3, name="crush-rl")
+    rateless.set_dispatcher(rl)
+    try:
+        batched.reset_paths()
+        got = batched.mesh_do_rule(bench_map(tmap), 0, MESH_SEEDS, 5,
+                                   bench_reweight("half"))
+        assert batched.paths()["plain"] == 4       # factor 2 x 2 workers
+        assert sum(d["completed"] for d in rl.device_status()) == 4
+    finally:
+        rateless.reset_dispatcher()
+    np.testing.assert_array_equal(got, mesh_ref())
+
+
+def test_mesh_extras_are_keyword_only_and_checked(monkeypatch):
+    m = bench_map(tmap)
+    flat = batched.make_batch_mesh(devices=["cpu"] * 4)
+    with pytest.raises(TypeError):
+        batched.mesh_do_rule(m, 0, SEEDS[:8], 5, None, flat)
+    with pytest.raises(ValueError, match="flat 1-axis"):
+        batched.mesh_do_rule(m, 0, SEEDS[:8], 5, mesh=pmesh.make_mesh(
+            devices=["cpu"] * 4))
+    with pytest.raises(ValueError, match="do not split"):
+        batched.batched_do_rule(m, 0, SEEDS[:6], 5, xs_sharding=flat)
+    sharded = batched.batched_do_rule(m, 0, SEEDS[:8], 5, xs_sharding=flat,
+                                      tables_sharding=flat, device_out=True)
+    assert isinstance(sharded, torch.Tensor)
+    np.testing.assert_array_equal(sharded.numpy(), batched.batched_do_rule(
+        m, 0, SEEDS[:8], 5, device="cpu"))
+    monkeypatch.setattr(pmesh, "_local_devices", lambda: [])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        batched.mesh_do_rule(m, 0, SEEDS[:8], 5)

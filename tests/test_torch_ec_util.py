@@ -5,9 +5,15 @@ JAX package.
 decode_concat, HashInfo) on codecs made with ``device="cpu"`` against
 ``ceph_tpu.osd.ec_util`` on the same payloads, made from a numpy seed;
 then ``GpuDispatcher.fused_write`` on the CPU device against the direct
-path. Tolerance: none (bytes, crcs and sizes are exact).
+path; and ``recover_cross_chip`` (reed_sol_van w=8 and w=16, cauchy_good)
+and ``repair_cross_chip`` (MSR k=4) on meshes of ``["cpu"] * 4`` and
+through a rateless dispatcher of 4 CPU workers against the JAX package's
+over its virtual devices, their checksums tripping on a corrupted byte,
+and None where the reference returns None. Tolerance: none (bytes, crcs
+and sizes are exact).
 """
 
+import functools
 import random
 import threading
 import zlib
@@ -16,8 +22,11 @@ import numpy as np
 import pytest
 
 from ceph_tpu.osd import ec_util as jec
+from ceph_tpu_torch import registry
 from ceph_tpu_torch.errors import ErasureCodeError
 from ceph_tpu_torch.osd import ec_util as ec
+from ceph_tpu_torch.parallel import mesh as pmesh, rateless
+from ceph_tpu_torch.parallel.mesh import MeshChecksumError
 from ceph_tpu_torch.osd import fused_transform as ft
 from ceph_tpu_torch.osd.gpu_dispatch import GpuDispatcher
 
@@ -226,3 +235,174 @@ def test_dispatcher_fused_writes_from_threads_never_coalesce():
     assert disp.stats["dispatches"] == disp.stats["ops"] == 24
     assert disp.stats["coalesced"] == 0
     assert disp.fused_stats["dispatches"] == 24
+
+
+# -- cross-chip recovery and repair ----------------------------------------------
+#
+# The port on meshes of ["cpu"] * 4 and through a rateless dispatcher of
+# 4 CPU workers, the JAX package on its virtual devices. For cauchy_good
+# the reference is its queue path: its explicit-mesh path applies the
+# element-layout product to the packet layout's bitmatrix and rebuilds
+# wrong bytes for most targets, where the port's runs the codec's own
+# layout kernel on each block.
+
+CROSS = {"rs_w8": {"technique": "reed_sol_van", "k": "4", "m": "2",
+                   "w": "8"},
+         "rs_w16": {"technique": "reed_sol_van", "k": "4", "m": "2",
+                    "w": "16"},
+         "cauchy_good": {"technique": "cauchy_good", "k": "4", "m": "2",
+                         "packetsize": "64"}}
+TARGETS = ((5, 2), (0, 4), (3, 1))      # (rebuilt shard, also lost)
+
+
+def survivors_of(shards, target, lost):
+    rest = {s: v for s, v in shards.items() if s not in (target, lost)}
+    return {s: rest[s] for s in sorted(rest)[:4]}
+
+
+@functools.lru_cache(maxsize=None)
+def cross_case(name):
+    """A seeded 3-stripe payload, its shards, and the JAX package's
+    recover_cross_chip of each target."""
+    from ceph_tpu import registry as jregistry
+    from ceph_tpu.parallel import mesh as jmesh, rateless as jrateless
+    jcodec = jregistry.factory("jax_tpu", CROSS[name])
+    chunk = jcodec.get_chunk_size(4 * 2048)
+    jsinfo = jec.StripeInfo(4, 4 * chunk)
+    data = np.random.default_rng(7).integers(
+        0, 256, 3 * 4 * chunk, dtype=np.uint8).tobytes()
+    shards = jec.encode(jsinfo, jcodec, data)
+    mesh = None if name == "cauchy_good" else jmesh.make_mesh(4)
+    try:
+        ref = {t: jec.recover_cross_chip(
+            jsinfo, jcodec, survivors_of(shards, t, lost), t, mesh=mesh)
+            for t, lost in TARGETS}
+    finally:
+        jrateless.reset_dispatcher()
+    return chunk, shards, ref
+
+
+@pytest.fixture
+def cpu_dispatcher():
+    rl = rateless.RatelessDispatcher(devices=["cpu"] * 4, name="ec-rl")
+    rateless.set_dispatcher(rl)
+    try:
+        yield rl
+    finally:
+        rateless.reset_dispatcher()
+
+
+@pytest.mark.parametrize("name", list(CROSS))
+def test_recover_cross_chip_matches_jax(name, cpu_dispatcher):
+    chunk, shards, ref = cross_case(name)
+    codec = registry.factory("torch_cuda", CROSS[name], device="cpu")
+    si = ec.StripeInfo(4, 4 * chunk)
+    mesh = pmesh.make_mesh(devices=["cpu"] * 4)
+    for target, lost in TARGETS:
+        surv = survivors_of(shards, target, lost)
+        want = np.asarray(shards[target]).tobytes()
+        assert ref[target] == want, target
+        assert ec.recover_cross_chip(si, codec, surv, target,
+                                     mesh=mesh) == want, target
+        assert ec.recover_cross_chip(si, codec, surv, target) == want
+    assert sum(d["completed"] for d in cpu_dispatcher.device_status()) > 0
+
+
+def test_recover_cross_chip_checksum_trips(cpu_dispatcher):
+    chunk, shards, _ = cross_case("rs_w8")
+    codec = registry.factory("torch_cuda", CROSS["rs_w8"], device="cpu")
+    si = ec.StripeInfo(4, 4 * chunk)
+    surv = survivors_of(shards, 5, 2)
+    stacked = np.stack([np.asarray(surv[s]) for s in sorted(surv)])
+    expected = int(stacked.astype(np.uint64).sum()) % (1 << 32)
+    bad = dict(surv)
+    bad[1] = np.asarray(surv[1]).copy()
+    bad[1][100] ^= 0x40
+    mesh = pmesh.make_mesh(devices=["cpu"] * 4)
+    assert ec.recover_cross_chip(si, codec, surv, 5, mesh=mesh,
+                                 expected_sum=expected) is not None
+    for m in (mesh, None):
+        with pytest.raises(MeshChecksumError):
+            ec.recover_cross_chip(si, codec, bad, 5, mesh=m,
+                                  expected_sum=expected)
+
+
+def test_cross_chip_is_none_where_the_references_is(monkeypatch):
+    """A locality codec, a sub-symbol codec for recovery, one device and
+    no mesh, and a stream that is not chunk aligned: None in both
+    packages."""
+    import jax
+    from ceph_tpu import registry as jregistry
+    chunk, shards, _ = cross_case("rs_w8")
+    si, jsi = ec.StripeInfo(4, 4 * chunk), jec.StripeInfo(4, 4 * chunk)
+    surv = survivors_of(shards, 5, 2)
+    lrc_prof = {"k": "4", "m": "2", "l": "3"}
+    msr_prof = {"technique": "msr", "k": "4", "m": "3", "w": "8"}
+    mesh = pmesh.make_mesh(devices=["cpu"] * 4)
+    pairs = [(registry.factory("lrc_cuda", dict(lrc_prof), device="cpu"),
+              jregistry.factory("lrc_tpu", dict(lrc_prof))),
+             (registry.factory("msr_cuda", msr_prof, device="cpu"),
+              jregistry.factory("msr", msr_prof))]
+    for mine, ref in pairs:
+        assert ec.recover_cross_chip(si, mine, surv, 5, mesh=mesh) is None
+        assert jec.recover_cross_chip(jsi, ref, surv, 5) is None
+    codec = registry.factory("torch_cuda", CROSS["rs_w8"], device="cpu")
+    jcodec = jregistry.factory("jax_tpu", CROSS["rs_w8"])
+    short = {s: np.asarray(v)[:chunk // 2] for s, v in surv.items()}
+    assert ec.recover_cross_chip(si, codec, short, 5, mesh=mesh) is None
+    assert jec.recover_cross_chip(jsi, jcodec, short, 5,
+                                  mesh=object()) is None
+    assert ec.recover_cross_chip(si, codec, surv, 5) is None   # no devices
+    one = jax.devices()[:1]
+    monkeypatch.setattr(jax, "devices", lambda *a, **k: one)
+    assert jec.recover_cross_chip(jsi, jcodec, surv, 5) is None
+
+
+@functools.lru_cache(maxsize=None)
+def repair_case():
+    """MSR k=4, m=3: the helper fractions of shard 2 and the JAX
+    package's repair_cross_chip of them over 4 virtual devices."""
+    from ceph_tpu import registry as jregistry
+    from ceph_tpu.parallel import mesh as jmesh
+    prof = {"technique": "msr", "k": "4", "m": "3", "w": "8"}
+    jcodec = jregistry.factory("msr", prof)
+    chunk = jcodec.get_chunk_size(4 * 4096)
+    jsinfo = jec.StripeInfo(4, 4 * chunk)
+    data = np.random.default_rng(8).integers(
+        0, 256, 3 * 4 * chunk, dtype=np.uint8).tobytes()
+    shards = jec.encode(jsinfo, jcodec, data)
+    target = 2
+    helpers = sorted(jcodec.minimum_to_repair(target, set(range(7))))
+    fractions = {h: jec.repair_fraction(jsinfo, jcodec, target, shards[h])
+                 for h in helpers}
+    ref = jec.repair_cross_chip(jsinfo, jcodec, target, fractions,
+                                mesh=jmesh.make_mesh(4))
+    return prof, chunk, shards, target, fractions, ref
+
+
+def test_repair_cross_chip_matches_jax(cpu_dispatcher):
+    prof, chunk, shards, target, fractions, ref = repair_case()
+    codec = registry.factory("msr_cuda", prof, device="cpu")
+    si = ec.StripeInfo(4, 4 * chunk)
+    want = np.asarray(shards[target]).tobytes()
+    assert ref == want
+    mesh = pmesh.make_mesh(devices=["cpu"] * 4)
+    assert ec.repair_cross_chip(si, codec, target, fractions,
+                                mesh=mesh) == want
+    assert ec.repair_cross_chip(si, codec, target, fractions) == want
+    total = sum(int(np.frombuffer(f, np.uint8).astype(np.uint64).sum())
+                for f in fractions.values()) % (1 << 32)
+    for m in (mesh, None):
+        with pytest.raises(MeshChecksumError):
+            ec.repair_cross_chip(si, codec, target, fractions, mesh=m,
+                                 expected_sum=total + 1)
+    rs = registry.factory("torch_cuda", CROSS["rs_w8"], device="cpu")
+    assert ec.repair_cross_chip(si, rs, target, fractions,
+                                mesh=mesh) is None
+
+
+def test_repair_cross_chip_without_devices_is_none():
+    prof, chunk, _shards, target, fractions, _ref = repair_case()
+    codec = registry.factory("msr_cuda", prof, device="cpu")
+    assert ec.repair_cross_chip(ec.StripeInfo(4, 4 * chunk), codec, target,
+                                fractions) is None

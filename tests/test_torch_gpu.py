@@ -43,6 +43,13 @@ and through a row table, and ``msr_cuda`` k=8, m=7 against the numpy
 fractions and span nesting, the profiler's call counts against each
 kernel module's launch counters for one call of every wrapped entry
 point, and the chunk tier's ledger category against its resident bytes.
+And the multi-device paths on one card repeated (``["cuda:0"] * 4``): the
+mesh's sharded encode, decode, recovery and repair (one GF launch a
+block), its checksum on the digest kernel (blocks of 74 and 1001 bytes a
+row, not multiples of 16, and aligned ones) against ``torch.sum`` and
+tripping on a corrupted byte, the rateless dispatcher (stealing, LT
+decode, every worker killed), ``mesh_do_rule`` over a flat mesh and
+through the queue, and ``dryrun_multichip``.
 """
 
 import itertools
@@ -66,6 +73,8 @@ from ceph_tpu_torch.osd import ec_util
 from ceph_tpu_torch.osd import fused_transform as ft
 from ceph_tpu_torch.osd.gpu_dispatch import GpuDispatcher
 from ceph_tpu_torch.osd.hbm_tier import HbmChunkTier, host_digest
+from ceph_tpu_torch.parallel import mesh as pmesh, rateless
+from ceph_tpu_torch.parallel.dryrun import dryrun_multichip
 
 from . import torch_mma_plan as plan
 
@@ -1516,3 +1525,173 @@ def test_tier_ledger_equals_resident_bytes_on_card(cuda):
         assert tier.drop_prefix(cat) == 6
         assert PROFILER.mem_dump()[cat]["bytes"] == 0
 
+
+
+# -- the mesh legs and the rateless dispatcher on one card ---------------------
+
+def card_mesh(n=4):
+    """A mesh of one card repeated: 2 x 2 for n = 4."""
+    return pmesh.make_mesh(devices=["cuda:0"] * n)
+
+
+def gf_launched(fn):
+    """fn()'s result and the GF kernel's launches it made, synchronised."""
+    torch.cuda.synchronize()
+    before = gf_kernel.LAUNCHES
+    out = fn()
+    torch.cuda.synchronize()
+    return out, gf_kernel.LAUNCHES - before
+
+
+@pytest.mark.gpu
+def test_mesh_legs_on_card(cuda):
+    """encode_sharded / decode_sharded / recover_sharded of RS k=8, m=3
+    over a 2 x 2 mesh of one card: one GF launch a block, every output
+    equal to the single-device path and the plain version, the host
+    input's result on the host, a CUDA input's on the card."""
+    codec = registry.factory("torch_cuda", dict(PROFILE))
+    rng = np.random.default_rng(1414)
+    data = rng.integers(0, 256, (8, 8, 8192), dtype=np.uint8)
+    mesh = card_mesh()
+    parity, launched = gf_launched(
+        lambda: pmesh.encode_sharded(codec, data, mesh))
+    assert launched == 4 and isinstance(parity, np.ndarray)
+    x = torch.from_numpy(data).to(cuda)
+    plain = gf_kernel.matrix_encode_plain(codec._device_bitmat(x.device), x, 8)
+    assert np.array_equal(parity, plain.cpu().numpy())
+    assert np.array_equal(parity, codec.encode_batch(data))
+    on_card = pmesh.encode_sharded(codec, x, mesh)
+    assert on_card.is_cuda and torch.equal(on_card, plain)
+    full = np.concatenate([data, parity], axis=1)
+    avail = (0, 2, 3, 4, 6, 7, 8, 10)
+    dec, launched = gf_launched(lambda: pmesh.decode_sharded(
+        codec, avail, full[:, list(avail)], mesh))
+    assert launched == 4 and np.array_equal(dec, full)
+    before = digest_kernel.LAUNCHES
+    row, launched = gf_launched(lambda: pmesh.recover_sharded(
+        codec, avail, full[:7, list(avail), :8000], 5, mesh=mesh))
+    assert launched == 4 and digest_kernel.LAUNCHES - before == 4
+    assert np.array_equal(row, full[:7, 5, :8000])
+
+
+@pytest.mark.gpu
+def test_mesh_checksum_on_card_and_corruption(cuda):
+    """The checksum's digest path on blocks whose width is not a multiple
+    of 16 bytes (74 and 1001 columns) and on aligned ones, against
+    torch.sum on the card; one corrupted byte trips recover_sharded and
+    repair_sharded."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for shape, mesh in (((4, 3, 2 * 74), card_mesh(4)),        # 74 a block
+                        ((2, 5, 3 * 1001),                     # 1001
+                         pmesh.make_mesh(devices=["cuda:0"] * 3)),
+                        ((4, 8, 2 * 4096), card_mesh(4))):     # aligned
+        x = torch.randint(0, 256, shape, generator=g, dtype=torch.uint8,
+                          device=cuda)
+        blocks = pmesh._place(x, mesh, 1)
+        before = digest_kernel.LAUNCHES
+        got = pmesh._checksum(blocks)
+        assert digest_kernel.LAUNCHES - before == len(blocks)
+        plain = sum(int(torch.sum(b.data, dtype=torch.int64)) % (1 << 32)
+                    for b in blocks) % (1 << 32)
+        assert got == plain == int(torch.sum(x, dtype=torch.int64)) % (1 << 32)
+    codec = registry.factory("torch_cuda", dict(PROFILE))
+    data = np.random.default_rng(2).integers(0, 256, (4, 8, 1000),
+                                             dtype=np.uint8)
+    full = np.concatenate([data, codec.encode_batch(data)], axis=1)
+    chunks = np.ascontiguousarray(full[:, 1:9])
+    expected = int(chunks.astype(np.uint64).sum()) % (1 << 32)
+    chunks[2, 3, 999] ^= 1
+    with pytest.raises(pmesh.MeshChecksumError):
+        pmesh.recover_sharded(codec, tuple(range(1, 9)), chunks, 0,
+                              mesh=card_mesh(), expected_sum=expected)
+    msr = registry.factory("msr_cuda", {"technique": "msr", "k": "4",
+                                        "m": "3", "w": "8"})
+    host = registry.factory("msr", {"technique": "msr", "k": "4", "m": "3",
+                                    "w": "8"})
+    chunk = msr.get_chunk_size(4 * 4096)
+    mdata = np.random.default_rng(3).integers(0, 256, (3, 4, chunk),
+                                              dtype=np.uint8)
+    mfull = np.concatenate([mdata, host.encode_batch(mdata)], axis=1)
+    helpers = tuple(sorted(msr.minimum_to_repair(2, set(range(7)))))
+    fracs = np.stack([host.repair_fraction_batch(
+        2, np.ascontiguousarray(mfull[:, h])) for h in helpers], 1)
+    rebuilt, launched = gf_launched(lambda: pmesh.repair_sharded(
+        msr, 2, helpers, fracs, mesh=card_mesh()))
+    assert launched == 4 and np.array_equal(rebuilt, mfull[:, 2])
+    expected = int(fracs.astype(np.uint64).sum()) % (1 << 32)
+    fracs[0, 0, 0] ^= 1
+    with pytest.raises(pmesh.MeshChecksumError):
+        pmesh.repair_sharded(msr, 2, helpers, fracs, mesh=card_mesh(),
+                             expected_sum=expected)
+
+
+@pytest.mark.gpu
+def test_rateless_dispatcher_on_card(cuda):
+    """Four workers on one card, each on its own stream: encode under
+    stalls (stealing), LT-coded decode, and every worker killed (the
+    caller's thread finishes on the codec's card), each equal to the
+    single-device call; the speculative ledger ends at 0."""
+    codec = registry.factory("torch_cuda", dict(PROFILE))
+    data = np.random.default_rng(7).integers(0, 256, (16, 8, 16384),
+                                             dtype=np.uint8)
+    want = codec.encode_batch(data)
+    full = np.concatenate([data, want], axis=1)
+    avail = (1, 2, 3, 4, 5, 6, 8, 9)
+    inj = rateless.DeviceFaultSet(seed=1)
+    rl = rateless.RatelessDispatcher(devices=["cuda:0"] * 4, injector=inj,
+                                     name="card-rl")
+    try:
+        assert len({id(t) for t in rl._threads}) == 4
+        for idx in (1, 3):
+            inj.stall_ms(idx, 5.0)
+        assert np.array_equal(rl.encode(codec, data), want)
+        assert rl.status()["stolen_total"] > 0
+        inj.clear_all()
+        for seed in (0, 1):
+            assert np.array_equal(rl.decode(codec, avail,
+                                            full[:, list(avail)],
+                                            lt=True, seed=seed), full)
+        for idx in range(4):
+            inj.kill(idx)
+        assert np.array_equal(rl.encode(codec, data), want)
+    finally:
+        inj.clear_all()
+        rl.shutdown()
+    assert rl._spec_bytes == 0
+
+
+@pytest.mark.gpu
+def test_mesh_do_rule_on_card(cuda):
+    """The flat-mesh sweep over one card repeated: one kernel launch a
+    share, the seeds padded (4,097 over 4) and trimmed, equal to the
+    single sweep and the plain version on the card; then through a
+    dispatcher's queue."""
+    m = crushtool.build_map(64, [("host", "straw2", 4),
+                                 ("root", "straw2", 0)])
+    m.add_simple_rule("rep", "default", "host")
+    xs = np.arange(4_097)
+    one = batched.batched_do_rule(m, 0, xs, 3, device=cuda)
+    cm, plan = batched.compile_map(m), batched.plan_rule(m, 0, 3)
+    wvec = torch.from_numpy(batched.reweight_vector(None, cm.max_devices))
+    plain = batched.map_plain(cm, plan, torch.from_numpy(xs).to(cuda),
+                              wvec.to(cuda))
+    assert np.array_equal(one, plain.cpu().numpy())
+    batched.reset_paths()
+    got = batched.mesh_do_rule(m, 0, xs, 3, mesh=batched.make_batch_mesh(
+        devices=["cuda:0"] * 4))
+    assert batched.paths() == {"kernel": 4, "plain": 0, "scalar": 0}
+    assert np.array_equal(got, one)
+    rl = rateless.RatelessDispatcher(devices=["cuda:0"] * 4, name="crush-rl")
+    rateless.set_dispatcher(rl)
+    try:
+        batched.reset_paths()
+        assert np.array_equal(batched.mesh_do_rule(m, 0, xs, 3), one)
+        assert batched.paths()["kernel"] >= 16
+    finally:
+        rateless.reset_dispatcher()
+
+
+@pytest.mark.gpu
+def test_dryrun_multichip_on_card(cuda):
+    doc = dryrun_multichip(["cuda:0"] * 4)
+    assert doc["mesh"] == {"stripe": 2, "block": 2}

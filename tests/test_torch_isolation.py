@@ -60,6 +60,11 @@ def test_the_walk_covers_the_tier_and_its_kernels():
             "ceph_tpu_torch/models/msr.py",
             "ceph_tpu_torch/models/xor_example.py",
             "ceph_tpu_torch/ops/xor_mm.py",
+            "ceph_tpu_torch/parallel/__init__.py",
+            "ceph_tpu_torch/parallel/dryrun.py",
+            "ceph_tpu_torch/parallel/mesh.py",
+            "ceph_tpu_torch/parallel/placement.py",
+            "ceph_tpu_torch/parallel/rateless.py",
             "ceph_tpu_torch/registry.py"} <= names
 
 
@@ -138,3 +143,26 @@ def test_tier_without_device_raises(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA"):
         HbmChunkTier(device="cuda")
     assert HbmChunkTier(device="cpu").stats()["device"] == "cpu:0"
+
+
+def test_mesh_and_rateless_without_device_raise(no_cuda):
+    """No device given means the cards: with none, every multi-device
+    entry point raises, and the process-global pieces stand down."""
+    from ceph_tpu_torch.parallel import dryrun, mesh, placement, rateless
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.make_mesh(devices=["cuda"] * 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        crush_batched.make_batch_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rateless.RatelessDispatcher()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun.dryrun_multichip(2)
+    m = crushtool.build_map(16, [("host", "straw2", 4), ("root", "straw2", 0)])
+    m.add_simple_rule("rep", "default", "host")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        crush_batched.mesh_do_rule(m, 0, [1, 2, 3], 3)
+    assert placement.PLACEMENT.resolve(0) is None
+    placement.PLACEMENT.forget(0)
+    assert rateless.get_dispatcher(create=False) is None
