@@ -11,11 +11,12 @@ from the largest bucket and the number of seeds) and reads one int32
 buffer of tables (:func:`pack_tables`, with each weight's reciprocal for
 its division); the device copy is cached per (table bytes, reweight
 vector, device), so a sweep uploads a map once (:func:`device_tables`,
-:func:`clear_tables`).
+:func:`clear_tables`; ``UPLOADS`` counts the uploads).
 ``LAUNCHES`` counts the wrapper's launches; :func:`launches_by_design`
 reads the counts that the C entry point keeps per design ("shared": the
 tables, reciprocals included, staged in shared memory; "global": read
-from device memory), and :func:`reset_launches` sets all of them to 0. A seed's working slots live in shared memory, or in a
+from device memory), and :func:`reset_launches` sets all of them and
+``UPLOADS`` to 0. A seed's working slots live in shared memory, or in a
 scratch of device memory the wrapper allocates where a rule's replicas
 (``out_size``) exceed what a block holds.
 """
@@ -35,13 +36,14 @@ from . import _build
 __all__ = ["crush_sweep", "pack_tables", "device_tables", "clear_tables",
            "kernel_design", "launches_by_design", "reset_launches",
            "clock_rows", "kernel_group", "reciprocals",
-           "LAUNCHES", "DESIGNS"]
+           "LAUNCHES", "UPLOADS", "DESIGNS"]
 
 _SOURCE = "crush_straw2"
 
 DESIGNS = ("shared", "global")  # by the C entry point's number
 
 LAUNCHES = 0
+UPLOADS = 0
 _count_lock = threading.Lock()
 _lib = None
 _table_cache: dict = {}
@@ -121,10 +123,13 @@ def device_tables(cm: CompiledMap, wvec: np.ndarray,
     key = (cm.items.tobytes(), cm.ids.tobytes(), cm.wsets.tobytes(),
            cm.size.tobytes(), cm.btype.tobytes(), cm.max_devices,
            np.asarray(wvec, dtype=np.int64).tobytes(), str(device))
+    global UPLOADS
     with _table_lock:
         tab = _table_cache.get(key)
     if tab is None:
         tab = torch.from_numpy(pack_tables(cm, wvec)).to(device)
+        with _count_lock:
+            UPLOADS += 1
         with _table_lock:
             if len(_table_cache) >= _TABLE_CACHE_MAX:
                 _table_cache.clear()
@@ -156,10 +161,10 @@ def launches_by_design() -> dict[str, int]:
 
 
 def reset_launches() -> None:
-    """Sets ``LAUNCHES`` and the per-design counts to 0."""
-    global LAUNCHES
+    """Sets ``LAUNCHES``, ``UPLOADS`` and the per-design counts to 0."""
+    global LAUNCHES, UPLOADS
     with _count_lock:
-        LAUNCHES = 0
+        LAUNCHES = UPLOADS = 0
         if _lib is not None:
             _lib.crush_straw2_reset_launches()
 

@@ -9,9 +9,11 @@ reed_sol_van k=8, m=3, w=8 on batches of 16 objects of 1 MiB
 batched CRUSH placement of a 1024-OSD cluster, the device chunk tier
 fed by the dispatcher's writes and the MSR code's regenerating repair,
 reads the port's telemetry, stage profiler, span collector and
-device-memory ledger, and runs the multi-device paths (the device mesh,
+device-memory ledger, runs the multi-device paths (the device mesh,
 the mesh-sharded CRUSH sweep, rateless dispatch) over one card repeated,
-through the entry points a user calls,
+and the placement control plane (the full remap of a two-pool cluster,
+churn, the upmap balancer, crushtool's and osdmaptool's CLIs), through
+the entry points a user calls,
 and holds every kernel of the paths against its plain PyTorch version on
 the card. Phases, each printing one JSON line:
 
@@ -225,15 +227,49 @@ the card. Phases, each printing one JSON line:
                  per-worker completed and stolen counts, and the
                  checksum's digest against ``torch.sum`` (CUDA events);
                  the sharded encode and decode equal the plain version.
-  14. kernels    one JSON line per the port's kernel table: the design
+  14. placement  the placement control plane on phase 9's 1024-OSD
+                 cluster under its reweights, with two pools: pool 1
+                 replicated size 3 (chooseleaf firstn over hosts) at
+                 32,768 PGs, pool 2 SHEC k=8, m=4 (chooseleaf indep over
+                 hosts, 12 slots) at 8,192 PGs with a two-position weight
+                 set under choose_args[2]: 40,960 PGs, 196,608 slots, the
+                 straw2 kernel counted from 0 just before. (a)
+                 ``OSDMapMapping.update``: one straw2 launch and one table
+                 upload a pool, a second update one launch a pool and no
+                 upload, each pool's raw result equal to the plain version
+                 on the card, 256 sampled PGs a pool equal to
+                 ``OSDMap.pg_to_up_acting_osds`` (the scalar path), the
+                 update over ``make_batch_mesh(devices=["cuda:0"] * 4)``
+                 four launches a pool and the same mapping; the wall ms of
+                 each pool's seed build, sweep and host overlay loop. (b)
+                 an overlay-only incremental (64 pg_temp, 8 primary_temp,
+                 64 pg_upmap_items, 8 OSDs down) through
+                 ``apply_incremental``: "incremental", no launch, equal to
+                 a full update; a weight change then "full", one launch a
+                 pool. (c) ``calc_pg_upmaps(max_changes=64,
+                 changes_per_sweep=16)`` on the card: one launch a pool a
+                 sweep and no upload, every changed PG keeping its replica
+                 and failure-domain counts, the largest deviation not
+                 rising, the mapping after ``apply_to`` and
+                 ``apply_incremental`` equal to a full update; its sweeps,
+                 changes, deviations, seconds and launches. (d)
+                 ``crushtool -d`` then ``-c`` of the map with its weight
+                 set: the same map; ``--test --batched`` over 65,536 seeds
+                 of the compiled map equal to the built map's;
+                 ``osdmaptool --test-map-pgs --batched``: per-OSD counts
+                 summing to 196,608; ``compressor.available()`` of the
+                 five algorithms. Then each pool's sweep in parts
+                 (compile_map, h2d, kernel by CUDA events, d2h).
+  15. kernels    one JSON line per the port's kernel table: the design
                  the main path takes, launches on the main path (phases
                  3-4 for the GF bitmatrix kernel, phase 6 for the packet
                  kernel, phase 8 for the write transform's kernels, phase
                  9 for the CRUSH kernel, phase 10 for the tier's two,
                  each counted from 0 just before its path), the GF
-                 kernel's launches on phases 6, 8 and 11 as well, and the
+                 kernel's launches on phases 6, 8 and 11 as well, the
                  GF, CRUSH and digest kernels' on phase 13
-                 (``mesh_launches``), max_abs_err, ms, plain_ms,
+                 (``mesh_launches``) and the CRUSH kernel's on phase 14
+                 (``remap_launches``), max_abs_err, ms, plain_ms,
                  bound_ms, bound_by, library_ms.
 
 Then the card's name and power limit as nvidia-smi prints them, and as
@@ -263,6 +299,9 @@ BATCH, K, M, W, N = 16, 8, 3, 8, 131072
 # bench's repair leg, the recovery batch and k=10 past 512 columns
 MSR_BENCH, MSR_RECOVERY, MSR_SPLIT = (8, 1 << 20), (64, 4 << 20), (16, 1 << 20)
 PROFILE = {"technique": "reed_sol_van", "k": str(K), "m": str(M), "w": str(W)}
+# phase 14's pools: pg_num of pool 1 (replicated, size 3) and pool 2 (EC,
+# 12 slots); 40,960 PGs and 196,608 slots
+PLACEMENT_PGS = (32768, 8192)
 
 _records: list[dict] = []
 
@@ -1757,11 +1796,14 @@ def mesh_phase(np, torch, dev, smi):
     share = torch.arange(n_seeds // 4, dtype=torch.int64, device=dev)
     work = torch.zeros((share.shape[0], 2), dtype=torch.int32, device=dev)
     crush_kernel.crush_sweep(cm, plan, share, wvec, work=work)
+    wdev = torch.from_numpy(wvec).to(dev)
     crush_share = {"seeds": int(share.shape[0]),
                    "ms": time_ms(lambda x_: crush_kernel.crush_sweep(
-                       cm, plan, x_, wvec), [share], 10)}
+                       cm, plan, x_, wvec), [share], 10),
+                   "plain_ms": time_ms(lambda x_: batched.map_plain(
+                       cm, plan, x_, wdev), [share], 2)}
     crush_share["bound_ms"], crush_share["bound_by"] = crush_bound(work, rmax)
-    del blocks, sums, rows, ins, out0, share, work
+    del blocks, sums, rows, ins, out0, share, work, wdev
     torch.cuda.empty_cache()
     sections["timings"] = time.perf_counter() - t_phase
     emit("mesh", case="legs", gpu=smi, mesh=dict(mesh.shape), legs=legs,
@@ -1779,6 +1821,315 @@ def mesh_phase(np, torch, dev, smi):
          phase_s=time.perf_counter() - t_phase)
     return {"launches": phase, "checksum": checksum, "legs": legs,
             "block_gf": block_gf, "crush_share": crush_share}
+
+
+def placement_phase(np, torch, dev, smi):
+    """Phase 14: the placement control plane on the card: the full remap
+    (``OSDMapMapping.update``), churn through ``apply_incremental``, the
+    upmap balancer and the two CLIs, on phase 9's 1024-OSD cluster with
+    two pools (40,960 PGs). Returns the phase's straw2 launches, counted
+    from 0 just before it, and its numbers."""
+    import contextlib
+    import io
+
+    from ceph_tpu_torch import compressor
+    from ceph_tpu_torch.crush import batched
+    from ceph_tpu_torch.crush.map import (CRUSH_ITEM_NONE, POOL_TYPE_ERASURE,
+                                          POOL_TYPE_REPLICATED)
+    from ceph_tpu_torch.ops import crush_kernel
+    from ceph_tpu_torch.osd import balancer
+    from ceph_tpu_torch.osd.osd_map import (Incremental, OSDMap,
+                                            OSDMapMapping, PGID, PGPool)
+    from ceph_tpu_torch.tools import crushtool, osdmaptool
+    from ceph_tpu_torch.tools.crush_tier_turns import (CLUSTER_LAYERS,
+                                                       cluster_reweight)
+    from ceph_tpu_torch.utils.cuda_timing import time_ms
+
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    # the deployment: phase 9's cluster and reweights; pool 1 replicated
+    # size 3 at Ceph's (OSDs x 100) / size PGs to a power of two, pool 2
+    # SHEC k=8 m=4 (12 slots) at 8,192 PGs with a two-position weight set
+    # under choose_args[2]
+    crush = crushtool.build_map(1024, CLUSTER_LAYERS)
+    ec_rule = crush.add_simple_rule("ec", "default", "host", mode="indep",
+                                    rule_type=POOL_TYPE_ERASURE)
+    rep_rule = crush.add_simple_rule("rep", "default", "host")
+    crush.create_choose_args(2, positions=2)
+    for host in (3, 17, 29, 42, 58):
+        crush.choose_args_adjust_item_weight(2, -1 - host, host * 16 + 4,
+                                             [0x4000, 0xC000])
+    rw = cluster_reweight(np, 1024)
+    m = OSDMap()
+    inc = Incremental(1)
+    inc.new_max_osd = 1024
+    inc.new_crush = crush
+    inc.new_pools[1] = PGPool(pool_id=1, name="rbd",
+                              type=POOL_TYPE_REPLICATED, size=3, min_size=2,
+                              pg_num=PLACEMENT_PGS[0], crush_rule=rep_rule)
+    inc.new_pools[2] = PGPool(pool_id=2, name="ec", type=POOL_TYPE_ERASURE,
+                              size=12, min_size=9, pg_num=PLACEMENT_PGS[1],
+                              crush_rule=ec_rule,
+                              erasure_code_profile="shec_k8_m4_c3")
+    for osd in range(1024):
+        inc.new_up[osd] = ("127.0.0.1", 6800 + osd)
+        inc.new_weight[osd] = int(rw[osd])
+    m.apply_incremental(inc)
+    n_pgs = sum(p.pg_num for p in m.pools.values())
+    n_slots = sum(p.pg_num * p.size for p in m.pools.values())
+    map_json = out_dir / "osdmap_1024.json"
+    map_json.write_text(json.dumps(osdmaptool.osdmap_to_json(m)))
+    built_map = m.clone()
+
+    def counted(fn):
+        """fn()'s result, wall ms, and the straw2 launches and table
+        uploads it made."""
+        l0, u0 = crush_kernel.LAUNCHES, crush_kernel.UPLOADS
+        t0 = time.perf_counter()
+        res = fn()
+        ms = (time.perf_counter() - t0) * 1e3
+        return res, ms, crush_kernel.LAUNCHES - l0, crush_kernel.UPLOADS - u0
+
+    def remap(**kw):
+        mapping = OSDMapMapping()
+        mapping.update(m, **kw)
+        return mapping
+
+    def same_sets(a, b):
+        return {o: sorted(p, key=lambda g: (g.pool, g.ps))
+                for o, p in a.by_osd.items() if p} == \
+            {o: sorted(p, key=lambda g: (g.pool, g.ps))
+             for o, p in b.by_osd.items() if p}
+
+    # the main path, counted from 0 just before it
+    crush_kernel.clear_tables()
+    crush_kernel.reset_launches()
+    batched.reset_paths()
+    sections = {}
+    # (a) the full remap: cold tables, then warm, then over a flat mesh
+    mapping, first_ms, launched, uploaded = counted(remap)
+    check(launched == 2 and uploaded == 2,
+          "(a) one straw2 launch and one table upload a pool (%d, %d)"
+          % (launched, uploaded))
+    check(batched.paths() == {"kernel": 2, "plain": 0, "scalar": 0},
+          "(a) both pools took the kernel")
+    warm, warm_ms, launched, uploaded = counted(remap)
+    check(launched == 2 and uploaded == 0,
+          "(a) a second update: one launch a pool, no table upload "
+          "(%d, %d)" % (launched, uploaded))
+    check(warm.by_pg == mapping.by_pg and warm.by_osd == mapping.by_osd,
+          "(a) the second update maps alike")
+    worst = 0
+    for pool_id, pool in m.pools.items():
+        cm = batched.compile_map(
+            m.crush, m.crush.choose_args_get_with_fallback(pool_id))
+        plan = batched.plan_rule(m.crush, pool.crush_rule, pool.size)
+        wvec = batched.reweight_vector(m._weight_vector(), cm.max_devices)
+        seeds = torch.from_numpy(pool.pps_of(np.arange(pool.pg_num))).to(dev)
+        plain = batched.map_plain(cm, plan, seeds, torch.from_numpy(
+            wvec).to(dev)).cpu().numpy()
+        diff = int(np.abs(plain - mapping.raw[pool_id]).max())
+        worst = max(worst, diff)
+        check(diff == 0, "(a) pool %d's raw result equals the plain version "
+              "on the card" % pool_id)
+        rng = np.random.default_rng(pool_id)
+        for ps in rng.choice(pool.pg_num, min(256, pool.pg_num),
+                             replace=False):
+            pgid = PGID(pool_id, int(ps))
+            check(mapping.get(pgid) == m.pg_to_up_acting_osds(pgid),
+                  "(a) %s equals the scalar path" % pgid)
+    mesh = batched.make_batch_mesh(devices=["cuda:0"] * 4)
+    meshed, mesh_ms, launched, uploaded = counted(lambda: remap(mesh=mesh))
+    check(launched == 8, "(a) four launches a pool over the mesh (%d)"
+          % launched)
+    check(meshed.by_pg == mapping.by_pg and meshed.by_osd == mapping.by_osd,
+          "(a) the mesh's remap maps alike")
+    holes = {p: int((mapping.raw[p] == CRUSH_ITEM_NONE).sum())
+             for p in m.pools}
+    emit("placement", case="full_remap", gpu=smi, pgs=n_pgs, slots=n_slots,
+         first_ms=first_ms, warm_ms=warm_ms, mesh_ms=mesh_ms,
+         split_warm_ms=warm.split, split_mesh_ms=meshed.split,
+         raw_holes=holes, max_abs_err=worst,
+         sampled_scalar=256 * len(m.pools))
+    sections["a"] = time.perf_counter() - t_phase
+
+    # (b) churn: an overlay-only incremental, then a weight change
+    rng = np.random.default_rng(14)
+    in_osds = [o for o in range(1024) if m.is_in(o)]
+    inc = Incremental(m.epoch + 1)
+    for i, ps in enumerate(rng.choice(PLACEMENT_PGS[1], 64, replace=False)):
+        pool_id, size = (1, 3) if i % 4 else (2, 12)
+        inc.new_pg_temp[PGID(pool_id, int(ps))] = [
+            int(o) for o in rng.choice(in_osds, size, replace=False)]
+    for ps in rng.choice(PLACEMENT_PGS[1], 8, replace=False):
+        up = mapping.get(PGID(2, int(ps)))[0]
+        inc.new_primary_temp[PGID(2, int(ps))] = int(up[3])
+    for ps in rng.choice(PLACEMENT_PGS[0], 64, replace=False):
+        pgid = PGID(1, int(ps))
+        up = mapping.get(pgid)[0]
+        dst = next(o for o in rng.permutation(in_osds) if o not in up)
+        inc.new_pg_upmap_items[pgid] = [(up[0], int(dst))]
+    inc.new_down = [int(o) for o in rng.choice(in_osds, 8, replace=False)]
+    m.apply_incremental(inc)
+    info, inc_ms, launched, _ = counted(
+        lambda: mapping.apply_incremental(m, inc))
+    check(info["mode"] == "incremental" and launched == 0,
+          "(b) the overlay-only inc recomputed on the host (%s)" % info)
+    full, full_ms, launched, _ = counted(remap)
+    check(launched == 2, "(b) the full remap: one launch a pool")
+    check(mapping.by_pg == full.by_pg and same_sets(mapping, full),
+          "(b) the incremental mapping equals a full update")
+    inc2 = Incremental(m.epoch + 1)
+    inc2.new_weight = {in_osds[100]: 0x4000}
+    m.apply_incremental(inc2)
+    info2, full2_ms, launched, uploaded = counted(
+        lambda: mapping.apply_incremental(m, inc2))
+    check(info2 == {"mode": "full", "recomputed": n_pgs} and launched == 2,
+          "(b) a weight change falls back to a full update (%s)" % info2)
+    emit("placement", case="churn", gpu=smi, pg_temp=64, primary_temp=8,
+         pg_upmap_items=64, down=8, incremental=info, incremental_ms=inc_ms,
+         full_update_ms=full_ms, weight_change=info2,
+         weight_change_ms=full2_ms, weight_change_uploads=uploaded)
+    sections["b"] = time.perf_counter() - t_phase
+
+    # (c) the balancer, its sweeps on the card, on the map as built (a
+    # down OSD is underfull to it, and would draw shards onto itself)
+    m = built_map
+    mapping = warm
+    before, before_ms, launched_b, _ = counted(
+        lambda: balancer.eval_distribution(m))
+    check(launched_b == 2, "(c) eval: one launch a pool")
+    res, bal_ms, launched, uploaded = counted(
+        lambda: balancer.calc_pg_upmaps(m, max_changes=64,
+                                        changes_per_sweep=16))
+    check(res.num_changed > 0, "(c) the balancer proposed changes")
+    check(launched == 2 * res.sweeps and uploaded == 0,
+          "(c) one launch a pool a sweep, no upload (%d launches, %d "
+          "sweeps, %d uploads)" % (launched, res.sweeps, uploaded))
+    bal_launches = launched
+    pre = {pg: mapping.get(pg)[0] for pg in res.new_pg_upmap_items}
+    inc3 = Incremental(m.epoch + 1)
+    res.apply_to(inc3)
+    m.apply_incremental(inc3)
+    info3 = mapping.apply_incremental(m, inc3)
+    check(info3["mode"] == "incremental", "(c) the proposal is overlay-only")
+    full = remap()
+    check(mapping.by_pg == full.by_pg and same_sets(mapping, full),
+          "(c) the mapping after apply_to equals a full update")
+    pindex = balancer.parent_index(m.crush)
+    for pgid, old in pre.items():
+        pool = m.pools[pgid.pool]
+        fd = balancer.rule_failure_domain(m.crush, pool.crush_rule)
+        new = [o for o in full.get(pgid)[0] if o != CRUSH_ITEM_NONE]
+        old = [o for o in old if o != CRUSH_ITEM_NONE]
+        check(len(new) == len(old), "(c) %s keeps its replica count" % pgid)
+        check(len({balancer.parent_of_type(m.crush, o, fd, pindex)
+                   for o in new}) >=
+              len({balancer.parent_of_type(m.crush, o, fd, pindex)
+                   for o in old}),
+              "(c) %s keeps its failure-domain count" % pgid)
+    after = balancer.eval_distribution(m)
+    dev_before = max(before.deviation(o) for o in before.targets)
+    dev_after = max(after.deviation(o) for o in after.targets)
+    check(dev_after <= dev_before, "(c) the largest deviation did not rise "
+          "(%.3f -> %.3f)" % (dev_before, dev_after))
+    emit("placement", case="balancer", gpu=smi, max_changes=64,
+         changes_per_sweep=16, sweeps=res.sweeps, changes=res.num_changed,
+         items=len(res.new_pg_upmap_items),
+         dropped=len(res.old_pg_upmap_items),
+         largest_deviation=[dev_before, dev_after],
+         largest_abs_deviation=[
+             max(abs(before.deviation(o)) for o in before.targets),
+             max(abs(after.deviation(o)) for o in after.targets)],
+         total_deviation=[res.start_deviation, res.end_deviation],
+         stddev=[before.stddev, after.stddev], seconds=bal_ms / 1e3,
+         straw2_launches=bal_launches, eval_ms=before_ms)
+    sections["c"] = time.perf_counter() - t_phase
+
+    # (d) the CLIs: crushtool -d / -c of the map and --test --batched,
+    # osdmaptool --test-map-pgs --batched of the map as built
+    def tool(mod, *argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = mod.main([str(a) for a in argv])
+        check(rc == 0, "%s %s" % (mod.__name__, " ".join(map(str, argv))))
+        return buf.getvalue()
+
+    built, text = out_dir / "crush_1024_ws.json", out_dir / "crush_1024.txt"
+    compiled = out_dir / "crush_1024_compiled.json"
+    built.write_text(json.dumps(crushtool.map_to_json(crush)))
+    tool(crushtool, "-d", built, "-o", text)
+    tool(crushtool, "-c", text, "-o", compiled)
+    docs = [json.loads(p.read_text()) for p in (built, compiled)]
+    for doc in docs:
+        doc["buckets"].sort(key=lambda b: b["id"])
+    check(docs[0] == docs[1], "(d) crushtool -d then -c gives the same map")
+    test_args = ["--test", "--rule", ec_rule, "--num-rep", 12, "--min-x", 0,
+                 "--max-x", 65535, "--batched", "--show-utilization"]
+    reports = [tool(crushtool, "-i", p, *test_args) for p in (built, compiled)]
+    check(reports[0] == reports[1], "(d) --test --batched: the compiled map "
+          "reports as the built one")
+    _, r_built = crushtool.run_test(crush, ec_rule, 12, 0, 65535, batched=True)
+    _, r_comp = crushtool.run_test(crushtool.map_from_json(docs[1]), ec_rule,
+                                   12, 0, 65535, batched=True)
+    check(r_built == r_comp, "(d) every seed of the compiled map maps as "
+          "the built map's")
+    t0 = time.perf_counter()
+    report = tool(osdmaptool, map_json, "--test-map-pgs", "--batched")
+    pgs_s = time.perf_counter() - t0
+    counts = [int(line.split("\t")[1]) for line in report.splitlines()
+              if line.startswith("osd.")]
+    check(len(counts) == 1024 and sum(counts) == n_slots,
+          "(d) osdmaptool's per-OSD counts sum to %d (%d)"
+          % (n_slots, sum(counts)))
+    (out_dir / "osdmaptool_test_map_pgs.txt").write_text(report)
+    avail = {a: compressor.available(a)
+             for a in ("zlib", "zstd", "snappy", "lz4", "jax_device")}
+    emit("placement", case="tools", gpu=smi, text_bytes=text.stat().st_size,
+         crushtool_test_summary=reports[0].strip().splitlines()[-2:],
+         osdmaptool_summary=report.strip().splitlines()[-4:],
+         osdmaptool_s=pgs_s, slots_counted=sum(counts),
+         compressors_available=avail)
+    sections["d"] = time.perf_counter() - t_phase
+    launches = crush_kernel.LAUNCHES
+    paths = batched.paths()
+    check(launches > 0 and paths["plain"] == 0,
+          "phase 14 launched the straw2 kernel and never the plain version")
+
+    # the sweep's parts of one pool's remap (not on the main path's count):
+    # compile_map, h2d, kernel (CUDA events, seeds on the card), d2h
+    parts = {}
+    for pool_id, pool in m.pools.items():
+        args = m.crush.choose_args_get_with_fallback(pool_id)
+        t0 = time.perf_counter()
+        cm = batched.compile_map(m.crush, args)
+        compile_ms = (time.perf_counter() - t0) * 1e3
+        plan = batched.plan_rule(m.crush, pool.crush_rule, pool.size)
+        wvec = batched.reweight_vector(m._weight_vector(), cm.max_devices)
+        seeds = pool.pps_of(np.arange(pool.pg_num))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xs = torch.from_numpy(seeds).to(dev)
+        torch.cuda.synchronize()
+        h2d_ms = (time.perf_counter() - t0) * 1e3
+        out = crush_kernel.crush_sweep(cm, plan, xs, wvec)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out.cpu().numpy()
+        d2h_ms = (time.perf_counter() - t0) * 1e3
+        kernel_ms = time_ms(lambda x: crush_kernel.crush_sweep(
+            cm, plan, x, wvec), [xs], 10)
+        parts[pool_id] = dict(seeds=pool.pg_num, compile_map_ms=compile_ms,
+                              h2d_ms=h2d_ms, kernel_ms=kernel_ms,
+                              d2h_ms=d2h_ms)
+    emit("placement", case="sweep_parts", gpu=smi, pools=parts,
+         launches=launches, paths=paths, sections_s=sections,
+         phase_s=time.perf_counter() - t_phase)
+    return {"launches": launches, "parts": parts,
+            "warm_split": warm.split, "warm_ms": warm_ms,
+            "balancer": {"sweeps": res.sweeps, "changes": res.num_changed,
+                         "launches": bal_launches}}
 
 
 def main() -> int:
@@ -2930,7 +3281,10 @@ def main() -> int:
     # -- 13. the mesh legs, the sharded CRUSH sweep, rateless dispatch -----
     mesh_part = mesh_phase(np, torch, dev, smi)
 
-    # -- 14. kernels line -------------------------------------------------
+    # -- 14. the placement control plane: remap, churn, balancer, tools ----
+    placement_part = placement_phase(np, torch, dev, smi)
+
+    # -- 15. kernels line -------------------------------------------------
     enc = timings["encode"]
     dec = timings["decode345678910"]
     kernels = [{
@@ -3016,6 +3370,9 @@ def main() -> int:
                ["bitplane_low_%d" % (BSTRIPES * K * BCHUNK)])
     crush_line["mesh_launches"] = mesh_part["launches"]["crush"]
     crush_line["mesh_share"] = mesh_part["crush_share"]
+    crush_line["remap_launches"] = placement_part["launches"]
+    crush_line["remap"] = {f: placement_part[f] for f in (
+        "parts", "warm_split", "warm_ms", "balancer")}
     kernels.append(crush_line)
     for line in tier_lines:
         if line["name"] == "chunk_digest":

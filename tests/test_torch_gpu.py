@@ -49,7 +49,13 @@ block), its checksum on the digest kernel (blocks of 74 and 1001 bytes a
 row, not multiples of 16, and aligned ones) against ``torch.sum`` and
 tripping on a corrupted byte, the rateless dispatcher (stealing, LT
 decode, every worker killed), ``mesh_do_rule`` over a flat mesh and
-through the queue, and ``dryrun_multichip``.
+through the queue, and ``dryrun_multichip``. And the placement control
+plane on a 64-OSD cluster of two pools: ``OSDMapMapping.update`` (one
+straw2 launch a pool, no table upload on a second call, each pool's raw
+result equal to the plain version, the mapping to the scalar path's,
+four launches a pool over a mesh of four), ``apply_incremental`` (no
+launch for an overlay-only inc, a full remap on a weight change), the
+balancer's sweeps and ``osdmaptool --test-map-pgs --batched``.
 """
 
 import itertools
@@ -1695,3 +1701,148 @@ def test_mesh_do_rule_on_card(cuda):
 def test_dryrun_multichip_on_card(cuda):
     doc = dryrun_multichip(["cuda:0"] * 4)
     assert doc["mesh"] == {"stripe": 2, "block": 2}
+
+
+def placement_map():
+    """A 64-OSD cluster of 16 hosts (``crushtool --build``) with two pools:
+    pool 1 replicated size 3 over hosts (256 PGs), pool 2 EC of 6 slots
+    over hosts (64 PGs) with a two-position weight set under
+    choose_args[2]; every 13th OSD out, every 7th from OSD 3 at half
+    weight."""
+    from ceph_tpu_torch.osd.osd_map import Incremental, OSDMap, PGPool
+    crush = crushtool.build_map(64, [("host", "straw2", 4),
+                                     ("root", "straw2", 0)])
+    rep = crush.add_simple_rule("rep", "default", "host")
+    ec = crush.add_simple_rule("ec", "default", "host", mode="indep",
+                               rule_type=cmap_mod.POOL_TYPE_ERASURE)
+    crush.create_choose_args(2, positions=2)
+    for host in (2, 5, 11):
+        crush.choose_args_adjust_item_weight(2, -1 - host, host * 4 + 1,
+                                             [0x4000, 0xC000])
+    m = OSDMap()
+    inc = Incremental(1)
+    inc.new_max_osd = 64
+    inc.new_crush = crush
+    inc.new_pools[1] = PGPool(pool_id=1, name="rbd", size=3, pg_num=256,
+                              crush_rule=rep)
+    inc.new_pools[2] = PGPool(pool_id=2, name="ec", size=6, pg_num=64,
+                              crush_rule=ec,
+                              type=cmap_mod.POOL_TYPE_ERASURE)
+    for osd in range(64):
+        inc.new_up[osd] = ("127.0.0.1", 6800 + osd)
+        inc.new_weight[osd] = 0 if osd % 13 == 0 else \
+            0x8000 if osd % 7 == 3 else 0x10000
+    m.apply_incremental(inc)
+    return m
+
+
+def remap(m, **kw):
+    from ceph_tpu_torch.osd.osd_map import OSDMapMapping
+    mapping = OSDMapMapping()
+    mapping.update(m, **kw)
+    return mapping
+
+
+@pytest.mark.gpu
+def test_full_remap_on_card(cuda):
+    """OSDMapMapping.update on the card: one straw2 launch a pool, no
+    table upload on a second call, each pool's raw result equal to the
+    plain version on the card, the mapping equal to the plain version's
+    and the scalar path's (by_osd in order); over a flat mesh of four,
+    four launches a pool and the same mapping."""
+    m = placement_map()
+    crush_kernel.clear_tables()
+    crush_kernel.reset_launches()
+    batched.reset_paths()
+    card = remap(m)
+    assert crush_kernel.LAUNCHES == 2 and crush_kernel.UPLOADS == 2
+    assert batched.paths() == {"kernel": 2, "plain": 0, "scalar": 0}
+    crush_kernel.reset_launches()
+    again = remap(m)
+    assert crush_kernel.LAUNCHES == 2 and crush_kernel.UPLOADS == 0
+    plain = remap(m, device="cpu")
+    scalar = remap(m, batched=False)
+    for other in (again, plain, scalar):
+        assert other.by_pg == card.by_pg and other.by_osd == card.by_osd
+    for pool_id, pool in m.pools.items():
+        args = m.crush.choose_args_get_with_fallback(pool_id)
+        cm = batched.compile_map(m.crush, args)
+        plan = batched.plan_rule(m.crush, pool.crush_rule, pool.size)
+        wvec = batched.reweight_vector(m._weight_vector(), cm.max_devices)
+        seeds = torch.from_numpy(pool.pps_of(np.arange(pool.pg_num)))
+        want = batched.map_plain(cm, plan, seeds.to(cuda),
+                                 torch.from_numpy(wvec).to(cuda))
+        assert np.array_equal(card.raw[pool_id], want.cpu().numpy())
+    crush_kernel.reset_launches()
+    meshed = remap(m, mesh=batched.make_batch_mesh(devices=["cuda:0"] * 4))
+    assert crush_kernel.LAUNCHES == 8
+    assert meshed.by_pg == card.by_pg and meshed.by_osd == card.by_osd
+
+
+@pytest.mark.gpu
+def test_churn_on_card(cuda):
+    """apply_incremental after a full remap on the card: an overlay-only
+    inc recomputes its PGs on the host (no launch) to the full remap's
+    mapping; a weight change falls back to a full remap, one launch a
+    pool."""
+    from ceph_tpu_torch.osd.osd_map import Incremental, PGID
+    m = placement_map()
+    mapping = remap(m)
+    inc = Incremental(m.epoch + 1)
+    inc.new_pg_temp = {PGID(1, ps): [1, 6, 10] for ps in range(0, 40, 5)}
+    inc.new_primary_temp = {PGID(2, 3): 20, PGID(1, 7): 6}
+    inc.new_pg_upmap_items = {PGID(1, 9): [(mapping.by_pg[PGID(1, 9)][0][0],
+                                            63)]}
+    inc.new_down = [4, 30]
+    m.apply_incremental(inc)
+    crush_kernel.reset_launches()
+    info = mapping.apply_incremental(m, inc)
+    assert info["mode"] == "incremental" and 0 < info["recomputed"] < 320
+    assert crush_kernel.LAUNCHES == 0
+    full = remap(m)
+    assert mapping.by_pg == full.by_pg
+    assert {o: sorted(p, key=str) for o, p in mapping.by_osd.items() if p} \
+        == {o: sorted(p, key=str) for o, p in full.by_osd.items() if p}
+    inc2 = Incremental(m.epoch + 1)
+    inc2.new_weight = {8: 0x4000}
+    m.apply_incremental(inc2)
+    crush_kernel.reset_launches()
+    assert mapping.apply_incremental(m, inc2) == {"mode": "full",
+                                                  "recomputed": 320}
+    assert crush_kernel.LAUNCHES == 2
+    assert mapping.by_pg == remap(m, batched=False).by_pg
+
+
+@pytest.mark.gpu
+def test_balancer_on_card(cuda):
+    """calc_pg_upmaps with its sweeps on the card: the proposal of the
+    plain version's sweeps, one launch a pool a sweep, the tables
+    uploaded by the first sweep only."""
+    from ceph_tpu_torch.osd import balancer
+    m = placement_map()
+    crush_kernel.clear_tables()
+    crush_kernel.reset_launches()
+    card = balancer.calc_pg_upmaps(m, max_changes=12, changes_per_sweep=4)
+    assert card.num_changed > 0
+    assert crush_kernel.LAUNCHES == 2 * card.sweeps
+    assert crush_kernel.UPLOADS == 2
+    host = balancer.calc_pg_upmaps(m, max_changes=12, changes_per_sweep=4,
+                                   device="cpu")
+    assert (card.new_pg_upmap_items, card.old_pg_upmap_items,
+            card.start_deviation, card.end_deviation, card.sweeps) == \
+        (host.new_pg_upmap_items, host.old_pg_upmap_items,
+         host.start_deviation, host.end_deviation, host.sweeps)
+
+
+@pytest.mark.gpu
+def test_osdmaptool_batched_on_card(cuda, tmp_path, capsys):
+    from ceph_tpu_torch.tools import osdmaptool
+    import json as json_
+    path = tmp_path / "map.json"
+    path.write_text(json_.dumps(osdmaptool.osdmap_to_json(placement_map())))
+    reports = []
+    for extra in (["--batched"], []):
+        capsys.readouterr()
+        assert osdmaptool.main([str(path), "--test-map-pgs"] + extra) == 0
+        reports.append(capsys.readouterr().out)
+    assert reports[0] == reports[1] and "total 320 pgs" in reports[0]

@@ -65,7 +65,11 @@ def test_the_walk_covers_the_tier_and_its_kernels():
             "ceph_tpu_torch/parallel/mesh.py",
             "ceph_tpu_torch/parallel/placement.py",
             "ceph_tpu_torch/parallel/rateless.py",
-            "ceph_tpu_torch/registry.py"} <= names
+            "ceph_tpu_torch/registry.py",
+            "ceph_tpu_torch/osd/osd_map.py",
+            "ceph_tpu_torch/osd/balancer.py",
+            "ceph_tpu_torch/tools/osdmaptool.py",
+            "ceph_tpu_torch/tools/crushtool.py"} <= names
 
 
 def test_forbidden_names():
@@ -166,3 +170,33 @@ def test_mesh_and_rateless_without_device_raise(no_cuda):
     assert placement.PLACEMENT.resolve(0) is None
     placement.PLACEMENT.forget(0)
     assert rateless.get_dispatcher(create=False) is None
+
+
+def test_placement_control_plane_without_device_raises(no_cuda, tmp_path,
+                                                       capsys):
+    """The full remap, the balancer and osdmaptool --batched default to
+    the card: without CUDA they raise (or the CLI fails), and only
+    device="cpu" takes the plain version."""
+    from ceph_tpu_torch.osd import balancer
+    from ceph_tpu_torch.osd.osd_map import OSDMapMapping
+    from ceph_tpu_torch.tools import osdmaptool
+    m = osdmaptool.create_simple(8, pg_num=16, hosts=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        OSDMapMapping().update(m)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        OSDMapMapping().update(m, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        balancer.calc_pg_upmaps(m, max_changes=1)
+    mapping = OSDMapMapping()
+    mapping.update(m, device="cpu")
+    assert len(mapping.by_pg) == 16
+    path = tmp_path / "map.json"
+    path.write_text(json.dumps(osdmaptool.osdmap_to_json(m)))
+    capsys.readouterr()
+    assert osdmaptool.main([str(path), "--test-map-pgs", "--batched"]) == 1
+    assert "CUDA" in capsys.readouterr().err
+    assert osdmaptool.main([str(path), "--upmap", str(tmp_path / "u.txt"),
+                            "--batched"]) == 1
+    assert "CUDA" in capsys.readouterr().err
+    assert osdmaptool.main([str(path), "--test-map-pgs", "--batched",
+                            "--device", "cpu"]) == 0
