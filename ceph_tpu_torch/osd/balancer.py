@@ -12,8 +12,9 @@ buckets the rule's placement had.
 Every sweep of a round is one full remap (``OSDMapMapping.update``): one
 straw2 launch a pool on the card (`device`: None for the card, raising
 where CUDA is absent, "cpu" for the plain version), or the scalar path
-on the host with ``use_device=False``. The reference's ``use_native``
-(its compiled host mapper) is not ported. The greedy bookkeeping between
+on the host with ``use_device=False``; ``use_native`` maps each pool
+through the native runtime's host mapper instead
+(``OSDMapMapping.update(native=True)``). The greedy bookkeeping between
 sweeps is host code, ported exactly: OSDs are walked by deviation and
 their PGs in (pool, ps) order, so the same map gives the same items.
 """
@@ -140,13 +141,15 @@ class Distribution:
 
 
 def _sweep(osdmap: OSDMap, pools: set[int] | None, use_device: bool,
-           use_mesh: bool = False, *, device=None) -> dict[PGID, list[int]]:
+           use_mesh: bool = False, use_native: bool = False, *,
+           device=None) -> dict[PGID, list[int]]:
     """All-PG up mappings: one full remap, each pool one batched sweep
-    (with use_mesh, split over every visible card), or the scalar path
-    without use_device and use_mesh."""
+    (with use_mesh, split over every visible card; with use_native, the
+    native host mapper), or the scalar path without any of the three."""
     mapping = OSDMapMapping()
-    mapping.update(osdmap, batched=use_device or use_mesh,
-                   mesh=True if use_mesh else None, device=device)
+    mapping.update(osdmap, batched=use_device or use_mesh or use_native,
+                   mesh=True if use_mesh else None, native=use_native,
+                   device=device)
     out: dict[PGID, list[int]] = {}
     for pgid, (up, _up_p, _acting, _acting_p) in mapping.by_pg.items():
         if pools is not None and pgid.pool not in pools:
@@ -157,10 +160,11 @@ def _sweep(osdmap: OSDMap, pools: set[int] | None, use_device: bool,
 
 def measure_sweep(osdmap: OSDMap, use_device: bool,
                   pools: set[int] | None = None, use_mesh: bool = False,
-                  *, device=None) -> float:
+                  use_native: bool = False, *, device=None) -> float:
     """Wall seconds of one all-PG placement sweep on the named path."""
     t0 = time.perf_counter()
-    _sweep(osdmap, pools, use_device, use_mesh=use_mesh, device=device)
+    _sweep(osdmap, pools, use_device, use_mesh=use_mesh,
+           use_native=use_native, device=device)
     return time.perf_counter() - t0
 
 
@@ -187,12 +191,13 @@ def _targets(osdmap: OSDMap,
 
 
 def eval_distribution(osdmap: OSDMap, pools: set[int] | None = None,
-                      use_device: bool = True, use_mesh: bool = False, *,
+                      use_device: bool = True, use_mesh: bool = False,
+                      use_native: bool = False, *,
                       device=None) -> Distribution:
     """Score the current map: per-OSD up-PG counts against the CRUSH
     weight targets (the `balancer eval` role)."""
     by_pg = _sweep(osdmap, pools, use_device, use_mesh=use_mesh,
-                   device=device)
+                   use_native=use_native, device=device)
     counts: dict[int, int] = {}
     for up in by_pg.values():
         for osd in up:
@@ -289,11 +294,13 @@ def calc_pg_upmaps(osdmap: OSDMap,
                    pools: set[int] | None = None,
                    use_device: bool = True,
                    use_mesh: bool = False,
+                   use_native: bool = False,
                    changes_per_sweep: int = 1, *,
                    device=None) -> BalancerResult:
     """Greedy upmap optimization, mirroring OSDMap::calc_pg_upmaps'
     restart loop: each sweep is one full remap (on the card with
-    use_device, on `device`), then up to `changes_per_sweep` accepted
+    use_device, on `device`; the native host mapper with use_native),
+    then up to `changes_per_sweep` accepted
     changes, each updating the sweep's per-OSD bookkeeping locally.
     Stops when the fullest OSD sits within max_deviation PGs of its
     target (and, when max_deviation_ratio > 0, within that ratio of the
@@ -304,7 +311,7 @@ def calc_pg_upmaps(osdmap: OSDMap,
     remaining = max_changes
     while remaining > 0:
         by_pg = _sweep(tmp, pools, use_device, use_mesh=use_mesh,
-                       device=device)
+                       use_native=use_native, device=device)
         res.sweeps += 1
         pgs_by_osd: dict[int, list[PGID]] = {}
         for pgid, up in sorted(by_pg.items(),

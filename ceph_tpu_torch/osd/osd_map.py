@@ -22,8 +22,11 @@ steps then run per PG on the host, as in the reference.
 
 The pool keeps the placement fields of the reference's PGPool; the
 fields only its daemons read (snapshots, cache tiering, QoS) are not
-carried. The reference's ``update(native=True)`` (its compiled host
-mapper) is not ported: the port's ``update`` has no such parameter.
+carried. ``update(native=True)`` maps each pool through the native
+runtime's host mapper (``native.crush_do_rule_batch_native``, the
+reference's ``native=`` path), falling back to the device sweep only
+when the runtime cannot be built or cannot take the map
+(``native.NativeUnavailable``).
 """
 
 from __future__ import annotations
@@ -473,15 +476,41 @@ def str_hash_rjenkins(name) -> int:
     return c
 
 
+def _native_sweep(osdmap: OSDMap, pool_id: int, pool: PGPool,
+                  seeds: np.ndarray):
+    """A pool's raw placements from the native host mapper: the
+    ``[pg_num, size]`` int64 matrix (CRUSH_ITEM_NONE past a short
+    result), the rows as the mapper returned them, which the overlay
+    takes as the reference's native path does, and the C mapper's own
+    seconds; None when the runtime is unavailable for this map."""
+    from .. import native
+    try:
+        results, lengths, mapper_s = native.crush_do_rule_batch_arrays(
+            osdmap.crush, pool.crush_rule, seeds, pool.size,
+            osdmap._weight_vector(), choose_args=pool_id)
+    except native.NativeUnavailable:
+        return None
+    mat = results[:, :pool.size].astype(np.int64)
+    mat[np.arange(pool.size) >= lengths[:, None]] = CRUSH_ITEM_NONE
+    rows = results[:, :pool.size].tolist()
+    for i in np.flatnonzero(lengths < pool.size).tolist():
+        del rows[i][lengths[i]:]
+    return mat, rows, mapper_s
+
+
 class OSDMapMapping:
     """Precomputed full-cluster mapping (OSDMapMapping.h:169), each pool
     one batched CRUSH sweep on the card.
 
-    ``split`` holds the wall ms of the last :meth:`update`, per pool:
+    ``split`` holds, per pool, the path the last :meth:`update` took
+    (``path``: "native", "device" or "scalar") and its wall ms:
     ``seeds_ms`` (the placement seeds), ``sweep_ms`` (the batched call,
-    host seeds to a host result) and ``overlay_ms`` (the per-PG overlay
-    steps and the by-OSD index); ``raw`` each swept pool's raw result,
-    ``[pg_num, size]`` int64 with CRUSH_ITEM_NONE holes."""
+    host seeds to a host result; on the scalar path every PG's mapping)
+    and ``overlay_ms`` (the per-PG overlay steps and the by-OSD index);
+    on the native path also ``mapper_ms``, the C mapper's call alone
+    within ``sweep_ms``;
+    ``raw`` each batched pool's raw result, ``[pg_num, size]`` int64 with
+    CRUSH_ITEM_NONE holes."""
 
     def __init__(self):
         self.epoch = -1
@@ -490,8 +519,8 @@ class OSDMapMapping:
         self.split: dict[int, dict] = {}
         self.raw: dict[int, np.ndarray] = {}
 
-    def update(self, osdmap: OSDMap, batched: bool = True, mesh=None, *,
-               device=None) -> None:
+    def update(self, osdmap: OSDMap, batched: bool = True, mesh=None,
+               native: bool = False, *, device=None) -> None:
         """Recompute every pool's PG mappings.
 
         batched: each pool whose rule exists maps its whole PG range in
@@ -502,7 +531,14 @@ class OSDMapMapping:
 
         mesh: True for ``make_batch_mesh()`` over the visible cards, or an
         explicit flat mesh; the PG batch then splits over it
-        (``mesh_do_rule``, one launch a device)."""
+        (``mesh_do_rule``, one launch a device).
+
+        native: with batched, each pool's range goes through the native
+        runtime's host mapper in one C call
+        (``native.crush_do_rule_batch_native``), the same placements; a
+        pool falls back to the device sweep only on NativeUnavailable (no
+        compiler, or a map the native side does not implement), where the
+        reference falls back on any error."""
         self.by_pg.clear()
         self.by_osd = {o: [] for o in range(osdmap.max_osd)}
         self.split = {}
@@ -516,30 +552,43 @@ class OSDMapMapping:
             if batched and 0 <= pool.crush_rule < len(osdmap.crush.rules):
                 seeds = pool.pps_of(np.arange(pool.pg_num, dtype=np.int64))
                 t1 = time.perf_counter()
-                if mesh_obj is not None:
-                    mat = mesh_do_rule(osdmap.crush, pool.crush_rule,
-                                       seeds, pool.size,
-                                       osdmap._weight_vector(),
-                                       mesh=mesh_obj, choose_args=pool_id)
+                swept = _native_sweep(osdmap, pool_id, pool, seeds) \
+                    if native else None
+                path = "device" if swept is None else "native"
+                if swept is not None:
+                    mat, raws, mapper_s = swept
                 else:
-                    mat = batched_do_rule(osdmap.crush, pool.crush_rule,
-                                          seeds, pool.size,
-                                          osdmap._weight_vector(),
-                                          choose_args=pool_id,
-                                          device=device)
+                    if mesh_obj is not None:
+                        mat = mesh_do_rule(osdmap.crush, pool.crush_rule,
+                                           seeds, pool.size,
+                                           osdmap._weight_vector(),
+                                           mesh=mesh_obj,
+                                           choose_args=pool_id)
+                    else:
+                        mat = batched_do_rule(osdmap.crush, pool.crush_rule,
+                                              seeds, pool.size,
+                                              osdmap._weight_vector(),
+                                              choose_args=pool_id,
+                                              device=device)
+                    raws = mat[:, :pool.size].tolist()
                 t2 = time.perf_counter()
                 self.raw[pool_id] = mat
-                raws = mat[:, :pool.size].tolist()
                 for pgid, raw, pps in zip(pgids, raws, seeds.tolist()):
                     osdmap._remove_nonexistent_osds(pool, raw)
                     self._add(pgid, osdmap._overlay(pool, pgid, raw, pps))
                 self.split[pool_id] = {
-                    "seeds_ms": (t1 - t0) * 1e3,
+                    "path": path, "seeds_ms": (t1 - t0) * 1e3,
                     "sweep_ms": (t2 - t1) * 1e3,
                     "overlay_ms": (time.perf_counter() - t2) * 1e3}
+                if swept is not None:
+                    self.split[pool_id]["mapper_ms"] = mapper_s * 1e3
             else:
                 for pgid in pgids:
                     self._add(pgid, osdmap.pg_to_up_acting_osds(pgid))
+                self.split[pool_id] = {
+                    "path": "scalar", "seeds_ms": 0.0,
+                    "sweep_ms": (time.perf_counter() - t0) * 1e3,
+                    "overlay_ms": 0.0}
         self.epoch = osdmap.epoch
 
     def _add(self, pgid: PGID, row: tuple) -> None:

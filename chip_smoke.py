@@ -12,7 +12,10 @@ reads the port's telemetry, stage profiler, span collector and
 device-memory ledger, runs the multi-device paths (the device mesh,
 the mesh-sharded CRUSH sweep, rateless dispatch) over one card repeated,
 and the placement control plane (the full remap of a two-pool cluster,
-churn, the upmap balancer, crushtool's and osdmaptool's CLIs), through
+churn, the upmap balancer, crushtool's and osdmaptool's CLIs) and the
+native seam (the C++ runtime built from ``native/``, its host codec and
+mapper beside the card's, native threads' encodes through the batching
+bridge onto the card, the two erasure-code CLIs), through
 the entry points a user calls,
 and holds every kernel of the paths against its plain PyTorch version on
 the card. Phases, each printing one JSON line:
@@ -259,8 +262,34 @@ the card. Phases, each printing one JSON line:
                  ``osdmaptool --test-map-pgs --batched``: per-OSD counts
                  summing to 196,608; ``compressor.available()`` of the
                  five algorithms. Then each pool's sweep in parts
-                 (compile_map, h2d, kernel by CUDA events, d2h).
-  15. kernels    one JSON line per the port's kernel table: the design
+                 (compile_map, h2d, kernel by CUDA events, d2h) and
+                 its bound.
+  15. native     the native seam: (a) the port's build of the C++
+                 runtime in ``native/``, after every nvcc build (its
+                 seconds where it built, symbols renamed, ``gf_isa()``); (b)
+                 ``NativeCodec("jerasure")`` against ``torch_cuda`` on the
+                 card at [16, 8, 131072]: the encode and three decode
+                 signatures byte-equal, each side's MB/s; (c) 8 threads x
+                 16 ``bridge_encode`` calls through
+                 ``install_cuda_dispatcher(max_batch=16,
+                 max_delay_us=2000)``: every parity equal to
+                 NativeCodec's, fewer batches than requests, one GF launch
+                 a batch (counted from 0 just before, after an untimed
+                 round), each call's latency (mean, p50, p99), the inverse
+                 throughput and MB/s, the callback's stages a batch and
+                 the queue wait, beside ``GpuDispatcher.encode_async`` at
+                 the same load, and a bridge encode raising after
+                 ``uninstall_dispatcher``; (d) phase 14's cluster through
+                 ``update(native=True)`` (no straw2 launch, both pools
+                 "native") equal to ``update()`` on the card, each path's
+                 sweep ms and the C mapper's call alone, and ``calc_pg_upmaps(max_changes=16,
+                 use_native=True)`` proposing as ``use_device=True``; (e)
+                 ``ceph_erasure_code --plugin_exists torch_cuda`` and
+                 ``--all``, a ``non_regression --create`` with
+                 ``torch_cuda`` on the card passing ``--check`` with the
+                 host ``jerasure`` and the other way round, and a
+                 corrupted chunk failing ``--check``.
+  16. kernels    one JSON line per the port's kernel table: the design
                  the main path takes, launches on the main path (phases
                  3-4 for the GF bitmatrix kernel, phase 6 for the packet
                  kernel, phase 8 for the write transform's kernels, phase
@@ -268,8 +297,9 @@ the card. Phases, each printing one JSON line:
                  each counted from 0 just before its path), the GF
                  kernel's launches on phases 6, 8 and 11 as well, the
                  GF, CRUSH and digest kernels' on phase 13
-                 (``mesh_launches``) and the CRUSH kernel's on phase 14
-                 (``remap_launches``), max_abs_err, ms, plain_ms,
+                 (``mesh_launches``), the CRUSH kernel's on phase 14
+                 (``remap_launches``) and the GF kernel's on phase 15's
+                 bridge (``bridge_launches``), max_abs_err, ms, plain_ms,
                  bound_ms, bound_by, library_ms.
 
 Then the card's name and power limit as nvidia-smi prints them, and as
@@ -1823,35 +1853,19 @@ def mesh_phase(np, torch, dev, smi):
             "block_gf": block_gf, "crush_share": crush_share}
 
 
-def placement_phase(np, torch, dev, smi):
-    """Phase 14: the placement control plane on the card: the full remap
-    (``OSDMapMapping.update``), churn through ``apply_incremental``, the
-    upmap balancer and the two CLIs, on phase 9's 1024-OSD cluster with
-    two pools (40,960 PGs). Returns the phase's straw2 launches, counted
-    from 0 just before it, and its numbers."""
-    import contextlib
-    import io
-
-    from ceph_tpu_torch import compressor
-    from ceph_tpu_torch.crush import batched
-    from ceph_tpu_torch.crush.map import (CRUSH_ITEM_NONE, POOL_TYPE_ERASURE,
+def placement_cluster(np):
+    """Phase 14's deployment: phase 9's 1024-OSD cluster and reweights;
+    pool 1 replicated size 3 at Ceph's (OSDs x 100) / size PGs to a power
+    of two, pool 2 SHEC k=8 m=4 (12 slots) at 8,192 PGs with a
+    two-position weight set under choose_args[2]. Returns the OSDMap, its
+    CRUSH map and the EC rule."""
+    from ceph_tpu_torch.crush.map import (POOL_TYPE_ERASURE,
                                           POOL_TYPE_REPLICATED)
-    from ceph_tpu_torch.ops import crush_kernel
-    from ceph_tpu_torch.osd import balancer
-    from ceph_tpu_torch.osd.osd_map import (Incremental, OSDMap,
-                                            OSDMapMapping, PGID, PGPool)
-    from ceph_tpu_torch.tools import crushtool, osdmaptool
+    from ceph_tpu_torch.osd.osd_map import Incremental, OSDMap, PGPool
+    from ceph_tpu_torch.tools import crushtool
     from ceph_tpu_torch.tools.crush_tier_turns import (CLUSTER_LAYERS,
                                                        cluster_reweight)
-    from ceph_tpu_torch.utils.cuda_timing import time_ms
 
-    t_phase = time.perf_counter()
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    # the deployment: phase 9's cluster and reweights; pool 1 replicated
-    # size 3 at Ceph's (OSDs x 100) / size PGs to a power of two, pool 2
-    # SHEC k=8 m=4 (12 slots) at 8,192 PGs with a two-position weight set
-    # under choose_args[2]
     crush = crushtool.build_map(1024, CLUSTER_LAYERS)
     ec_rule = crush.add_simple_rule("ec", "default", "host", mode="indep",
                                     rule_type=POOL_TYPE_ERASURE)
@@ -1876,6 +1890,31 @@ def placement_phase(np, torch, dev, smi):
         inc.new_up[osd] = ("127.0.0.1", 6800 + osd)
         inc.new_weight[osd] = int(rw[osd])
     m.apply_incremental(inc)
+    return m, crush, ec_rule
+
+
+def placement_phase(np, torch, dev, smi):
+    """Phase 14: the placement control plane on the card: the full remap
+    (``OSDMapMapping.update``), churn through ``apply_incremental``, the
+    upmap balancer and the two CLIs, on phase 9's 1024-OSD cluster with
+    two pools (40,960 PGs). Returns the phase's straw2 launches, counted
+    from 0 just before it, and its numbers."""
+    import contextlib
+    import io
+
+    from ceph_tpu_torch import compressor
+    from ceph_tpu_torch.crush import batched
+    from ceph_tpu_torch.crush.map import CRUSH_ITEM_NONE
+    from ceph_tpu_torch.ops import crush_kernel
+    from ceph_tpu_torch.osd import balancer
+    from ceph_tpu_torch.osd.osd_map import Incremental, OSDMapMapping, PGID
+    from ceph_tpu_torch.tools import crushtool, osdmaptool
+    from ceph_tpu_torch.utils.cuda_timing import crush_bound, time_ms
+
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    m, crush, ec_rule = placement_cluster(np)
     n_pgs = sum(p.pg_num for p in m.pools.values())
     n_slots = sum(p.pg_num * p.size for p in m.pools.values())
     map_json = out_dir / "osdmap_1024.json"
@@ -2120,9 +2159,14 @@ def placement_phase(np, torch, dev, smi):
         d2h_ms = (time.perf_counter() - t0) * 1e3
         kernel_ms = time_ms(lambda x: crush_kernel.crush_sweep(
             cm, plan, x, wvec), [xs], 10)
+        work = torch.zeros((pool.pg_num, 2), dtype=torch.int32, device=dev)
+        crush_kernel.crush_sweep(cm, plan, xs, wvec, work=work)
+        bound_ms, bound_by = crush_bound(work, pool.size)
         parts[pool_id] = dict(seeds=pool.pg_num, compile_map_ms=compile_ms,
                               h2d_ms=h2d_ms, kernel_ms=kernel_ms,
-                              d2h_ms=d2h_ms)
+                              d2h_ms=d2h_ms, bound_ms=bound_ms,
+                              bound_by=bound_by,
+                              share_of_bound=bound_ms / kernel_ms)
     emit("placement", case="sweep_parts", gpu=smi, pools=parts,
          launches=launches, paths=paths, sections_s=sections,
          phase_s=time.perf_counter() - t_phase)
@@ -2130,6 +2174,309 @@ def placement_phase(np, torch, dev, smi):
             "warm_split": warm.split, "warm_ms": warm_ms,
             "balancer": {"sweeps": res.sweeps, "changes": res.num_changed,
                          "launches": bal_launches}}
+
+
+def native_phase(np, torch, dev, smi):
+    """Phase 15: the native seam on the card. (a) The port's build of the
+    C++ runtime, after every nvcc build. (b) ``NativeCodec``
+    ("jerasure", the runtime's host codec) against ``torch_cuda`` on the
+    card at the main path's [16, 8, 131072]: encode and three decode
+    signatures byte-equal, each side's MB/s. (c) The batching bridge: 8
+    threads x 16 ``bridge_encode`` calls through
+    ``install_cuda_dispatcher``, the GF kernel counted from 0 just before,
+    after an untimed round, each call's latency timed in its thread,
+    beside ``GpuDispatcher.encode_async`` at the same load. (d) Phase
+    14's cluster through ``update(native=True)`` against ``update()`` on
+    the card, and ``calc_pg_upmaps(use_native=True)`` against
+    ``use_device=True``. (e) ``ceph_erasure_code`` and
+    ``ceph_erasure_code_non_regression`` on the card and the host codec.
+    Returns the bridge's GF launches and numbers."""
+    import concurrent.futures
+    import contextlib
+    import io
+    import shutil
+
+    from ceph_tpu_torch import native, registry
+    from ceph_tpu_torch.ops import crush_kernel, gf_kernel
+    from ceph_tpu_torch.osd import balancer
+    from ceph_tpu_torch.osd.gpu_dispatch import GpuDispatcher
+    from ceph_tpu_torch.osd.osd_map import OSDMapMapping
+    from ceph_tpu_torch.tools import erasure_code, non_regression
+
+    t_phase = time.perf_counter()
+    sections = {}
+    # (a) the build, from native/'s sources, after every nvcc build; no
+    # fallback: a failed build fails the run
+    info = native.build()
+    renamed = native.renamed_symbols()
+    check(len(renamed) > 0, "the native runtime's plugins' imports renamed")
+    isa = native.gf_isa()
+    check(isa in ("avx2", "ssse3", "scalar"), "gf_isa is named (%s)" % isa)
+    emit("native", case="build", gpu=smi, renamed=len(renamed), gf_isa=isa,
+         **({"seconds": info["seconds"], "compile_s": info["compile_s"],
+             "compiler": info["compiler"]} if info else {"built": False}))
+
+    # (b) the host codec against the card's at the main path's shape
+    rng = np.random.default_rng(15)
+    data = rng.integers(0, 256, (BATCH, K, N), dtype=np.uint8)
+    host = native.NativeCodec("jerasure", dict(PROFILE))
+    card = registry.factory("torch_cuda", dict(PROFILE))
+    parity = np.empty((BATCH, M, N), dtype=np.uint8)
+
+    def host_encode():
+        for b in range(BATCH):
+            host.encode_chunks(data[b], parity[b])
+
+    host_encode()
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        host_encode()
+    host_enc_s = (time.perf_counter() - t0) / reps
+    dev_data = torch.from_numpy(data).to(dev)
+    got = card.encode_batch(dev_data)
+    torch.cuda.synchronize()
+    check(np.array_equal(got.cpu().numpy(), parity),
+          "(b) NativeCodec's encode equals torch_cuda's on the card")
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        card.encode_batch(dev_data)
+    torch.cuda.synchronize()
+    card_enc_s = (time.perf_counter() - t0) / reps
+    full = np.concatenate([data, parity], axis=1)
+    dev_full = torch.from_numpy(full).to(dev)
+    decodes = {}
+    for avail in ((3, 4, 5, 6, 7, 8, 9, 10), (0, 1, 2, 4, 5, 7, 9, 10),
+                  (0, 1, 2, 3, 4, 5, 6, 8)):
+        rows = list(avail)
+        out = np.empty((BATCH, K + M, N), dtype=np.uint8)
+        survivors = np.ascontiguousarray(full[:, rows])
+        t0 = time.perf_counter()
+        for b in range(BATCH):
+            host.decode_chunks(rows, survivors[b], out[b])
+        host_s = time.perf_counter() - t0
+        check(np.array_equal(out, full),
+              "(b) NativeCodec decodes %s" % (avail,))
+        dev_surv = dev_full[:, rows].contiguous()
+        dec = card.decode_batch(avail, dev_surv)
+        torch.cuda.synchronize()
+        check(np.array_equal(dec.cpu().numpy(), out),
+              "(b) torch_cuda's decode %s equals NativeCodec's" % (avail,))
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            card.decode_batch(avail, dev_surv)
+        torch.cuda.synchronize()
+        card_s = (time.perf_counter() - t0) / reps
+        decodes[str(avail)] = {
+            "host_MBps": BATCH * K * N / host_s / 1e6,
+            "card_MBps": BATCH * K * N / card_s / 1e6}
+    emit("native", case="codec", gpu=smi, shape=[BATCH, K, N],
+         host_encode_MBps=BATCH * K * N / host_enc_s / 1e6,
+         card_encode_MBps=BATCH * K * N / card_enc_s / 1e6,
+         decodes=decodes, gf_isa=isa)
+    del dev_data, dev_full, got
+    sections["b"] = time.perf_counter() - t_phase
+
+    # (c) the bridge: native threads' encodes coalesced into card batches.
+    # Both paths get one untimed round first (codec, pinned staging
+    # buffers, stream); each call's latency is timed in its thread, apart
+    # from the inverse throughput (the round's wall over its requests)
+    threads, per_thread = 8, 16
+    requests = threads * per_thread
+
+    rows = [list(data[b]) for b in range(BATCH)]      # views, no copy
+    want = [[parity[b, j].tobytes() for j in range(M)] for b in range(BATCH)]
+
+    def bridge_writer(tid, lat):
+        for i in range(per_thread):
+            b = (tid * per_thread + i) % BATCH
+            t0 = time.perf_counter()
+            got = native.bridge_encode(K, M, W, "reed_sol_van", rows[b])
+            lat.append(time.perf_counter() - t0)
+            if got != want[b]:
+                raise RuntimeError("bridge parity mismatch, object %d" % b)
+
+    def run_threads(fn):
+        lats = [[] for _ in range(threads)]
+        with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+            t0 = time.perf_counter()
+            for f in [pool.submit(fn, t, lats[t]) for t in range(threads)]:
+                f.result(timeout=600)
+            wall = time.perf_counter() - t0
+        lat = np.sort(np.concatenate([np.asarray(x) for x in lats])) * 1e3
+        return wall, {"mean": float(lat.mean()),
+                      "p50": float(np.percentile(lat, 50)),
+                      "p99": float(np.percentile(lat, 99))}
+
+    dispatch = native.install_cuda_dispatcher(max_batch=16,
+                                              max_delay_us=2000)
+    check(dispatch.device.type == "cuda", "the bridge dispatches to the card")
+    run_threads(bridge_writer)                  # untimed warm-up round
+    warm_batches = dispatch.batches
+    warm_stages = dict(dispatch.seconds)
+    b0 = native.lib().ec_tpu_batches_dispatched()
+    r0 = native.lib().ec_tpu_requests_dispatched()
+    gf_kernel.reset_launches()            # the bridge's path, counted from 0
+    bridge_s, bridge_lat = run_threads(bridge_writer)
+    bridge_launches = gf_kernel.LAUNCHES
+    batches = native.lib().ec_tpu_batches_dispatched() - b0
+    served = native.lib().ec_tpu_requests_dispatched() - r0
+    native.uninstall_dispatcher()
+    stages_ms = {st: (v - warm_stages[st]) / batches * 1e3
+                 for st, v in dispatch.seconds.items()}
+    check(served == requests and batches < requests,
+          "(c) %d requests coalesced into %d batches" % (served, batches))
+    check(bridge_launches == batches == dispatch.batches - warm_batches,
+          "(c) one GF launch a batch (%d launches, %d batches)"
+          % (bridge_launches, batches))
+    try:
+        native.bridge_encode(K, M, W, "reed_sol_van", rows[0])
+        check(False, "(c) bridge_encode raises after uninstall_dispatcher")
+    except OSError:
+        pass
+    disp = GpuDispatcher()
+    expect = [parity[b:b + 1] for b in range(BATCH)]
+
+    def disp_writer(tid, lat):
+        for i in range(per_thread):
+            b = (tid * per_thread + i) % BATCH
+            t0 = time.perf_counter()
+            got = disp.encode_async(card, data[b:b + 1]).result(300)
+            lat.append(time.perf_counter() - t0)
+            if not np.array_equal(got, expect[b]):
+                raise RuntimeError("dispatcher parity mismatch")
+
+    run_threads(disp_writer)                    # untimed warm-up round
+    d0 = disp.stats["dispatches"]
+    disp_s, disp_lat = run_threads(disp_writer)
+    disp_dispatches = disp.stats["dispatches"] - d0
+    disp.shutdown()
+    moved = requests * K * N
+    # a request's latency less its batch's callback is its wait in the
+    # bridge's queue: the coalescing window (max_delay_us, waited in full
+    # by a batch under max_batch), the collector's wake-up and the GIL
+    emit("native", case="bridge", gpu=smi, threads=threads,
+         requests=requests, chunk_bytes=N, batches=batches,
+         requests_per_batch=served / batches,
+         gf_launches=bridge_launches, max_delay_us=2000,
+         bridge_latency_ms=bridge_lat,
+         bridge_inverse_throughput_ms=bridge_s / requests * 1e3,
+         bridge_MBps=moved / bridge_s / 1e6,
+         bridge_callback_ms_per_batch=stages_ms,
+         bridge_queue_wait_ms=bridge_lat["mean"] - sum(stages_ms.values()),
+         bridge_wall_s=bridge_s,
+         dispatcher_latency_ms=disp_lat,
+         dispatcher_inverse_throughput_ms=disp_s / requests * 1e3,
+         dispatcher_MBps=moved / disp_s / 1e6,
+         dispatcher_dispatches=disp_dispatches)
+    sections["c"] = time.perf_counter() - t_phase
+
+    # (d) placement: the native host mapper beside the straw2 kernel
+    m, _, _ = placement_cluster(np)
+
+    def remap(**kw):
+        mapping = OSDMapMapping()
+        t0 = time.perf_counter()
+        mapping.update(m, **kw)
+        return mapping, (time.perf_counter() - t0) * 1e3
+
+    remap(native=True)                     # flatten and cache the map
+    remap()
+    crush_kernel.reset_launches()
+    host_map, host_ms = remap(native=True)
+    check(crush_kernel.LAUNCHES == 0, "(d) update(native=True) launched "
+          "no straw2 kernel")
+    card_map, card_ms = remap()
+    check({p: s["path"] for p, s in host_map.split.items()} ==
+          {1: "native", 2: "native"}, "(d) both pools took the native path")
+    check(host_map.by_pg == card_map.by_pg and
+          host_map.by_osd == card_map.by_osd,
+          "(d) update(native=True) maps as update() on the card")
+    for pool_id in m.pools:
+        check(np.array_equal(host_map.raw[pool_id], card_map.raw[pool_id]),
+              "(d) pool %d's raw result equal" % pool_id)
+    t0 = time.perf_counter()
+    res_n = balancer.calc_pg_upmaps(m, max_changes=16, changes_per_sweep=16,
+                                    use_native=True)
+    bal_native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res_d = balancer.calc_pg_upmaps(m, max_changes=16, changes_per_sweep=16,
+                                    use_device=True)
+    bal_card_s = time.perf_counter() - t0
+
+    def proposal(r):
+        return (r.num_changed, r.start_deviation, r.end_deviation, r.sweeps,
+                list(r.new_pg_upmap_items.items()),
+                list(r.old_pg_upmap_items))
+
+    check(res_n.num_changed > 0 and proposal(res_n) == proposal(res_d),
+          "(d) calc_pg_upmaps(use_native=True) proposes as use_device=True")
+    emit("native", case="placement", gpu=smi,
+         pgs=sum(p.pg_num for p in m.pools.values()),
+         native_update_ms=host_ms, card_update_ms=card_ms,
+         native_sweep_ms={p: s["sweep_ms"] for p, s in host_map.split.items()},
+         native_mapper_ms={p: s["mapper_ms"]
+                           for p, s in host_map.split.items()},
+         card_sweep_ms={p: s["sweep_ms"] for p, s in card_map.split.items()},
+         balancer_changes=res_n.num_changed, balancer_sweeps=res_n.sweeps,
+         balancer_native_s=bal_native_s, balancer_card_s=bal_card_s)
+    sections["d"] = time.perf_counter() - t_phase
+
+    # (e) the two erasure-code CLIs, on the card and the host codec
+    def tool(mod, *argv):
+        buf, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+            rc = mod.main([str(a) for a in argv])
+        return rc, buf.getvalue(), err.getvalue()
+
+    rc, out, _ = tool(erasure_code, "--plugin_exists", "torch_cuda")
+    check(rc == 0 and out == "", "(e) --plugin_exists torch_cuda")
+    rc, out, _ = tool(erasure_code, "--all", "-P", "plugin=torch_cuda",
+                      "-P", "k=8", "-P", "m=3")
+    check(rc == 0 and out.splitlines() == [
+        "get_chunk_size(1024)\t128", "get_data_chunk_count\t8",
+        "get_coding_chunk_count\t3", "get_chunk_count\t11"],
+        "(e) --all of torch_cuda k=8 m=3 (%r)" % out)
+    base = ROOT / "chiprun_out" / "ec_corpus"
+    shutil.rmtree(base, ignore_errors=True)
+    params = ["-P", "technique=reed_sol_van", "-P", "k=8", "-P", "m=3",
+              "--stripe-width", 1 << 20, "--base", base]
+    corpus = {}
+    for writer, checker in (("torch_cuda", "jerasure"),
+                            ("jerasure", "torch_cuda")):
+        rc, _, err = tool(non_regression, "--plugin", writer, *params,
+                          "--create")
+        check(rc == 0, "(e) --create with %s (%s)" % (writer, err))
+        nr = {p: non_regression.NonRegression(
+            non_regression.build_parser().parse_args(
+                [str(a) for a in ["--plugin", p, *params]]))
+            for p in (writer, checker)}
+        shutil.copytree(nr[writer].directory, nr[checker].directory)
+        rc, _, err = tool(non_regression, "--plugin", checker, *params,
+                          "--check")
+        check(rc == 0, "(e) a %s corpus passes --check with %s (%s)"
+              % (writer, checker, err))
+        corpus[writer + "->" + checker] = rc
+        shutil.rmtree(base)
+    tool(non_regression, "--plugin", "torch_cuda", *params, "--create")
+    nr = non_regression.NonRegression(non_regression.build_parser()
+                                      .parse_args([str(a) for a in [
+                                          "--plugin", "torch_cuda",
+                                          *params]]))
+    path = Path(nr.chunk_path(9))
+    buf = bytearray(path.read_bytes())
+    buf[100] ^= 0x5A
+    path.write_bytes(bytes(buf))
+    rc, _, err = tool(non_regression, "--plugin", "torch_cuda", *params,
+                      "--check")
+    check(rc == 1 and "chunk 9 encodes differently" in err,
+          "(e) a corrupted chunk fails --check (%s)" % err.strip())
+    shutil.rmtree(base)
+    emit("native", case="tools", gpu=smi, corpus=corpus,
+         corrupted_check_rc=rc, phase_s=time.perf_counter() - t_phase,
+         sections_s=sections)
+    return {"bridge_launches": bridge_launches, "bridge_batches": batches,
+            "bridge_requests": requests}
 
 
 def main() -> int:
@@ -3284,7 +3631,10 @@ def main() -> int:
     # -- 14. the placement control plane: remap, churn, balancer, tools ----
     placement_part = placement_phase(np, torch, dev, smi)
 
-    # -- 15. kernels line -------------------------------------------------
+    # -- 15. the native seam: build, host codec, bridge, mapper, CLIs -----
+    native_part = native_phase(np, torch, dev, smi)
+
+    # -- 16. kernels line -------------------------------------------------
     enc = timings["encode"]
     dec = timings["decode345678910"]
     kernels = [{
@@ -3311,6 +3661,9 @@ def main() -> int:
         "msr_repair_matrices": msr_part["matrices"],
         "msr_repair_max_abs_err": msr_part["max_abs_err"],
         "mesh_launches": mesh_part["launches"]["gf"],
+        "bridge_launches": native_part["bridge_launches"],
+        "bridge_batches": native_part["bridge_batches"],
+        "bridge_requests": native_part["bridge_requests"],
         "mesh_block": mesh_part["block_gf"], "mesh_legs": mesh_part["legs"],
         "shape": {"bitmat": enc["bitmat"], "data": enc["data"],
                   "decode_bitmat": dec["bitmat"]}}, {

@@ -193,8 +193,8 @@ def test_measure_sweep_and_no_cuda(monkeypatch):
         pbal.calc_pg_upmaps(m, max_changes=2)
     with pytest.raises(RuntimeError, match="CUDA"):
         pbal.eval_distribution(m)
-    with pytest.raises(TypeError):
-        pbal.calc_pg_upmaps(m, max_changes=2, use_native=True)
+    # the native host mapper needs no card
+    assert pbal.calc_pg_upmaps(m, max_changes=2, use_native=True).sweeps >= 1
 
 
 @pytest.mark.parametrize("batched", [False, True])

@@ -55,7 +55,10 @@ straw2 launch a pool, no table upload on a second call, each pool's raw
 result equal to the plain version, the mapping to the scalar path's,
 four launches a pool over a mesh of four), ``apply_incremental`` (no
 launch for an overlay-only inc, a full remap on a weight change), the
-balancer's sweeps and ``osdmaptool --test-map-pgs --batched``.
+balancer's sweeps and ``osdmaptool --test-map-pgs --batched``. And the
+native seam on the card: the bridge's dispatcher (coalesced batches, one
+GF launch each, parity equal to the native runtime's ``NativeCodec``) and
+``update(native=True)`` against ``update()``.
 """
 
 import itertools
@@ -1846,3 +1849,56 @@ def test_osdmaptool_batched_on_card(cuda, tmp_path, capsys):
         assert osdmaptool.main([str(path), "--test-map-pgs"] + extra) == 0
         reports.append(capsys.readouterr().out)
     assert reports[0] == reports[1] and "total 320 pgs" in reports[0]
+
+
+@pytest.mark.gpu
+def test_native_bridge_on_card(cuda):
+    """The native bridge's dispatcher on the card: 8 threads' encodes of
+    RS k=8, m=3 coalesce into fewer batches, each one GF kernel launch,
+    every parity equal to the native runtime's NativeCodec; after
+    uninstall_dispatcher a bridge encode raises."""
+    import concurrent.futures
+
+    from ceph_tpu_torch import native
+    k, m, n = 8, 3, 65536
+    ref = native.NativeCodec("jerasure", dict(PROFILE))
+    data = np.random.default_rng(16).integers(0, 256, (8, k, n),
+                                              dtype=np.uint8)
+    want = np.empty((8, m, n), dtype=np.uint8)
+    for b in range(8):
+        ref.encode_chunks(data[b], want[b])
+    dispatch = native.install_cuda_dispatcher(max_batch=8,
+                                              max_delay_us=20000)
+    try:
+        gf_kernel.reset_launches()
+        b0 = native.lib().ec_tpu_batches_dispatched()
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            futs = [pool.submit(native.bridge_encode, k, m, 8,
+                                "reed_sol_van", list(data[b]))
+                    for b in range(8)]
+            got = [f.result(timeout=120) for f in futs]
+        batches = native.lib().ec_tpu_batches_dispatched() - b0
+    finally:
+        native.uninstall_dispatcher()
+    for b in range(8):
+        assert got[b] == [want[b, j].tobytes() for j in range(m)]
+    assert 1 <= batches < 8 and gf_kernel.LAUNCHES == batches
+    assert dispatch.device.type == "cuda"
+    with pytest.raises(OSError):
+        native.bridge_encode(k, m, 8, "reed_sol_van", list(data[0]))
+
+
+@pytest.mark.gpu
+def test_update_native_on_card(cuda):
+    """update(native=True) maps as update() on the card, each pool on
+    the native host mapper and no straw2 launch."""
+    m = placement_map()
+    card = remap(m)
+    crush_kernel.reset_launches()
+    host = remap(m, native=True)
+    assert crush_kernel.LAUNCHES == 0
+    assert {p: s["path"] for p, s in host.split.items()} == \
+        {1: "native", 2: "native"}
+    assert host.by_pg == card.by_pg and host.by_osd == card.by_osd
+    for pool_id in m.pools:
+        assert np.array_equal(host.raw[pool_id], card.raw[pool_id])

@@ -69,7 +69,60 @@ def test_the_walk_covers_the_tier_and_its_kernels():
             "ceph_tpu_torch/osd/osd_map.py",
             "ceph_tpu_torch/osd/balancer.py",
             "ceph_tpu_torch/tools/osdmaptool.py",
-            "ceph_tpu_torch/tools/crushtool.py"} <= names
+            "ceph_tpu_torch/tools/crushtool.py",
+            "ceph_tpu_torch/native.py",
+            "ceph_tpu_torch/tools/erasure_code.py",
+            "ceph_tpu_torch/tools/non_regression.py"} <= names
+
+
+def test_native_build_reads_nothing_of_the_reference():
+    """The native build's inputs are native/'s sources and the port's own
+    files; its crush_ln header comes from the port's ln_tables.py and
+    equals what native/tools/gen_crush_tables.py prints from the
+    reference's LL_TBL and RH_LH_TBL."""
+    import subprocess
+    import sys
+
+    from ceph_tpu_torch import native
+    inputs = [p.resolve() for p in native._inputs()]
+    assert not [p for p in inputs if (ROOT / "ceph_tpu") in p.parents]
+    assert {p.parent for p in inputs} >= {
+        ROOT / "native" / "src", ROOT / "ceph_tpu_torch" / "crush"}
+    ref = subprocess.run(
+        [sys.executable, str(ROOT / "native" / "tools" /
+                             "gen_crush_tables.py")],
+        capture_output=True, text=True, check=True).stdout
+    assert native.ln_tables_header() == ref
+
+
+def test_two_runtimes_in_one_process_both_orders():
+    """Each order in a fresh process: both packages' jerasure codecs
+    create and encode alike, each loads its own plugin, each bridge moves
+    only its own library's batch count, and the port's library exports
+    no symbol of the rename set (each under the port's prefix)."""
+    import subprocess
+    import sys
+
+    import ceph_tpu.native as ref_native
+    from ceph_tpu_torch import native
+    native.build()
+    ref_native.lib()           # built here, not by both children at once
+    script = str(ROOT / "tests" / "torch_native_pair.py")
+    procs = {order: subprocess.Popen([sys.executable, script, order],
+                                     stdout=subprocess.PIPE, text=True)
+             for order in ("ref_first", "port_first")}
+    for order, proc in procs.items():
+        out, _ = proc.communicate(timeout=300)
+        assert proc.returncode == 0, order
+        got = json.loads(out.strip().splitlines()[-1])
+        assert got["port_equals_ref"] and got["port_parity_ok"] and \
+            got["ref_parity_ok"], got
+        assert got["after_port_bridge"] == [0, 1], got
+        assert got["after_ref_bridge"] == [1, 0], got
+        assert got["ref_dispatcher_calls"] == 1
+        assert got["renamed"] > 0 and got["exported_renamed"] == [] and \
+            got["prefixed_missing"] == [], got
+        assert got["ref_plugin_mapped"] and got["port_plugin_mapped"], got
 
 
 def test_forbidden_names():

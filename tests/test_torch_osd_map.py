@@ -386,7 +386,8 @@ def test_update_split_and_raw_results():
     assert sorted(mapping.split) == [1, 2]
     for pool_id, pool in m.pools.items():
         parts = mapping.split[pool_id]
-        assert set(parts) == {"seeds_ms", "sweep_ms", "overlay_ms"}
+        assert set(parts) == {"path", "seeds_ms", "sweep_ms", "overlay_ms"}
+        assert parts.pop("path") == "device"
         assert all(v >= 0 for v in parts.values())
         raw = mapping.raw[pool_id]
         assert raw.shape == (pool.pg_num, pool.size)
@@ -409,7 +410,7 @@ def test_pool_without_rule_takes_scalar_path():
     mine = _update(maps[1], "plain")
     assert batched.paths() == {"kernel": 0, "plain": 1, "scalar": 0}
     assert_mappings_equal(ref, mine)
-    assert 2 not in mine.split
+    assert mine.split[2]["path"] == "scalar" and 2 not in mine.raw
 
 
 def test_update_without_cuda_raises(monkeypatch):
@@ -419,8 +420,9 @@ def test_update_without_cuda_raises(monkeypatch):
         P.OSDMapMapping().update(m)
     with pytest.raises(RuntimeError, match="CUDA"):
         P.OSDMapMapping().update(m, mesh=True)
-    with pytest.raises(TypeError):
-        P.OSDMapMapping().update(m, native=True)
+    mapping = P.OSDMapMapping()        # the native host mapper needs none
+    mapping.update(m, native=True)
+    assert mapping.split[1]["path"] == "native"
 
 
 # -- incrementals against a full rebuild (tests/test_mapchurn.py:102-200) -----
