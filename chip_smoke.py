@@ -15,8 +15,10 @@ and the placement control plane (the full remap of a two-pool cluster,
 churn, the upmap balancer, crushtool's and osdmaptool's CLIs) and the
 native seam (the C++ runtime built from ``native/``, its host codec and
 mapper beside the card's, native threads' encodes through the batching
-bridge onto the card, the two erasure-code CLIs), through
-the entry points a user calls,
+bridge onto the card, the two erasure-code CLIs) and the OSD's
+erasure-coded backend (ECBackend's write, read-modify-write, read,
+degraded-read, recovery and regenerating-repair pipelines in a loopback
+PG of in-process OSDs), through the entry points a user calls,
 and holds every kernel of the paths against its plain PyTorch version on
 the card. Phases, each printing one JSON line:
 
@@ -289,7 +291,36 @@ the card. Phases, each printing one JSON line:
                  ``torch_cuda`` on the card passing ``--check`` with the
                  host ``jerasure`` and the other way round, and a
                  corrupted chunk failing ``--check``.
-  16. kernels    one JSON line per the port's kernel table: the design
+  16. ec_backend the OSD's erasure-coded backend (``osd/ec_backend.py``)
+                 in a loopback PG (``tests/torch_ec_loopback.py``: n
+                 in-process OSDs, each with its own MemStore, backend and
+                 delivery thread), every launch counter 0 just before:
+                 (a) RS k=8, m=3 at stripe_unit 4096, 11 OSDs, the
+                 primary with a ``GpuDispatcher`` and an ``HbmChunkTier``
+                 of 64 objects in fused mode "store": 64 writes of 4 MiB
+                 from 8 client threads, every object read from the tier
+                 (no sub-read), one shard an object rebuilt from it (and
+                 in one ``reconstruct_batch``), a bitrot mark caught by
+                 the crc check and repaired, 256 overwrites of 4-64 KiB
+                 (RMW through sub-reads and the extent cache), 64
+                 appends of 64 KiB, every object and 256 ranges read
+                 against a host model, degraded reads with 1, 2 and 3
+                 shard OSDs down (2 and 3 checked to decode through the
+                 dispatcher), rebuilds with the tier off, and a pool
+                 in fused mode "compress" of 16 low-entropy 4 MiB
+                 objects (stored compressed, read back); (b) MSR k=8,
+                 m=7, 15 OSDs each with a dispatcher: 16 objects of 4
+                 MiB, one shard an object rebuilt from the tier (the
+                 striped decode on the card) and through 14 helpers'
+                 fractions. Every read against the model, every rebuilt
+                 shard against its store, every shard store against the
+                 plain encode on the CPU; writes/s, RMW p50 and p99,
+                 read and degraded-read MB/s, rebuild ms an object, MSR's
+                 repair bytes against a full decode's, the dispatcher's
+                 ops a dispatch; the GF kernel's bit-sliced and mma
+                 designs, the per-lane kernel, K1-K3 and the tier's
+                 rebuild must each launch.
+  17. kernels    one JSON line per the port's kernel table: the design
                  the main path takes, launches on the main path (phases
                  3-4 for the GF bitmatrix kernel, phase 6 for the packet
                  kernel, phase 8 for the write transform's kernels, phase
@@ -299,7 +330,8 @@ the card. Phases, each printing one JSON line:
                  GF, CRUSH and digest kernels' on phase 13
                  (``mesh_launches``), the CRUSH kernel's on phase 14
                  (``remap_launches``) and the GF kernel's on phase 15's
-                 bridge (``bridge_launches``), max_abs_err, ms, plain_ms,
+                 bridge (``bridge_launches``), and every kernel's on phase
+                 16 (``ec_backend_launches``), max_abs_err, ms, plain_ms,
                  bound_ms, bound_by, library_ms.
 
 Then the card's name and power limit as nvidia-smi prints them, and as
@@ -332,6 +364,13 @@ PROFILE = {"technique": "reed_sol_van", "k": str(K), "m": str(M), "w": str(W)}
 # phase 14's pools: pg_num of pool 1 (replicated, size 3) and pool 2 (EC,
 # 12 slots); 40,960 PGs and 196,608 slots
 PLACEMENT_PGS = (32768, 8192)
+# phase 16's sizes: the OSD's default 4 MiB object, whole writes (the
+# tier's default 64), overwrites and their length range, appends, range
+# reads, the compress pool's and the MSR pool's objects
+EC_BACKEND = {"object_bytes": 4 << 20, "writes": 64, "overwrites": 256,
+              "overwrite_bytes": (4096, 65536), "appends": 64,
+              "append_bytes": 65536, "ranges": 256, "compress": 16,
+              "msr": 16}
 
 _records: list[dict] = []
 
@@ -2479,6 +2518,518 @@ def native_phase(np, torch, dev, smi):
             "bridge_requests": requests}
 
 
+def ec_backend_phase(np, torch, dev, smi):
+    """Phase 16: the OSD's erasure-coded backend on the card, driven
+    through ECBackend's entry points in a loopback PG
+    (``tests/torch_ec_loopback.py``: one PG of n in-process OSDs, each
+    with its own MemStore, backend and delivery thread, standing in for
+    the reference's PG, OSD daemon and messenger). Every kernel launch
+    counter is set to 0 just before the phase and read after it. (a) RS
+    reed_sol_van k=8, m=3 at stripe_unit 4096 (stripe width 32 KiB), 11
+    shard OSDs, the primary's daemon with a ``GpuDispatcher`` and an
+    ``HbmChunkTier`` of the default 64 objects on cuda:0 in fused mode
+    "store": 64 whole-object writes of 4 MiB from 8 client threads, every
+    object read whole with ``hbm_serve_reads`` on (served from the tier:
+    no sub-read), one shard an object rebuilt from the tier
+    (``recover_object``; then the same shards in one
+    ``reconstruct_batch``, the OSD's coalesced shape), a bitrot mark on
+    one shard caught by the read path's crc check (reconstructed around,
+    repaired), 256 overwrites of 4-64 KiB at random offsets from 8
+    threads (RMW readbacks through sub-reads and the extent cache, two in
+    flight a thread), 64 appends of 64 KiB, every object read whole and
+    256 ranges of 4 KiB-1 MiB against a host model of its bytes, degraded
+    reads of every object with shard OSDs 1, then 1-2, then 1-3 down
+    (one down: ec_util's single-erasure XOR shortcut on the host; two
+    and three: a decode op on the dispatcher an object, a bit-sliced
+    launch a dispatch, each checked), and one shard an object rebuilt
+    with the tier off (sub-reads and a decode); a second pool in fused
+    mode "compress" with 16 objects of 4 MiB of values 0..3 (each stored
+    compressed), read back through the decompression. (b) MSR k=8, m=7
+    (alpha 7, d 14; phase 11's configuration), 15 shard OSDs each with
+    its own dispatcher: 16 objects of 4 MiB, one shard an object rebuilt
+    from the tier (``_tier_reconstruct_striped`` on the card) and one
+    with the tier off, through ``_try_repair``'s 14 helper fractions
+    (each computed on its helper's dispatcher) and ``repair_combine``.
+    Checks: every read equal to the model, every rebuilt shard to the
+    shard its store holds, every shard store's chunk streams at the end
+    to ``ec_util.encode`` of the model through the plain versions on the
+    CPU, and the GF kernel's bit-sliced and mma designs, the per-lane GF
+    kernel, K1-K3 and the tier's rebuild each launched. Nothing is cut.
+    Returns the phase's launches per kernel and its numbers."""
+    import concurrent.futures
+
+    from ceph_tpu_torch import registry
+    from ceph_tpu_torch.common.tracer import SpanCollector
+    from ceph_tpu_torch.common.workqueue import SafeTimer
+    from ceph_tpu_torch.ops import gf_kernel
+    from ceph_tpu_torch.ops import write_kernels as wk
+    from ceph_tpu_torch.osd import ec_util
+    from ceph_tpu_torch.osd.ec_backend import ECBackend
+    from ceph_tpu_torch.osd.gpu_dispatch import GpuDispatcher
+    from ceph_tpu_torch.osd.hbm_tier import HbmChunkTier
+    from ceph_tpu_torch.osd.pg_log import PGLog, entry_from_tuple
+    from ceph_tpu_torch.osd.pg_transaction import PGTransaction
+    from ceph_tpu_torch.store import MemStore, Transaction
+    from tests.torch_ec_loopback import Loopback
+
+    sz = EC_BACKEND
+    obj = sz["object_bytes"]
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(16)
+    pool = concurrent.futures.ThreadPoolExecutor(8)
+    loopbacks, dispatchers = [], []
+
+    def run8(fn, items):
+        """fn over items from 8 client threads, items of object i on
+        thread i % 8 in order; returns the wall seconds."""
+        lanes = [[] for _ in range(8)]
+        for item in items:
+            lanes[item[0] % 8].append(item)
+        t0 = time.perf_counter()
+        for f in [pool.submit(lambda lane=lane: [fn(it) for it in lane])
+                  for lane in lanes]:
+            f.result()
+        return time.perf_counter() - t0
+
+    def loopback(codec, width, mode, all_dispatch=False, pgid="1.0",
+                 disp=None, tier=None, tracer=None):
+        n = codec.get_chunk_count()
+        disps = {0: disp} if disp is not None else {}
+        for o in range(n) if all_dispatch else (0,):
+            if o not in disps:
+                disps[o] = GpuDispatcher(device=dev)
+                dispatchers.append(disps[o])
+        lb = Loopback(ECBackend=ECBackend, MemStore=MemStore,
+                      Transaction=Transaction, PGLog=PGLog,
+                      entry_from_tuple=entry_from_tuple,
+                      SafeTimer=SafeTimer,
+                      tracer=tracer or SpanCollector(), codec=codec,
+                      stripe_width=width, dispatchers=disps, tier=tier,
+                      fused_mode=mode, pgid=pgid)
+        loopbacks.append(lb)
+        return lb, disps[0]
+
+    def padded(data, width):
+        out = bytearray(data)
+        out.extend(b"\0" * (-len(out) % width))
+        return out
+
+    def launches():
+        return {"gf": gf_kernel.launches_by_design(),
+                "per_lane": gf_kernel.launches_by_design(multi=True),
+                "write": dict(wk.LAUNCHES)}
+
+    def since(before):
+        now = launches()
+        return {part: {k: now[part][k] - before[part][k]
+                       for k in now[part]} for part in now}
+
+    def sub_reads(lb, before):
+        return lb.sent.get("MOSDECSubOpRead", 0) - before
+
+    def rebuild_all(lb, oids, label):
+        """recover_object of shard i % n of object i, one after another:
+        (ms an object, {oid: (shard, bytes)})."""
+        got = {}
+        t0 = time.perf_counter()
+        for i, oid in enumerate(oids):
+            shard = i % lb.n
+            data = lb.recover(oid, shard)
+            check(data is not None and data == lb.shard_store(shard).read(
+                lb.cid(shard), oid), "%s: %s's shard %d rebuilt equal to "
+                  "its store" % (label, oid, shard))
+            got[oid] = (shard, data)
+        return (time.perf_counter() - t0) * 1e3 / len(oids), got
+
+    def check_stores(lb, model, plain, label):
+        """Every shard store's chunk streams equal ec_util.encode of the
+        model through the plain versions on the CPU."""
+        sinfo = lb.primary.backend.sinfo
+        for oid, data in model.items():
+            want = ec_util.encode(sinfo, plain, np.frombuffer(
+                bytes(data), dtype=np.uint8))
+            for shard in range(lb.n):
+                check(lb.shard_store(shard).read(lb.cid(shard), oid) ==
+                      want[shard].tobytes(), "%s: %s shard %d equals the "
+                      "plain encode of the model" % (label, oid, shard))
+
+    try:
+        gf_kernel.reset_launches()
+        wk.reset_launches()
+        # -- (a) RS k=8, m=3, the OSD's pool ---------------------------
+        codec = registry.factory("torch_cuda", dict(PROFILE))
+        plain = registry.factory("torch_cuda", dict(PROFILE), device="cpu")
+        width = K * codec.get_chunk_size(4096 * K)
+        check(width == 32768, "stripe width 32 KiB")
+        disp = GpuDispatcher(device=dev)
+        dispatchers.append(disp)
+        tier = HbmChunkTier(device=dev)
+        tracer = SpanCollector()
+        lb, _ = loopback(codec, width, "store", disp=disp, tier=tier,
+                         tracer=tracer)
+        # the primary's dispatcher records its legs under the op's span
+        disp.tracer = tracer
+        oids = ["rbd_data.%04d" % i for i in range(sz["writes"])]
+        datas = [rng.integers(0, 256, obj, dtype=np.uint8).tobytes()
+                 for _ in oids]
+        model = {oid: padded(d, width) for oid, d in zip(oids, datas)}
+
+        def write(item):
+            i, oid, data = item
+            t = PGTransaction()
+            t.create(oid)
+            t.write(oid, 0, data)
+            lb.submit(t)
+
+        wall = run8(write, [(i, oid, datas[i])
+                            for i, oid in enumerate(oids)])
+        lb.drain()
+        del datas
+        resident = tier.stats()["resident_objects"]
+        check(resident == len(oids), "every written object resident "
+              "(%d)" % resident)
+        rs = {"writes": len(oids), "writes_per_s": len(oids) / wall,
+              "write_s": wall}
+        emit("ec_backend", case="writes", gpu=smi, **rs,
+             resident=resident, dispatcher=dict(disp.stats))
+
+        # where a write's time goes: the first 16 objects rewritten whole
+        # one at a time from one client, each under a traced op; the
+        # spans' mean ms by name (the encode and the dispatcher's legs,
+        # each shard's sub-write round trip, the replicas' apply)
+        tracer.enabled = True
+        walls = []
+        for oid in oids[:16]:
+            data = rng.integers(0, 256, obj, dtype=np.uint8).tobytes()
+            model[oid] = padded(data, width)
+            t = PGTransaction()
+            t.write(oid, 0, data)
+            root = tracer.start_trace("client_write")
+            t0 = time.perf_counter()
+            lb.submit_async(t, trace=root).result()
+            walls.append(time.perf_counter() - t0)
+            root.finish()
+        lb.drain()
+        tracer.enabled = False
+        spans: dict = {}
+        for rec in tracer.dump():
+            spans.setdefault(rec["name"].split("(")[0], []).append(
+                rec["duration"] * 1e3)
+        rs["write_alone_ms"] = statistics.median(walls) * 1e3
+        rs["write_spans_ms"] = {name: statistics.mean(d)
+                                for name, d in sorted(spans.items())}
+        rs["write_span_counts"] = {name: len(d)
+                                   for name, d in sorted(spans.items())}
+        emit("ec_backend", case="write_trace", gpu=smi,
+             write_alone_ms=rs["write_alone_ms"],
+             spans_ms=rs["write_spans_ms"],
+             span_counts=rs["write_span_counts"])
+
+        def read_whole(item):
+            i, oid = item
+            got = lb.read(oid)
+            check(got == bytes(model[oid]), "read of %s equals the model"
+                  % oid)
+
+        # every object whole from the tier: no sub-read
+        lb.primary.daemon.hbm_serve_reads = True
+        s0, h0 = lb.sent.get("MOSDECSubOpRead", 0), tier.stats()["hits"]
+        wall = run8(read_whole, list(enumerate(oids)))
+        lb.primary.daemon.hbm_serve_reads = False
+        check(sub_reads(lb, s0) == 0 and
+              tier.stats()["hits"] - h0 == len(oids),
+              "reads served from the tier, no sub-read")
+        rs["tier_read_MBps"] = sum(len(model[oid]) for oid in oids) \
+            / wall / 1e6
+        # one shard an object rebuilt from the tier, then the same
+        # shards in one coalesced launch
+        before, s0 = launches(), lb.sent.get("MOSDECSubOpRead", 0)
+        rs["tier_rebuild_ms"], rebuilt = rebuild_all(lb, oids, "tier")
+        check(sub_reads(lb, s0) == 0, "tier rebuilds sent no sub-read")
+        keys = [(lb.pgid, oid) for oid in oids]
+        t0 = time.perf_counter()
+        rows = tier.reconstruct_batch(keys, [rebuilt[oid][0]
+                                             for oid in oids]).cpu().numpy()
+        rs["tier_rebuild_batch_ms"] = (time.perf_counter() - t0) * 1e3
+        for j, oid in enumerate(oids):
+            check(rows[j].tobytes() == rebuilt[oid][1],
+                  "reconstruct_batch equals recover_object (%s)" % oid)
+        tier_rebuild = since(before)
+        check(tier_rebuild["gf"]["bitsliced"] >= len(oids) and
+              tier_rebuild["per_lane"]["bitsliced"] >= 1,
+              "the tier's rebuild launched the GF kernel an object and "
+              "the per-lane kernel once: %s" % tier_rebuild)
+        emit("ec_backend", case="tier", gpu=smi,
+             tier_read_MBps=rs["tier_read_MBps"],
+             tier_rebuild_ms=rs["tier_rebuild_ms"],
+             tier_rebuild_batch_ms=rs["tier_rebuild_batch_ms"],
+             launches=tier_rebuild)
+
+        # bitrot on one shard: the crc check reconstructs around it and
+        # the read path repairs it
+        victim = oids[0]
+        lb.shard_store(1).faults.mark_bitrot(lb.cid(1), victim)
+        check(lb.read(victim) == bytes(model[victim]),
+              "a read around a bitrotten shard equals the model")
+        lb.drain()
+        check((victim, 1, 1) in lb.repaired and
+              lb.primary.daemon.perf.get("read_err") >= 1,
+              "the bitrotten shard was caught and repaired")
+
+        # overwrites: RMW readbacks, two in flight a thread
+        lo, hi = sz["overwrite_bytes"]
+        jobs = []
+        for _ in range(sz["overwrites"]):
+            i = int(rng.integers(0, len(oids)))
+            length = int(rng.integers(lo, hi + 1))
+            off = int(rng.integers(0, obj - length))
+            data = rng.integers(0, 256, length, dtype=np.uint8).tobytes()
+            model[oids[i]][off:off + length] = data
+            jobs.append((i, off, data))
+        lanes = [[j for j in jobs if j[0] % 8 == t] for t in range(8)]
+        latencies = []
+        s0 = lb.sent.get("MOSDECSubOpRead", 0)
+
+        def overwrite_lane(lane):
+            ops = []
+            for i, off, data in lane:
+                t = PGTransaction()
+                t.write(oids[i], off, data)
+                ops.append(lb.submit_async(t))
+                if len(ops) == 2:
+                    op = ops.pop(0)
+                    op.result()
+                    latencies.append(op.seconds)
+            for op in ops:
+                op.result()
+                latencies.append(op.seconds)
+
+        t0 = time.perf_counter()
+        for f in [pool.submit(overwrite_lane, lane) for lane in lanes]:
+            f.result()
+        wall = time.perf_counter() - t0
+        lb.drain()
+        check(sub_reads(lb, s0) > 0, "the overwrites read back through "
+              "sub-reads")
+        lat = sorted(latencies)
+        rs.update(rmw_ops=len(lat), rmw_p50_ms=lat[len(lat) // 2] * 1e3,
+                  rmw_p99_ms=lat[min(len(lat) - 1,
+                                     int(len(lat) * 0.99))] * 1e3,
+                  rmw_per_s=len(lat) / wall)
+
+        def append(item):
+            i, data = item
+            oid = oids[i]
+            off = len(model[oid])
+            t = PGTransaction()
+            t.write(oid, off, data)
+            model[oid][off:off + len(data)] = data
+            model[oid].extend(b"\0" * (-len(model[oid]) % width))
+            lb.submit(t)
+
+        run8(append, [(i % len(oids), rng.integers(
+            0, 256, sz["append_bytes"], dtype=np.uint8).tobytes())
+            for i in range(sz["appends"])])
+        lb.drain()
+        emit("ec_backend", case="rmw", gpu=smi,
+             **{k: rs[k] for k in ("rmw_ops", "rmw_p50_ms", "rmw_p99_ms",
+                                   "rmw_per_s")},
+             appends=sz["appends"], dispatcher=dict(disp.stats))
+
+        # reads: every object whole and random ranges
+        nbytes = sum(len(m) for m in model.values())
+        rs["read_MBps"] = nbytes / run8(read_whole,
+                                        list(enumerate(oids))) / 1e6
+        ranges = []
+        for _ in range(sz["ranges"]):
+            i = int(rng.integers(0, len(oids)))
+            size = len(model[oids[i]])
+            length = int(rng.integers(4096, min(1 << 20, size) + 1))
+            off = int(rng.integers(0, size - length + 1))
+            ranges.append((i, off, length))
+
+        def read_range(item):
+            i, off, length = item
+            check(lb.read(oids[i], off, length) ==
+                  bytes(model[oids[i]][off:off + length]),
+                  "range read of %s equals the model" % oids[i])
+
+        wall = run8(read_range, ranges)
+        rs["range_read_MBps"] = sum(r[2] for r in ranges) / wall / 1e6
+        # degraded reads: one shard down takes ec_util's single-erasure
+        # XOR shortcut on the host (as the reference's does); with two
+        # and three down each object read is a decode op on the
+        # dispatcher, and each dispatch of them a launch of the GF
+        # kernel's bit-sliced design
+        rs["degraded_read_MBps"], rs["degraded_launches"] = {}, {}
+        for down in ((1,), (1, 2), (1, 2, 3)):
+            name = "-".join(map(str, down))
+            lb.mark_down(*down)
+            before = launches()
+            ops0, disp0 = disp.stats["ops"], disp.stats["dispatches"]
+            xor0 = codec.xor_fast_hits
+            try:
+                rs["degraded_read_MBps"][name] = \
+                    nbytes / run8(read_whole, list(enumerate(oids))) / 1e6
+            finally:
+                lb.mark_up(*down)
+            got = {"decode_ops": disp.stats["ops"] - ops0,
+                   "dispatches": disp.stats["dispatches"] - disp0,
+                   "bitsliced": since(before)["gf"]["bitsliced"],
+                   "xor_shortcuts": codec.xor_fast_hits - xor0}
+            rs["degraded_launches"][name] = got
+            if len(down) == 1:
+                check(got["xor_shortcuts"] >= len(oids),
+                      "degraded reads with OSD 1 down took the XOR "
+                      "shortcut (%r)" % got)
+            else:
+                check(got["decode_ops"] >= len(oids) and
+                      got["bitsliced"] >= got["dispatches"] >= 1,
+                      "degraded reads with OSDs %s down decoded through "
+                      "the dispatcher on the GF kernel (%r)" % (name, got))
+        emit("ec_backend", case="reads", gpu=smi,
+             read_MBps=rs["read_MBps"],
+             range_read_MBps=rs["range_read_MBps"],
+             degraded_read_MBps=rs["degraded_read_MBps"],
+             degraded_launches=rs["degraded_launches"])
+        # rebuild with the tier off: sub-reads and a decode
+        lb.primary.daemon.hbm_tier = None
+        s0 = lb.sent.get("MOSDECSubOpRead", 0)
+        rs["rebuild_ms"], _ = rebuild_all(lb, oids, "rebuild")
+        check(sub_reads(lb, s0) > 0, "rebuilds with the tier off read "
+              "the survivors")
+        lb.primary.daemon.hbm_tier = tier
+        lb.drain()
+        t0 = time.perf_counter()
+        check_stores(lb, model, plain, "rs")
+        rs["store_check_s"] = time.perf_counter() - t0
+        rs["dispatcher"] = dict(disp.stats)
+        rs["ops_per_dispatch"] = disp.stats["ops"] / max(
+            1, disp.stats["dispatches"])
+        emit("ec_backend", case="rebuild", gpu=smi,
+             rebuild_ms=rs["rebuild_ms"], store_check_s=rs["store_check_s"],
+             dispatcher=rs["dispatcher"],
+             ops_per_dispatch=rs["ops_per_dispatch"])
+
+        # the compress pool on the same daemon's dispatcher and tier
+        clb, _ = loopback(codec, width, "compress", pgid="2.0", disp=disp,
+                          tier=tier)
+        coids = ["cmp.%02d" % i for i in range(sz["compress"])]
+        cdatas = {oid: rng.integers(0, 4, obj, dtype=np.uint8).tobytes()
+                  for oid in coids}
+
+        def cwrite(item):
+            i, oid = item
+            t = PGTransaction()
+            t.create(oid)
+            t.write(oid, 0, cdatas[oid])
+            clb.submit(t)
+
+        wall = run8(cwrite, list(enumerate(coids)))
+        clb.drain()
+        stored = 0
+        sinfo = clb.primary.backend.sinfo
+        for oid in coids:
+            h = clb.primary.backend.get_hinfo(oid)
+            check(h.comp_info is not None, "%s stored compressed" % oid)
+            stored += h.get_total_chunk_size() * K
+            streams = [clb.shard_store(s).read(clb.cid(s), oid)
+                       for s in range(clb.n)]
+            container = np.stack([np.frombuffer(st, dtype=np.uint8).reshape(
+                -1, sinfo.chunk_size) for st in streams[:K]], axis=1)
+            want = ec_util.encode(sinfo, plain, container.reshape(-1))
+            check(all(streams[s] == want[s].tobytes()
+                      for s in range(clb.n)),
+                  "%s's shards equal the plain encode of its container"
+                  % oid)
+
+        def cread(item):
+            i, oid = item
+            check(clb.read(oid)[:obj] == cdatas[oid],
+                  "%s reads back through the decompression" % oid)
+
+        rwall = run8(cread, list(enumerate(coids)))
+        compress = {"objects": len(coids), "writes_per_s": len(coids) /
+                    wall, "read_MBps": len(coids) * obj / rwall / 1e6,
+                    "stored_ratio": stored / (len(coids) * obj)}
+        emit("ec_backend", case="compress", gpu=smi, **compress)
+
+        # -- (b) MSR k=8, m=7 ------------------------------------------
+        mprof = {"k": "8", "m": "7", "w": "8"}
+        mcodec = registry.factory("msr_cuda", mprof)
+        mplain = registry.factory("msr_cuda", mprof, device="cpu")
+        mwidth = K * mcodec.get_chunk_size(4096 * K)
+        mtier = HbmChunkTier(device=dev)
+        mlb, mdisp = loopback(mcodec, mwidth, None, all_dispatch=True,
+                              pgid="3.0", tier=mtier)
+        moids = ["msr.%02d" % i for i in range(sz["msr"])]
+        mdatas = {oid: rng.integers(0, 256, obj, dtype=np.uint8).tobytes()
+                  for oid in moids}
+        mmodel = {oid: padded(d, mwidth) for oid, d in mdatas.items()}
+
+        def mwrite(item):
+            i, oid = item
+            t = PGTransaction()
+            t.create(oid)
+            t.write(oid, 0, mdatas[oid])
+            mlb.submit(t)
+
+        wall = run8(mwrite, list(enumerate(moids)))
+        mlb.drain()
+        check(mtier.stats()["resident_objects"] == len(moids),
+              "every MSR object resident")
+        before = launches()
+        msr = {"objects": len(moids), "writes_per_s": len(moids) / wall}
+        msr["tier_rebuild_ms"], _ = rebuild_all(mlb, moids, "msr tier")
+        torch.cuda.synchronize()
+        msr_tier = since(before)
+        check(msr_tier["gf"]["mma"] >= len(moids),
+              "the striped tier rebuild decoded on the mma design: %s"
+              % msr_tier)
+        mlb.primary.daemon.hbm_tier = None
+        s0 = mlb.sent.get("MOSDECSubOpRead", 0)
+        r0 = mlb.sent.get("MOSDECSubOpRepairRead", 0)
+        msr["repair_ms"], _ = rebuild_all(mlb, moids, "msr repair")
+        mlb.drain()
+        check(sub_reads(mlb, s0) == 0 and
+              mlb.sent.get("MOSDECSubOpRepairRead", 0) - r0 >=
+              13 * len(moids), "MSR rebuilt through helper fractions")
+        mlb.primary.daemon.hbm_tier = mtier
+        shipped = sum(o.daemon.perf.get("l_osd_repair_bytes_shipped")
+                      for o in mlb.osds)
+        chunk_total = mlb.primary.backend.get_hinfo(
+            moids[0]).get_total_chunk_size()
+        msr["repair_bytes"] = shipped
+        msr["full_decode_bytes"] = K * chunk_total * len(moids)
+        msr["traffic_ratio"] = shipped / msr["full_decode_bytes"]
+        check(msr["traffic_ratio"] < 0.3, "MSR's repair moved under 0.3 "
+              "of a full decode's bytes")
+        for oid, data in mdatas.items():
+            check(mlb.read(oid)[:obj] == data, "MSR read of %s" % oid)
+        check_stores(mlb, mmodel, mplain, "msr")
+        msr["dispatcher"] = dict(mdisp.stats)
+        emit("ec_backend", case="msr", gpu=smi, **msr, launches=msr_tier)
+
+        phase = launches()      # counted from 0 at the phase's start
+        check(phase["gf"]["bitsliced"] > 0 and phase["gf"]["mma"] > 0 and
+              phase["per_lane"]["bitsliced"] > 0 and
+              all(phase["write"].values()),
+              "the phase launched the GF kernel's bit-sliced and mma "
+              "designs, the per-lane kernel and K1-K3: %s" % phase)
+        seconds = time.perf_counter() - t_phase
+        emit("ec_backend", case="launches", gpu=smi, launches=phase,
+             seconds=seconds)
+        return {"launches": phase, "tier_rebuild": tier_rebuild,
+                "msr_tier": msr_tier, "rs": rs, "compress": compress,
+                "msr": msr, "seconds": seconds}
+    finally:
+        for lb_ in loopbacks:
+            lb_.shutdown()
+        for d in dispatchers:
+            d.shutdown()
+        pool.shutdown()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3634,7 +4185,10 @@ def main() -> int:
     # -- 15. the native seam: build, host codec, bridge, mapper, CLIs -----
     native_part = native_phase(np, torch, dev, smi)
 
-    # -- 16. kernels line -------------------------------------------------
+    # -- 16. the OSD's erasure-coded backend in a loopback PG -------------
+    ec_part = ec_backend_phase(np, torch, dev, smi)
+
+    # -- 17. kernels line -------------------------------------------------
     enc = timings["encode"]
     dec = timings["decode345678910"]
     kernels = [{
@@ -3661,6 +4215,9 @@ def main() -> int:
         "msr_repair_matrices": msr_part["matrices"],
         "msr_repair_max_abs_err": msr_part["max_abs_err"],
         "mesh_launches": mesh_part["launches"]["gf"],
+        "ec_backend_launches_by_design": ec_part["launches"]["gf"],
+        "ec_backend_tier_rebuild_launches": ec_part["tier_rebuild"]["gf"],
+        "ec_backend_msr_tier_launches": ec_part["msr_tier"]["gf"],
         "bridge_launches": native_part["bridge_launches"],
         "bridge_batches": native_part["bridge_batches"],
         "bridge_requests": native_part["bridge_requests"],
@@ -3697,6 +4254,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "ceph_tpu_torch/csrc/write_transform.cu",
             "replaces": replaces, "launches": write_launches[kernel],
+            "ec_backend_launches": ec_part["launches"]["write"][kernel],
             "cuda_launches": {k_: write_by_kernel[k_]
                               for k_ in CUDA_KERNELS[kernel]},
             "matched": wk_worst[kernel] == 0,
@@ -3728,6 +4286,9 @@ def main() -> int:
         "parts", "warm_split", "warm_ms", "balancer")}
     kernels.append(crush_line)
     for line in tier_lines:
+        if line["name"] == "gf_bitmatrix_multi":
+            line["ec_backend_launches_by_design"] = \
+                ec_part["launches"]["per_lane"]
         if line["name"] == "chunk_digest":
             line["mesh_launches"] = mesh_part["launches"]["digest"]
             line["mesh_checksum"] = mesh_part["checksum"]

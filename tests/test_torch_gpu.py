@@ -58,7 +58,9 @@ launch for an overlay-only inc, a full remap on a weight change), the
 balancer's sweeps and ``osdmaptool --test-map-pgs --batched``. And the
 native seam on the card: the bridge's dispatcher (coalesced batches, one
 GF launch each, parity equal to the native runtime's ``NativeCodec``) and
-``update(native=True)`` against ``update()``.
+``update(native=True)`` against ``update()``. And the OSD's erasure-coded
+backend (``osd/ec_backend.py``) in a loopback PG with its dispatchers and
+chunk tier on the card, against the same seeded sequence on the CPU.
 """
 
 import itertools
@@ -1902,3 +1904,35 @@ def test_update_native_on_card(cuda):
     assert host.by_pg == card.by_pg and host.by_osd == card.by_osd
     for pool_id in m.pools:
         assert np.array_equal(host.raw[pool_id], card.raw[pool_id])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["rs_store", "rs_compress", "msr"])
+def test_ec_backend_on_card_equals_cpu(cuda, case):
+    """The port's ECBackend in a loopback PG with its dispatchers and
+    chunk tier on the card runs tests/torch_ec_sequence.py's seeded
+    sequence (writes, tier reads and rebuilds, bitrot, RMW overwrites,
+    appends, reads, EIO, degraded reads, rebuilds with the tier off) to
+    the same reads, rebuilt shards, messages and shard stores as on the
+    CPU, through the card's kernels."""
+    from . import test_torch_ec_backend as ecb
+    gf_kernel.reset_launches()
+    write_kernels.reset_launches()
+    card = ecb.port_run(case, device="cuda")
+    torch.cuda.synchronize()
+    by_design = gf_kernel.launches_by_design()
+    writes = dict(write_kernels.LAUNCHES)
+    host = ecb.port_run(case, device="cpu")
+    for label, got, want in card["reads"] + card["rebuilt"]:
+        assert got == want, label
+    assert [r[1] for r in card["reads"]] == [r[1] for r in host["reads"]]
+    assert [r[1] for r in card["rebuilt"]] == \
+        [r[1] for r in host["rebuilt"]]
+    assert ecb.stable_routes(card) == ecb.stable_routes(host)
+    assert card["stores"] == host["stores"]
+    assert card["logs"] == host["logs"]
+    # every product here, MSR k=4's sub-symbol ones included (k*w = 96),
+    # takes the bit-sliced design
+    assert by_design["bitsliced"] > 0
+    if case != "msr":
+        assert writes["crc32_rows"] > 0 and writes["xxh32_rows"] > 0

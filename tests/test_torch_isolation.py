@@ -72,7 +72,20 @@ def test_the_walk_covers_the_tier_and_its_kernels():
             "ceph_tpu_torch/tools/crushtool.py",
             "ceph_tpu_torch/native.py",
             "ceph_tpu_torch/tools/erasure_code.py",
-            "ceph_tpu_torch/tools/non_regression.py"} <= names
+            "ceph_tpu_torch/tools/non_regression.py",
+            "ceph_tpu_torch/common/bounded.py",
+            "ceph_tpu_torch/common/interval_set.py",
+            "ceph_tpu_torch/common/lockdep.py",
+            "ceph_tpu_torch/common/workqueue.py",
+            "ceph_tpu_torch/store/object_store.py",
+            "ceph_tpu_torch/store/faults.py",
+            "ceph_tpu_torch/store/mem_store.py",
+            "ceph_tpu_torch/osd/pg_transaction.py",
+            "ceph_tpu_torch/osd/pg_log.py",
+            "ceph_tpu_torch/osd/extent_cache.py",
+            "ceph_tpu_torch/osd/ec_transaction.py",
+            "ceph_tpu_torch/msg/message.py",
+            "ceph_tpu_torch/osd/ec_backend.py"} <= names
 
 
 def test_native_build_reads_nothing_of_the_reference():
