@@ -20,9 +20,10 @@ of the straw2 kernel on the card (``device="cpu"``: the plain version),
 or one launch a device over a flat mesh (``mesh_do_rule``); the overlay
 steps then run per PG on the host, as in the reference.
 
-The pool keeps the placement fields of the reference's PGPool; the
-fields only its daemons read (snapshots, cache tiering, QoS) are not
-carried. ``update(native=True)`` maps each pool through the native
+The pool keeps the placement fields of the reference's PGPool and the
+few the port's PG reads (``removed_snaps``, ``tier_of``, ``cache_mode``);
+the rest (pool snaps, the tier agent's knobs, QoS) come with the slices
+that read them. ``update(native=True)`` maps each pool through the native
 runtime's host mapper (``native.crush_do_rule_batch_native``, the
 reference's ``native=`` path), falling back to the device sweep only
 when the runtime cannot be built or cannot take the map
@@ -33,7 +34,7 @@ from __future__ import annotations
 
 import copy
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -78,7 +79,7 @@ class PGID:
 
 @dataclass
 class PGPool:
-    """pg_pool_t's placement fields."""
+    """pg_pool_t's placement fields and those the PG reads."""
 
     pool_id: int
     name: str
@@ -91,6 +92,11 @@ class PGPool:
     erasure_code_profile: str = ""
     hashpspool: bool = True
     stripe_width: int = 0
+    # what the PG reads of the snapshot and cache-tier fields
+    # (pg_pool_t removed_snaps, tier_of, cache_mode)
+    removed_snaps: list = field(default_factory=list)
+    tier_of: int = -1                  # base pool this pool caches for
+    cache_mode: str = "none"     # none|writeback|readproxy|readonly|forward
 
     def __post_init__(self):
         if self.pgp_num == 0:
@@ -108,6 +114,14 @@ class PGPool:
         # replicated pools shift gaps away; EC pools keep positional
         # holes (osd_types.h can_shift_osds)
         return self.type == POOL_TYPE_REPLICATED
+
+    def is_erasure(self) -> bool:
+        return self.type == POOL_TYPE_ERASURE
+
+    def is_tier(self) -> bool:
+        """Is this pool a cache tier over another pool?
+        (pg_pool_t::is_tier)"""
+        return self.tier_of >= 0
 
     def raw_pg_to_pg(self, pgid: PGID) -> PGID:
         return PGID(pgid.pool,

@@ -18,7 +18,9 @@ mapper beside the card's, native threads' encodes through the batching
 bridge onto the card, the two erasure-code CLIs) and the OSD's
 erasure-coded backend (ECBackend's write, read-modify-write, read,
 degraded-read, recovery and regenerating-repair pipelines in a loopback
-PG of in-process OSDs), through the entry points a user calls,
+PG of in-process OSDs) and the PG above it (client ops, peering, log
+recovery, remap, deep scrub and repair on loopback OSD daemons),
+through the entry points a user calls,
 and holds every kernel of the paths against its plain PyTorch version on
 the card. Phases, each printing one JSON line:
 
@@ -320,7 +322,33 @@ the card. Phases, each printing one JSON line:
                  ops a dispatch; the GF kernel's bit-sliced and mma
                  designs, the per-lane kernel, K1-K3 and the tier's
                  rebuild must each launch.
-  17. kernels    one JSON line per the port's kernel table: the design
+  17. pg         the PG (``osd/pg.py``) on loopback daemons
+                 (``tests/torch_pg_loopback.py``: each with its own
+                 MemStore, FIFO thread and timer, ``home_device`` the card
+                 with a ``GpuDispatcher`` and an ``HbmChunkTier`` there),
+                 driven through ``do_op``, map epochs, ``scrub_pg`` and
+                 ``repair_shard``, every launch counter 0 just before: (a)
+                 RS k=8, m=3, 12 OSDs, 8 PGs, fused mode "store": 128
+                 writes of 4 MiB from 8 client threads, 256 overwrites of
+                 4-64 KiB, 8 snapshot writes, every object and clone and
+                 256 ranges read; one OSD down (32 degraded writes, reads
+                 on the XOR shortcut), a second down (8 writes, reads
+                 decoded through the dispatcher), both up (log recovery),
+                 one out (remap); a deep scrub, 32 new writes, bitrot on two
+                 shards repaired by a deep scrub (K1 on the card for the
+                 resident ones) and a second clean one, four shards
+                 rebuilt by ``repair_shard`` from the tier (a GF launch
+                 each), then again by the tiers' batched rebuild (the
+                 per-lane kernel); a compress
+                 pool of 8 low-entropy objects (K3). (b) MSR k=8, m=7, 16
+                 OSDs, 2 PGs: 16 objects, a deep-scrub repair and one
+                 through helper fractions. Every op 0 and every read
+                 against the model, every acting shard store against the
+                 plain encode; writes/s, RMW p50 / p99, ms from a map's
+                 publication to every PG active, recovery ms an object,
+                 backfill MB/s, deep-scrub GB/s and resident share,
+                 repair ms a shard.
+  18. kernels    one JSON line per the port's kernel table: the design
                  the main path takes, launches on the main path (phases
                  3-4 for the GF bitmatrix kernel, phase 6 for the packet
                  kernel, phase 8 for the write transform's kernels, phase
@@ -330,9 +358,10 @@ the card. Phases, each printing one JSON line:
                  GF, CRUSH and digest kernels' on phase 13
                  (``mesh_launches``), the CRUSH kernel's on phase 14
                  (``remap_launches``) and the GF kernel's on phase 15's
-                 bridge (``bridge_launches``), and every kernel's on phase
-                 16 (``ec_backend_launches``), max_abs_err, ms, plain_ms,
-                 bound_ms, bound_by, library_ms.
+                 bridge (``bridge_launches``), every kernel's on phase
+                 16 (``ec_backend_launches``) and on phase 17
+                 (``pg_launches``), max_abs_err, ms, plain_ms, bound_ms,
+                 bound_by, library_ms.
 
 Then the card's name and power limit as nvidia-smi prints them, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -371,6 +400,18 @@ EC_BACKEND = {"object_bytes": 4 << 20, "writes": 64, "overwrites": 256,
               "overwrite_bytes": (4096, 65536), "appends": 64,
               "append_bytes": 65536, "ranges": 256, "compress": 16,
               "msr": 16}
+
+# phase 17's sizes: (a) 12 OSDs and 8 PGs of RS k=8, m=3 at the OSD's
+# default 4 MiB object: whole writes, overwrites and their length range,
+# snapshot writes, range reads, degraded writes, the OSDs marked down,
+# down too and out, the post-remap writes, the compress pool's objects;
+# (b) 16 OSDs and 2 PGs of MSR k=8, m=7, its objects
+PG_PHASE = {"object_bytes": 4 << 20, "osds": 12, "pg_num": 8,
+            "writes": 128, "overwrites": 256,
+            "overwrite_bytes": (4096, 65536), "snaps": 8, "ranges": 256,
+            "degraded_writes": 32, "down": 1, "down2": 2, "out": 5,
+            "rewrites": 32, "compress": 8, "msr_osds": 16,
+            "msr_pg_num": 2, "msr": 16}
 
 _records: list[dict] = []
 
@@ -3030,6 +3071,575 @@ def ec_backend_phase(np, torch, dev, smi):
         pool.shutdown()
 
 
+def pg_phase(np, torch, dev, smi):
+    """Phase 17: the PG on the card (``ceph_tpu_torch/osd/pg.py``), driven
+    through its entry points (``do_op``, map epochs, ``scrub_pg``,
+    ``repair_shard``) on loopback daemons (``tests/torch_pg_loopback.py``:
+    each with its own MemStore, FIFO thread and timer, ``home_device`` the
+    card, a ``GpuDispatcher`` and an ``HbmChunkTier`` of the default 64
+    objects there). Every launch counter is set to 0 just before the phase
+    and read after it.
+
+    (a) RS reed_sol_van k=8, m=3 (``torch_cuda``) at stripe_unit 4096, 12
+    OSDs and one pool of 8 PGs (size 11, min_size 9), fused mode "store":
+    128 whole writes of 4 MiB from 8 client threads, 256 overwrites of
+    4-64 KiB at random offsets (RMW pre-reads), 8 objects written under a
+    snapshot context (each head cloned), every object read whole and 256
+    ranges against a host model; OSD A down (the PGs peer around it), 32
+    writes degraded, every object read (a lost data shard takes the host's
+    XOR shortcut), OSD B down too, 8 writes, every object read (two
+    erasures: decoded through the dispatcher), both up (log recovery),
+    OSD C out (the PGs remap and bring their new members up to date),
+    every head and clone read (a remap that moves an OSD to another shard
+    leaves that shard's objects missing there until a read or a scrub
+    repairs them, in the reference too), a deep scrub with repair of every
+    PG (its counts printed), 32 new objects written (resident, their
+    hinfo crcs valid), bitrot on two of their shards (one a
+    primary's, hashed by K1 on the card), a deep scrub with repair, a
+    second deep scrub, bitrot on four more shards rebuilt through
+    ``repair_shard`` from the tier, then the same four rebuilt again by
+    their primaries' tiers in one ``reconstruct_batch`` a tier (the PG
+    rebuilds one object at a time, as the reference; the batched call is
+    the tier's own); then, with every daemon's fused mode
+    switched to "compress", a second pool of 2 PGs with 8 low-entropy
+    objects (K3). (b) MSR k=8, m=7 (``msr_cuda``), 16 OSDs and a pool of 2
+    PGs: 16 objects of 4 MiB, bitrot on one shard repaired by a deep scrub
+    (the tier's striped rebuild), then on another with the primary's tier
+    detached, rebuilt by ``repair_shard`` through the helpers' fractions.
+
+    Checks: every op returned 0 and every read equals the model; each
+    deep scrub after the bitrot found and repaired exactly what was
+    injected, and the second finds nothing; every acting shard store
+    equals ``ec_util.encode`` of the model through the plain versions on
+    the CPU; the GF kernel's bit-sliced design launched in the degraded
+    reads, in recovery, in each deep-scrub repair and each
+    ``repair_shard`` from the tier (with no sub-read), the per-lane
+    kernel in the tiers' batched rebuild (its rows equal to the plain
+    encode), K1-K3 in the writes, K1 in the deep scrub and the mma design
+    in (b). Nothing is cut. Returns the phase's launches
+    per kernel and its numbers."""
+    import concurrent.futures
+    import types
+
+    from ceph_tpu_torch import registry
+    from ceph_tpu_torch.common.reserver import AsyncReserver
+    from ceph_tpu_torch.common.tracer import SpanCollector
+    from ceph_tpu_torch.common.workqueue import SafeTimer
+    from ceph_tpu_torch.msg.message import MOSDOp, MWatchNotifyAck
+    from ceph_tpu_torch.ops import gf_kernel
+    from ceph_tpu_torch.ops import write_kernels as wk
+    from ceph_tpu_torch.osd import ec_util
+    from ceph_tpu_torch.osd import osd_map
+    from ceph_tpu_torch.osd.gpu_dispatch import GpuDispatcher
+    from ceph_tpu_torch.osd.hbm_tier import HbmChunkTier
+    from ceph_tpu_torch.osd.pg import PG
+    from ceph_tpu_torch.store import MemStore
+    from ceph_tpu_torch.tools.crushtool import build_map
+    from tests.torch_pg_loopback import Cluster
+    from tests.torch_pg_scenario import store_mismatches, stripe_width
+
+    sz = PG_PHASE
+    obj = sz["object_bytes"]
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(17)
+    pool = concurrent.futures.ThreadPoolExecutor(8)
+    pkg = types.SimpleNamespace(
+        PG=PG, OSDMap=osd_map.OSDMap, Incremental=osd_map.Incremental,
+        PGPool=osd_map.PGPool, PGID=osd_map.PGID,
+        POOL_TYPE_ERASURE=osd_map.POOL_TYPE_ERASURE,
+        POOL_TYPE_REPLICATED=osd_map.POOL_TYPE_REPLICATED,
+        build_crush=build_map, MemStore=MemStore, SafeTimer=SafeTimer,
+        AsyncReserver=AsyncReserver, MOSDOp=MOSDOp,
+        MWatchNotifyAck=MWatchNotifyAck, SpanCollector=SpanCollector)
+    clusters, dispatchers = [], []
+
+    def cluster(n, mode):
+        def make_dispatcher(osd):
+            dispatchers.append(GpuDispatcher(device=dev))
+            return dispatchers[-1]
+
+        cl = Cluster(pkg, n, home_device=dev,
+                     make_dispatcher=make_dispatcher,
+                     make_tier=lambda osd: HbmChunkTier(device=dev),
+                     fused_mode=mode)
+        clusters.append(cl)
+        return cl
+
+    def launches():
+        return {"gf": gf_kernel.launches_by_design(),
+                "per_lane": gf_kernel.launches_by_design(multi=True),
+                "write": dict(wk.LAUNCHES)}
+
+    def since(before):
+        now = launches()
+        return {part: {k: now[part][k] - before[part][k]
+                       for k in now[part]} for part in now}
+
+    def run8(fn, items):
+        """fn over items from 8 client threads, items of object i on
+        thread i % 8 in order; returns the wall seconds."""
+        lanes = [[] for _ in range(8)]
+        for item in items:
+            lanes[item[0] % 8].append(item)
+        t0 = time.perf_counter()
+        for f in [pool.submit(lambda lane=lane: [fn(it) for it in lane])
+                  for lane in lanes]:
+            f.result()
+        return time.perf_counter() - t0
+
+    def call(cl, pool_id, oid, ops, **kw):
+        op = cl.submit(pool_id, oid, ops, **kw)
+        result, data = op.result()
+        check(result == 0, "%s on %s returned %d" % (ops[0][0], oid,
+                                                     result))
+        return data, op.seconds
+
+    def write_all(cl, pool_id, model, items):
+        """writefull of (i, oid, bytes) from 8 threads into the model."""
+        def write(item):
+            i, oid, data = item
+            call(cl, pool_id, oid, [("writefull", data)])
+            model[oid] = bytearray(data)
+        return run8(write, items)
+
+    def read_all(cl, pool_id, model, clones=()):
+        """Every object (and clone, at its snap) whole against the model;
+        returns (bytes read, wall seconds)."""
+        items = [(i, oid, 0) for i, oid in enumerate(sorted(model))]
+        items += [(i, c.split("@")[0], int(c.split("@")[1]))
+                  for i, c in enumerate(sorted(clones))]
+
+        def read(item):
+            _, oid, snap = item
+            data, _ = call(cl, pool_id, oid, [("read", 0, 0)], snap=snap)
+            want = clones["%s@%d" % (oid, snap)] if snap else model[oid]
+            check(bytes(data) == bytes(want), "read of %s (snap %d) "
+                  "equals the model" % (oid, snap))
+        wall = run8(read, items)
+        return sum(len(model[o]) for o in model) + sum(
+            len(clones[c]) for c in clones), wall
+
+    def xor_hits(cl, pool_id):
+        return sum(pg.backend.codec.xor_fast_hits
+                   for d in cl.daemons for pgid, pg in list(d.pgs.items())
+                   if pgid.pool == pool_id)
+
+    def disp_stats():
+        return {k: sum(d.stats[k] for d in dispatchers)
+                for k in ("ops", "dispatches")}
+
+    def perf(cl, name):
+        return cl.perf_totals().get(name, 0)
+
+    def plain_encoder(profile, width):
+        plain = registry.factory(profile["plugin"], dict(profile),
+                                 device="cpu")
+        sinfo = ec_util.StripeInfo(plain.get_data_chunk_count(), width)
+
+        def encode(data):
+            buf = bytearray(data)
+            buf.extend(b"\0" * (-len(buf) % width))
+            shards = ec_util.encode(sinfo, plain, np.frombuffer(
+                bytes(buf), dtype=np.uint8))
+            return [shards[i].tobytes() for i in range(len(shards))]
+        return encode
+
+    def mark_bitrot(cl, pool_id, oid, pos):
+        pgid = cl.pgid_of(pool_id, oid)
+        acting, _ = cl.acting(pgid)
+        cl.daemons[acting[pos]].store.faults.mark_bitrot(
+            ("pg", str(pgid), pos), oid)
+        return pgid, acting[pos]
+
+    def scrub(cl, pool_id, repair):
+        t0 = time.perf_counter()
+        stats = cl.scrub(pool_id, deep=True, repair=repair)
+        wall = time.perf_counter() - t0
+        found = sum(s.get("errors", 0) for s in stats.values())
+        fixed = sum(s.get("repaired", 0) for s in stats.values())
+        check(all(s.get("state") in ("clean", "inconsistent")
+                  for s in stats.values()), "every deep scrub finished: %r"
+              % stats)
+        return found, fixed, stats, wall
+
+    try:
+        gf_kernel.reset_launches()
+        wk.reset_launches()
+        # -- (a) RS k=8, m=3 on 12 OSDs, 8 PGs --------------------------
+        profile = dict(PROFILE, plugin="torch_cuda")
+        codec = registry.factory("torch_cuda", dict(PROFILE), device=dev)
+        width = stripe_width(codec, 4096)
+        check(width == 32768, "stripe width 32 KiB")
+        encode = plain_encoder(profile, width)
+        cl = cluster(sz["osds"], "store")
+        rs = {"active_ms": {}}
+        t0 = time.perf_counter()
+        cl.create_pool(1, "rbd_ec", size=K + M, min_size=K + 1,
+                       pg_num=sz["pg_num"], profile=profile,
+                       stripe_width=width)
+        rs["active_ms"]["create"] = cl.wait_active(1, t0)
+        cl.drain()
+        model, clones, whole = {}, {}, []
+        oids = ["rbd_data.%04d" % i for i in range(sz["writes"])]
+        before = launches()
+        wall = write_all(cl, 1, model, [
+            (i, oid, rng.integers(0, 256, obj, dtype=np.uint8).tobytes())
+            for i, oid in enumerate(oids)])
+        cl.drain()
+        rs["writes_per_s"] = len(oids) / wall
+        writes = since(before)
+        check(writes["write"]["crc32_rows"] >= len(oids) and
+              writes["write"]["xxh32_rows"] >= len(oids) and
+              writes["gf"]["bitsliced"] >= len(oids),
+              "every write was a fused write on the card (K1, K2 and the "
+              "GF kernel): %s" % writes)
+        resident = sum(d.hbm_tier.stats()["resident_objects"]
+                       for d in cl.daemons)
+        check(resident == len(oids), "every written object resident on "
+              "its primary's tier (%d)" % resident)
+
+        # overwrites: RMW pre-reads; one thread per object lane, in order
+        lo, hi = sz["overwrite_bytes"]
+        jobs = []
+        for _ in range(sz["overwrites"]):
+            i = int(rng.integers(0, len(oids)))
+            length = int(rng.integers(lo, hi + 1))
+            off = int(rng.integers(0, obj - length))
+            jobs.append((i, off, rng.integers(0, 256, length,
+                                              dtype=np.uint8).tobytes()))
+        latencies = []
+
+        def overwrite(item):
+            i, off, data = item
+            _, secs = call(cl, 1, oids[i], [("write", off, data)])
+            model[oids[i]][off:off + len(data)] = data
+            latencies.append(secs)
+
+        wall = run8(overwrite, jobs)
+        cl.drain()
+        lat = sorted(latencies)
+        rs.update(rmw_ops=len(lat), rmw_per_s=len(lat) / wall,
+                  rmw_p50_ms=lat[len(lat) // 2] * 1e3,
+                  rmw_p99_ms=lat[min(len(lat) - 1,
+                                     int(len(lat) * 0.99))] * 1e3)
+        # snapshot 1: 64 KiB at offset 0 of 8 objects; each head cloned
+        snapped = oids[-sz["snaps"]:]
+
+        def snap_write(item):
+            _, oid = item
+            data = bytes(64 << 10)
+            clones["%s@1" % oid] = bytes(model[oid])
+            call(cl, 1, oid, [("write", 0, data)], snapc=(1, (1,)))
+            model[oid][:len(data)] = data
+
+        run8(snap_write, list(enumerate(snapped)))
+        cl.drain()
+        nbytes, wall = read_all(cl, 1, model, clones)
+        rs["read_MBps"] = nbytes / wall / 1e6
+        ranges = []
+        for _ in range(sz["ranges"]):
+            i = int(rng.integers(0, len(oids)))
+            length = int(rng.integers(4096, min(1 << 20, obj) + 1))
+            off = int(rng.integers(0, obj - length + 1))
+            ranges.append((i, off, length))
+
+        def read_range(item):
+            i, off, length = item
+            data, _ = call(cl, 1, oids[i], [("read", off, length)])
+            check(bytes(data) == bytes(model[oids[i]][off:off + length]),
+                  "range read of %s equals the model" % oids[i])
+
+        wall = run8(read_range, ranges)
+        rs["range_read_MBps"] = sum(r[2] for r in ranges) / wall / 1e6
+        emit("pg", case="client", gpu=smi, writes=len(oids),
+             writes_per_s=rs["writes_per_s"], rmw_ops=rs["rmw_ops"],
+             rmw_per_s=rs["rmw_per_s"], rmw_p50_ms=rs["rmw_p50_ms"],
+             rmw_p99_ms=rs["rmw_p99_ms"], read_MBps=rs["read_MBps"],
+             range_read_MBps=rs["range_read_MBps"],
+             active_ms=rs["active_ms"], launches=writes)
+
+        # -- peering, degraded writes and reads, recovery, remap ----------
+        A, B, C = sz["down"], sz["down2"], sz["out"]
+        t0 = cl.mark_down(A)
+        rs["active_ms"]["down"] = cl.wait_active(1, t0)
+        cl.drain()
+        new = ["rbd_data.%04d" % i for i in range(
+            len(oids), len(oids) + sz["degraded_writes"])]
+        write_all(cl, 1, model, [
+            (i, oid, rng.integers(0, 256, obj, dtype=np.uint8).tobytes())
+            for i, oid in enumerate(new)])
+        cl.drain()
+        whole = list(new)
+        xor0, before, d0 = xor_hits(cl, 1), launches(), disp_stats()
+        nbytes, wall = read_all(cl, 1, model)
+        one_down = {"MBps": nbytes / wall / 1e6,
+                    "xor_shortcuts": xor_hits(cl, 1) - xor0,
+                    "bitsliced": since(before)["gf"]["bitsliced"],
+                    "decode_ops": disp_stats()["ops"] - d0["ops"]}
+        check(one_down["xor_shortcuts"] > 0, "reads with OSD %d down took "
+              "the XOR shortcut (%r)" % (A, one_down))
+        t0 = cl.mark_down(B)
+        rs["active_ms"]["down2"] = cl.wait_active(1, t0)
+        cl.drain()
+        new2 = ["rbd_data.%04d" % i for i in range(
+            len(oids) + len(new), len(oids) + len(new) + 8)]
+        write_all(cl, 1, model, [
+            (i, oid, rng.integers(0, 256, obj, dtype=np.uint8).tobytes())
+            for i, oid in enumerate(new2)])
+        cl.drain()
+        whole += new2
+        before, d0 = launches(), disp_stats()
+        nbytes, wall = read_all(cl, 1, model)
+        degraded = since(before)
+        two_down = {"MBps": nbytes / wall / 1e6,
+                    "bitsliced": degraded["gf"]["bitsliced"],
+                    "decode_ops": disp_stats()["ops"] - d0["ops"],
+                    "dispatches": disp_stats()["dispatches"] -
+                    d0["dispatches"]}
+        check(two_down["decode_ops"] > 0 and two_down["bitsliced"] >=
+              two_down["dispatches"] > 0, "reads with OSDs %d and %d down "
+              "decoded through the dispatcher on the GF kernel (%r)"
+              % (A, B, two_down))
+        rs["degraded"] = {"one_down": one_down, "two_down": two_down}
+        emit("pg", case="degraded", gpu=smi, down=[A, B],
+             active_ms=rs["active_ms"], **rs["degraded"])
+        pushes0 = perf(cl, "l_osd_recovery_ops")
+        bytes0 = perf(cl, "l_osd_recovery_bytes") + \
+            perf(cl, "l_osd_backfill_bytes")
+        before = launches()
+        t0 = cl.mark_up(A, B)
+        rs["active_ms"]["up"] = cl.wait_active(1, t0)
+        cl.drain()
+        recovery_s = time.perf_counter() - t0
+        recovered = perf(cl, "l_osd_recovery_ops") - pushes0
+        recovery = since(before)
+        check(recovered > 0 and recovery["gf"]["bitsliced"] > 0,
+              "log recovery pushed the missing shards, decoding on the GF "
+              "kernel (%d pushes, %s)" % (recovered, recovery))
+        rs["recovery"] = {"pushes": recovered, "seconds": recovery_s,
+                          "ms_per_object": recovery_s * 1e3 / recovered,
+                          "launches": recovery}
+        pushes0 = perf(cl, "l_osd_recovery_ops") + \
+            perf(cl, "l_osd_backfill_ops")
+        bytes0 = perf(cl, "l_osd_recovery_bytes") + \
+            perf(cl, "l_osd_backfill_bytes")
+        t0 = cl.mark_out(C)
+        rs["active_ms"]["out"] = cl.wait_active(1, t0)
+        cl.drain()
+        remap_s = time.perf_counter() - t0
+        moved = perf(cl, "l_osd_recovery_bytes") + \
+            perf(cl, "l_osd_backfill_bytes") - bytes0
+        rs["backfill"] = {"pushes": perf(cl, "l_osd_recovery_ops") +
+                          perf(cl, "l_osd_backfill_ops") - pushes0,
+                          "bytes": moved, "seconds": remap_s,
+                          "MBps": moved / remap_s / 1e6}
+        check(moved > 0, "the remap moved shards to the new members")
+        nbytes, wall = read_all(cl, 1, model, clones)
+        rs["remapped_read_MBps"] = nbytes / wall / 1e6
+        cl.drain()
+        found, fixed, _, wall = scrub(cl, 1, repair=True)
+        rs["remap_scrub"] = {"errors": found, "repaired": fixed,
+                             "seconds": wall}
+        check(found == fixed, "the scrub after the remap repaired what "
+              "it found (%d of %d)" % (fixed, found))
+        emit("pg", case="recovery", gpu=smi, out=C,
+             active_ms=rs["active_ms"], recovery=rs["recovery"],
+             backfill=rs["backfill"],
+             remapped_read_MBps=rs["remapped_read_MBps"],
+             remap_scrub=rs["remap_scrub"],
+             read_repairs=perf(cl, "repaired"))
+
+        # -- deep scrub of resident objects with bitrot ------------------
+        # new objects: resident on their primaries' tiers, their hinfo
+        # crcs valid (a rewrite's truncate drops an object's crcs)
+        first = len(oids) + len(new) + len(new2)
+        rewrites = ["rbd_data.%04d" % i for i in range(
+            first, first + sz["rewrites"])]
+        write_all(cl, 1, model, [
+            (i, oid, rng.integers(0, 256, obj, dtype=np.uint8).tobytes())
+            for i, oid in enumerate(rewrites)])
+        cl.drain()
+        resident = sum(d.hbm_tier.stats()["resident_objects"]
+                       for d in cl.daemons)
+        injected = [mark_bitrot(cl, 1, rewrites[0], 0),
+                    mark_bitrot(cl, 1, rewrites[1], 5)]
+        before, rep0 = launches(), perf(cl, "repaired")
+        found, fixed, stats, wall = scrub(cl, 1, repair=True)
+        deep = since(before)
+        shards = sum(s.get("objects", 0) for s in stats.values()) * (K + M)
+        # every shard stream a deep scrub reads: each object's padded
+        # length over k, on each of its k + m shards
+        stored = sum(-(-len(d) // width) * width // K
+                     for d in list(model.values()) + list(clones.values()))
+        check(found == len(injected) == fixed, "the deep scrub found and "
+              "repaired exactly the %d injected shards (%d, %d): %r"
+              % (len(injected), found, fixed, stats))
+        check(deep["write"]["crc32_rows"] > 0, "the deep scrub hashed "
+              "resident shards with K1 on the card: %s" % deep)
+        check(deep["gf"]["bitsliced"] >= len(injected), "the deep "
+              "scrub's repairs rebuilt on the GF kernel: %s" % deep)
+        found2, _, _, wall2 = scrub(cl, 1, repair=False)
+        check(found2 == 0, "a second deep scrub is clean (%d)" % found2)
+        rs["scrub"] = {"errors": found, "repaired": fixed, "seconds": wall,
+                       "GBps": stored * (K + M) / wall / 1e9,
+                       "second_seconds": wall2,
+                       "shards_hashed": shards,
+                       "hashed_on_card": deep["write"]["crc32_rows"],
+                       "resident_share": deep["write"]["crc32_rows"] /
+                       max(1, shards), "resident_objects": resident,
+                       "repaired_perf": perf(cl, "repaired") - rep0,
+                       "launches": deep}
+        # four more shards rebuilt through repair_shard from the
+        # primaries' tiers, one at a time: a GF launch each, no sub-read
+        victims = [(rewrites[2 + j], 1 + 3 * j) for j in range(4)]
+        times, by_tier = [], {}
+        before, s0 = launches(), cl.sent.get("MOSDECSubOpRead", 0)
+        for oid, pos in victims:
+            pgid, osd = mark_bitrot(cl, 1, oid, pos)
+            pg = cl.primary_pg(pgid)
+            by_tier.setdefault(pg.whoami, []).append((pgid, oid, pos))
+            t0 = time.perf_counter()
+            cl.daemons[pg.whoami].op_wq.queue(
+                pgid, pg.repair_shard, oid, pos, osd)
+            cl.drain()
+            times.append(time.perf_counter() - t0)
+            check(cl.daemons[osd].store.read(("pg", str(pgid), pos), oid)
+                  == encode(model[oid])[pos], "repair_shard rewrote %s's "
+                  "shard %d" % (oid, pos))
+        repair = since(before)
+        check(cl.sent.get("MOSDECSubOpRead", 0) == s0, "repair_shard "
+              "rebuilt from the tier: no sub-read")
+        check(repair["gf"]["bitsliced"] >= len(victims), "each "
+              "repair_shard rebuilt on the GF kernel: %s" % repair)
+        rs["repair_ms_per_shard"] = statistics.mean(times) * 1e3
+        # the same shards from the same tiers, one per-lane launch a tier
+        # (the PG rebuilds one object at a time, as the reference does;
+        # the tier's batched rebuild is the call that coalesces them)
+        before = launches()
+        t0 = time.perf_counter()
+        for osd, items in sorted(by_tier.items()):
+            rows = cl.daemons[osd].hbm_tier.reconstruct_batch(
+                [(str(pgid), oid) for pgid, oid, _ in items],
+                [pos for _, _, pos in items]).cpu().numpy()
+            for row, (_, oid, pos) in zip(rows, items):
+                check(row.tobytes() == encode(model[oid])[pos],
+                      "the tier's batched rebuild of %s's shard %d "
+                      "equals the plain encode" % (oid, pos))
+        rs["tier_rebuild_batch_ms"] = (time.perf_counter() - t0) * 1e3
+        batch = since(before)
+        check(batch["per_lane"]["bitsliced"] >= len(by_tier),
+              "the tier's batched rebuild ran the per-lane kernel once a "
+              "tier: %s" % batch)
+        emit("pg", case="scrub", gpu=smi, **rs["scrub"],
+             repair_ms_per_shard=rs["repair_ms_per_shard"],
+             repair_ms=[t * 1e3 for t in times], repair_launches=repair,
+             tier_rebuild_batch_ms=rs["tier_rebuild_batch_ms"],
+             tier_rebuild_batch_launches=batch)
+        read_all(cl, 1, model, clones)
+        cl.drain()
+        t0 = time.perf_counter()
+        bad = store_mismatches(cl, {**{o: bytes(d) for o, d in
+                                       model.items()}, **clones}, encode)
+        check(bad == [], "every acting shard equals the plain encode of "
+              "the model: %r" % bad[:4])
+        rs["store_check_s"] = time.perf_counter() - t0
+        # -- the compress step: a second pool, K3 -------------------------
+        for d in cl.daemons:
+            d.fused_mode = "compress"
+        cl.create_pool(2, "rbd_ecz", size=K + M, min_size=K + 1,
+                       pg_num=2, profile=profile, stripe_width=width)
+        cl.drain()
+        cmodel = {}
+        before = launches()
+        write_all(cl, 2, cmodel, [
+            (i, "cmp.%02d" % i, rng.integers(0, 4, obj,
+                                             dtype=np.uint8).tobytes())
+            for i in range(sz["compress"])])
+        cl.drain()
+        compress = since(before)
+        read_all(cl, 2, cmodel)
+        for d in cl.daemons:
+            d.fused_mode = "store"
+        check(compress["write"]["bitplane_stage"] >= sz["compress"],
+              "the compress writes ran K3 on the card: %s" % compress)
+        rs["compress_launches"] = compress
+        rs["dispatcher"] = disp_stats()
+
+        # -- (b) MSR k=8, m=7 on 16 OSDs, 2 PGs ---------------------------
+        mprofile = {"plugin": "msr_cuda", "k": "8", "m": "7", "w": "8"}
+        mcodec = registry.factory("msr_cuda", {"k": "8", "m": "7",
+                                               "w": "8"}, device=dev)
+        mwidth = stripe_width(mcodec, 4096)
+        mencode = plain_encoder(mprofile, mwidth)
+        mcl = cluster(sz["msr_osds"], None)
+        mcl.create_pool(1, "msr", size=15, min_size=9,
+                        pg_num=sz["msr_pg_num"], profile=mprofile,
+                        stripe_width=mwidth)
+        mcl.drain()
+        mmodel = {}
+        moids = ["msr.%02d" % i for i in range(sz["msr"])]
+        before = launches()
+        wall = write_all(mcl, 1, mmodel, [
+            (i, oid, rng.integers(0, 256, obj, dtype=np.uint8).tobytes())
+            for i, oid in enumerate(moids)])
+        mcl.drain()
+        msr = {"writes_per_s": len(moids) / wall}
+        mark_bitrot(mcl, 1, moids[0], 3)
+        found, fixed, _, wall = scrub(mcl, 1, repair=True)
+        check(found == fixed == 1, "MSR's deep scrub repaired the one "
+              "injected shard (%d, %d)" % (found, fixed))
+        found2, _, _, _ = scrub(mcl, 1, repair=False)
+        check(found2 == 0, "MSR's second deep scrub is clean")
+        msr["scrub_s"] = wall
+        # a rebuild through the helpers' fractions: the primary's tier off
+        pgid, osd = mark_bitrot(mcl, 1, moids[1], 6)
+        prim = mcl.daemons[mcl.acting(pgid)[1]]
+        tier, prim.hbm_tier = prim.hbm_tier, None
+        r0 = mcl.sent.get("MOSDECSubOpRepairRead", 0)
+        shipped0 = perf(mcl, "l_osd_repair_bytes_shipped")
+        t0 = time.perf_counter()
+        pg = mcl.primary_pg(pgid)
+        prim.op_wq.queue(pgid, pg.repair_shard, moids[1], 6, osd)
+        mcl.drain()
+        msr["repair_ms"] = (time.perf_counter() - t0) * 1e3
+        prim.hbm_tier = tier
+        msr["repair_reads"] = mcl.sent.get("MOSDECSubOpRepairRead", 0) - r0
+        msr["repair_bytes"] = perf(mcl, "l_osd_repair_bytes_shipped") - \
+            shipped0
+        check(msr["repair_reads"] >= 8 and msr["repair_bytes"] > 0,
+              "repair_shard rebuilt the shard through helper fractions "
+              "(%d reads, %d bytes)" % (msr["repair_reads"],
+                                        msr["repair_bytes"]))
+        read_all(mcl, 1, mmodel)
+        mcl.drain()
+        bad = store_mismatches(mcl, {o: bytes(d) for o, d in
+                                     mmodel.items()}, mencode)
+        check(bad == [], "every MSR shard equals the plain encode: %r"
+              % bad[:4])
+        msr["launches"] = since(before)
+        check(msr["launches"]["gf"]["mma"] > 0, "MSR ran the GF kernel's "
+              "mma design: %s" % msr["launches"])
+        emit("pg", case="msr", gpu=smi, **msr)
+
+        phase = launches()      # counted from 0 at the phase's start
+        check(phase["gf"]["bitsliced"] > 0 and phase["gf"]["mma"] > 0 and
+              phase["per_lane"]["bitsliced"] > 0 and
+              all(phase["write"].values()),
+              "the phase launched the GF kernel's bit-sliced and mma "
+              "designs, the per-lane kernel and K1-K3: %s" % phase)
+        seconds = time.perf_counter() - t_phase
+        emit("pg", case="launches", gpu=smi, launches=phase,
+             seconds=seconds, threads=[len(c.daemons) for c in clusters])
+        return {"launches": phase, "rs": rs, "msr": msr,
+                "seconds": seconds}
+    finally:
+        for cl_ in clusters:
+            cl_.shutdown()
+        for d in dispatchers:
+            d.shutdown()
+        pool.shutdown()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4188,7 +4798,10 @@ def main() -> int:
     # -- 16. the OSD's erasure-coded backend in a loopback PG -------------
     ec_part = ec_backend_phase(np, torch, dev, smi)
 
-    # -- 17. kernels line -------------------------------------------------
+    # -- 17. the PG on loopback daemons -----------------------------------
+    pg_part = pg_phase(np, torch, dev, smi)
+
+    # -- 18. kernels line -------------------------------------------------
     enc = timings["encode"]
     dec = timings["decode345678910"]
     kernels = [{
@@ -4218,6 +4831,11 @@ def main() -> int:
         "ec_backend_launches_by_design": ec_part["launches"]["gf"],
         "ec_backend_tier_rebuild_launches": ec_part["tier_rebuild"]["gf"],
         "ec_backend_msr_tier_launches": ec_part["msr_tier"]["gf"],
+        "pg_launches_by_design": pg_part["launches"]["gf"],
+        "pg_degraded_read_launches": pg_part["rs"]["degraded"][
+            "two_down"]["bitsliced"],
+        "pg_recovery_launches": pg_part["rs"]["recovery"]["launches"]["gf"],
+        "pg_msr_launches": pg_part["msr"]["launches"]["gf"],
         "bridge_launches": native_part["bridge_launches"],
         "bridge_batches": native_part["bridge_batches"],
         "bridge_requests": native_part["bridge_requests"],
@@ -4255,6 +4873,7 @@ def main() -> int:
             "source": "ceph_tpu_torch/csrc/write_transform.cu",
             "replaces": replaces, "launches": write_launches[kernel],
             "ec_backend_launches": ec_part["launches"]["write"][kernel],
+            "pg_launches": pg_part["launches"]["write"][kernel],
             "cuda_launches": {k_: write_by_kernel[k_]
                               for k_ in CUDA_KERNELS[kernel]},
             "matched": wk_worst[kernel] == 0,
@@ -4279,6 +4898,11 @@ def main() -> int:
                "ceph_tpu/osd/fused_transform.py:442",
                "bitplane_low_%d" % obj_bytes,
                ["bitplane_low_%d" % (BSTRIPES * K * BCHUNK)])
+    for line in kernels:
+        if line["name"] == "crc32_rows":
+            # K1 as fused_transform.scrub_crc in phase 17's deep scrub
+            line["pg_scrub_launches"] = \
+                pg_part["rs"]["scrub"]["hashed_on_card"]
     crush_line["mesh_launches"] = mesh_part["launches"]["crush"]
     crush_line["mesh_share"] = mesh_part["crush_share"]
     crush_line["remap_launches"] = placement_part["launches"]
@@ -4289,6 +4913,9 @@ def main() -> int:
         if line["name"] == "gf_bitmatrix_multi":
             line["ec_backend_launches_by_design"] = \
                 ec_part["launches"]["per_lane"]
+            # the PG rebuilds one object at a time (tier.reconstruct); these
+            # are the tier's batched rebuild of phase 17's repaired shards
+            line["pg_launches_by_design"] = pg_part["launches"]["per_lane"]
         if line["name"] == "chunk_digest":
             line["mesh_launches"] = mesh_part["launches"]["digest"]
             line["mesh_checksum"] = mesh_part["checksum"]

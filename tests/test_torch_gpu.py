@@ -60,7 +60,9 @@ native seam on the card: the bridge's dispatcher (coalesced batches, one
 GF launch each, parity equal to the native runtime's ``NativeCodec``) and
 ``update(native=True)`` against ``update()``. And the OSD's erasure-coded
 backend (``osd/ec_backend.py``) in a loopback PG with its dispatchers and
-chunk tier on the card, against the same seeded sequence on the CPU.
+chunk tier on the card, against the same seeded sequence on the CPU. And
+the PG (``osd/pg.py``) on 8 loopback daemons whose codecs, dispatchers and
+tiers live on the card, against the same scenario on the CPU.
 """
 
 import itertools
@@ -1936,3 +1938,34 @@ def test_ec_backend_on_card_equals_cpu(cuda, case):
     assert by_design["bitsliced"] > 0
     if case != "msr":
         assert writes["crc32_rows"] > 0 and writes["xxh32_rows"] > 0
+
+
+@pytest.mark.gpu
+def test_pg_on_card_equals_cpu(cuda):
+    """The port's PG on 8 loopback daemons with ``home_device`` cuda:0
+    (each daemon's codec, ``GpuDispatcher`` and ``HbmChunkTier`` on the
+    card, fused writes in "store" mode) runs tests/torch_pg_scenario.py's
+    RS k=4, m=2 scenario (writes, overwrites, snapshots, one OSD down with
+    degraded writes and up with log recovery, one out, bitrot and a deep
+    scrub with repair) to the same replies, scrubs, stats and stores as on
+    the CPU; the deep scrub hashed resident shards with K1
+    (``fused_transform.scrub_crc``) on the card, and every acting shard
+    holds the plain encode of the model."""
+    from . import test_torch_pg as tpg
+    gf_kernel.reset_launches()
+    write_kernels.reset_launches()
+    card = tpg.run_case("ceph_tpu_torch", "rs", device="cuda:0")
+    torch.cuda.synchronize()
+    by_design = gf_kernel.launches_by_design()
+    writes = dict(write_kernels.LAUNCHES)
+    host = tpg.run_case("ceph_tpu_torch", "rs", device="cpu")
+    assert card["kernels"].get("fused_transform.scrub_crc", 0) > 0
+    assert writes["crc32_rows"] >= \
+        card["kernels"]["fused_transform.scrub_crc"]
+    assert writes["xxh32_rows"] > 0 and by_design["bitsliced"] > 0
+    assert card["mismatches"] == [] and card["threads_alive"] == []
+    assert [r[1:] for r in card["replies"]] == \
+        [r[1:] for r in host["replies"]]
+    for key in ("scrubs", "stats", "acting", "collections"):
+        assert card[key] == host[key], key
+

@@ -85,7 +85,13 @@ def test_the_walk_covers_the_tier_and_its_kernels():
             "ceph_tpu_torch/osd/extent_cache.py",
             "ceph_tpu_torch/osd/ec_transaction.py",
             "ceph_tpu_torch/msg/message.py",
-            "ceph_tpu_torch/osd/ec_backend.py"} <= names
+            "ceph_tpu_torch/osd/ec_backend.py",
+            "ceph_tpu_torch/encoding.py",
+            "ceph_tpu_torch/common/reserver.py",
+            "ceph_tpu_torch/osd/replicated_backend.py",
+            "ceph_tpu_torch/osd/objclass.py",
+            "ceph_tpu_torch/osd/tiering.py",
+            "ceph_tpu_torch/osd/pg.py"} <= names
 
 
 def test_native_build_reads_nothing_of_the_reference():
